@@ -7,6 +7,12 @@ attribute names with sequence indices flattened ('blocks.0' ->
 back through the inverse of ``_transform``. The flax tree is a nested dict
 of numpy arrays (``jax.device_get`` of the params), so this module needs no
 JAX. The name map is a copy of ``flax_path_to_torch_name``.
+
+The fork HAT's leaves need no rule of their own: the OIHW filters
+(``plk_filter``, ``esc_plk``) and the RPB tables keep name and shape, the
+ECA ``kernel`` (k, 1, 1) goes back to a Conv1d weight (1, 1, k), the
+SplitPointwise and depthwise ``kernel``s (HWIO) to OIHW, and the Dense
+``kernel``s of the dynamic-kernel head to 1x1 conv weights.
 """
 
 from __future__ import annotations

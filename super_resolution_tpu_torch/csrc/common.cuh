@@ -1,5 +1,6 @@
 // Shared device helpers of the port's kernels: dtype conversion, the cast
-// points of the reference, warp reductions and a block-wide GEMM loop.
+// points of the reference, warp reductions, LayerNorm statistics, a
+// block-wide GEMM loop and one head of window attention.
 //
 // Every kernel is templated on the activation type T (float or
 // __nv_bfloat16). Arithmetic runs in float32; `round_to<T>` reproduces a
@@ -45,6 +46,24 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// LayerNorm statistics of one row of C values, taken by one warp: at(c)
+// returns channel c as float. Two passes (mean, then centred squares), as
+// the reference computes them; every lane gets both results.
+template <typename F>
+__device__ __forceinline__ void warp_ln_stats(F at, int C, float eps,
+                                              float& mu, float& rstd) {
+  const int lane = threadIdx.x & 31;
+  float sum = 0.f;
+  for (int c = lane; c < C; c += 32) sum += at(c);
+  mu = warp_sum(sum) / C;
+  float sq = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float dlt = at(c) - mu;
+    sq += dlt * dlt;
+  }
+  rstd = rsqrtf(warp_sum(sq) / C + eps);
 }
 
 // Block-wide C[M, N] = A[M, K] @ B[K, N] with float32 accumulation.
@@ -104,6 +123,48 @@ __device__ __forceinline__ void softmax_rows(float* rows, int n_rows, int n) {
     }
     sum = warp_sum(sum);
     for (int j = lane; j < n; j += 32) row[j] = round_to<T>(row[j] / sum);
+  }
+}
+
+// One head of window attention, by the whole block:
+//   o = softmax(q k^T * scale + bias) v,  q (n x d), k and v (nk x d),
+// all float32 in shared memory. Scores are formed QC query rows at a time
+// in sc (QC x nk floats), so the n x nk matrix never exists whole.
+// bias_at(i, j) returns the additive float32 term of query i and key j;
+// store(i, t, o) gets channel t of query i's output. The probabilities are
+// rounded to T before P @ V, as the reference casts them. Ends with a
+// block barrier, so q, k, v and sc may be overwritten right after.
+template <typename T, int QC, int MAXD, typename FB, typename FS>
+__device__ __forceinline__ void attend_head(const float* q, const float* k,
+                                            const float* v, float* sc, int n,
+                                            int nk, int d, float scale,
+                                            FB bias_at, FS store) {
+  for (int q0 = 0; q0 < n; q0 += QC) {
+    const int qc = min(QC, n - q0);
+    for (int j = threadIdx.x; j < nk; j += blockDim.x) {
+      float kr[MAXD];
+#pragma unroll
+      for (int t = 0; t < MAXD; ++t) kr[t] = (t < d) ? k[j * d + t] : 0.f;
+      for (int i = 0; i < qc; ++i) {
+        const float* qi = q + (q0 + i) * d;
+        float acc = 0.f;
+#pragma unroll
+        for (int t = 0; t < MAXD; ++t)
+          if (t < d) acc = fmaf(qi[t], kr[t], acc);
+        sc[i * nk + j] = acc * scale + bias_at(q0 + i, j);
+      }
+    }
+    __syncthreads();
+    softmax_rows<T>(sc, qc, nk);
+    __syncthreads();
+    for (int e = threadIdx.x; e < qc * d; e += blockDim.x) {
+      const int i = e / d, t = e % d;
+      const float* pr = sc + i * nk;
+      float acc = 0.f;
+      for (int j = 0; j < nk; ++j) acc = fmaf(pr[j], v[j * d + t], acc);
+      store(q0 + i, t, acc);
+    }
+    __syncthreads();
   }
 }
 

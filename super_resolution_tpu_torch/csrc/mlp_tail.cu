@@ -73,15 +73,8 @@ __global__ void __launch_bounds__(kThreads)
   const int nwarps = blockDim.x >> 5;
   for (int r = threadIdx.x >> 5; r < rows; r += nwarps) {
     const float* xr = xs + r * C;
-    float sum = 0.f;
-    for (int c = lane; c < C; c += 32) sum += xr[c];
-    const float mu = srk::warp_sum(sum) / C;
-    float sq = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float dlt = xr[c] - mu;
-      sq += dlt * dlt;
-    }
-    const float rstd = rsqrtf(srk::warp_sum(sq) / C + eps);
+    float mu, rstd;
+    srk::warp_ln_stats([&](int c) { return xr[c]; }, C, eps, mu, rstd);
     for (int c = lane; c < C; c += 32)
       ys[r * C + c] = srk::round_to<T>((xr[c] - mu) * rstd * srk::to_f(gamma[c]) +
                                        srk::to_f(beta[c]));

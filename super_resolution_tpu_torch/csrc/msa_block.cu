@@ -90,35 +90,16 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     const float* bh = bias + static_cast<long long>(h) * n * n;
-    for (int q0 = 0; q0 < n; q0 += kQChunk) {
-      const int qc = min(kQChunk, n - q0);
-      for (int j = threadIdx.x; j < n; j += blockDim.x) {
-        float kr[kMaxD];
-#pragma unroll
-        for (int t = 0; t < kMaxD; ++t) kr[t] = (t < d) ? k[j * d + t] : 0.f;
-        for (int i = 0; i < qc; ++i) {
-          const float* qi = q + (q0 + i) * d;
-          float acc = 0.f;
-#pragma unroll
-          for (int t = 0; t < kMaxD; ++t)
-            if (t < d) acc = fmaf(qi[t], kr[t], acc);
-          const long long e = static_cast<long long>(q0 + i) * n + j;
-          sc[i * n + j] = acc * scale + bh[e] + mk[e];
-        }
-      }
-      __syncthreads();
-      srk::softmax_rows<T>(sc, qc, n);
-      __syncthreads();
-      for (int e = threadIdx.x; e < qc * d; e += blockDim.x) {
-        const int i = e / d, t = e % d;
-        const float* pr = sc + i * n;
-        float acc = 0.f;
-        for (int j = 0; j < n; ++j) acc = fmaf(pr[j], v[j * d + t], acc);
-        o_scr[static_cast<long long>(dst[q0 + i]) * cloc + h * d + t] =
-            srk::from_f<T>(acc);
-      }
-      __syncthreads();
-    }
+    srk::attend_head<T, kQChunk, kMaxD>(
+        q, k, v, sc, n, n, d, scale,
+        [&](int i, int j) {
+          const long long e = static_cast<long long>(i) * n + j;
+          return bh[e] + mk[e];
+        },
+        [&](int i, int t, float o) {
+          o_scr[static_cast<long long>(dst[i]) * cloc + h * d + t] =
+              srk::from_f<T>(o);
+        });
   }
 
   // output projection of this window's head concat (rounded to T above)

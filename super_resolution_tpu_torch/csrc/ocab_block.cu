@@ -83,15 +83,8 @@ __global__ void __launch_bounds__(kThreads)
       continue;
     }
     const T* xr = x + static_cast<long long>(kpix[t]) * C;
-    float sum = 0.f;
-    for (int c = lane; c < C; c += 32) sum += srk::to_f(xr[c]);
-    const float m = srk::warp_sum(sum) / C;
-    float sq = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float dlt = srk::to_f(xr[c]) - m;
-      sq += dlt * dlt;
-    }
-    const float r = rsqrtf(srk::warp_sum(sq) / C + eps);
+    float m, r;
+    srk::warp_ln_stats([&](int c) { return srk::to_f(xr[c]); }, C, eps, m, r);
     if (lane == 0) {
       mu[t] = m;
       rstd[t] = r;
@@ -136,35 +129,13 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     const float* bh = bias + static_cast<long long>(h) * n * nk;
-    for (int q0 = 0; q0 < n; q0 += kQChunk) {
-      const int qc = min(kQChunk, n - q0);
-      for (int j = threadIdx.x; j < nk; j += blockDim.x) {
-        float kr[kMaxD];
-#pragma unroll
-        for (int t = 0; t < kMaxD; ++t) kr[t] = (t < d) ? k[j * d + t] : 0.f;
-        for (int i = 0; i < qc; ++i) {
-          const float* qi = q + (q0 + i) * d;
-          float acc = 0.f;
-#pragma unroll
-          for (int t = 0; t < kMaxD; ++t)
-            if (t < d) acc = fmaf(qi[t], kr[t], acc);
-          sc[i * nk + j] =
-              acc * scale + bh[static_cast<long long>(q0 + i) * nk + j];
-        }
-      }
-      __syncthreads();
-      srk::softmax_rows<T>(sc, qc, nk);
-      __syncthreads();
-      for (int e = threadIdx.x; e < qc * d; e += blockDim.x) {
-        const int i = e / d, t = e % d;
-        const float* pr = sc + i * nk;
-        float acc = 0.f;
-        for (int j = 0; j < nk; ++j) acc = fmaf(pr[j], v[j * d + t], acc);
-        o_scr[static_cast<long long>(qpix[q0 + i]) * cq + h * d + t] =
-            srk::from_f<T>(acc);
-      }
-      __syncthreads();
-    }
+    srk::attend_head<T, kQChunk, kMaxD>(
+        q, k, v, sc, n, nk, d, scale,
+        [&](int i, int j) { return bh[static_cast<long long>(i) * nk + j]; },
+        [&](int i, int t, float o) {
+          o_scr[static_cast<long long>(qpix[i]) * cq + h * d + t] =
+              srk::from_f<T>(o);
+        });
   }
 
   srk::block_gemm<4, 4>(

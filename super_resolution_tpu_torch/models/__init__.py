@@ -2,7 +2,8 @@
 
 from copy import deepcopy
 
-from super_resolution_tpu_torch.models import hat_classic_arch  # noqa: F401 registry
+from super_resolution_tpu_torch.models import (hat_arch,  # noqa: F401 registry
+                                               hat_classic_arch)
 from super_resolution_tpu_torch.utils.registry import ARCH_REGISTRY
 
 

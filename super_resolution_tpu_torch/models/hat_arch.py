@@ -1,0 +1,307 @@
+"""HAT, the fork's variant (port of super_resolution_tpu/models/hat_arch.py):
+the HAB's window self-attention is ESC convolutional attention, its MLP a
+gated depthwise-conv FFN and its channel attention ECA; only the OCAB keeps
+windowed cross-attention with a relative position bias, optionally with its
+keys and values taken from an ESC feature image.
+
+Module and parameter names follow the fork's torch checkpoints
+(``layers.0.residual_group.blocks.1.esc_attn.core.plk.dwc_proj.1.weight``,
+...), so a state_dict under those names loads with ``strict=True``.
+Activations are NHWC throughout. The module is for inference: drop path is
+the identity and there is no rematerialisation.
+
+Kernels per RHAG: each HAB calls ``ln_split`` (front LayerNorm plus the ESC
+slab) and ``gated_dconv_ffn_block`` (the whole FFN residual); the OCAB
+calls ``fused_ocab_attention`` when ``esc_enable`` is set, else
+``fused_ocab_block``, and then ``mlp_block``. Each wrapper runs its plain
+PyTorch version for a CPU tensor and launches its CUDA kernel for a CUDA
+tensor.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from super_resolution_tpu_torch.models.arch_util import (LN_EPS, HATShell,
+                                                         KernelOperands,
+                                                         conv_nhwc,
+                                                         gather_bias,
+                                                         gelu_exact,
+                                                         index_buffer,
+                                                         layer_norm,
+                                                         mlp_operands)
+from super_resolution_tpu_torch.models.esc_arch import (ConvAttnWrapper,
+                                                        orthogonal_oihw)
+from super_resolution_tpu_torch.ops.attention import \
+    relative_position_index_oca
+from super_resolution_tpu_torch.ops.cuda_attention import (
+    fused_ocab_attention, fused_ocab_block)
+from super_resolution_tpu_torch.ops.cuda_ffn import (gated_dconv_ffn_block,
+                                                     mlp_block)
+from super_resolution_tpu_torch.ops.cuda_hab import ln_split
+from super_resolution_tpu_torch.utils.registry import ARCH_REGISTRY
+
+
+class ECA(nn.Module):
+    """Efficient channel attention: GAP -> conv1d(k) over the channel axis
+    -> sigmoid gate."""
+
+    def __init__(self, k_size: int = 5):
+        super().__init__()
+        self.conv = nn.Conv1d(1, 1, k_size, padding=k_size // 2, bias=False)
+
+    def forward(self, x):
+        y = x.mean(dim=(1, 2))                                # (B, C)
+        y = torch.sigmoid(self.conv(y[:, None, :])[:, 0])
+        return x * y[:, None, None, :]
+
+
+class CAB(nn.Module):
+    """Conv block: 3x3 compress -> GELU -> 3x3 expand -> ECA, under the
+    checkpoints' Sequential names ('cab.{0,2,3}')."""
+
+    def __init__(self, num_feat: int, compress_ratio: int = 3):
+        super().__init__()
+        mid = num_feat // compress_ratio
+        self.cab = nn.Sequential(
+            nn.Conv2d(num_feat, mid, 3, 1, 1), nn.GELU(),
+            nn.Conv2d(mid, num_feat, 3, 1, 1), ECA(5))
+
+    def forward(self, x):
+        y = conv_nhwc(self.cab[2], gelu_exact(conv_nhwc(self.cab[0], x)))
+        return self.cab[3](y)
+
+
+class GatedDconvFFN(nn.Module):
+    """The parameters of fc1 -> depthwise 3x3 -> SiLU-gated GLU -> fc2; the
+    computation is the fused kernel's (``gated_dconv_ffn_block``)."""
+
+    def __init__(self, dim: int, mlp_ratio: float = 2.0):
+        super().__init__()
+        hidden = int(dim * mlp_ratio)
+        self.fc1 = nn.Linear(dim, 2 * hidden)
+        self.dw = nn.Conv2d(2 * hidden, 2 * hidden, 3, 1, 1,
+                            groups=2 * hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+
+class ESCConvAttn(nn.Module):
+    """The HAB's attention branch: a ConvAttnWrapper with its own
+    orthogonally initialised large-kernel filter."""
+
+    def __init__(self, dim: int, pdim: int = 16, kernel_size: int = 13):
+        super().__init__()
+        self.core = ConvAttnWrapper(dim, pdim, kernel_size)
+        self.plk_filter = nn.Parameter(
+            torch.zeros(pdim, pdim, kernel_size, kernel_size))
+
+    def seeded_init(self, generator: torch.Generator) -> None:
+        orthogonal_oihw(self.plk_filter, generator)
+
+    def forward(self, x, x1=None):
+        return self.core(x, self.plk_filter, x1)
+
+
+class HAB(KernelOperands):
+    """Hybrid attention block of the fork: norm1 -> {ESC conv attention +
+    conv_scale * CAB} residual, then the gated depthwise-conv FFN residual.
+    ``num_heads``, ``window_size``, ``shift_size`` and ``squeeze_factor``
+    are taken for the options' sake; the conv attention uses none."""
+
+    def __init__(self, dim: int, num_heads: int, window_size: int = 7,
+                 shift_size: int = 0, compress_ratio: int = 3,
+                 squeeze_factor: int = 30, conv_scale: float = 0.01,
+                 mlp_ratio: float = 4.0, esc_pdim: int = 16,
+                 esc_kernel: int = 13):
+        super().__init__()
+        self.conv_scale = conv_scale
+        self.esc_pdim = esc_pdim
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.esc_attn = ESCConvAttn(dim, esc_pdim, esc_kernel)
+        self.conv_block = CAB(dim, compress_ratio)
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.mlp = GatedDconvFFN(dim, mlp_ratio)
+
+    def _build_operands(self) -> dict:
+        mp = self.mlp
+        return {"ffn": (self.norm2.weight, self.norm2.bias,
+                        mp.fc1.weight.t().contiguous(), mp.fc1.bias,
+                        mp.dw.weight[:, 0].permute(1, 2, 0).contiguous(),
+                        mp.dw.bias, mp.fc2.weight.t().contiguous(),
+                        mp.fc2.bias)}
+
+    def forward(self, x):
+        ops = self.kernel_operands()
+        x = x.contiguous()
+        ln1, x1 = ln_split(x, self.norm1.weight, self.norm1.bias,
+                           eps=self.norm1.eps, pdim=self.esc_pdim)
+        conv_x = self.conv_block(ln1)
+        attn_x = self.esc_attn(ln1, x1)
+        x = x + attn_x + self.conv_scale * conv_x
+        return gated_dconv_ffn_block(x.contiguous(), *ops["ffn"],
+                                     eps=self.norm2.eps)
+
+
+class OCAB(KernelOperands):
+    """Overlapping cross-attention block: Q from ws-windows, K and V from
+    overlapping ow-windows (ow = ws + overlap_ratio * ws, zero outside the
+    image), attention with a gathered relative position bias, then the MLP
+    tail. With ``esc_enable`` K and V are projected from an ESC conv
+    attention of the normed input."""
+
+    def __init__(self, dim: int, window_size: int, overlap_ratio: float,
+                 num_heads: int, mlp_ratio: float = 2.0,
+                 esc_enable: bool = False, esc_pdim: int = 16,
+                 esc_kernel: int = 13):
+        super().__init__()
+        ws = window_size
+        self.num_heads = num_heads
+        self.window_size = ws
+        self.overlap_win_size = int(ws * overlap_ratio) + ws
+        ow = self.overlap_win_size
+        self.esc_enable = esc_enable
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.q_proj = nn.Linear(dim, dim)
+        self.kv_proj = nn.Linear(dim, 2 * dim)
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros((ws + ow - 1) * (ws + ow - 1), num_heads))
+        self.proj = nn.Linear(dim, dim)
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.mlp = nn.Sequential(nn.Linear(dim, int(dim * mlp_ratio)),
+                                 nn.GELU(),
+                                 nn.Linear(int(dim * mlp_ratio), dim))
+        if esc_enable:
+            self.esc_core = ConvAttnWrapper(dim, esc_pdim, esc_kernel)
+            self.esc_plk = nn.Parameter(
+                torch.zeros(esc_pdim, esc_pdim, esc_kernel, esc_kernel))
+        self.register_buffer(
+            "rpi", index_buffer(relative_position_index_oca(ws,
+                                                            overlap_ratio)),
+            persistent=False)
+
+    def seeded_init(self, generator: torch.Generator) -> None:
+        if self.esc_enable:
+            orthogonal_oihw(self.esc_plk, generator)
+
+    def _build_operands(self) -> dict:
+        return {
+            "block": (self.norm1.weight, self.norm1.bias,
+                      self.q_proj.weight.t().contiguous(), self.q_proj.bias,
+                      self.kv_proj.weight.t().contiguous(),
+                      self.kv_proj.bias,
+                      self.proj.weight.t().contiguous(), self.proj.bias),
+            "bias": gather_bias(self.relative_position_bias_table, self.rpi,
+                                self.num_heads),
+            "tail": mlp_operands(self.norm2, self.mlp[0], self.mlp[2]),
+        }
+
+    def forward(self, x):
+        c = x.shape[-1]
+        ops = self.kernel_operands()
+        kw = dict(heads=self.num_heads, window_size=self.window_size,
+                  overlap_win=self.overlap_win_size,
+                  scale=(c // self.num_heads) ** -0.5)
+        x = x.contiguous()
+        if self.esc_enable:
+            xn = layer_norm(self.norm1, x)
+            y = self.esc_core(xn, self.esc_plk)
+            q = F.linear(xn, self.q_proj.weight, self.q_proj.bias)
+            kv = F.linear(y, self.kv_proj.weight, self.kv_proj.bias)
+            out = fused_ocab_attention(q.contiguous(), kv.contiguous(),
+                                       ops["bias"], **kw)
+            x = F.linear(out, self.proj.weight, self.proj.bias) + x
+        else:
+            x = fused_ocab_block(x, *ops["block"], ops["bias"], **kw,
+                                 ln_eps=self.norm1.eps)
+        return mlp_block(x.contiguous(), *ops["tail"], eps=self.norm2.eps)
+
+
+class AttenBlocks(nn.Module):
+    """depth x HAB followed by one OCAB."""
+
+    def __init__(self, dim: int, depth: int, num_heads: int,
+                 window_size: int, compress_ratio: int, squeeze_factor: int,
+                 conv_scale: float, overlap_ratio: float,
+                 mlp_ratio: float = 4.0, esc_pdim: int = 16,
+                 esc_kernel: int = 13, ocab_esc_enable: bool = False,
+                 ocab_esc_pdim: int = 16, ocab_esc_kernel: int = 13):
+        super().__init__()
+        self.blocks = nn.ModuleList([
+            HAB(dim, num_heads, window_size,
+                0 if i % 2 == 0 else window_size // 2, compress_ratio,
+                squeeze_factor, conv_scale, mlp_ratio, esc_pdim, esc_kernel)
+            for i in range(depth)])
+        self.overlap_attn = OCAB(dim, window_size, overlap_ratio, num_heads,
+                                 mlp_ratio, ocab_esc_enable, ocab_esc_pdim,
+                                 ocab_esc_kernel)
+
+    def forward(self, x):
+        for blk in self.blocks:
+            x = blk(x)
+        return self.overlap_attn(x)
+
+
+class RHAG(nn.Module):
+    """Residual hybrid attention group: AttenBlocks -> 3x3 conv -> + skip."""
+
+    def __init__(self, dim: int, depth: int, num_heads: int,
+                 window_size: int, compress_ratio: int, squeeze_factor: int,
+                 conv_scale: float, overlap_ratio: float,
+                 mlp_ratio: float = 4.0, resi_connection: str = "1conv",
+                 **esc):
+        super().__init__()
+        self.residual_group = AttenBlocks(
+            dim, depth, num_heads, window_size, compress_ratio,
+            squeeze_factor, conv_scale, overlap_ratio, mlp_ratio, **esc)
+        if resi_connection == "1conv":
+            self.conv = nn.Conv2d(dim, dim, 3, 1, 1)
+        elif resi_connection == "identity":
+            self.conv = None
+        else:
+            raise ValueError(f"Unknown resi_connection: {resi_connection}")
+
+    def forward(self, x):
+        y = self.residual_group(x)
+        if self.conv is not None:
+            y = conv_nhwc(self.conv, y)
+        return y + x
+
+
+@ARCH_REGISTRY.register()
+class HAT(HATShell):
+    """Hybrid Attention Transformer, the fork's variant: NHWC RGB in [0, 1]
+    -> NHWC upscaled RGB. ``drop_path_rate`` and ``use_checkpoint`` are
+    training options of the YAML files and change nothing at inference.
+
+    Weights start at torch's defaults; ``models.arch_util.init_weights``
+    gives the seeded initialisation, a checkpoint gives trained ones.
+    """
+
+    def __init__(self, img_size: int = 64, in_chans: int = 3,
+                 embed_dim: int = 96, depths: Sequence[int] = (6, 6, 6, 6),
+                 num_heads: Sequence[int] = (6, 6, 6, 6),
+                 window_size: int = 7, compress_ratio: int = 3,
+                 squeeze_factor: int = 30, conv_scale: float = 0.01,
+                 overlap_ratio: float = 0.5, mlp_ratio: float = 4.0,
+                 drop_path_rate: float = 0.1, patch_norm: bool = True,
+                 upscale: int = 2, img_range: float = 1.0,
+                 upsampler: str = "pixelshuffle",
+                 resi_connection: str = "1conv", esc_pdim: int = 16,
+                 esc_kernel: int = 13, ocab_esc_enable: bool = False,
+                 ocab_esc_pdim: int = 16, ocab_esc_kernel: int = 13,
+                 use_checkpoint: bool = False, stream_tail_rows: int = 0):
+        layers = [
+            RHAG(embed_dim, depth, num_heads[i], window_size, compress_ratio,
+                 squeeze_factor, conv_scale, overlap_ratio, mlp_ratio,
+                 resi_connection, esc_pdim=esc_pdim, esc_kernel=esc_kernel,
+                 ocab_esc_enable=ocab_esc_enable,
+                 ocab_esc_pdim=ocab_esc_pdim,
+                 ocab_esc_kernel=ocab_esc_kernel)
+            for i, depth in enumerate(depths)]
+        super().__init__(layers, in_chans, embed_dim, window_size,
+                         overlap_ratio, patch_norm, upscale, img_range,
+                         upsampler, resi_connection, stream_tail_rows)

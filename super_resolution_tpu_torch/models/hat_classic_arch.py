@@ -17,71 +17,29 @@ CUDA tensor. Per RHAG: each unshifted HAB calls ``fused_msa_block`` then
 
 from __future__ import annotations
 
-import math
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from super_resolution_tpu_torch.models.arch_util import (MeanShift,
+from super_resolution_tpu_torch.models.arch_util import (LN_EPS, HATShell,
+                                                         KernelOperands,
                                                          conv_nhwc,
-                                                         gelu_exact)
+                                                         gather_bias,
+                                                         gelu_exact,
+                                                         index_buffer,
+                                                         layer_norm,
+                                                         mlp_operands)
 from super_resolution_tpu_torch.ops.attention import (
     relative_position_index_oca, relative_position_index_sa,
     shift_attn_mask_tensor)
 from super_resolution_tpu_torch.ops.cuda_attention import (
     fused_msa_block, fused_msa_block_shifted, fused_ocab_block)
-from super_resolution_tpu_torch.ops.cuda_ffn import (layer_norm_f32,
-                                                     mlp_block,
+from super_resolution_tpu_torch.ops.cuda_ffn import (mlp_block,
                                                      mlp_block_sum3,
                                                      mlp_block_sum3_shifted)
-from super_resolution_tpu_torch.ops.pixelshuffle import pixel_shuffle
-from super_resolution_tpu_torch.ops.streamed_tail import streamed_rows
 from super_resolution_tpu_torch.utils.registry import ARCH_REGISTRY
-
-_LN_EPS = 1e-5
-
-
-def _ln(norm: nn.LayerNorm, x):
-    return layer_norm_f32(x, norm.weight, norm.bias, norm.eps)
-
-
-def _index_buffer(index) -> torch.Tensor:
-    return torch.from_numpy(index).long()
-
-
-def _gather_bias(table, rpi, heads: int) -> torch.Tensor:
-    """RPB table[rpi] as a contiguous (heads, Nq, Nk) float32 tensor."""
-    nq, nk = rpi.shape
-    bias = table[rpi.reshape(-1)].reshape(nq, nk, heads)
-    return bias.permute(2, 0, 1).float().contiguous()
-
-
-class _KernelOperands(nn.Module):
-    """Caches the operands a block hands its kernels (weights transposed to
-    the (in, out) layout, the gathered RPB) while no gradient is recorded;
-    they are rebuilt when a parameter changes, moves or is cast."""
-
-    def _build_operands(self) -> dict:
-        raise NotImplementedError
-
-    def kernel_operands(self) -> dict:
-        if torch.is_grad_enabled():
-            return self._build_operands()
-        # inference tensors keep no version counter
-        key = tuple((p.data_ptr(), 0 if p.is_inference() else p._version,
-                     p.dtype, p.device) for p in self.parameters())
-        cache = self.__dict__.get("_operand_cache")
-        if cache is None or cache[0] != key:
-            cache = (key, self._build_operands())
-            self.__dict__["_operand_cache"] = cache
-        return cache[1]
-
-
-def _mlp_operands(norm: nn.LayerNorm, mlp: "Mlp") -> tuple:
-    return (norm.weight, norm.bias, mlp.fc1.weight.t().contiguous(),
-            mlp.fc1.bias, mlp.fc2.weight.t().contiguous(), mlp.fc2.bias)
 
 
 class ChannelAttention(nn.Module):
@@ -133,12 +91,12 @@ class WindowAttentionClassic(nn.Module):
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * ws - 1) * (2 * ws - 1), num_heads))
         self.register_buffer(
-            "rpi", _index_buffer(relative_position_index_sa(ws)),
+            "rpi", index_buffer(relative_position_index_sa(ws)),
             persistent=False)
 
     def bias(self) -> torch.Tensor:
         """(heads, N, N) float32 RPB."""
-        return _gather_bias(self.relative_position_bias_table, self.rpi,
+        return gather_bias(self.relative_position_bias_table, self.rpi,
                             self.num_heads)
 
 
@@ -152,7 +110,7 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden, in_features)
 
 
-class HABClassic(_KernelOperands):
+class HABClassic(KernelOperands):
     """Classic hybrid attention block: (S)W-MSA + conv_scale * CAB, then
     the MLP tail with the 3-way residual."""
 
@@ -165,10 +123,10 @@ class HABClassic(_KernelOperands):
         self.window_size = window_size
         self.shift_size = shift_size
         self.conv_scale = conv_scale
-        self.norm1 = nn.LayerNorm(dim, eps=_LN_EPS)
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = WindowAttentionClassic(dim, window_size, num_heads)
         self.conv_block = CABClassic(dim, compress_ratio, squeeze_factor)
-        self.norm2 = nn.LayerNorm(dim, eps=_LN_EPS)
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
     def _build_operands(self) -> dict:
@@ -179,7 +137,7 @@ class HABClassic(_KernelOperands):
                     at.proj.weight.t().contiguous(), at.proj.bias,
                     at.bias()),
             "no_mask": torch.zeros((1, n, n), device=at.qkv.weight.device),
-            "tail": _mlp_operands(self.norm2, self.mlp),
+            "tail": mlp_operands(self.norm2, self.mlp.fc1, self.mlp.fc2),
         }
 
     def forward(self, x):
@@ -188,7 +146,7 @@ class HABClassic(_KernelOperands):
         ops = self.kernel_operands()
         scale = (c // self.num_heads) ** -0.5
         x = x.contiguous()
-        xn = _ln(self.norm1, x)
+        xn = layer_norm(self.norm1, x)
         conv_x = self.conv_block(xn).contiguous()
         if ss > 0:
             mask = shift_attn_mask_tensor(hh, ww, ws, ss, str(x.device))
@@ -205,7 +163,7 @@ class HABClassic(_KernelOperands):
                               conv_scale=self.conv_scale)
 
 
-class OCABClassic(_KernelOperands):
+class OCABClassic(KernelOperands):
     """Classic OCAB: fused qkv projection; Q from ws-windows, K and V from
     overlapping ow-windows; then the MLP tail."""
 
@@ -217,15 +175,15 @@ class OCABClassic(_KernelOperands):
         self.window_size = ws
         self.overlap_win_size = int(ws * overlap_ratio) + ws
         ow = self.overlap_win_size
-        self.norm1 = nn.LayerNorm(dim, eps=_LN_EPS)
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.qkv = nn.Linear(dim, dim * 3)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((ws + ow - 1) * (ws + ow - 1), num_heads))
         self.proj = nn.Linear(dim, dim)
-        self.norm2 = nn.LayerNorm(dim, eps=_LN_EPS)
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self.register_buffer(
-            "rpi", _index_buffer(relative_position_index_oca(ws,
+            "rpi", index_buffer(relative_position_index_oca(ws,
                                                              overlap_ratio)),
             persistent=False)
 
@@ -237,9 +195,9 @@ class OCABClassic(_KernelOperands):
                      w[:c].t().contiguous(), b[:c],
                      w[c:].t().contiguous(), b[c:],
                      self.proj.weight.t().contiguous(), self.proj.bias,
-                     _gather_bias(self.relative_position_bias_table,
+                     gather_bias(self.relative_position_bias_table,
                                   self.rpi, self.num_heads)),
-            "tail": _mlp_operands(self.norm2, self.mlp),
+            "tail": mlp_operands(self.norm2, self.mlp.fc1, self.mlp.fc2),
         }
 
     def forward(self, x):
@@ -296,22 +254,14 @@ class RHAGClassic(nn.Module):
         return y + x
 
 
-class PatchEmbedNorm(nn.Module):
-    def __init__(self, dim: int, use_norm: bool = True):
-        super().__init__()
-        self.norm = nn.LayerNorm(dim, eps=_LN_EPS) if use_norm else None
-
-    def forward(self, x):
-        return _ln(self.norm, x) if self.norm is not None else x
-
-
 @ARCH_REGISTRY.register()
-class HATClassic(nn.Module):
+class HATClassic(HATShell):
     """Classic HAT: shallow conv -> RHAGs -> norm, body conv and global
-    residual -> pixel-shuffle reconstruction. Input and output are NHWC.
+    residual -> pixel-shuffle reconstruction (``arch_util.HATShell``). Input
+    and output are NHWC.
 
-    Weights start at zero; ``models.arch_util.init_weights`` gives the
-    seeded initialisation, a checkpoint gives trained ones.
+    Weights start at torch's defaults; ``models.arch_util.init_weights``
+    gives the seeded initialisation, a checkpoint gives trained ones.
     """
 
     def __init__(self, img_size: int = 64, in_chans: int = 3,
@@ -325,68 +275,11 @@ class HATClassic(nn.Module):
                  upsampler: str = "pixelshuffle",
                  resi_connection: str = "1conv",
                  stream_tail_rows: int = 0):
-        super().__init__()
-        if upsampler != "pixelshuffle":
-            raise NotImplementedError("only the 'pixelshuffle' upsampler")
-        num_feat = 64
-        self.img_range = img_range
-        self.upscale = upscale
-        self.window_size = window_size
-        # >0: run the reconstruction tail over row bands of this height
-        # (ops/streamed_tail.py), which bounds its activation peak. Exact.
-        self.stream_tail_rows = stream_tail_rows
-        self.conv_first = nn.Conv2d(in_chans, embed_dim, 3, 1, 1)
-        self.patch_embed = PatchEmbedNorm(embed_dim, patch_norm)
-        self.layers = nn.ModuleList([
+        layers = [
             RHAGClassic(embed_dim, depth, num_heads[i], window_size,
                         compress_ratio, squeeze_factor, conv_scale,
                         overlap_ratio, mlp_ratio, resi_connection)
-            for i, depth in enumerate(depths)])
-        self.norm = nn.LayerNorm(embed_dim, eps=_LN_EPS)
-        self.conv_after_body = (nn.Conv2d(embed_dim, embed_dim, 3, 1, 1)
-                                if resi_connection == "1conv" else None)
-        self.conv_before_upsample = nn.Sequential(
-            nn.Conv2d(embed_dim, num_feat, 3, 1, 1), nn.LeakyReLU(inplace=True))
-        if upscale & (upscale - 1) == 0:
-            steps = [2] * int(math.log2(upscale))
-        elif upscale == 3:
-            steps = [3]
-        else:
-            raise ValueError(f"upscale {upscale} unsupported")
-        up = []
-        for r in steps:
-            up += [nn.Conv2d(num_feat, r * r * num_feat, 3, 1, 1),
-                   nn.PixelShuffle(r)]
-        self.upsample = nn.Sequential(*up)
-        self.conv_last = nn.Conv2d(num_feat, in_chans, 3, 1, 1)
-        # index buffers of the official checkpoints, kept so those load
-        # strictly; each attention module holds its own copy
-        self.register_buffer("relative_position_index_SA", _index_buffer(
-            relative_position_index_sa(window_size)))
-        self.register_buffer("relative_position_index_OCA", _index_buffer(
-            relative_position_index_oca(window_size, overlap_ratio)))
-
-    def recon(self, f):
-        """Reconstruction tail: conv + LeakyReLU, [conv, shuffle]*, conv."""
-        y = F.leaky_relu(conv_nhwc(self.conv_before_upsample[0], f), 0.01)
-        for i in range(0, len(self.upsample), 2):
-            conv, shuffle = self.upsample[i], self.upsample[i + 1]
-            y = pixel_shuffle(conv_nhwc(conv, y), shuffle.upscale_factor)
-        return conv_nhwc(self.conv_last, y)
-
-    def forward(self, x):
-        x = MeanShift.normalize(x, self.img_range)
-        feat = conv_nhwc(self.conv_first, x).contiguous()
-        body = self.patch_embed(feat)
-        for layer in self.layers:
-            body = layer(body)
-        body = _ln(self.norm, body)
-        if self.conv_after_body is not None:
-            body = conv_nhwc(self.conv_after_body, body)
-        feat = body + feat
-        if self.stream_tail_rows:
-            y = streamed_rows(self.recon, feat, self.upscale,
-                              self.stream_tail_rows)
-        else:
-            y = self.recon(feat)
-        return MeanShift.denormalize(y, self.img_range)
+            for i, depth in enumerate(depths)]
+        super().__init__(layers, in_chans, embed_dim, window_size,
+                         overlap_ratio, patch_norm, upscale, img_range,
+                         upsampler, resi_connection, stream_tail_rows)

@@ -1,10 +1,11 @@
-"""The attention halves of the classic HAT blocks: CUDA kernel wrappers and
-their plain PyTorch versions.
+"""The attention halves of the HAT blocks: CUDA kernel wrappers and their
+plain PyTorch versions.
 
 Ports super_resolution_tpu/ops/pallas_attention.py: ``fused_msa_block``,
-``fused_msa_block_shifted`` (both launch ``csrc/msa_block.cu``) and
-``fused_ocab_block`` (``csrc/ocab_block.cu``) keep the JAX names and
-signatures, minus the Mosaic knobs (``window_block``, ``interpret``).
+``fused_msa_block_shifted`` (both launch ``csrc/msa_block.cu``),
+``fused_ocab_block`` (``csrc/ocab_block.cu``) and ``fused_ocab_attention``
+(``csrc/ocab_attention.cu``) keep the JAX names and signatures, minus the
+Mosaic knobs (``window_block``, ``interpret``).
 Weights are in the JAX layout (in, out); head slices for tensor
 parallelism come in through the weight shapes (c_loc, c_out, Cq) and
 ``residual_scale``, as in JAX.
@@ -21,7 +22,8 @@ from __future__ import annotations
 import torch
 
 from super_resolution_tpu_torch.ops.attention import attention_with_bias
-from super_resolution_tpu_torch.ops.cuda_build import (check_f32,
+from super_resolution_tpu_torch.ops.cuda_build import (MAX_DYNAMIC_SMEM,
+                                                       check_f32,
                                                        check_operands,
                                                        check_shape,
                                                        load_library,
@@ -254,7 +256,62 @@ def fused_ocab_block(x_img, ln_scale, ln_bias, w_q, b_q, w_kv, b_kv, w_proj,
     return out
 
 
+def fused_ocab_attention(q_img, kv_img, bias, *, heads: int,
+                         window_size: int, overlap_win: int,
+                         scale: float | None = None):
+    """The OCAB attention middle on projected images, windowing done in the
+    kernel: per ws-window of q_img, per head, softmax(q k^T * scale +
+    bias[h]) v against the ow-window of kv_img around it, which counts as
+    zero outside the image. The output is in image layout.
+
+    q_img: (B, H, W, C), H and W multiples of window_size; kv_img:
+    (B, H, W, 2C) with k in channels [0, C) and v in the rest; bias
+    (heads, ws^2, ow^2) float32. Returns (B, H, W, C). One window's q, k
+    and v of one head must fit a block's shared memory: the wrapper raises
+    beyond that. Replaces
+    super_resolution_tpu/ops/pallas_attention.py::fused_ocab_attention.
+    """
+    c = q_img.shape[-1]
+    if scale is None:
+        scale = (c // heads) ** -0.5
+    if not use_kernel(q_img):
+        return ocab_attention_reference(q_img, kv_img, bias, heads,
+                                        window_size, overlap_win, scale)
+    name = "fused_ocab_attention"
+    if q_img.dim() != 4:
+        raise ValueError(f"{name}: q_img must be (B, H, W, C), got "
+                         f"{tuple(q_img.shape)}")
+    b, h_img, w_img, _ = q_img.shape
+    ws, ow = window_size, overlap_win
+    code = check_operands(name, q_img, q_img=q_img, kv_img=kv_img)
+    check_f32(name, q_img, bias=bias)
+    check_shape(name, "kv_img", kv_img, (b, h_img, w_img, 2 * c))
+    check_shape(name, "bias", bias, (heads, ws * ws, ow * ow))
+    if (h_img % ws or w_img % ws or ow < ws or (ow - ws) % 2 or c % heads
+            or c // heads > 32):
+        raise ValueError(f"{name}: needs H, W multiples of {ws}, an even "
+                         f"overlap and a head dim of at most 32, got "
+                         f"{tuple(q_img.shape)}, ow {ow}, {heads} heads of "
+                         f"{c}")
+    lib = load_library()
+    need = lib.sr_ocab_attention_smem(c, heads, ws, ow)
+    if need > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"{name}: window {ws}, overlap window {ow}, head "
+                         f"dim {c // heads} need {need} bytes of shared "
+                         f"memory a block, the card grants "
+                         f"{MAX_DYNAMIC_SMEM}")
+    out = torch.empty_like(q_img)
+    err = lib.sr_ocab_attention(
+        code, q_img.data_ptr(), kv_img.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), b, h_img, w_img, c, heads, ws, ow, scale,
+        stream_of(q_img))
+    raise_on_error(name, err)
+    fused_ocab_attention.launches += 1
+    return out
+
+
 # kernel launches of each wrapper; the plain path does not count
 fused_msa_block.launches = 0
 fused_msa_block_shifted.launches = 0
 fused_ocab_block.launches = 0
+fused_ocab_attention.launches = 0

@@ -1,10 +1,11 @@
 """Build, load and call the port's CUDA kernels.
 
-The sources in ``csrc/`` are compiled with nvcc for sm_90a into one shared
-library with a plain C interface, loaded with ctypes. The build runs on
-first use, from the checkout alone, into ``_build/`` (listed in
-.gitignore); the library's name carries a hash of the sources and flags,
-so an edited source is rebuilt and a stale library is never loaded.
+The sources in ``csrc/`` are compiled with nvcc for sm_90a (one nvcc per
+source, all started together) and linked into one shared library with a
+plain C interface, loaded with ctypes. The build runs on first use, from
+the checkout alone, into ``_build/`` (listed in .gitignore); the library's
+name carries a hash of the sources and flags, so an edited source is
+rebuilt and a stale library is never loaded.
 
 Every wrapper dispatches on its input's device through :func:`use_kernel`:
 a CPU tensor runs the plain PyTorch version, a CUDA tensor launches the
@@ -27,7 +28,9 @@ PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
+# dynamic shared memory one block may be granted on sm_90 (227 KB)
+MAX_DYNAMIC_SMEM = 232448
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of the C entry points (csrc/*.cu); each returns a cudaError_t
@@ -36,6 +39,11 @@ _SIGNATURES = {
     "sr_msa_block": [_I] + [_P] * 7 + [_I] + [_P] * 2 + [_I] * 9 + [_F]
     + [_P],
     "sr_ocab_block": [_I] + [_P] * 12 + [_I] * 8 + [_F] * 3 + [_P],
+    "sr_ln_split": [_I] + [_P] * 5 + [_I] * 3 + [_F] + [_P],
+    "sr_gated_dconv_ffn": [_I] + [_P] * 10 + [_I] * 8 + [_F] + [_P],
+    "sr_gated_dconv_ffn_smem": [_I] * 3,
+    "sr_ocab_attention": [_I] + [_P] * 4 + [_I] * 7 + [_F] + [_P],
+    "sr_ocab_attention_smem": [_I] * 4,
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -69,18 +77,39 @@ def build(verbose: bool = False) -> tuple[pathlib.Path, str]:
     lib = library_path()
     if lib.exists():
         return lib, ""
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-I", str(CSRC_DIR)]
+    nvcc = [_nvcc(), *NVCC_FLAGS]
     BUILD_DIR.mkdir(exist_ok=True)
+    tag = f"{lib.stem}.{os.getpid()}"
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd += ["-o", str(tmp), *map(str, sorted(CSRC_DIR.glob("*.cu")))]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {r.returncode}:\n"
-                           f"{r.stdout[-4000:]}{r.stderr[-8000:]}")
+    log = []
+    try:
+        procs = [subprocess.Popen(
+            [*nvcc, *(("-Xptxas", "-v") if verbose else ()), "-I",
+             str(CSRC_DIR), "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objects)]
+        outs = [proc.communicate()[0] for proc in procs]
+        log = [f"{src.name}:\n{out}" for src, out in zip(sources, outs)]
+        failed = [src.name for src, proc in zip(sources, procs)
+                  if proc.returncode]
+        if not failed:
+            link = subprocess.run([*nvcc, "-shared", "-o", str(tmp),
+                                   *map(str, objects)],
+                                  capture_output=True, text=True)
+            log.append(link.stdout + link.stderr)
+            if link.returncode:
+                failed = ["link"]
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed for {failed}:\n"
+                               + "".join(log)[-12000:])
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, lib)  # atomic: concurrent builders never load a partial file
-    return lib, r.stdout + r.stderr
+    return lib, "".join(log)
 
 
 @functools.lru_cache(maxsize=None)

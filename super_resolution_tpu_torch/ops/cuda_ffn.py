@@ -1,11 +1,13 @@
-"""The MLP tails of the classic HAT blocks: CUDA kernel wrappers and their
-plain PyTorch versions.
+"""The MLP tails of the HAT blocks: CUDA kernel wrappers and their plain
+PyTorch versions.
 
 Ports super_resolution_tpu/ops/pallas_ffn.py: ``mlp_block``,
-``mlp_block_sum3`` and ``mlp_block_sum3_shifted`` keep the JAX names and
-signatures, minus the Mosaic tiling knobs (``tile_rows``, ``interpret``).
-All three launch the one kernel of ``csrc/mlp_tail.cu``. Weights are in
-the JAX layout: w1 (C, HID), w2 (HID, C).
+``mlp_block_sum3``, ``mlp_block_sum3_shifted``, ``gated_dconv_ffn`` and
+``gated_dconv_ffn_block`` keep the JAX names and signatures, minus the
+Mosaic tiling knobs (``tile_rows``, ``interpret``). The first three launch
+the one kernel of ``csrc/mlp_tail.cu``, the gated pair the one of
+``csrc/gated_dconv_ffn.cu``. Weights are in the JAX layout: w1 (C, HID),
+w2 (HID, C), wd (3, 3, 2M).
 
 Numerics of the kernel against the plain versions (the ports of the JAX
 ``*_reference`` functions): the kernel keeps fc1's output and the 3-way sum
@@ -13,14 +15,18 @@ in float32 and rounds only where the TPU kernel rounds (LN output before
 fc1, gelu output before fc2); the plain versions round the 3-way sum to the
 input dtype (pallas_ffn.py:640-641) and run fc1 in the input dtype. Both
 use exact erf GELU; the TPU kernel uses the A&S approximation of erf. In
-float32 all of these agree to rounding.
+float32 all of these agree to rounding. The gated kernel keeps the
+depthwise conv's output in float32 up to the gate, as the TPU kernel does;
+its plain version rounds it to the input dtype, as the JAX reference does.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from super_resolution_tpu_torch.ops.cuda_build import (check_operands,
+from super_resolution_tpu_torch.ops.cuda_build import (MAX_DYNAMIC_SMEM,
+                                                       check_operands,
                                                        check_shape,
                                                        load_library,
                                                        raise_on_error,
@@ -69,6 +75,93 @@ def mlp_block_sum3_shifted_reference(shortcut, attn_rolled, conv_x, gamma,
     return mlp_block_sum3_reference(shortcut, attn_x, conv_x, gamma, beta,
                                     w1, b1, w2, b2, conv_scale, eps,
                                     residual_scale)
+
+
+def ffn_reference(x, w1, b1, wd, bd, w2, b2):
+    """fc2(glu(dw3x3(fc1(x)))) with glu(d) = d[..., :M] * silu(d[..., M:]);
+    the depthwise conv zero-pads fc1's output. x: (B, H, W, C); w1 (C, 2M);
+    wd (3, 3, 2M); w2 (M, C_out)."""
+    m2 = wd.shape[-1]
+    h = x @ w1 + b1
+    d = F.conv2d(h.permute(0, 3, 1, 2), wd.permute(2, 0, 1)[:, None], bd,
+                 padding=1, groups=m2).permute(0, 2, 3, 1)
+    g = d[..., :m2 // 2] * F.silu(d[..., m2 // 2:])
+    return g @ w2 + b2
+
+
+def ffn_block_reference(x, gamma, beta, w1, b1, wd, bd, w2, b2,
+                        eps: float = 1e-5):
+    """x + :func:`ffn_reference` of LN(x): the HAB's mlp residual."""
+    y = layer_norm_f32(x, gamma, beta, eps)
+    return x + ffn_reference(y, w1, b1, wd, bd, w2, b2)
+
+
+def _launch_ffn(name, x, gamma, beta, w1, b1, wd, bd, w2, b2, *, ln: bool,
+                residual: bool, eps: float):
+    if x.dim() != 4:
+        raise ValueError(f"{name}: x must be (B, H, W, C), got "
+                         f"{tuple(x.shape)}")
+    b, h, w, c = x.shape
+    m2 = w1.shape[1]
+    c_out = w2.shape[1]
+    norm = dict(gamma=gamma, beta=beta) if ln else {}
+    code = check_operands(name, x, x=x, w1=w1, b1=b1, wd=wd, bd=bd, w2=w2,
+                          b2=b2, **norm)
+    for arg, t in norm.items():
+        check_shape(name, arg, t, (c,))
+    for arg, t, shape in (("w1", w1, (c, m2)), ("b1", b1, (m2,)),
+                          ("wd", wd, (3, 3, m2)), ("bd", bd, (m2,)),
+                          ("w2", w2, (m2 // 2, c_out)), ("b2", b2, (c_out,))):
+        check_shape(name, arg, t, shape)
+    if m2 % 2 or (residual and c_out != c) or b > 65535:
+        raise ValueError(f"{name}: needs an even fc1 width, a batch of at "
+                         f"most 65535 and, for the residual, C_out == C; got "
+                         f"2M {m2}, C {c}, C_out {c_out}, B {b}")
+    lib = load_library()
+    need = lib.sr_gated_dconv_ffn_smem(code, c, c_out)
+    if need > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"{name}: C {c}, C_out {c_out} need {need} bytes of "
+                         f"shared memory a block, the card grants "
+                         f"{MAX_DYNAMIC_SMEM}")
+    out = torch.empty((b, h, w, c_out), dtype=x.dtype, device=x.device)
+    err = lib.sr_gated_dconv_ffn(
+        code, x.data_ptr(), gamma.data_ptr() if ln else None,
+        beta.data_ptr() if ln else None, w1.data_ptr(), b1.data_ptr(),
+        wd.data_ptr(), bd.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        out.data_ptr(), b, h, w, c, m2 // 2, c_out, int(ln), int(residual),
+        eps, stream_of(x))
+    raise_on_error(name, err)
+    return out
+
+
+def gated_dconv_ffn(x, w1, b1, wd, bd, w2, b2):
+    """The bare gated depthwise-conv FFN, fc2(glu(dw3x3(fc1(x)))).
+
+    x: (B, H, W, C); w1 (C, 2M), b1 (2M,); wd (3, 3, 2M), bd (2M,);
+    w2 (M, C_out), b2 (C_out,). Returns (B, H, W, C_out). Replaces
+    super_resolution_tpu/ops/pallas_ffn.py::gated_dconv_ffn.
+    """
+    if not use_kernel(x):
+        return ffn_reference(x, w1, b1, wd, bd, w2, b2)
+    out = _launch_ffn("gated_dconv_ffn", x, None, None, w1, b1, wd, bd, w2,
+                      b2, ln=False, residual=False, eps=0.0)
+    gated_dconv_ffn.launches += 1
+    return out
+
+
+def gated_dconv_ffn_block(x, gamma, beta, w1, b1, wd, bd, w2, b2, *,
+                          eps: float = 1e-5):
+    """x + FFN(LayerNorm(x)): the whole mlp residual of a fork-HAT HAB.
+    Operands as :func:`gated_dconv_ffn`, with C_out == C. Replaces
+    super_resolution_tpu/ops/pallas_ffn.py::gated_dconv_ffn_block.
+    """
+    if not use_kernel(x):
+        return ffn_block_reference(x, gamma, beta, w1, b1, wd, bd, w2, b2,
+                                   eps)
+    out = _launch_ffn("gated_dconv_ffn_block", x, gamma, beta, w1, b1, wd,
+                      bd, w2, b2, ln=True, residual=True, eps=eps)
+    gated_dconv_ffn_block.launches += 1
+    return out
 
 
 def _launch_tail(name, s, a, cv, gamma, beta, w1, b1, w2, b2, *, sum3: bool,
@@ -160,3 +253,5 @@ def mlp_block_sum3_shifted(shortcut, attn_rolled, conv_x, gamma, beta, w1,
 mlp_block.launches = 0
 mlp_block_sum3.launches = 0
 mlp_block_sum3_shifted.launches = 0
+gated_dconv_ffn.launches = 0
+gated_dconv_ffn_block.launches = 0

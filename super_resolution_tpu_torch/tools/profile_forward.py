@@ -1,0 +1,158 @@
+"""Profile one chunk forward of a flagship network on the GPU by device-op
+class, with the device's idle share and the peak device memory.
+
+The network, tile settings and weights are those of ``chip_smoke.py``'s
+main paths (``classic``: HATClassic x4; ``fork``: the fork's HAT x2 with
+the ESC-infused OCAB), so run it from the repository root, where that
+script lies:
+
+    python3 -m super_resolution_tpu_torch.tools.profile_forward fork
+
+It prints the card's name and power limit, the wall time of the profiled
+forward, device time by class (each of the port's CUDA kernels by name,
+cuDNN/CUTLASS convolutions, matrix products, the rest), the 15 device ops
+that take most time and, for the fork path, CUDA-event times of the parts
+of one HAB front that run outside the port's kernels: the large-kernel
+conv on the ESC slab, the per-sample dynamic depthwise conv and the CAB.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+
+
+def classify(name: str) -> str:
+    low = name.lower()
+    for kernel in ("msa_block_kernel", "ocab_block_kernel",
+                   "ocab_attention_kernel", "mlp_tail_kernel",
+                   "gated_dconv_ffn_kernel", "ln_split_kernel"):
+        if kernel in low:
+            return kernel
+    if any(k in low for k in ("conv", "cudnn", "wgrad", "dgrad", "implicit",
+                              "xmma", "fprop", "nchwtonhwc", "nhwctonchw")):
+        return "convolutions (cuDNN/CUTLASS, with their layout copies)"
+    if any(k in low for k in ("gemm", "cutlass", "cublas", "gemv")):
+        return "matrix products (cuBLAS)"
+    if "memcpy" in low or "memset" in low:
+        return "memcpy / memset"
+    return "other (elementwise, reductions, copies)"
+
+
+def on_device(ev) -> bool:
+    """A row of a device op (the CPU-side rows repeat their kernels' time)."""
+    return "cuda" in str(getattr(ev, "device_type", "cuda")).lower()
+
+
+def device_us(ev) -> float:
+    """Self device time of a profiler row, under either name torch gives
+    it."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(ev, attr):
+            return getattr(ev, attr) or 0
+    return 0
+
+
+def main(label: str) -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+
+    if not torch.cuda.is_available():
+        print("profile_forward: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+
+    pred = chip_smoke.make_predictor(label, "cuda", bf16=True)
+    fwd = pred.model._apply_fn()
+    tile = chip_smoke.TILE["tile_size"] + 2 * chip_smoke.TILE["tile_pad"]
+    x = torch.rand((chip_smoke.TILE["chunk"], tile, tile, 3), device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(0))
+    with torch.inference_mode():
+        for _ in range(2):
+            fwd(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fwd(x)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+
+    classes: dict = {}
+    for ev in prof.key_averages():
+        us = device_us(ev)
+        if us <= 0 or not on_device(ev):
+            continue
+        ms, n = classes.get(classify(ev.key), (0.0, 0))
+        classes[classify(ev.key)] = (ms + us / 1e3, n + ev.count)
+    busy = sum(ms for ms, _ in classes.values())
+    if busy <= 0:
+        print("profile_forward: the profiler saw no device time",
+              file=sys.stderr)
+        return 1
+    print(f"path {label}: one chunk forward of {tuple(x.shape)} bf16: wall "
+          f"{wall_ms:.1f} ms, device busy {busy:.1f} ms, idle share "
+          f"{max(0.0, 1 - busy / wall_ms) * 100:.2f}%, peak device memory "
+          f"{peak_mb:.1f} MB")
+    print("| class | device ops | device ms | share of busy |")
+    print("|---|---|---|---|")
+    for name, (ms, n) in sorted(classes.items(), key=lambda kv: -kv[1][0]):
+        print(f"| {name} | {n} | {ms:.3f} | {ms / busy * 100:.1f}% |")
+    rows = sorted((ev for ev in prof.key_averages()
+                   if device_us(ev) > 0 and on_device(ev)),
+                  key=lambda ev: -device_us(ev))[:15]
+    print("top device ops by name:")
+    for ev in rows:
+        print(f"  {device_us(ev) / 1e3:10.3f} ms  x{ev.count:5d}  "
+              f"{ev.key[:110]}")
+    if label == "fork":
+        hab_parts(pred.model.eval_net(), x.shape[0], tile)
+    return 0
+
+
+def hab_parts(net, b: int, hw: int) -> None:
+    """CUDA-event ms of the cuDNN parts of the first HAB's front at the
+    chunk's shape, each alone."""
+    import torch
+
+    from chip_smoke import time_ms
+    from super_resolution_tpu_torch.ops.conv import (
+        conv2d_nhwc, dynamic_depthwise_conv3x3)
+
+    blk = net.layers[0].residual_group.blocks[0]
+    dt = blk.norm1.weight.dtype
+    gen = torch.Generator("cuda").manual_seed(1)
+    ln1 = torch.randn((b, hw, hw, blk.norm1.weight.numel()), device="cuda",
+                      generator=gen).to(dt)
+    x1 = ln1[..., :blk.esc_pdim].contiguous()
+    dk = torch.randn((b, 3, 3, blk.esc_pdim), device="cuda",
+                     generator=gen).to(dt)
+    lk = blk.esc_attn.plk_filter
+    with torch.inference_mode():
+        parts = {
+            f"large-kernel conv {tuple(lk.shape)} on the slab":
+                lambda: conv2d_nhwc(x1, lk),
+            "per-sample dynamic depthwise 3x3 conv on the slab":
+                lambda: dynamic_depthwise_conv3x3(x1, dk),
+            "ESC conv attention (GAP, head, both convs, aggregation)":
+                lambda: blk.esc_attn(ln1, x1),
+            "CAB (3x3, GELU, 3x3, ECA)": lambda: blk.conv_block(ln1),
+        }
+        print(f"parts of one HAB front at {tuple(ln1.shape)} {dt}, "
+              f"CUDA-event median ms:")
+        for name, fn in parts.items():
+            print(f"  {time_ms(fn):8.3f} ms  {name}")
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1] if len(sys.argv) > 1 else "fork"))

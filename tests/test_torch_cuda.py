@@ -11,6 +11,7 @@ import torch
 
 from super_resolution_tpu_torch.ops import cuda_attention as ca
 from super_resolution_tpu_torch.ops import cuda_ffn as cf
+from super_resolution_tpu_torch.ops import cuda_hab as ch
 from super_resolution_tpu_torch.ops.attention import (
     relative_position_index_oca, relative_position_index_sa, shift_attn_mask)
 
@@ -55,7 +56,28 @@ def _cases(dtype, seed=0):
     ocab = (tail[0], tail[1], t(C, C, s=C ** -0.5), t(C, s=0.1),
             t(C, 2 * C, s=C ** -0.5), t(2 * C, s=0.1), t(C, C, s=C ** -0.5),
             t(C, s=0.1), bias_o)
+    # the fork-HAT kernels, at sizes no tile divides: 13 rows for ln_split,
+    # 13 x 19 pixels for the 8 x 8 tiles of the gated FFN
+    xr = t(B, 13, 19, C)
+    ffn = (t(C, 2 * HID, s=C ** -0.5), t(2 * HID, s=0.5),
+           t(3, 3, 2 * HID, s=1 / 3), t(2 * HID, s=0.1),
+           t(HID, C, s=HID ** -0.5), t(C, s=0.1))
+    ffn_out = (*ffn[:4], t(HID, 36, s=HID ** -0.5), t(36, s=0.1))
+    q, kv = t(B, 16, 24, C), t(B, 16, 24, 2 * C)
     return {
+        "ln_split": (ch.ln_split, ch.ln_split_reference,
+                     (xr, tail[0], tail[1]), (1e-5, 16),
+                     dict(eps=1e-5, pdim=16)),
+        "gated_dconv_ffn": (cf.gated_dconv_ffn, cf.ffn_reference,
+                            (xr, *ffn_out), (), {}),
+        "gated_dconv_ffn_block": (cf.gated_dconv_ffn_block,
+                                  cf.ffn_block_reference,
+                                  (xr, tail[0], tail[1], *ffn), (), {}),
+        "fused_ocab_attention": (ca.fused_ocab_attention,
+                                 ca.ocab_attention_reference,
+                                 (q, kv, bias_o), (HEADS, WS, OW, 0.2),
+                                 dict(heads=HEADS, window_size=WS,
+                                      overlap_win=OW, scale=0.2)),
         "fused_msa_block": (ca.fused_msa_block, ca.msa_block_reference,
                             (x, *msa, zero), (HEADS, WS),
                             dict(heads=HEADS, window_size=WS)),
@@ -81,7 +103,10 @@ def _cases(dtype, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", ["fused_msa_block", "fused_msa_block_shifted",
                                   "mlp_block_sum3", "mlp_block_sum3_shifted",
-                                  "fused_ocab_block", "mlp_block"])
+                                  "fused_ocab_block", "mlp_block",
+                                  "ln_split", "gated_dconv_ffn",
+                                  "gated_dconv_ffn_block",
+                                  "fused_ocab_attention"])
 def test_kernel_matches_plain_version(cuda, name, dtype):
     fn, plain, args, pos, kw = _cases(dtype)[name]
     before = fn.launches
@@ -89,9 +114,12 @@ def test_kernel_matches_plain_version(cuda, name, dtype):
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     ref = plain(*args, *pos)
-    assert got.shape == ref.shape and got.dtype == ref.dtype
-    tol = TOL[dtype] * max(1.0, ref.float().abs().max().item())
-    assert (got.float() - ref.float()).abs().max().item() <= tol
+    if not isinstance(got, tuple):
+        got, ref = (got,), (ref,)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and g.dtype == r.dtype
+        tol = TOL[dtype] * max(1.0, r.float().abs().max().item())
+        assert (g.float() - r.float()).abs().max().item() <= tol
 
 
 def test_small_model_kernels_match_cpu_plain(cuda):
@@ -104,6 +132,31 @@ def test_small_model_kernels_match_cpu_plain(cuda):
                      window_size=8, squeeze_factor=6, mlp_ratio=2.0,
                      upscale=4).eval()
     init_weights(net, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(
+        np.random.default_rng(0).random((2, 32, 40, 3), dtype=np.float32))
+    with torch.inference_mode():
+        ref = net(x)
+        got = net.to(cuda)(x.to(cuda)).cpu()
+    assert (got - ref).abs().max().item() < 1e-4
+
+
+@pytest.mark.parametrize("ocab_esc", [True, False])
+def test_small_fork_model_kernels_match_cpu_plain(cuda, ocab_esc):
+    """The small fork HAT through the float32 kernels on the card equals
+    its plain path on the CPU, for the same seeded weights, with the
+    zero-initialised dynamic-kernel heads randomised so that branch acts."""
+    from super_resolution_tpu_torch.models.arch_util import init_weights
+    from super_resolution_tpu_torch.models.hat_arch import HAT
+
+    net = HAT(embed_dim=60, depths=(2, 2), num_heads=(2, 2), window_size=8,
+              mlp_ratio=2.0, upscale=2, esc_pdim=16, esc_kernel=13,
+              ocab_esc_enable=ocab_esc).eval()
+    gen = torch.Generator().manual_seed(0)
+    init_weights(net, gen)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if "dwc_proj.3" in name:
+                p.normal_(std=0.05, generator=gen)
     x = torch.from_numpy(
         np.random.default_rng(0).random((2, 32, 40, 3), dtype=np.float32))
     with torch.inference_mode():

@@ -203,6 +203,12 @@ def test_port_imports_no_jax(tmp_path):
         "out = Predictor(opt, device='cpu').predict_array(\n"
         "    np.zeros((10, 13, 3), np.float32))\n"
         "assert out.shape == (20, 26, 3), out.shape\n"
+        "opt['network_g'].update(type='HAT', esc_pdim=4, esc_kernel=5,\n"
+        "    ocab_esc_enable=True, ocab_esc_pdim=4, ocab_esc_kernel=3)\n"
+        "out = Predictor(opt, device='cpu').predict_array(\n"
+        "    np.zeros((10, 13, 3), np.float32))\n"
+        "assert out.shape == (20, 26, 3), out.shape\n"
+        "import super_resolution_tpu_torch.tools.profile_forward\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
         "                                    'super_resolution_tpu'))\n"

@@ -1,4 +1,4 @@
-"""The six kernel wrappers of the port, on CPU tensors (their plain PyTorch
+"""The nine kernel wrappers of the port, on CPU tensors (their plain PyTorch
 versions), against the JAX package: its ``*_reference`` functions and its
 Pallas kernels in interpret mode, in float32. Also the dispatch rule: a
 wrapper given a tensor for its kernel launches it or raises, never falls
@@ -6,7 +6,13 @@ back.
 
 Small shapes, head dim 30 as at the flagship width: C 60, 2 heads, window
 8, shift 4, overlap window 12, hidden 120. The shifted kernels need
-(H - ws) % ss == 0, which 24 x 32 satisfies.
+(H - ws) % ss == 0, which 24 x 32 satisfies. The fork-HAT kernels run at
+other sizes too: ``ln_split`` at an H that is no multiple of 8 (its TPU
+kernel needs H % tile_rows == 0, so that case is held against the JAX
+reference and the kernel run on the padded rows), the gated FFN at sizes
+whose last TPU row tile is ragged and whose borders are a large share of the
+image, and the OCAB attention on a 2 x 2 grid of windows, each of which
+touches the zero border.
 """
 
 import numpy as np
@@ -17,12 +23,14 @@ import jax.numpy as jnp
 
 from super_resolution_tpu.ops import pallas_attention as pa
 from super_resolution_tpu.ops import pallas_ffn as pf
+from super_resolution_tpu.ops import pallas_hab as ph
 from super_resolution_tpu.ops.attention import (relative_position_index_oca,
                                                 relative_position_index_sa,
                                                 shift_attn_mask)
 from super_resolution_tpu_torch.ops import cuda_attention as ca
 from super_resolution_tpu_torch.ops import cuda_build
 from super_resolution_tpu_torch.ops import cuda_ffn as cf
+from super_resolution_tpu_torch.ops import cuda_hab as ch
 
 # float32 on both sides; the remaining difference is summation order and
 # the TPU kernel's A&S erf approximation (error < 1.5e-7)
@@ -105,10 +113,55 @@ def _case(name: str, seed: int = 0):
                                                residual_scale=0.5),
                 lambda: pf.mlp_block(*j(x, *tail), residual_scale=0.5,
                                      interpret=True))
+    if name.startswith("ln_split"):
+        # pdim 16 of 60 channels; the ragged case has 13 rows
+        h = 13 if name.endswith("ragged") else H
+        xs = np.ascontiguousarray(x[:, :h])
+        pad = np.pad(xs, ((0, 0), (0, (-h) % 8), (0, 0), (0, 0)))
+        kw = dict(eps=1e-5, pdim=16)
+        return ((xs, lns, lnb), kw,
+                lambda: ph.ln_split_reference(*j(xs, lns, lnb), **kw),
+                lambda: [o[:, :h] for o in ph.ln_split(
+                    *j(pad, lns, lnb), tile_rows=8, interpret=True, **kw)])
+    if name.startswith("gated_dconv_ffn"):
+        # 2M = 240 fc1 columns; C_out differs from C for the bare FFN
+        block = "block" in name
+        h, w = (5, 7) if name.endswith("small") else (H, W)
+        xs = np.ascontiguousarray(x[:, :h, :w])
+        c_out = C if block else 36
+        ffn = (a(C, 2 * HID, s=C ** -0.5), a(2 * HID, s=0.5),
+               a(3, 3, 2 * HID, s=1 / 3), a(2 * HID, s=0.1),
+               a(HID, c_out, s=HID ** -0.5), a(c_out, s=0.1))
+        if block:
+            return ((xs, lns, lnb, *ffn), {},
+                    lambda: pf.ffn_block_reference(*j(xs, lns, lnb, *ffn)),
+                    lambda: pf.gated_dconv_ffn_block(
+                        *j(xs, lns, lnb, *ffn), tile_rows=4, interpret=True))
+        return ((xs, *ffn), {},
+                lambda: pf.ffn_reference(*j(xs, *ffn)),
+                lambda: pf.gated_dconv_ffn(*j(xs, *ffn), tile_rows=4,
+                                           interpret=True))
+    if name == "fused_ocab_attention":
+        # 2 x 2 windows: every window has keys outside the image
+        q = np.ascontiguousarray(x[:, :16, :16])
+        kv = a(B, 16, 16, 2 * C)
+        kw = dict(heads=HEADS, window_size=WS, overlap_win=OW, scale=0.2)
+        return ((q, kv, bias_oca), kw,
+                lambda: pa.ocab_attention_reference(
+                    *j(q, kv, bias_oca), HEADS, WS, OW, 0.2),
+                lambda: pa.fused_ocab_attention(*j(q, kv, bias_oca),
+                                                interpret=True, **kw))
     raise KeyError(name)
 
 
 WRAPPERS = {
+    "ln_split": ch.ln_split,
+    "ln_split_ragged": ch.ln_split,
+    "gated_dconv_ffn": cf.gated_dconv_ffn,
+    "gated_dconv_ffn_small": cf.gated_dconv_ffn,
+    "gated_dconv_ffn_block": cf.gated_dconv_ffn_block,
+    "gated_dconv_ffn_block_small": cf.gated_dconv_ffn_block,
+    "fused_ocab_attention": ca.fused_ocab_attention,
     "fused_msa_block": ca.fused_msa_block,
     "fused_msa_block_head_slice": ca.fused_msa_block,
     "fused_msa_block_shifted": ca.fused_msa_block_shifted,
@@ -127,9 +180,14 @@ def test_plain_version_matches_jax(name, against):
     before = fn.launches
     got = fn(*(torch.from_numpy(v) for v in args), **kw)
     assert fn.launches == before      # a CPU tensor never reaches the kernel
-    ref = np.asarray(ref_fn() if against == "reference" else pallas_fn())
-    assert got.shape == ref.shape and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=0)
+    ref = ref_fn() if against == "reference" else pallas_fn()
+    if not isinstance(got, tuple):
+        got, ref = (got,), (ref,)
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        r = np.asarray(r)
+        assert g.shape == r.shape and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), r, atol=ATOL, rtol=0)
 
 
 def test_shift_mask_window_count_check():
@@ -150,7 +208,8 @@ def test_use_kernel_dispatches_on_device():
 
 
 @pytest.mark.parametrize("name", [n for n in WRAPPERS
-                                  if n != "fused_msa_block_head_slice"])
+                                  if not n.endswith(("_head_slice", "_ragged",
+                                                     "_small"))])
 def test_wrapper_raises_without_a_kernel_build(name, monkeypatch):
     """A tensor routed to the kernel (a CUDA tensor; mocked here) with no
     build available raises; the wrapper does not fall back to its plain
@@ -158,7 +217,7 @@ def test_wrapper_raises_without_a_kernel_build(name, monkeypatch):
     def no_build():
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
-    for mod in (ca, cf):
+    for mod in (ca, cf, ch):
         monkeypatch.setattr(mod, "use_kernel", lambda x: True)
         monkeypatch.setattr(mod, "load_library", no_build)
     args, kw, _, _ = _case(name)
@@ -186,6 +245,64 @@ def test_wrapper_checks_operands(monkeypatch):
         cf.mlp_block(t[0].transpose(1, 2), *t[1:], **kw)
     with pytest.raises(RuntimeError, match="backward"):
         cf.mlp_block(t[0].requires_grad_(), *t[1:], **kw)
+
+
+@pytest.mark.parametrize("name", ["ln_split", "gated_dconv_ffn",
+                                  "gated_dconv_ffn_block",
+                                  "fused_ocab_attention"])
+def test_fork_wrapper_checks_operands(name, monkeypatch):
+    """The fork-HAT wrappers refuse, before they touch the library, a dtype
+    the kernels do not take, a second operand of another dtype, a wrong
+    shape, a strided input and an input that would need a gradient."""
+    for mod in (ca, cf, ch):
+        monkeypatch.setattr(mod, "use_kernel", lambda x: True)
+        monkeypatch.setattr(mod, "load_library",
+                            lambda: pytest.fail("launched"))
+    args, kw, _, _ = _case(name)
+    fn = WRAPPERS[name]
+    t = [torch.from_numpy(v) for v in args]
+    with pytest.raises(TypeError, match="dtype|bfloat16"):
+        fn(t[0].double(), *t[1:], **kw)
+    with pytest.raises(TypeError):
+        fn(t[0], t[1].to(torch.bfloat16), *t[2:], **kw)
+    with pytest.raises(ValueError, match="shape"):
+        fn(t[0], t[1][..., :-1].contiguous(), *t[2:], **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(t[0].transpose(1, 2), *t[1:], **kw)
+    with pytest.raises(RuntimeError, match="backward"):
+        fn(t[0].requires_grad_(), *t[1:], **kw)
+
+
+def test_fork_wrappers_state_their_limits(monkeypatch):
+    """pdim beyond C, an image that is no window multiple and a window
+    whose one-head q, k and v outgrow a block's shared memory raise."""
+    args, kw, _, _ = _case("ln_split")
+    with pytest.raises(ValueError, match="pdim"):
+        ch.ln_split(*(torch.from_numpy(v) for v in args), pdim=C + 1)
+    monkeypatch.setattr(ca, "use_kernel", lambda x: True)
+
+    class Lib:
+        @staticmethod
+        def sr_ocab_attention_smem(c, heads, ws, ow):
+            n, nk, d = ws * ws, ow * ow, c // heads
+            return 4 * (n * d + 2 * nk * d + 8 * nk) + 4 * (nk + n)
+
+        @staticmethod
+        def sr_ocab_attention(*a):
+            pytest.fail("launched")
+
+    monkeypatch.setattr(ca, "load_library", lambda: Lib)
+    q, kv, bias = (torch.from_numpy(v) for v in
+                   _case("fused_ocab_attention")[0])
+    with pytest.raises(ValueError, match="multiples"):
+        ca.fused_ocab_attention(q[:, :12].contiguous(),
+                                kv[:, :12].contiguous(), bias, heads=HEADS,
+                                window_size=WS, overlap_win=OW)
+    big = torch.zeros(1, 32, 32, C)
+    with pytest.raises(ValueError, match="shared memory"):
+        ca.fused_ocab_attention(big, torch.zeros(1, 32, 32, 2 * C),
+                                torch.zeros(HEADS, 32 * 32, 48 * 48),
+                                heads=HEADS, window_size=32, overlap_win=48)
 
 
 def test_build_fails_loudly_without_nvcc(monkeypatch, tmp_path):

@@ -1,7 +1,7 @@
 """The port's tensor helpers against the JAX package: index tables, shift
-mask, windowing, pixel shuffle, plain attention, the flax bridge, and the
-small utilities (registry, options, images, precision). Inputs come from
-numpy and go to both sides."""
+mask, windowing, pixel shuffle, plain attention, the conv helpers, the
+flax bridge, and the small utilities (registry, options, images,
+precision). Inputs come from numpy and go to both sides."""
 
 import numpy as np
 import pytest
@@ -104,6 +104,135 @@ def test_flax_bridge_roundtrip_matches_torch_import(rng):
                                       np.asarray(leaf), err_msg=str(path))
 
 
+@pytest.mark.parametrize("shape,k", [((2, 16, 20, 8), 13), ((1, 9, 7, 4), 5),
+                                     ((1, 8, 8, 16), 13)])
+def test_conv2d_nhwc_matches_jax_plain_and_s2d(rng, shape, k):
+    """The port's large-kernel conv is the plain conv; the JAX package
+    lowers it through space-to-depth. Both JAX forms against the port's,
+    float32: summation order only."""
+    from super_resolution_tpu.ops import conv as jconv
+    from super_resolution_tpu_torch.ops import conv as tconv
+
+    c = shape[-1]
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = (rng.standard_normal((c, c, k, k)) * (c * k * k) ** -0.5).astype(
+        np.float32)
+    got = tconv.conv2d_nhwc(torch.from_numpy(x), torch.from_numpy(w))
+    assert got.shape == shape
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jconv.conv2d_nhwc_s2d(x, w)),
+                               atol=2e-5, rtol=0)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jconv.conv2d_nhwc(x, w)),
+                               atol=2e-5, rtol=0)
+
+
+def test_conv2d_nhwc_options_match_jax(rng):
+    from super_resolution_tpu.ops import conv as jconv
+    from super_resolution_tpu_torch.ops import conv as tconv
+
+    x = rng.standard_normal((2, 12, 10, 6)).astype(np.float32)
+    w = rng.standard_normal((4, 3, 3, 3)).astype(np.float32) * 0.2
+    b = rng.standard_normal((4,)).astype(np.float32)
+    got = tconv.conv2d_nhwc(torch.from_numpy(x), torch.from_numpy(w),
+                            torch.from_numpy(b), stride=2, padding=1,
+                            groups=2)
+    ref = jconv.conv2d_nhwc(x, w, b, stride=2, padding=1, groups=2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=0)
+    wd = rng.standard_normal((3, 3, 6)).astype(np.float32) * 0.3
+    bd = rng.standard_normal((6,)).astype(np.float32)
+    got = tconv.depthwise_conv_nhwc(torch.from_numpy(x),
+                                    torch.from_numpy(wd),
+                                    torch.from_numpy(bd))
+    ref = jconv.depthwise_conv_nhwc(x, wd, bd)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("k", [3, 5])
+def test_dynamic_depthwise_conv_matches_jax(rng, k):
+    """Per-sample kernels: against the JAX grouped conv for any k and, for
+    k 3, against the 9-tap shift-and-weight sum the JAX models use."""
+    from super_resolution_tpu.ops import conv as jconv
+    from super_resolution_tpu_torch.ops import conv as tconv
+
+    x = rng.standard_normal((3, 9, 11, 8)).astype(np.float32)
+    kern = rng.standard_normal((3, k, k, 8)).astype(np.float32)
+    got = tconv.dynamic_depthwise_conv(torch.from_numpy(x),
+                                       torch.from_numpy(kern))
+    ref = jconv.dynamic_depthwise_conv(x, kern)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=0)
+    if k == 3:
+        got3 = tconv.dynamic_depthwise_conv3x3(torch.from_numpy(x),
+                                               torch.from_numpy(kern))
+        np.testing.assert_allclose(
+            got3.numpy(), np.asarray(jconv.dynamic_depthwise_conv3x3(x,
+                                                                     kern)),
+            atol=1e-5, rtol=0)
+    else:
+        with pytest.raises(ValueError, match="3, 3"):
+            tconv.dynamic_depthwise_conv3x3(torch.from_numpy(x),
+                                            torch.from_numpy(kern))
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 13, 13), (8, 4, 3, 3),
+                                   (40, 2, 3, 3)])
+def test_orthogonal_oihw_is_orthogonal_and_seeded(shape):
+    from super_resolution_tpu_torch.models.esc_arch import orthogonal_oihw
+
+    a = orthogonal_oihw(torch.empty(shape), torch.Generator().manual_seed(3))
+    b = orthogonal_oihw(torch.empty(shape), torch.Generator().manual_seed(3))
+    assert torch.equal(a, b)
+    flat = a.flatten(1)
+    o, n = flat.shape
+    gram = flat @ flat.t() if o <= n else flat.t() @ flat
+    np.testing.assert_allclose(gram.numpy(), np.eye(min(o, n)), atol=1e-5)
+
+
+def test_flax_bridge_roundtrip_fork_hat(rng):
+    """The fork HAT's leaves through the bridge and back through the JAX
+    package's torch_import: the OIHW filters (plk_filter, esc_plk) pass
+    through, the ECA kernel (k, 1, 1) becomes a Conv1d weight (1, 1, k),
+    the SplitPointwise and depthwise kernels become OIHW."""
+    from super_resolution_tpu.convert.torch_import import (convert_state_dict,
+                                                           flatten_params)
+    from super_resolution_tpu.models.hat_arch import HAT as JHAT
+    from super_resolution_tpu_torch.convert.flax_bridge import \
+        flax_to_state_dict
+    from super_resolution_tpu_torch.models.hat_arch import HAT
+
+    kw = dict(embed_dim=24, depths=(1,), num_heads=(2,), window_size=4,
+              mlp_ratio=2.0, upscale=2, esc_pdim=8, esc_kernel=5,
+              ocab_esc_enable=True, ocab_esc_pdim=8, ocab_esc_kernel=3)
+    params = JHAT(**kw).init(jax.random.PRNGKey(0),
+                             jnp.zeros((1, 8, 8, 3)))["params"]
+    params = jax.tree_util.tree_map(
+        lambda v: rng.standard_normal(v.shape).astype(np.float32),
+        jax.device_get(params))
+    model = HAT(**kw)
+    sd = flax_to_state_dict(params, model)
+    model.load_state_dict(sd, strict=True)
+    blk = "layers.0.residual_group.blocks.0."
+    oca = "layers.0.residual_group.overlap_attn."
+    flax_blk = params["layers_0"]["residual_group"]["blocks_0"]
+    assert sd[blk + "conv_block.cab.3.conv.weight"].shape == (1, 1, 5)
+    assert sd[blk + "mlp.dw.weight"].shape == (96, 1, 3, 3)
+    assert sd[blk + "esc_attn.core.aggr.weight"].shape == (24, 24, 1, 1)
+    assert sd[blk + "esc_attn.core.plk.dwc_proj.3.weight"].shape == (72, 4,
+                                                                     1, 1)
+    np.testing.assert_array_equal(sd[blk + "esc_attn.plk_filter"].numpy(),
+                                  flax_blk["esc_attn"]["plk_filter"])
+    assert sd[oca + "esc_plk"].shape == (8, 8, 3, 3)
+    back = convert_state_dict({k: v.numpy() for k, v in sd.items()}, params)
+    flat, flat_back = flatten_params(params), flatten_params(back)
+    assert flat.keys() == flat_back.keys()
+    for path, leaf in flat.items():
+        np.testing.assert_array_equal(np.asarray(flat_back[path]),
+                                      np.asarray(leaf), err_msg=str(path))
+
+
 def test_flax_bridge_rejects_unknown_leaf():
     from super_resolution_tpu_torch.convert.flax_bridge import \
         flax_to_state_dict
@@ -121,7 +250,7 @@ def test_registry_and_options(tmp_path):
     from super_resolution_tpu_torch.utils.registry import (ARCH_REGISTRY,
                                                            MODEL_REGISTRY)
 
-    assert "HATClassic" in ARCH_REGISTRY
+    assert {"HATClassic", "HAT"} <= set(ARCH_REGISTRY.keys())
     import super_resolution_tpu_torch.runtime  # noqa: F401 registers runners
     assert {"SRModel", "HATModel"} <= set(MODEL_REGISTRY.keys())
     opt = yaml_load("options/test/HAT_SRx4.yml")
