@@ -5,19 +5,22 @@ NVIDIA GPU.
 Phases, each of which raises on failure:
   1. probe: torch and CUDA versions, the card's name and power limit;
   2. build: nvcc builds the kernels from super_resolution_tpu_torch/csrc;
-  3. kernels: each of the nine kernel wrappers (and the bare gated FFN
-     entry) against its plain PyTorch version on the card, at the flagship
-     HAT shapes, in float32 (TF32 off) and bfloat16, with CUDA-event times
-     of the kernel, the plain version and, where one PyTorch call computes
-     the same function, that call; beside them the least time the card
-     could take (bound), from the bytes and operations of the call;
-  4. main paths: Predictor -> HATModel tile mode -> network at the
-     flagship width (bf16, seeded random weights) answers requests:
+  3. kernels: each of the thirteen kernel wrappers (and the bare gated FFN
+     entry) against its plain PyTorch version on the card, at the shapes
+     its main path gives it (the flagship HAT's, ESC's window 32 and
+     ESC-XL's window 48), in float32 (TF32 off) and bfloat16, with
+     CUDA-event times of the kernel, the plain version and, where one
+     PyTorch call computes the same function, that call; beside them the
+     least time the card could take (bound), from the bytes and operations
+     of the call;
+  4. main paths: Predictor -> runner in tile mode -> network at the
+     published width (bf16, seeded random weights) answers requests:
      classic HAT x4 (HATClassic), the fork's HAT x2 with the ESC-infused
-     OCAB, and one request of the fork's HAT with the plain OCAB. The
-     launch counts are set to 0 before each path and read after it; the
-     counts, the output shapes and values, and the PSNR against the port's
-     float32 path are checked.
+     OCAB, one request of the fork's HAT with the plain OCAB, ESC x4 on its
+     own route and on ``fused_attention_v3``, ESC-XL x4 on its own route
+     and on ``msa_qtile_attention``. The launch counts are set to 0 before
+     each path and read after it; the counts, the output shapes and
+     values, and the PSNR against the port's float32 path are checked.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Exits non-zero, printing neither, when there
@@ -53,10 +56,24 @@ FORK = dict(type="HAT", upscale=2, in_chans=3, img_size=64, window_size=WS,
             resi_connection="1conv", esc_pdim=PDIM, esc_kernel=13,
             ocab_esc_enable=True, ocab_esc_pdim=PDIM, ocab_esc_kernel=13,
             stream_tail_rows=64)
+# ESC x4 (options/esc/test/ESC_DIV2K_X4.yml) and ESC-XL x4
+# (options/esc/test/ESC_XL_DF2K_X4.yml), as published
+ESC = dict(type="ESC", dim=64, pdim=16, kernel_size=13, n_blocks=5,
+           conv_blocks=5, window_size=32, num_heads=4, upscaling_factor=4,
+           exp_ratio=1.25, attn_type="xla")
+ESC_XL = dict(type="ESC", dim=192, pdim=48, kernel_size=13, n_blocks=8,
+              conv_blocks=5, window_size=48, num_heads=12,
+              upscaling_factor=4, exp_ratio=1.25, attn_type="xla",
+              use_ln=True)
 TILE = dict(tile_size=128, tile_pad=16, chunk=4)
+# ESC-XL: a padded tile is 144 x 144, 3 x 3 windows of 48
+TILE_XL = dict(tile_size=112, tile_pad=16, chunk=4)
 # LR request sizes: one tile; two tiles and a reflect-pad (100 x 150 is no
 # window multiple); six tiles in two chunk forwards
 REQUESTS = [(64, 64), (100, 150), (300, 200)]
+# ESC-XL: one 96 x 96 tile; four tiles after a reflect pad to 144 x 192;
+# six tiles in two chunk forwards
+REQUESTS_XL = [(96, 96), (100, 150), (150, 250)]
 PSNR_MIN_DB = 35.0
 TOL_F32 = 1e-4   # times max(1, max|plain|): accumulation order only
 TOL_BF16 = 2 ** -5  # times max(1, max|plain|): a few bf16 ulps at the
@@ -66,16 +83,32 @@ TOL_BF16 = 2 ** -5  # times max(1, max|plain|): a few bf16 ulps at the
 # (6 RHAGs; classic: 3 unshifted + 3 shifted HABs + 1 OCAB each; fork:
 # 6 HABs + 1 OCAB each)
 _FORK_HAB = {"ln_split": 36, "gated_dconv_ffn_block": 36, "mlp_block": 6}
+# ``runs``: (tile settings, requests) pairs served by one predictor. ESC has
+# one attention launch a block (5 blocks, ESC-XL 8). ESC-XL's last run has
+# 160 x 160 tiles, no multiple of 48: the reflect pad inside its window
+# attention acts (160 -> 192).
 PATHS = {
-    "classic": dict(net=CLASSIC, requests=REQUESTS, cpu_reference=2, calls={
-        "fused_msa_block": 18, "fused_msa_block_shifted": 18,
-        "mlp_block_sum3": 18, "mlp_block_sum3_shifted": 18,
-        "fused_ocab_block": 6, "mlp_block": 6}),
-    "fork": dict(net=FORK, requests=REQUESTS, cpu_reference=1,
+    "classic": dict(net=CLASSIC, runs=[(TILE, REQUESTS)], cpu_reference=2,
+                    calls={"fused_msa_block": 18,
+                           "fused_msa_block_shifted": 18,
+                           "mlp_block_sum3": 18, "mlp_block_sum3_shifted": 18,
+                           "fused_ocab_block": 6, "mlp_block": 6}),
+    "fork": dict(net=FORK, runs=[(TILE, REQUESTS)], cpu_reference=1,
                  calls=dict(_FORK_HAB, fused_ocab_attention=6)),
     "fork_plain_ocab": dict(net=dict(FORK, ocab_esc_enable=False),
-                            requests=REQUESTS[:1], cpu_reference=0,
+                            runs=[(TILE, REQUESTS[:1])], cpu_reference=0,
                             calls=dict(_FORK_HAB, fused_ocab_block=6)),
+    "esc": dict(net=ESC, runs=[(TILE, REQUESTS)], cpu_reference=1,
+                calls={"fused_attention": 5}),
+    "esc_v3": dict(net=dict(ESC, attn_route="fused_attention_v3"),
+                   runs=[(TILE, REQUESTS[:1])], cpu_reference=0,
+                   calls={"fused_attention_v3": 5}),
+    "esc_xl": dict(net=ESC_XL,
+                   runs=[(TILE_XL, REQUESTS_XL), (TILE, [(192, 192)])],
+                   cpu_reference=1, calls={"msa_flash_attention": 8}),
+    "esc_xl_qtile": dict(net=dict(ESC_XL, attn_route="msa_qtile_attention"),
+                         runs=[(TILE_XL, REQUESTS_XL[:1])], cpu_reference=0,
+                         calls={"msa_qtile_attention": 8}),
 }
 _CSRC = "super_resolution_tpu_torch/csrc/"
 _POPS = "super_resolution_tpu/ops/"
@@ -96,7 +129,27 @@ KERNELS = {
     "ln_split": ("cuda_hab", "ln_split.cu", "pallas_hab.py:315"),
     "fused_ocab_attention": ("cuda_attention", "ocab_attention.cu",
                              "pallas_attention.py:296"),
+    "fused_attention": ("cuda_window_attention", "window_attention.cu",
+                        "pallas_attention.py:105"),
+    "fused_attention_v3": ("cuda_window_attention", "window_attention.cu",
+                           "pallas_attention.py:186"),
+    "msa_qtile_attention": ("cuda_window_attention",
+                            "large_window_attention.cu",
+                            "pallas_attention.py:1902"),
+    "msa_flash_attention": ("cuda_window_attention",
+                            "large_window_attention.cu",
+                            "pallas_attention.py:2124"),
 }
+# the attention-only kernels at their paths' shapes: ESC's chunk of four
+# 160 x 160 tiles at window 32 is (100, 4, 1024, 16) windows; ESC-XL's chunk
+# of four 144 x 144 tiles at window 48 is a (4, 144, 144, 576) qkv image;
+# and one rectangular case, the flagship OCAB's (Nq 256, Nk 576, d 30)
+WINDOW_SHAPE = (100, 4, 1024, 1024, 16)
+WINDOW_RECT_SHAPE = (100, 6, 256, 576, 30)
+IMAGE_SHAPE = (4, 144, 144, 192, 12, 48)
+# elementwise operations of the softmax per score: scale, bias, running
+# maximum, subtraction, exponential, sum, division
+SOFTMAX_OPS = 7
 # a second entry point of gated_dconv_ffn.cu, off the main paths: checked
 # against its plain version, not listed among the kernels
 EXTRA_ENTRY = {"gated_dconv_ffn": "cuda_ffn"}
@@ -335,25 +388,159 @@ def check_kernels() -> dict:
     return results
 
 
+def attention_cases(dtype, seed: int, window_shape, image_shape=None):
+    """Inputs of the attention-only wrappers: name -> (args, kwargs, plain
+    version, the library's attention on the same windows). The two on cut
+    windows get ``window_shape``; the two on a qkv image ``image_shape``,
+    if given."""
+    import torch
+    import torch.nn.functional as F
+
+    from super_resolution_tpu_torch.ops import cuda_window_attention as cw
+    from super_resolution_tpu_torch.ops.attention import attention_with_bias
+    from super_resolution_tpu_torch.ops.windowing import window_partition
+
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, s=1.0, dt=dtype):
+        a = rng.standard_normal(shape, dtype=np.float32) * s
+        return torch.from_numpy(a).to("cuda", dt)
+
+    bw, heads, nq, nk, d = window_shape
+    q, k, v = t(bw, heads, nq, d), t(bw, heads, nk, d), t(bw, heads, nk, d)
+    bias = t(heads, nq, nk, s=0.5, dt=torch.float32)
+    mask = bias.to(dtype)[None]
+    cases = {}
+    for name in ("fused_attention", "fused_attention_v3"):
+        cases[name] = (
+            (q, k, v, bias), {},
+            lambda: attention_with_bias(q, k, v, bias),
+            lambda: (lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask)))
+    if image_shape is None:
+        return cases
+
+    b, h, w, c, iheads, ws = image_shape
+    n, idim = ws * ws, c // iheads
+    qkv = t(b, h, w, 3 * c)
+    ibias = t(iheads, n, n, s=0.5, dt=torch.float32)
+    kw = dict(heads=iheads, window_size=ws)
+
+    def sdpa():
+        """The library's attention on windows cut beforehand: it has no
+        windowing of its own."""
+        win = window_partition(qkv, ws).reshape(-1, n, 3, iheads, idim)
+        qh, kh, vh = (win[:, :, i].transpose(1, 2).contiguous()
+                      for i in range(3))
+        m = ibias.to(dtype)[None]
+        return lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                      attn_mask=m)
+
+    for name in ("msa_qtile_attention", "msa_flash_attention"):
+        cases[name] = ((qkv, ibias), kw,
+                       lambda: cw.msa_qtile_reference(qkv, ibias, iheads, ws),
+                       sdpa)
+    return cases
+
+
+def attention_bound(bw: int, heads: int, nq: int, nk: int, d: int,
+                    esize: int):
+    """(bound_ms, bound_by) of attention with a dense float32 bias over bw
+    windows: q, k, v, out and the bias each moved once over the HBM rate,
+    against the two products at the tensor cores' bf16 rate and the
+    softmax's elementwise work at the float32 rate."""
+    mm = 4 * bw * heads * nq * nk * d
+    vec = SOFTMAX_OPS * bw * heads * nq * nk
+    byts = bw * heads * (2 * nq + 2 * nk) * d * esize + heads * nq * nk * 4
+    t_ops = max(mm / PEAK["bf16"], vec / PEAK["f32"])
+    t_bytes = byts / PEAK["hbm"]
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def check_attention_kernels() -> dict:
+    """Phase 3 for the attention-only kernels. Returns name -> timing at
+    the ESC / ESC-XL chunk shapes in bf16; the rectangular case of
+    fused_attention and fused_attention_v3 is checked and timed beside."""
+    import torch
+
+    fns = wrappers()
+    b, h, w, c, iheads, ws = IMAGE_SHAPE
+    bounds = {name: attention_bound(*WINDOW_SHAPE, 2)
+              for name in ("fused_attention", "fused_attention_v3")}
+    image_bound = attention_bound(b * (h // ws) * (w // ws), iheads, ws * ws,
+                                  ws * ws, c // iheads, 2)
+    bounds.update(msa_qtile_attention=image_bound,
+                  msa_flash_attention=image_bound)
+    results = {}
+    for shape, image in ((WINDOW_SHAPE, IMAGE_SHAPE),
+                         (WINDOW_RECT_SHAPE, None)):
+        for dtype in (torch.float32, torch.bfloat16):
+            tol_rel = TOL_F32 if dtype == torch.float32 else TOL_BF16
+            timed = dtype == torch.bfloat16
+            cases = attention_cases(dtype, shape[3], shape, image)
+            for name, (args, kw, plain, library) in cases.items():
+                got = fns[name](*args, **kw)
+                torch.cuda.synchronize()
+                ref = plain()
+                err, ok = max_err_and_tol(got, ref, tol_rel)
+                del ref
+                line = (f"  {name:24s} {tuple(args[0].shape)} x "
+                        f"{tuple(args[-1].shape)} {str(dtype)[6:]:8s} "
+                        f"max|kernel-plain| {err:.3e} (rel tol "
+                        f"{tol_rel:.1e})")
+                if timed:
+                    ms = time_ms(lambda: fns[name](*args, **kw))
+                    plain_ms = time_ms(plain, reps=5, warmup=1)
+                    lib_ms = time_ms(library())
+                    if shape == WINDOW_SHAPE:
+                        bound_ms, by = bounds[name]
+                        results[name] = dict(
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=by,
+                            library_ms=lib_ms)
+                    else:
+                        bound_ms, by = attention_bound(*shape, 2)
+                    line += (f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms"
+                             f"  bound {bound_ms:.4f} ms ({by})  library "
+                             f"{lib_ms:.3f} ms")
+                log(line)
+                if not ok:
+                    raise AssertionError(f"{name} disagrees with its plain "
+                                         f"version: {err}")
+            del cases
+            torch.cuda.empty_cache()
+    return results
+
+
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
     mse = float(np.mean((np.clip(a, 0, 1) - np.clip(b, 0, 1)) ** 2))
     return float("inf") if mse == 0 else -10.0 * float(np.log10(mse))
 
 
-def n_forwards(h: int, w: int) -> int:
-    """Chunk forwards the tile engine makes for an LR request."""
+def n_forwards(h: int, w: int, ws: int, tile: dict) -> int:
+    """Chunk forwards the tile engine makes for an LR request, which the
+    runner pads to a multiple of the window ws first."""
     from super_resolution_tpu_torch.runtime.tile import _axis_plan
 
-    hp, wp = -(-h // WS) * WS, -(-w // WS) * WS
-    tiles = (_axis_plan(hp, TILE["tile_size"], TILE["tile_pad"])[0]
-             * _axis_plan(wp, TILE["tile_size"], TILE["tile_pad"])[0])
-    return -(-tiles // TILE["chunk"])
+    hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
+    tiles = (_axis_plan(hp, tile["tile_size"], tile["tile_pad"])[0]
+             * _axis_plan(wp, tile["tile_size"], tile["tile_pad"])[0])
+    return -(-tiles // tile["chunk"])
+
+
+def net_scale(net: dict) -> int:
+    return net["upscaling_factor"] if net["type"] == "ESC" else net["upscale"]
 
 
 def path_options(label: str, bf16: bool = True) -> dict:
+    """Options of a path's runner, with the tile settings of its first
+    run; ESC runs under the runner its option files name."""
     net = PATHS[label]["net"]
-    return dict(name=f"chip_smoke_{label}", model_type="HATModel",
-                scale=net["upscale"], manual_seed=0, network_g=net, tile=TILE,
+    return dict(name=f"chip_smoke_{label}",
+                model_type="ESRModel" if net["type"] == "ESC" else "HATModel",
+                scale=net_scale(net), manual_seed=0, network_g=net,
+                tile=PATHS[label]["runs"][0][0],
                 val=dict(inference_dtype="bf16") if bf16 else {})
 
 
@@ -376,7 +563,8 @@ def make_predictor(label: str, device: str, bf16: bool, state=None):
                 if "dwc_proj.3" in name:
                     p.copy_(torch.empty(p.shape).normal_(
                         std=0.02, generator=gen))
-                elif name.endswith("relative_position_bias_table"):
+                elif name.endswith(("relative_position_bias_table",
+                                    "relative_position_bias")):
                     p.copy_(torch.empty(p.shape).normal_(
                         std=0.2, generator=gen))
     else:
@@ -390,26 +578,33 @@ def main_path(label: str) -> dict:
     import torch
 
     spec = PATHS[label]
-    requests, calls = spec["requests"], spec["calls"]
-    scale = spec["net"]["upscale"]
+    calls, net = spec["calls"], spec["net"]
+    scale = net_scale(net)
     pred = make_predictor(label, "cuda", bf16=True)
     rng = np.random.default_rng(0)
-    lqs = [rng.random((h, w, 3), dtype=np.float32) for h, w in requests]
+    # every request of every run: (tile settings, (h, w), image)
+    jobs = [(tile, hw, rng.random((*hw, 3), dtype=np.float32))
+            for tile, requests in spec["runs"] for hw in requests]
 
-    for lq in lqs:   # warm-up: cuDNN plans, cached kernel operands
-        pred.predict_array(lq)
+    def serve(predictor, tile, lq):
+        predictor.model.opt["tile"] = tile
+        return predictor.predict_array(lq)
+
+    for tile, _, lq in jobs:   # warm-up: cuDNN plans, cached kernel operands
+        serve(pred, tile, lq)
     fns = {name: fn for name, fn in wrappers().items() if name in KERNELS}
     for fn in fns.values():
         fn.launches = 0
     outs, times = [], []
-    for lq in lqs:
+    for tile, _, lq in jobs:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        outs.append(pred.predict_array(lq))   # ends in a device-to-host copy
+        outs.append(serve(pred, tile, lq))   # ends in a device-to-host copy
         times.append(time.perf_counter() - t0)
     counts = {name: fn.launches for name, fn in fns.items()}
 
-    fwd = sum(n_forwards(h, w) for h, w in requests)
+    fwd = sum(n_forwards(h, w, net["window_size"], tile)
+              for tile, (h, w), _ in jobs)
     for name, count in counts.items():
         if count != calls.get(name, 0) * fwd:
             raise AssertionError(f"{label}: {name}: {count} launches, "
@@ -420,25 +615,27 @@ def main_path(label: str) -> dict:
     # float32 references on the same weights: the float32 kernels on the
     # card for every request, the plain path on the host CPU for the first
     state = {k: v.cpu() for k, v in pred.model.net_g.state_dict().items()}
+    del pred
+    torch.cuda.empty_cache()
     gpu32 = make_predictor(label, "cuda", bf16=False, state=state)
     cpu = (make_predictor(label, "cpu", bf16=False, state=state)
            if spec["cpu_reference"] else None)
-    for i, ((h, w), lq, out, sec) in enumerate(zip(requests, lqs, outs,
-                                                   times)):
+    for i, ((tile, (h, w), lq), out, sec) in enumerate(zip(jobs, outs,
+                                                           times)):
         if (out.shape != (scale * h, scale * w, 3)
                 or not np.isfinite(out).all()):
             raise AssertionError(f"request {h}x{w}: output {out.shape}, "
                                  f"finite {np.isfinite(out).all()}")
-        k32 = gpu32.predict_array(lq)
-        line = (f"  request {h}x{w} -> {scale * h}x{scale * w}: "
-                f"{sec * 1e3:.1f} ms, "
+        k32 = serve(gpu32, tile, lq)
+        line = (f"  request {h}x{w} (tile {tile['tile_size']}) -> "
+                f"{scale * h}x{scale * w}: {sec * 1e3:.1f} ms, "
                 f"{scale * scale * h * w / sec / 1e6:.3f} out-Mpix/s; "
                 f"out mean {out.mean():.4f} std {out.std():.4f}; "
                 f"PSNR bf16 kernels vs f32 kernels {psnr(out, k32):.2f} dB")
         checks = [psnr(out, k32)]
         if i < spec["cpu_reference"]:
             t0 = time.perf_counter()
-            p32 = cpu.predict_array(lq)
+            p32 = serve(cpu, tile, lq)
             checks.append(psnr(out, p32))
             line += (f"; vs f32 plain (CPU, {time.perf_counter() - t0:.1f} s)"
                      f" {checks[-1]:.2f} dB; max|f32 kernels - f32 plain| "
@@ -447,6 +644,8 @@ def main_path(label: str) -> dict:
         if min(checks) < PSNR_MIN_DB:
             raise AssertionError(f"request {h}x{w}: PSNR {min(checks):.2f} "
                                  f"dB < {PSNR_MIN_DB}")
+    del gpu32, cpu
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -468,6 +667,10 @@ def main() -> int:
     log(f"[probe] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
         f"x{torch.cuda.device_count()}")
+    props = torch.cuda.get_device_properties(0)
+    log(f"[probe] {props.multi_processor_count} SMs, L2 "
+        f"{props.L2_cache_size / 2 ** 20:.0f} MiB, memory "
+        f"{props.total_memory / 2 ** 30:.1f} GiB")
     log(card)
 
     t0 = time.perf_counter()
@@ -483,13 +686,15 @@ def main() -> int:
         f"{TOL_F32} x max(1, max|plain|), bf16 {TOL_BF16} x max(1, max|plain|)"
         f"; bounds against {PEAK}")
     timing = check_kernels()
+    timing.update(check_attention_kernels())
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
 
     by_path = {}
     for label, spec in PATHS.items():
         t0 = time.perf_counter()
-        log(f"[main:{label}] Predictor -> HATModel tile mode -> "
-            f"{spec['net']['type']} flagship x{spec['net']['upscale']}, bf16")
+        log(f"[main:{label}] Predictor -> runner in tile mode -> "
+            f"{spec['net']['type']} x{net_scale(spec['net'])} at the "
+            f"published width, bf16")
         by_path[label] = main_path(label)
         log(f"[main:{label}] done in {time.perf_counter() - t0:.1f} s")
 

@@ -10,11 +10,13 @@ Layout (NHWC activations throughout, as in the JAX package):
 
 - ``csrc/``: hand-written CUDA C++ kernels for sm_90a, built with nvcc on
   first use (``ops/cuda_build.py``).
-- ``ops/``: the kernel wrappers (``cuda_attention.py``, ``cuda_ffn.py``)
-  with their plain PyTorch versions, and the tensor helpers.
-- ``models/``: the classic HAT architecture under the official
-  checkpoint names.
+- ``ops/``: the kernel wrappers (``cuda_attention.py``, ``cuda_ffn.py``,
+  ``cuda_hab.py``, ``cuda_window_attention.py``) with their plain PyTorch
+  versions, and the tensor helpers.
+- ``models/``: the classic HAT, the fork's HAT and ESC under their
+  checkpoints' names.
 - ``convert/``: the bridge from JAX/flax parameters to a state_dict.
-- ``runtime/``: the tiled-inference engine and the HAT runner.
+- ``runtime/``: the tiled-inference engine and the runners.
+- ``tools/``: folder inference, and a profile of one forward.
 - ``predict.py``: the serving entry point.
 """

@@ -1,0 +1,309 @@
+// Unshifted window self-attention on a qkv image, for windows too large for
+// a kernel that keeps a whole window in shared memory:
+//
+//   per ws x ws window of qkv (B, H, W, 3C), q = channels [0, C),
+//   k = [C, 2C), v = [2C, 3C), heads as channel slices of d = C / heads:
+//     o_h = softmax(q_h k_h^T * scale + bias_h) v_h,  bias (heads, N, N)
+//   out (B, H, W, C) in image layout, before the output projection.
+//
+// Replaces the TPU kernels of super_resolution_tpu/ops/pallas_attention.py:
+// msa_qtile_attention (pallas_call at :1902, kernel :1797-1814) and
+// msa_flash_attention (:2124, kernel :1998-2031). Both read q, k and v
+// straight from the image by index (pixel * 3C + part * C + h * d + t) and
+// write the image layout: the per-head planes and the transposed output
+// that the TPU versions build in device memory do not exist here.
+//
+// What bounds them on the H100: per (window, head) at ESC-XL's shape
+// (N 2304, d 16) the two products are 4 * 2304 * 2304 * 16 = 340 MFLOP
+// against 295 kB of bf16 q, k, v and out, and a 21 MB float32 bias slice a
+// head (255 MB for 12 heads) that every window shares. A chunk of four
+// 144 x 144 tiles has 36 windows: 147 GFLOP against 0.27 GB read once,
+// compute-bound on the tensor cores' scale, and bound by the CUDA cores in
+// this first version, whose products are float32 FMA loops.
+//
+// The grid of both kernels is (windows of all images, query tiles, heads),
+// windows fastest: the blocks that run together are the same rows of one
+// head's bias for different windows, so each bias row comes from device
+// memory once and from the 50 MB L2 for the other windows (32 rows are
+// 295 kB, the 36 windows of a chunk read it 36 times). k and v are re-read
+// by every query tile of their window: 147 kB in bf16, 72 tiles of 32 rows
+// (flash) or 144 of 16 (q-tile) a (window, head), 4.6 GB or 9.2 GB a call,
+// which the L2 serves as well, the tiles of a window being 36 blocks apart.
+//
+// Design, msa_flash_attention: one block per (window, head, 32 query rows)
+// loops over chunks of 256 keys: k and v of the chunk go to shared memory,
+// the 32 x 256 scores are formed there, and the running maximum, the
+// denominator (in shared memory, a float a row) and the accumulator (in
+// registers, spread over the block as attention_tiles.cuh describes) are
+// updated. The TPU version carries these across a sequential grid axis and
+// runs transposed for its lanes; here nothing is carried between blocks.
+// As there, p = exp(s - m) is rounded to the input dtype before P @ V, the
+// denominator sums the unrounded p, and the output is acc / l, rounded
+// once. 85 kB a block at d 16: two blocks an SM.
+//
+// Design, msa_qtile_attention: exact softmax over whole rows. A block owns
+// 16 query rows of one (window, head) and keeps their 16 x N float32 scores
+// in shared memory (148 kB at N 2304). k and v are streamed through one
+// 256-key buffer in two passes: k chunks fill the scores, the rows are
+// normalised (p rounded to the input dtype), then v chunks accumulate the
+// output. One head's k and v at N 2304 would take 295 kB as float32, so
+// they are not kept. 173 kB a block at N 2304, d 16: one block an SM.
+#include "attention_tiles.cuh"
+
+namespace {
+
+constexpr int kKC = 256;       // keys of a chunk
+constexpr int kFlashQT = 32;   // query rows of a flash block
+constexpr int kQtileQT = 16;   // query rows of a q-tile block
+
+// Where the tokens of a block's window lie in the image.
+struct Window {
+  int ws, W;
+  long long first;  // pixel index of the window's first token
+  __device__ __forceinline__ long long pixel(int tok) const {
+    return first + static_cast<long long>(tok / ws) * W + tok % ws;
+  }
+};
+
+__device__ __forceinline__ Window window_of(int widx, int H, int W, int ws) {
+  const int nwx = W / ws, nw = (H / ws) * nwx;
+  const int b = widx / nw, wi = widx % nw;
+  Window win;
+  win.ws = ws;
+  win.W = W;
+  win.first =
+      (static_cast<long long>(b) * H + (wi / nwx) * ws) * W + (wi % nwx) * ws;
+  return win;
+}
+
+size_t flash_smem_bytes(int dp) {
+  return sizeof(float) * (2 * kKC * dp + kFlashQT * srk::score_stride(kKC) +
+                          kFlashQT * dp + srk::kTileWarps * kFlashQT * dp +
+                          3 * kFlashQT);
+}
+
+size_t qtile_smem_bytes(int n, int dp) {
+  return sizeof(float) * (kKC * dp + kQtileQT * srk::score_stride(n) +
+                          kQtileQT * dp + srk::kTileWarps * kQtileQT * dp);
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(srk::kTileThreads)
+    msa_flash_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
+                     T* __restrict__ out, int H, int W, int C, int heads,
+                     int ws, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int QT = kFlashQT;
+  constexpr int ld = kKC + 4;
+  const int n = ws * ws;
+  const int d = C / heads;
+  const int h = blockIdx.z;
+  const int q0 = blockIdx.y * QT;
+  const int qt = min(QT, n - q0);
+  const Window win = window_of(blockIdx.x, H, W, ws);
+
+  float* ks = smem;                       // kKC x DP
+  float* vs = ks + kKC * DP;              // kKC x DP
+  float* sc = vs + kKC * DP;              // QT x ld
+  float* qs = sc + QT * ld;               // QT x DP
+  float* red = qs + QT * DP;              // warps x QT x DP
+  float* m_run = red + srk::kTileWarps * QT * DP;  // QT running maxima
+  float* l_run = m_run + QT;                       // QT denominators
+  float* alpha = l_run + QT;                       // QT rescale factors
+
+  auto channel = [&](int tok, int part) {
+    return qkv + win.pixel(tok) * 3 * C + part * C + h * d;
+  };
+  srk::load_rows<T, DP>(qs, qt, QT, d,
+                        [&](int i) { return channel(q0 + i, 0); });
+  for (int i = threadIdx.x; i < QT; i += blockDim.x) {
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.f;
+  }
+  float acc[QT / 4][DP / 8];
+  srk::zero_acc<DP, QT>(acc);
+  const float* bh = bias + (static_cast<long long>(h) * n + q0) * n;
+  const int lane = threadIdx.x & 31;
+  const int ri = lane >> 3;
+
+  for (int c0 = 0; c0 < n; c0 += kKC) {
+    const int kc = min(kKC, n - c0);
+    const int kc4 = srk::round_up4(kc);
+    srk::load_rows<T, DP>(ks, kc, kc, d,
+                          [&](int j) { return channel(c0 + j, 1); });
+    srk::load_rows<T, DP>(vs, kc, kc4, d,
+                          [&](int j) { return channel(c0 + j, 2); });
+    __syncthreads();
+    srk::score_chunk<DP>(qs, qt, ks, kc, sc, ld, 0, scale, [&](int i, int j) {
+      return bh[static_cast<long long>(i) * n + c0 + j];
+    });
+    __syncthreads();
+    // online softmax, one warp per row: new maximum, rescale factor of what
+    // was accumulated so far, p of this chunk, denominator
+    for (int r = threadIdx.x >> 5; r < qt; r += srk::kTileWarps) {
+      float* row = sc + r * ld;
+      const float m_old = m_run[r];
+      float mx = -INFINITY;
+      for (int j = lane; j < kc; j += 32) mx = fmaxf(mx, row[j]);
+      const float m_new = fmaxf(m_old, srk::warp_max(mx));
+      float sum = 0.f;
+      for (int j = lane; j < kc; j += 32) {
+        const float p = expf(row[j] - m_new);
+        sum += p;
+        row[j] = srk::round_to<T>(p);
+      }
+      for (int j = kc + lane; j < kc4; j += 32) row[j] = 0.f;
+      sum = srk::warp_sum(sum);
+      if (lane == 0) {
+        const float a = expf(m_old - m_new);  // 0 on the first chunk
+        alpha[r] = a;
+        l_run[r] = l_run[r] * a + sum;
+        m_run[r] = m_new;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < QT / 4; ++r) {
+      const float a = (ri + 4 * r < qt) ? alpha[ri + 4 * r] : 0.f;
+#pragma unroll
+      for (int c = 0; c < DP / 8; ++c) acc[r][c] *= a;
+    }
+    srk::pv_chunk<DP, QT>(sc, ld, 0, vs, kc4, acc);
+    __syncthreads();
+  }
+  srk::pv_reduce<DP, QT>(acc, red, qt, d, [&](int i, int t, float o) {
+    out[win.pixel(q0 + i) * C + h * d + t] = srk::from_f<T>(o / l_run[i]);
+  });
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(srk::kTileThreads)
+    msa_qtile_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
+                     T* __restrict__ out, int H, int W, int C, int heads,
+                     int ws, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int QT = kQtileQT;
+  const int n = ws * ws;
+  const int ld = srk::score_stride(n);
+  const int d = C / heads;
+  const int h = blockIdx.z;
+  const int q0 = blockIdx.y * QT;
+  const int qt = min(QT, n - q0);
+  const Window win = window_of(blockIdx.x, H, W, ws);
+
+  float* kv = smem;                       // kKC x DP: a k chunk, then a v chunk
+  float* sc = kv + kKC * DP;              // QT x ld
+  float* qs = sc + QT * ld;               // QT x DP
+  float* red = qs + QT * DP;              // warps x QT x DP
+
+  auto channel = [&](int tok, int part) {
+    return qkv + win.pixel(tok) * 3 * C + part * C + h * d;
+  };
+  srk::load_rows<T, DP>(qs, qt, QT, d,
+                        [&](int i) { return channel(q0 + i, 0); });
+  const float* bh = bias + (static_cast<long long>(h) * n + q0) * n;
+  for (int c0 = 0; c0 < n; c0 += kKC) {
+    const int kc = min(kKC, n - c0);
+    srk::load_rows<T, DP>(kv, kc, kc, d,
+                          [&](int j) { return channel(c0 + j, 1); });
+    __syncthreads();
+    srk::score_chunk<DP>(qs, qt, kv, kc, sc, ld, c0, scale, [&](int i, int j) {
+      return bh[static_cast<long long>(i) * n + j];
+    });
+    __syncthreads();
+  }
+  srk::softmax_tile<T>(sc, qt, n, ld);
+  float acc[QT / 4][DP / 8];
+  srk::zero_acc<DP, QT>(acc);
+  for (int c0 = 0; c0 < n; c0 += kKC) {
+    const int kc = min(kKC, n - c0);
+    const int kc4 = srk::round_up4(kc);
+    srk::load_rows<T, DP>(kv, kc, kc4, d,
+                          [&](int j) { return channel(c0 + j, 2); });
+    __syncthreads();  // the first one also ends the softmax
+    srk::pv_chunk<DP, QT>(sc, ld, c0, kv, kc4, acc);
+    __syncthreads();
+  }
+  srk::pv_reduce<DP, QT>(acc, red, qt, d, [&](int i, int t, float o) {
+    out[win.pixel(q0 + i) * C + h * d + t] = srk::from_f<T>(o);
+  });
+}
+
+template <typename T, int DP>
+cudaError_t launch(bool flash, const void* qkv, const float* bias, void* out,
+                   int B, int H, int W, int C, int heads, int ws, float scale,
+                   cudaStream_t stream) {
+  const int n = ws * ws;
+  const int windows = B * (H / ws) * (W / ws);
+  const T* in = static_cast<const T*>(qkv);
+  T* ot = static_cast<T*>(out);
+  cudaError_t err;
+  if (flash) {
+    const size_t smem = flash_smem_bytes(DP);
+    err = srk::set_smem(msa_flash_kernel<T, DP>, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(windows, (n + kFlashQT - 1) / kFlashQT, heads);
+    msa_flash_kernel<T, DP><<<grid, srk::kTileThreads, smem, stream>>>(
+        in, bias, ot, H, W, C, heads, ws, scale);
+  } else {
+    const size_t smem = qtile_smem_bytes(n, DP);
+    err = srk::set_smem(msa_qtile_kernel<T, DP>, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(windows, (n + kQtileQT - 1) / kQtileQT, heads);
+    msa_qtile_kernel<T, DP><<<grid, srk::kTileThreads, smem, stream>>>(
+        in, bias, ot, H, W, C, heads, ws, scale);
+  }
+  return cudaGetLastError();
+}
+
+int dispatch(bool flash, int dtype, const void* qkv, const void* bias,
+             void* out, int B, int H, int W, int C, int heads, int ws,
+             float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* bf = static_cast<const float*>(bias);
+  if (heads < 1 || heads > 65535 || C % heads || ws < 1 || H % ws || W % ws ||
+      B < 1 || dtype < 0 || dtype > 1)
+    return cudaErrorInvalidValue;
+  const int d = C / heads;
+  const int tiles = (ws * ws + kQtileQT - 1) / kQtileQT;
+  if (d > 32 || tiles > 65535) return cudaErrorInvalidValue;
+  if (dtype == 0)
+    return d <= 16 ? launch<float, 16>(flash, qkv, bf, out, B, H, W, C, heads,
+                                       ws, scale, st)
+                   : launch<float, 32>(flash, qkv, bf, out, B, H, W, C, heads,
+                                       ws, scale, st);
+  return d <= 16 ? launch<__nv_bfloat16, 16>(flash, qkv, bf, out, B, H, W, C,
+                                             heads, ws, scale, st)
+                 : launch<__nv_bfloat16, 32>(flash, qkv, bf, out, B, H, W, C,
+                                             heads, ws, scale, st);
+}
+
+}  // namespace
+
+// Bytes of dynamic shared memory a block needs; the wrappers hold these
+// against the card's limit.
+extern "C" int sr_msa_flash_smem(int d) {
+  return static_cast<int>(flash_smem_bytes(d <= 16 ? 16 : 32));
+}
+
+extern "C" int sr_msa_qtile_smem(int ws, int d) {
+  return static_cast<int>(qtile_smem_bytes(ws * ws, d <= 16 ? 16 : 32));
+}
+
+// dtype: 0 float32, 1 bfloat16. qkv (B, H, W, 3C), out (B, H, W, C), bias
+// (heads, ws^2, ws^2) float32. Returns the cudaError_t of the launch.
+extern "C" int sr_msa_flash_attention(int dtype, const void* qkv,
+                                      const void* bias, void* out, int B,
+                                      int H, int W, int C, int heads, int ws,
+                                      float scale, void* stream) {
+  return dispatch(true, dtype, qkv, bias, out, B, H, W, C, heads, ws, scale,
+                  stream);
+}
+
+extern "C" int sr_msa_qtile_attention(int dtype, const void* qkv,
+                                      const void* bias, void* out, int B,
+                                      int H, int W, int C, int heads, int ws,
+                                      float scale, void* stream) {
+  return dispatch(false, dtype, qkv, bias, out, B, H, W, C, heads, ws, scale,
+                  stream);
+}

@@ -117,18 +117,21 @@ __global__ void __launch_bounds__(kThreads)
       });
 }
 
+size_t smem_bytes(int ws, int d) {
+  const int n = ws * ws;
+  return sizeof(float) * (3 * n * d + kQChunk * n) + sizeof(int) * 2 * n;
+}
+
 template <typename T>
 cudaError_t launch(const void* x, const void* wqkv, const void* bqkv,
                    const void* wproj, const void* bproj, const float* bias,
                    const float* mask, int mask_n, void* o_scr, void* out,
                    int B, int H, int W, int cin, int cloc, int cout, int heads,
                    int ws, int ss, float scale, cudaStream_t stream) {
-  const int n = ws * ws;
   const int d = cloc / heads;
   if (d > kMaxD || d * heads != cloc || H % ws || W % ws)
     return cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(float) * (3 * n * d + kQChunk * n) + sizeof(int) * 2 * n;
+  const size_t smem = smem_bytes(ws, d);
   cudaError_t err = srk::set_smem(msa_block_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((H / ws) * (W / ws), B);
@@ -142,6 +145,12 @@ cudaError_t launch(const void* x, const void* wqkv, const void* bqkv,
 }
 
 }  // namespace
+
+// Bytes of dynamic shared memory one block needs for window ws and head dim
+// d; the wrapper holds this against the card's limit before it launches.
+extern "C" int sr_msa_block_smem(int ws, int d) {
+  return static_cast<int>(smem_bytes(ws, d));
+}
 
 // dtype: 0 float32, 1 bfloat16. bias (heads, N, N) and mask (mask_n, N, N)
 // are float32; o_scr is a (B, H, W, cloc) scratch image of type dtype.

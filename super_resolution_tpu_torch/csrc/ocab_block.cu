@@ -154,6 +154,12 @@ __global__ void __launch_bounds__(kThreads)
       });
 }
 
+size_t smem_bytes(int ws, int ow, int d) {
+  const int n = ws * ws, nk = ow * ow;
+  return sizeof(float) * (n * d + 2 * nk * d + kQChunk * nk + 2 * nk) +
+         sizeof(int) * (nk + n);
+}
+
 template <typename T>
 cudaError_t launch(const void* x, const void* lns, const void* lnb,
                    const void* wq, const void* bq, const void* wkv,
@@ -161,13 +167,10 @@ cudaError_t launch(const void* x, const void* lns, const void* lnb,
                    const float* bias, void* o_scr, void* out, int B, int H,
                    int W, int C, int cq, int heads, int ws, int ow,
                    float scale, float eps, float rs, cudaStream_t stream) {
-  const int n = ws * ws, nk = ow * ow;
   const int d = cq / heads;
   if (d > kMaxD || d * heads != cq || H % ws || W % ws || (ow - ws) % 2)
     return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (n * d + 2 * nk * d + kQChunk * nk +
-                                       2 * nk) +
-                      sizeof(int) * (nk + n);
+  const size_t smem = smem_bytes(ws, ow, d);
   cudaError_t err = srk::set_smem(ocab_block_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((H / ws) * (W / ws), B);
@@ -182,6 +185,12 @@ cudaError_t launch(const void* x, const void* lns, const void* lnb,
 }
 
 }  // namespace
+
+// Bytes of dynamic shared memory one block needs; the wrapper holds this
+// against the card's limit before it launches.
+extern "C" int sr_ocab_block_smem(int ws, int ow, int d) {
+  return static_cast<int>(smem_bytes(ws, ow, d));
+}
 
 // dtype: 0 float32, 1 bfloat16. bias (heads, ws^2, ow^2) is float32; o_scr
 // is a (B, H, W, cq) scratch image of type dtype. Returns the cudaError_t

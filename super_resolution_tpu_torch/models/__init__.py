@@ -2,8 +2,8 @@
 
 from copy import deepcopy
 
-from super_resolution_tpu_torch.models import (hat_arch,  # noqa: F401 registry
-                                               hat_classic_arch)
+from super_resolution_tpu_torch.models import (esc_arch,  # noqa: F401 registry
+                                               hat_arch, hat_classic_arch)
 from super_resolution_tpu_torch.utils.registry import ARCH_REGISTRY
 
 

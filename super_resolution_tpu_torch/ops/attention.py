@@ -1,5 +1,6 @@
 """Window attention helpers: relative-position index tables, the shifted
-window mask and plain attention with an additive bias.
+window mask, plain attention with an additive bias and plain multi-head
+attention over batched windows.
 
 The numpy builders are copies of super_resolution_tpu/ops/attention.py:23-70
 (the port may not import the JAX package). ``attention_with_bias`` keeps
@@ -88,3 +89,14 @@ def attention_with_bias(q, k, v, bias, scale=None):
     attn = torch.exp(attn - attn.amax(dim=-1, keepdim=True))
     attn = attn / attn.sum(dim=-1, keepdim=True)
     return torch.matmul(attn.to(v.dtype), v)
+
+
+def window_msa(qkv_windows, num_heads: int, bias, scale=None):
+    """Multi-head window attention over batched windows: qkv
+    (3, B * nW, N, C) -> (B * nW, N, C); bias (num_heads, N, N) or
+    broadcastable to (B * nW, num_heads, N, N)."""
+    _, bw, n, c = qkv_windows.shape
+    d = c // num_heads
+    qkv = qkv_windows.reshape(3, bw, n, num_heads, d).permute(0, 1, 3, 2, 4)
+    out = attention_with_bias(qkv[0], qkv[1], qkv[2], bias, scale=scale)
+    return out.permute(0, 2, 1, 3).reshape(bw, n, c)

@@ -26,6 +26,7 @@ from super_resolution_tpu_torch.ops.cuda_build import (MAX_DYNAMIC_SMEM,
                                                        check_f32,
                                                        check_operands,
                                                        check_shape,
+                                                       check_smem,
                                                        load_library,
                                                        raise_on_error,
                                                        stream_of, use_kernel)
@@ -118,6 +119,23 @@ def ocab_block_reference(x_img, ln_scale, ln_bias, w_q, b_q, w_kv, b_kv,
     return out @ w_proj.to(out.dtype) + b_proj.to(out.dtype) + res
 
 
+def msa_block_smem(window_size: int, head_dim: int) -> int:
+    """Bytes of shared memory a block of ``csrc/msa_block.cu`` takes: one
+    head's q, k and v and 16 score rows as float32, two pixel indices a
+    token (the formula of its ``sr_msa_block_smem``)."""
+    n = window_size * window_size
+    return 4 * (3 * n * head_dim + 16 * n) + 8 * n
+
+
+def msa_block_supported(window_size: int, head_dim: int) -> bool:
+    """Whether ``fused_msa_block`` and ``fused_msa_block_shifted`` can run
+    this window and head dim on the card: a head dim of at most 32 and a
+    block within the card's shared memory. At head dim 16 that is window 8
+    to 24; ESC's 32 and ESC-XL's 48 are beyond it."""
+    return (head_dim <= 32
+            and msa_block_smem(window_size, head_dim) <= MAX_DYNAMIC_SMEM)
+
+
 def _launch_msa(name, x_img, w_qkv, b_qkv, w_proj, b_proj, bias, mask,
                 heads, ws, shift, scale):
     b, h_img, w_img, c = x_img.shape
@@ -141,11 +159,14 @@ def _launch_msa(name, x_img, w_qkv, b_qkv, w_proj, b_proj, bias, mask,
         raise ValueError(f"{name}: needs H, W multiples of {ws} and a head "
                          f"dim of at most 32, got {tuple(x_img.shape)}, "
                          f"{heads} heads of {c_loc}")
+    lib = load_library()
+    check_smem(name, lib.sr_msa_block_smem(ws, c_loc // heads),
+               f"window {ws}, head dim {c_loc // heads}")
     scratch = torch.empty((b, h_img, w_img, c_loc), dtype=x_img.dtype,
                           device=x_img.device)
     out = torch.empty((b, h_img, w_img, c_out), dtype=x_img.dtype,
                       device=x_img.device)
-    err = load_library().sr_msa_block(
+    err = lib.sr_msa_block(
         code, x_img.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(),
         w_proj.data_ptr(), b_proj.data_ptr(), bias.data_ptr(),
         mask.data_ptr(), mask.shape[0], scratch.data_ptr(), out.data_ptr(),
@@ -242,10 +263,13 @@ def fused_ocab_block(x_img, ln_scale, ln_bias, w_q, b_q, w_kv, b_kv, w_proj,
                          f"overlap and a head dim of at most 32, got "
                          f"{tuple(x_img.shape)}, ow {ow}, {heads} heads of "
                          f"{cq}")
+    lib = load_library()
+    check_smem(name, lib.sr_ocab_block_smem(ws, ow, cq // heads),
+               f"window {ws}, overlap window {ow}, head dim {cq // heads}")
     scratch = torch.empty((b, h_img, w_img, cq), dtype=x_img.dtype,
                           device=x_img.device)
     out = torch.empty_like(x_img)
-    err = load_library().sr_ocab_block(
+    err = lib.sr_ocab_block(
         code, x_img.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
         w_q.data_ptr(), b_q.data_ptr(), w_kv.data_ptr(), b_kv.data_ptr(),
         w_proj.data_ptr(), b_proj.data_ptr(), bias.data_ptr(),
@@ -294,12 +318,8 @@ def fused_ocab_attention(q_img, kv_img, bias, *, heads: int,
                          f"{tuple(q_img.shape)}, ow {ow}, {heads} heads of "
                          f"{c}")
     lib = load_library()
-    need = lib.sr_ocab_attention_smem(c, heads, ws, ow)
-    if need > MAX_DYNAMIC_SMEM:
-        raise ValueError(f"{name}: window {ws}, overlap window {ow}, head "
-                         f"dim {c // heads} need {need} bytes of shared "
-                         f"memory a block, the card grants "
-                         f"{MAX_DYNAMIC_SMEM}")
+    check_smem(name, lib.sr_ocab_attention_smem(c, heads, ws, ow),
+               f"window {ws}, overlap window {ow}, head dim {c // heads}")
     out = torch.empty_like(q_img)
     err = lib.sr_ocab_attention(
         code, q_img.data_ptr(), kv_img.data_ptr(), bias.data_ptr(),

@@ -44,6 +44,15 @@ _SIGNATURES = {
     "sr_gated_dconv_ffn_smem": [_I] * 3,
     "sr_ocab_attention": [_I] + [_P] * 4 + [_I] * 7 + [_F] + [_P],
     "sr_ocab_attention_smem": [_I] * 4,
+    "sr_msa_block_smem": [_I] * 2,
+    "sr_ocab_block_smem": [_I] * 3,
+    "sr_fused_attention": [_I] + [_P] * 5 + [_I] * 5 + [_F] + [_P],
+    "sr_fused_attention_v3": [_I] + [_P] * 5 + [_I] * 5 + [_F] + [_P],
+    "sr_window_attention_smem": [_I] * 2,
+    "sr_msa_flash_attention": [_I] + [_P] * 3 + [_I] * 6 + [_F] + [_P],
+    "sr_msa_qtile_attention": [_I] + [_P] * 3 + [_I] * 6 + [_F] + [_P],
+    "sr_msa_flash_smem": [_I],
+    "sr_msa_qtile_smem": [_I] * 2,
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -164,6 +173,15 @@ def check_shape(name: str, arg: str, t: torch.Tensor, shape) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
+
+
+def check_smem(name: str, need: int, what: str) -> None:
+    """Raise where a block of ``name`` needs more dynamic shared memory
+    than the card grants; ``what`` names the shape."""
+    if need > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"{name}: {what} need {need} bytes of shared "
+                         f"memory a block, the card grants "
+                         f"{MAX_DYNAMIC_SMEM}")
 
 
 def stream_of(x: torch.Tensor) -> int:

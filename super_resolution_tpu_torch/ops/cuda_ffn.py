@@ -25,9 +25,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from super_resolution_tpu_torch.ops.cuda_build import (MAX_DYNAMIC_SMEM,
-                                                       check_operands,
+from super_resolution_tpu_torch.ops.cuda_build import (check_operands,
                                                        check_shape,
+                                                       check_smem,
                                                        load_library,
                                                        raise_on_error,
                                                        stream_of, use_kernel)
@@ -118,11 +118,8 @@ def _launch_ffn(name, x, gamma, beta, w1, b1, wd, bd, w2, b2, *, ln: bool,
                          f"most 65535 and, for the residual, C_out == C; got "
                          f"2M {m2}, C {c}, C_out {c_out}, B {b}")
     lib = load_library()
-    need = lib.sr_gated_dconv_ffn_smem(code, c, c_out)
-    if need > MAX_DYNAMIC_SMEM:
-        raise ValueError(f"{name}: C {c}, C_out {c_out} need {need} bytes of "
-                         f"shared memory a block, the card grants "
-                         f"{MAX_DYNAMIC_SMEM}")
+    check_smem(name, lib.sr_gated_dconv_ffn_smem(code, c, c_out),
+               f"C {c}, C_out {c_out}")
     out = torch.empty((b, h, w, c_out), dtype=x.dtype, device=x.device)
     err = lib.sr_gated_dconv_ffn(
         code, x.data_ptr(), gamma.data_ptr() if ln else None,

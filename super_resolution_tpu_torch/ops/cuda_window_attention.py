@@ -1,0 +1,260 @@
+"""Attention-only window kernels: CUDA kernel wrappers and their plain
+PyTorch versions.
+
+Ports from super_resolution_tpu/ops/pallas_attention.py: ``fused_attention``
+and ``fused_attention_v3`` on pre-cut windows (both launch
+``csrc/window_attention.cu``), their ``window_attention_fused`` front, and
+the large-window ``msa_qtile_attention`` and ``msa_flash_attention`` on a
+qkv image (``csrc/large_window_attention.cu``), with
+``msa_qtile_reference``. They keep the JAX names and signatures, minus the
+Mosaic knobs (``block_windows``, ``chunk_rows``, ``interpret``), and the
+dense ``(heads, Nq, Nk)`` float32 bias.
+
+Each kernel has a pure-Python ``*_supported`` predicate from its own need of
+shared memory (every buffer is float32, so the dtype plays no part); the
+same formulas are the ``sr_*_smem`` entries of the sources, which the
+wrappers hold against the card's limit before a launch.
+
+Numerics against the plain versions: scores and softmax in float32, p
+rounded to the input dtype before P @ V, the output rounded once. The
+kernels scale the float32 scores, the plain versions scale q in the input
+dtype first. ``msa_flash_attention`` rounds the unnormalised p = exp(s - m)
+and divides the accumulated output by the float32 denominator, as the TPU
+kernel does; the others round the normalised p.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from super_resolution_tpu_torch.ops.attention import attention_with_bias
+from super_resolution_tpu_torch.ops.cuda_attention import \
+    msa_attention_reference
+from super_resolution_tpu_torch.ops.cuda_build import (MAX_DYNAMIC_SMEM,
+                                                       check_f32,
+                                                       check_operands,
+                                                       check_shape,
+                                                       check_smem,
+                                                       load_library,
+                                                       raise_on_error,
+                                                       stream_of, use_kernel)
+
+MAX_HEAD_DIM = 32
+# tile sizes of the sources (csrc/window_attention.cu,
+# csrc/large_window_attention.cu), for the shared-memory formulas below
+_QT, _FLASH_QT, _KEY_CHUNK, _WARPS = 16, 32, 256, 8
+
+
+def _dpad(head_dim: int) -> int:
+    return 16 if head_dim <= 16 else 32
+
+
+def _score_stride(n: int) -> int:
+    return (n + 3) // 4 * 4 + 4
+
+
+def window_attention_smem(nk: int, head_dim: int) -> int:
+    """Bytes a block of ``fused_attention`` / ``fused_attention_v3`` takes:
+    one head's k and v, a 16-row score tile, the q tile and the reduction
+    space."""
+    dp = _dpad(head_dim)
+    return 4 * (2 * ((nk + 3) // 4 * 4) * dp + _QT * _score_stride(nk)
+                + _QT * dp + _WARPS * _QT * dp)
+
+
+def msa_qtile_smem(window_size: int, head_dim: int) -> int:
+    """Bytes a block of ``msa_qtile_attention`` takes: 16 rows of scores
+    over the whole window, one 256-key chunk, the q tile and the reduction
+    space."""
+    dp = _dpad(head_dim)
+    return 4 * (_KEY_CHUNK * dp + _QT * _score_stride(window_size ** 2)
+                + _QT * dp + _WARPS * _QT * dp)
+
+
+def msa_flash_smem(head_dim: int) -> int:
+    """Bytes a block of ``msa_flash_attention`` takes, whatever the
+    window: a 256-key chunk of k and v, a 32 x 256 score tile, the q tile,
+    the reduction space and three floats a row."""
+    dp = _dpad(head_dim)
+    return 4 * (2 * _KEY_CHUNK * dp + _FLASH_QT * _score_stride(_KEY_CHUNK)
+                + _FLASH_QT * dp + _WARPS * _FLASH_QT * dp + 3 * _FLASH_QT)
+
+
+def fused_attention_supported(nq: int, nk: int, head_dim: int) -> bool:
+    """Whether ``fused_attention`` runs (nq, nk) windows of this head dim on
+    the card; nq plays no part, a block walks the queries in tiles."""
+    return (1 <= head_dim <= MAX_HEAD_DIM
+            and window_attention_smem(nk, head_dim) <= MAX_DYNAMIC_SMEM)
+
+
+def fused_attention_v3_supported(nq: int, nk: int, head_dim: int) -> bool:
+    """As :func:`fused_attention_supported`: the blocks are laid out alike."""
+    return fused_attention_supported(nq, nk, head_dim)
+
+
+def msa_qtile_supported(window_size: int, head_dim: int) -> bool:
+    return (1 <= head_dim <= MAX_HEAD_DIM
+            and window_size ** 2 <= 65535 * _QT
+            and msa_qtile_smem(window_size, head_dim) <= MAX_DYNAMIC_SMEM)
+
+
+def msa_flash_supported(window_size: int, head_dim: int) -> bool:
+    return (1 <= head_dim <= MAX_HEAD_DIM
+            and window_size ** 2 <= 65535 * _QT
+            and msa_flash_smem(head_dim) <= MAX_DYNAMIC_SMEM)
+
+
+def msa_qtile_reference(qkv_img, bias, heads: int, window_size: int,
+                        scale: float | None = None):
+    """Plain version of :func:`msa_qtile_attention` and
+    :func:`msa_flash_attention`: the unshifted window MSA middle, which is
+    ``msa_attention_reference`` with a zero mask."""
+    n = window_size * window_size
+    mask = torch.zeros((1, n, n), dtype=torch.float32, device=qkv_img.device)
+    return msa_attention_reference(qkv_img, bias, mask, heads, window_size,
+                                   scale)
+
+
+def _launch_windows(name: str, entry: str, q, k, v, bias, scale):
+    if q.dim() != 4:
+        raise ValueError(f"{name}: q must be (BW, heads, Nq, d), got "
+                         f"{tuple(q.shape)}")
+    bw, heads, nq, d = q.shape
+    nk = k.shape[2]
+    code = check_operands(name, q, q=q, k=k, v=v)
+    check_f32(name, q, bias=bias)
+    check_shape(name, "k", k, (bw, heads, nk, d))
+    check_shape(name, "v", v, (bw, heads, nk, d))
+    check_shape(name, "bias", bias, (heads, nq, nk))
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {d} is above {MAX_HEAD_DIM}")
+    lib = load_library()
+    check_smem(name, lib.sr_window_attention_smem(nk, d),
+               f"{nk} keys of head dim {d}")
+    out = torch.empty_like(q)
+    err = getattr(lib, entry)(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              bias.data_ptr(), out.data_ptr(), bw, heads, nq,
+                              nk, d, scale, stream_of(q))
+    raise_on_error(name, err)
+    return out
+
+
+def fused_attention(q, k, v, bias, *, scale: float | None = None):
+    """Batched multi-head window attention, square or rectangular:
+    softmax(q k^T * scale + bias[h]) v per (window, head).
+
+    q: (BW, heads, Nq, d); k, v: (BW, heads, Nk, d), float32 or bfloat16,
+    contiguous; bias: (heads, Nq, Nk) float32. Returns (BW, heads, Nq, d) in
+    the input dtype. One block per (window, head, 64 query rows). Replaces
+    super_resolution_tpu/ops/pallas_attention.py::fused_attention.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not use_kernel(q):
+        return attention_with_bias(q, k, v, bias, scale=scale)
+    out = _launch_windows("fused_attention", "sr_fused_attention", q, k, v,
+                          bias, scale)
+    fused_attention.launches += 1
+    return out
+
+
+def fused_attention_v3(q, k, v, bias, *, scale: float | None = None):
+    """:func:`fused_attention` with one block per window that walks all
+    heads, so a window's q, k and v are read once. Replaces
+    super_resolution_tpu/ops/pallas_attention.py::fused_attention_v3.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not use_kernel(q):
+        return attention_with_bias(q, k, v, bias, scale=scale)
+    out = _launch_windows("fused_attention_v3", "sr_fused_attention_v3", q,
+                          k, v, bias, scale)
+    fused_attention_v3.launches += 1
+    return out
+
+
+def window_attention_fused(qkv_windows, num_heads: int, bias,
+                           scale: float | None = None, *,
+                           attention=fused_attention):
+    """Drop-in for ``ops.attention.window_msa``: qkv (3, BW, N, C) ->
+    (BW, N, C) through ``attention`` (:func:`fused_attention` or
+    :func:`fused_attention_v3`)."""
+    _, bw, n, c = qkv_windows.shape
+    d = c // num_heads
+    qkv = qkv_windows.reshape(3, bw, n, num_heads, d).permute(0, 1, 3, 2, 4)
+    out = attention(qkv[0].contiguous(), qkv[1].contiguous(),
+                    qkv[2].contiguous(), bias, scale=scale)
+    return out.permute(0, 2, 1, 3).reshape(bw, n, c)
+
+
+def _launch_image(name: str, entry: str, smem_of, qkv_img, bias, heads, ws,
+                  scale):
+    """``smem_of(lib, ws, d)``: the bytes a block of the kernel needs."""
+    if qkv_img.dim() != 4 or qkv_img.shape[-1] % 3:
+        raise ValueError(f"{name}: qkv_img must be (B, H, W, 3C), got "
+                         f"{tuple(qkv_img.shape)}")
+    b, h_img, w_img, c3 = qkv_img.shape
+    c = c3 // 3
+    code = check_operands(name, qkv_img, qkv_img=qkv_img)
+    check_f32(name, qkv_img, bias=bias)
+    check_shape(name, "bias", bias, (heads, ws * ws, ws * ws))
+    if h_img % ws or w_img % ws or c % heads or c // heads > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: needs H, W multiples of {ws} and a head "
+                         f"dim of at most {MAX_HEAD_DIM}, got "
+                         f"{tuple(qkv_img.shape)}, {heads} heads of {c}")
+    lib = load_library()
+    d = c // heads
+    check_smem(name, smem_of(lib, ws, d), f"window {ws}, head dim {d}")
+    out = torch.empty((b, h_img, w_img, c), dtype=qkv_img.dtype,
+                      device=qkv_img.device)
+    err = getattr(lib, entry)(code, qkv_img.data_ptr(), bias.data_ptr(),
+                              out.data_ptr(), b, h_img, w_img, c, heads, ws,
+                              scale, stream_of(qkv_img))
+    raise_on_error(name, err)
+    return out
+
+
+def msa_qtile_attention(qkv_img, bias, *, heads: int, window_size: int,
+                        scale: float | None = None):
+    """Unshifted window MSA on a qkv image with an exact row softmax over
+    tiles of 16 query rows against all keys.
+
+    qkv_img: (B, H, W, 3C), H and W multiples of window_size; bias:
+    (heads, N, N) float32, N = ws^2. Returns (B, H, W, C), the attention
+    output before the output projection, in image layout. Replaces
+    super_resolution_tpu/ops/pallas_attention.py::msa_qtile_attention.
+    """
+    if scale is None:
+        scale = (qkv_img.shape[-1] // 3 // heads) ** -0.5
+    if not use_kernel(qkv_img):
+        return msa_qtile_reference(qkv_img, bias, heads, window_size, scale)
+    out = _launch_image("msa_qtile_attention", "sr_msa_qtile_attention",
+                        lambda lib, ws, d: lib.sr_msa_qtile_smem(ws, d),
+                        qkv_img, bias, heads, window_size, scale)
+    msa_qtile_attention.launches += 1
+    return out
+
+
+def msa_flash_attention(qkv_img, bias, *, heads: int, window_size: int,
+                        scale: float | None = None):
+    """Unshifted window MSA on a qkv image with an online softmax over
+    chunks of 256 keys, 32 query rows a block. Shapes as
+    :func:`msa_qtile_attention`. Replaces
+    super_resolution_tpu/ops/pallas_attention.py::msa_flash_attention.
+    """
+    if scale is None:
+        scale = (qkv_img.shape[-1] // 3 // heads) ** -0.5
+    if not use_kernel(qkv_img):
+        return msa_qtile_reference(qkv_img, bias, heads, window_size, scale)
+    out = _launch_image("msa_flash_attention", "sr_msa_flash_attention",
+                        lambda lib, ws, d: lib.sr_msa_flash_smem(d),
+                        qkv_img, bias, heads, window_size, scale)
+    msa_flash_attention.launches += 1
+    return out
+
+
+# kernel launches of each wrapper; the plain path does not count
+fused_attention.launches = 0
+fused_attention_v3.launches = 0
+msa_qtile_attention.launches = 0
+msa_flash_attention.launches = 0

@@ -115,3 +115,10 @@ class HATModel(SRModel):
         else:
             out = fwd(img)
         self.output = out[:, :h * self.scale, :w * self.scale, :]
+
+
+@MODEL_REGISTRY.register()
+class ESRModel(HATModel):
+    """The runner the ESC option files name. Its training strategy (AMP,
+    clipped gradients, momentum resets, self-distillation) is not ported;
+    at inference it is a :class:`HATModel`."""

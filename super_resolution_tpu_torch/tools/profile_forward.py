@@ -1,39 +1,50 @@
-"""Profile one chunk forward of a flagship network on the GPU by device-op
-class, with the device's idle share and the peak device memory.
+"""Profile one chunk forward of a network at its published width on the
+GPU by device-op class, with the device's idle share and the peak device
+memory.
 
 The network, tile settings and weights are those of ``chip_smoke.py``'s
 main paths (``classic``: HATClassic x4; ``fork``: the fork's HAT x2 with
-the ESC-infused OCAB), so run it from the repository root, where that
+the ESC-infused OCAB; ``esc``: ESC x4; ``esc_xl``: ESC-XL x4; any other
+label of its ``PATHS``), so run it from the repository root, where that
 script lies:
 
     python3 -m super_resolution_tpu_torch.tools.profile_forward fork
 
-It prints the card's name and power limit, the wall time of the profiled
-forward, device time by class (each of the port's CUDA kernels by name,
-cuDNN/CUTLASS convolutions, matrix products, the rest), the 15 device ops
-that take most time and, for the fork path, CUDA-event times of the parts
+It prints the card's name and power limit, the median wall time of five
+forwards without the profiler, then from three profiled forwards the mean
+per forward of: wall time, device time by class (each of the port's CUDA
+kernels by name with its shortest and longest launch, cuDNN/CUTLASS
+convolutions, matrix products, the rest) and the 15 device ops that take
+most time; and, for the fork path, CUDA-event times of the parts
 of one HAB front that run outside the port's kernels: the large-kernel
 conv on the ESC slab, the per-sample dynamic depthwise conv and the CAB.
 """
 
 from __future__ import annotations
 
+import statistics
 import subprocess
 import sys
 import time
 
+PROFILED_FORWARDS = 3
+
+PORT_KERNELS = ("msa_block_kernel", "ocab_block_kernel",
+                "ocab_attention_kernel", "mlp_tail_kernel",
+                "gated_dconv_ffn_kernel", "ln_split_kernel",
+                "fused_attention_kernel", "fused_attention_v3_kernel",
+                "msa_flash_kernel", "msa_qtile_kernel")
+
 
 def classify(name: str) -> str:
     low = name.lower()
-    for kernel in ("msa_block_kernel", "ocab_block_kernel",
-                   "ocab_attention_kernel", "mlp_tail_kernel",
-                   "gated_dconv_ffn_kernel", "ln_split_kernel"):
+    for kernel in PORT_KERNELS:
         if kernel in low:
             return kernel
     if any(k in low for k in ("conv", "cudnn", "wgrad", "dgrad", "implicit",
                               "xmma", "fprop", "nchwtonhwc", "nhwctonchw")):
         return "convolutions (cuDNN/CUTLASS, with their layout copies)"
-    if any(k in low for k in ("gemm", "cutlass", "cublas", "gemv")):
+    if any(k in low for k in ("gemm", "cutlass", "cublas", "gemv", "nvjet")):
         return "matrix products (cuBLAS)"
     if "memcpy" in low or "memset" in low:
         return "memcpy / memset"
@@ -72,49 +83,69 @@ def main(label: str) -> int:
 
     pred = chip_smoke.make_predictor(label, "cuda", bf16=True)
     fwd = pred.model._apply_fn()
-    tile = chip_smoke.TILE["tile_size"] + 2 * chip_smoke.TILE["tile_pad"]
-    x = torch.rand((chip_smoke.TILE["chunk"], tile, tile, 3), device="cuda",
+    plan = chip_smoke.PATHS[label]["runs"][0][0]
+    tile = plan["tile_size"] + 2 * plan["tile_pad"]
+    x = torch.rand((plan["chunk"], tile, tile, 3), device="cuda",
                    generator=torch.Generator("cuda").manual_seed(0))
     with torch.inference_mode():
-        for _ in range(2):
-            fwd(x)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        def forward_ms():
             t0 = time.perf_counter()
             fwd(x)
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+            return (time.perf_counter() - t0) * 1e3
+
+        for _ in range(2):
+            fwd(x)
+        torch.cuda.synchronize()
+        plain_ms = statistics.median(forward_ms() for _ in range(5))
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall_ms = statistics.fmean(forward_ms()
+                                       for _ in range(PROFILED_FORWARDS))
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
 
+    per = 1.0 / PROFILED_FORWARDS
     classes: dict = {}
     for ev in prof.key_averages():
         us = device_us(ev)
         if us <= 0 or not on_device(ev):
             continue
         ms, n = classes.get(classify(ev.key), (0.0, 0))
-        classes[classify(ev.key)] = (ms + us / 1e3, n + ev.count)
+        classes[classify(ev.key)] = (ms + us / 1e3 * per, n + ev.count * per)
+    # shortest and longest single launch of each of the port's kernels
+    spread: dict = {}
+    for ev in prof.events():
+        us = device_us(ev)
+        if us > 0 and on_device(ev) and classify(ev.name) in PORT_KERNELS:
+            lo, hi = spread.get(classify(ev.name), (us, us))
+            spread[classify(ev.name)] = (min(lo, us), max(hi, us))
     busy = sum(ms for ms, _ in classes.values())
     if busy <= 0:
         print("profile_forward: the profiler saw no device time",
               file=sys.stderr)
         return 1
-    print(f"path {label}: one chunk forward of {tuple(x.shape)} bf16: wall "
-          f"{wall_ms:.1f} ms, device busy {busy:.1f} ms, idle share "
+    print(f"path {label}: one chunk forward of {tuple(x.shape)} bf16: "
+          f"{plain_ms:.1f} ms without the profiler (median of 5); under it "
+          f"(mean of {PROFILED_FORWARDS}) wall {wall_ms:.1f} ms, device busy "
+          f"{busy:.1f} ms, idle share "
           f"{max(0.0, 1 - busy / wall_ms) * 100:.2f}%, peak device memory "
           f"{peak_mb:.1f} MB")
-    print("| class | device ops | device ms | share of busy |")
-    print("|---|---|---|---|")
+    print("| class | device ops | device ms | share of busy | "
+          "a launch, ms |")
+    print("|---|---|---|---|---|")
     for name, (ms, n) in sorted(classes.items(), key=lambda kv: -kv[1][0]):
-        print(f"| {name} | {n} | {ms:.3f} | {ms / busy * 100:.1f}% |")
+        lo_hi = (f"{spread[name][0] / 1e3:.3f} to {spread[name][1] / 1e3:.3f}"
+                 if name in spread else "")
+        print(f"| {name} | {n:.0f} | {ms:.3f} | {ms / busy * 100:.1f}% | "
+              f"{lo_hi} |")
     rows = sorted((ev for ev in prof.key_averages()
                    if device_us(ev) > 0 and on_device(ev)),
                   key=lambda ev: -device_us(ev))[:15]
     print("top device ops by name:")
     for ev in rows:
-        print(f"  {device_us(ev) / 1e3:10.3f} ms  x{ev.count:5d}  "
-              f"{ev.key[:110]}")
+        print(f"  {device_us(ev) / 1e3 * per:10.3f} ms  "
+              f"x{ev.count * per:5.0f}  {ev.key[:110]}")
     if label == "fork":
         hab_parts(pred.model.eval_net(), x.shape[0], tile)
     return 0

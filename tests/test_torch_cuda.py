@@ -12,6 +12,7 @@ import torch
 from super_resolution_tpu_torch.ops import cuda_attention as ca
 from super_resolution_tpu_torch.ops import cuda_ffn as cf
 from super_resolution_tpu_torch.ops import cuda_hab as ch
+from super_resolution_tpu_torch.ops import cuda_window_attention as cw
 from super_resolution_tpu_torch.ops.attention import (
     relative_position_index_oca, relative_position_index_sa, shift_attn_mask)
 
@@ -162,4 +163,157 @@ def test_small_fork_model_kernels_match_cpu_plain(cuda, ocab_esc):
     with torch.inference_mode():
         ref = net(x)
         got = net.to(cuda)(x.to(cuda)).cpu()
+    assert (got - ref).abs().max().item() < 1e-4
+
+
+def _rand(rng, dtype, *shape, s=1.0):
+    a = (rng.standard_normal(shape) * s).astype(np.float32)
+    return torch.from_numpy(a).to("cuda", dtype)
+
+
+def _assert_close(got, ref, dtype):
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    tol = TOL[dtype] * max(1.0, ref.float().abs().max().item())
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+# (BW, heads, Nq, Nk, d): square; rectangular at head dim 30; a ragged
+# last query tile with a key count that is no multiple of 4; ESC's
+# published shape (a chunk of four 160 x 160 tiles at window 32); the
+# OCAB shape of the flagship HAT
+WINDOW_SHAPES = [(5, 2, 64, 64, 16), (3, 2, 64, 144, 30), (2, 3, 50, 70, 12),
+                 (100, 4, 1024, 1024, 16), (7, 6, 256, 576, 30)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", WINDOW_SHAPES)
+@pytest.mark.parametrize("fn", [cw.fused_attention, cw.fused_attention_v3],
+                         ids=["fused_attention", "fused_attention_v3"])
+def test_window_attention_matches_plain_version(cuda, fn, shape, dtype):
+    bw, heads, nq, nk, d = shape
+    rng = np.random.default_rng(nq + nk)
+    q = _rand(rng, dtype, bw, heads, nq, d)
+    k = _rand(rng, dtype, bw, heads, nk, d)
+    v = _rand(rng, dtype, bw, heads, nk, d)
+    bias = _rand(rng, torch.float32, heads, nq, nk)
+    before = fn.launches
+    got = fn(q, k, v, bias, scale=0.3)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    from super_resolution_tpu_torch.ops.attention import attention_with_bias
+    _assert_close(got, attention_with_bias(q, k, v, bias, scale=0.3), dtype)
+
+
+# (B, H, W, C, heads, ws): one key chunk; three chunks with a ragged last
+# one (N 576); a window whose N = 49 is no multiple of 4, head dim 10; ESC-XL's
+# published shape with one tile of 3 x 3 windows
+IMAGE_SHAPES = [(2, 16, 24, 32, 2, 8), (1, 24, 48, 32, 2, 24),
+                (1, 14, 21, 20, 2, 7), (1, 144, 144, 192, 12, 48)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", IMAGE_SHAPES)
+@pytest.mark.parametrize("fn", [cw.msa_qtile_attention,
+                                cw.msa_flash_attention],
+                         ids=["msa_qtile_attention", "msa_flash_attention"])
+def test_large_window_attention_matches_plain_version(cuda, fn, shape,
+                                                      dtype):
+    b, h, w, c, heads, ws = shape
+    rng = np.random.default_rng(ws)
+    qkv = _rand(rng, dtype, b, h, w, 3 * c)
+    bias = _rand(rng, torch.float32, heads, ws * ws, ws * ws)
+    before = fn.launches
+    got = fn(qkv, bias, heads=heads, window_size=ws)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref = cw.msa_qtile_reference(qkv, bias, heads, ws)
+    _assert_close(got, ref, dtype)
+
+
+def test_supported_predicates_agree_with_the_sources(cuda):
+    """Each pure-Python shared-memory formula equals the C entry of its
+    source, so a route chosen on the CPU is the route the card can run."""
+    from super_resolution_tpu_torch.ops.cuda_build import load_library
+
+    lib = load_library()
+    for ws in (7, 8, 16, 24, 32, 48, 64):
+        for d in (8, 16, 30, 32):
+            assert ca.msa_block_smem(ws, d) == lib.sr_msa_block_smem(ws, d)
+            assert cw.msa_qtile_smem(ws, d) == lib.sr_msa_qtile_smem(ws, d)
+            assert cw.msa_flash_smem(d) == lib.sr_msa_flash_smem(d)
+            for nk in (ws * ws, ws * ws + 3):
+                assert (cw.window_attention_smem(nk, d)
+                        == lib.sr_window_attention_smem(nk, d))
+    assert ca.msa_block_supported(24, 16)
+    assert not ca.msa_block_supported(32, 16)
+
+
+def test_block_kernels_state_their_shared_memory_limit(cuda):
+    """Window 32 at head dim 16 is beyond one block's shared memory: the
+    three block kernels say so, with the bytes needed and granted."""
+    c, heads, ws, ow = 32, 2, 32, 48
+    n, nk = ws * ws, ow * ow
+    x = torch.zeros((1, ws, ws, c), device="cuda")
+    vec = torch.zeros((c,), device="cuda")
+    msa = (x, torch.zeros((c, 3 * c), device="cuda"),
+           torch.zeros((3 * c,), device="cuda"),
+           torch.zeros((c, c), device="cuda"), vec,
+           torch.zeros((heads, n, n), device="cuda"),
+           torch.zeros((1, n, n), device="cuda"))
+    msg = r"need \d+ bytes of shared memory a block, the card grants 232448"
+    with pytest.raises(ValueError, match=msg):
+        ca.fused_msa_block(*msa, heads=heads, window_size=ws)
+    with pytest.raises(ValueError, match=msg):
+        ca.fused_msa_block_shifted(*msa, heads=heads, window_size=ws,
+                                   shift=16)
+    ocab = (x, vec, vec, torch.zeros((c, c), device="cuda"), vec,
+            torch.zeros((c, 2 * c), device="cuda"),
+            torch.zeros((2 * c,), device="cuda"),
+            torch.zeros((c, c), device="cuda"), vec,
+            torch.zeros((heads, n, nk), device="cuda"))
+    with pytest.raises(ValueError, match=msg):
+        ca.fused_ocab_block(*ocab, heads=heads, window_size=ws,
+                            overlap_win=ow)
+    q = torch.zeros((1, 1, 16, 16), device="cuda")
+    kv = torch.zeros((1, 1, 3600, 16), device="cuda")
+    with pytest.raises(ValueError, match=msg):
+        cw.fused_attention(q, kv, kv, torch.zeros((1, 16, 3600),
+                                                  device="cuda"))
+
+
+@pytest.mark.parametrize("route", [None, "fused_attention",
+                                   "fused_attention_v3",
+                                   "msa_flash_attention",
+                                   "msa_qtile_attention"])
+@pytest.mark.parametrize("use_ln", [False, True])
+def test_small_esc_model_kernels_match_cpu_plain(cuda, route, use_ln):
+    """A small ESC through the float32 kernels of each attention route on
+    the card equals its plain path on the CPU, for the same seeded weights,
+    on an input that is no window multiple."""
+    from super_resolution_tpu_torch.models.arch_util import init_weights
+    from super_resolution_tpu_torch.models.esc_arch import ESC
+
+    net = ESC(dim=32, pdim=16, kernel_size=13, n_blocks=2, conv_blocks=2,
+              window_size=8, num_heads=2, upscaling_factor=4,
+              exp_ratio=1.25, use_ln=use_ln, attn_route=route).eval()
+    gen = torch.Generator().manual_seed(0)
+    init_weights(net, gen)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if "dwc_proj.3" in name:
+                p.normal_(std=0.05, generator=gen)
+            elif name.endswith("relative_position_bias"):
+                p.normal_(std=0.5, generator=gen)
+    x = torch.from_numpy(
+        np.random.default_rng(0).random((2, 21, 30, 3), dtype=np.float32))
+    wrappers = {"fused_attention": cw.fused_attention,
+                "fused_attention_v3": cw.fused_attention_v3,
+                "msa_flash_attention": cw.msa_flash_attention,
+                "msa_qtile_attention": cw.msa_qtile_attention,
+                None: ca.fused_msa_block}
+    before = wrappers[route].launches
+    with torch.inference_mode():
+        ref = net(x)
+        got = net.to(cuda)(x.to(cuda)).cpu()
+    assert wrappers[route].launches == before + 2
     assert (got - ref).abs().max().item() < 1e-4

@@ -208,7 +208,20 @@ def test_port_imports_no_jax(tmp_path):
         "out = Predictor(opt, device='cpu').predict_array(\n"
         "    np.zeros((10, 13, 3), np.float32))\n"
         "assert out.shape == (20, 26, 3), out.shape\n"
+        "opt.update(model_type='ESRModel', network_g=dict(type='ESC',\n"
+        "    dim=16, pdim=8, kernel_size=5, n_blocks=1, conv_blocks=1,\n"
+        "    window_size=4, num_heads=2, upscaling_factor=2,\n"
+        "    attn_route='msa_flash_attention'))\n"
+        "out = Predictor(opt, device='cpu').predict_array(\n"
+        "    np.zeros((10, 13, 3), np.float32))\n"
+        "assert out.shape == (20, 26, 3), out.shape\n"
         "import super_resolution_tpu_torch.tools.profile_forward\n"
+        "import super_resolution_tpu_torch.tools.inference\n"
+        "import super_resolution_tpu_torch.ops.cuda_window_attention\n"
+        "import pkgutil\n"
+        "for m in pkgutil.walk_packages(super_resolution_tpu_torch.__path__,\n"
+        "                               'super_resolution_tpu_torch.'):\n"
+        "    __import__(m.name)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
         "                                    'super_resolution_tpu'))\n"

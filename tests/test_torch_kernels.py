@@ -31,6 +31,7 @@ from super_resolution_tpu_torch.ops import cuda_attention as ca
 from super_resolution_tpu_torch.ops import cuda_build
 from super_resolution_tpu_torch.ops import cuda_ffn as cf
 from super_resolution_tpu_torch.ops import cuda_hab as ch
+from super_resolution_tpu_torch.ops import cuda_window_attention as cw
 
 # float32 on both sides; the remaining difference is summation order and
 # the TPU kernel's A&S erf approximation (error < 1.5e-7)
@@ -303,6 +304,106 @@ def test_fork_wrappers_state_their_limits(monkeypatch):
         ca.fused_ocab_attention(big, torch.zeros(1, 32, 32, 2 * C),
                                 torch.zeros(HEADS, 32 * 32, 48 * 48),
                                 heads=HEADS, window_size=32, overlap_win=48)
+
+
+class _SmemLib:
+    """The shared-memory entries of the library from the pure-Python
+    formulas; any launch fails the test."""
+    sr_msa_block_smem = staticmethod(ca.msa_block_smem)
+    sr_window_attention_smem = staticmethod(cw.window_attention_smem)
+    sr_msa_qtile_smem = staticmethod(cw.msa_qtile_smem)
+    sr_msa_flash_smem = staticmethod(cw.msa_flash_smem)
+
+    @staticmethod
+    def sr_ocab_block_smem(ws, ow, d):
+        n, nk = ws * ws, ow * ow
+        return 4 * (n * d + 2 * nk * d + 8 * nk + 2 * nk) + 4 * (nk + n)
+
+    def __getattr__(self, name):
+        return lambda *a: pytest.fail(f"launched {name}")
+
+
+def test_block_wrappers_state_their_shared_memory_limit(monkeypatch):
+    """Window 32 at head dim 16 is beyond a block of the three block
+    kernels: each raises a ValueError with the bytes needed and granted
+    and launches nothing."""
+    monkeypatch.setattr(ca, "use_kernel", lambda x: True)
+    monkeypatch.setattr(ca, "load_library", lambda: _SmemLib())
+    c, heads, ws, ow = 32, 2, 32, 48
+    n, nk = ws * ws, ow * ow
+    x, vec = torch.zeros(1, ws, ws, c), torch.zeros(c)
+    msa = (x, torch.zeros(c, 3 * c), torch.zeros(3 * c), torch.zeros(c, c),
+           vec, torch.zeros(heads, n, n), torch.zeros(1, n, n))
+    need = ca.msa_block_smem(ws, c // heads)
+    msg = f"need {need} bytes of shared memory a block, the card grants 232448"
+    assert need == 270336 and not ca.msa_block_supported(ws, c // heads)
+    with pytest.raises(ValueError, match=msg):
+        ca.fused_msa_block(*msa, heads=heads, window_size=ws)
+    with pytest.raises(ValueError, match=msg):
+        ca.fused_msa_block_shifted(*msa, heads=heads, window_size=ws,
+                                   shift=16)
+    ocab = (x, vec, vec, torch.zeros(c, c), vec, torch.zeros(c, 2 * c),
+            torch.zeros(2 * c), torch.zeros(c, c), vec,
+            torch.zeros(heads, n, nk))
+    with pytest.raises(ValueError, match="window 32, overlap window 48, "
+                                         "head dim 16 need"):
+        ca.fused_ocab_block(*ocab, heads=heads, window_size=ws,
+                            overlap_win=ow)
+
+
+@pytest.mark.parametrize("name", ["fused_attention", "fused_attention_v3"])
+def test_window_wrapper_checks_operands(name, monkeypatch):
+    monkeypatch.setattr(cw, "use_kernel", lambda x: True)
+    monkeypatch.setattr(cw, "load_library", lambda: _SmemLib())
+    fn = getattr(cw, name)
+    q, k = torch.zeros(2, 2, 16, 8), torch.zeros(2, 2, 36, 8)
+    bias = torch.zeros(2, 16, 36)
+    with pytest.raises(TypeError, match="dtype"):
+        fn(q.double(), k.double(), k.double(), bias)
+    with pytest.raises(TypeError):
+        fn(q, k.to(torch.bfloat16), k, bias)
+    with pytest.raises(TypeError, match="float32"):
+        fn(q, k, k, bias.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="shape"):
+        fn(q, k, k[:, :, :-1].contiguous(), bias)
+    with pytest.raises(ValueError, match="shape"):
+        fn(q, k, k, bias[:1])
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(q.transpose(1, 2), k, k, bias)
+    with pytest.raises(RuntimeError, match="backward"):
+        fn(q.clone().requires_grad_(), k, k, bias)
+    with pytest.raises(ValueError, match="head dim 40"):
+        fn(torch.zeros(1, 1, 4, 40), torch.zeros(1, 1, 4, 40),
+           torch.zeros(1, 1, 4, 40), torch.zeros(1, 4, 4))
+    wide = torch.zeros(1, 1, 2304, 16)
+    with pytest.raises(ValueError, match="2304 keys of head dim 16 need"):
+        fn(wide, wide, wide, torch.zeros(1, 2304, 2304))
+
+
+@pytest.mark.parametrize("name", ["msa_qtile_attention",
+                                  "msa_flash_attention"])
+def test_image_wrapper_checks_operands(name, monkeypatch):
+    monkeypatch.setattr(cw, "use_kernel", lambda x: True)
+    monkeypatch.setattr(cw, "load_library", lambda: _SmemLib())
+    fn = getattr(cw, name)
+    qkv, bias = torch.zeros(1, 8, 12, 48), torch.zeros(2, 16, 16)
+    kw = dict(heads=2, window_size=4)
+    with pytest.raises(TypeError, match="dtype"):
+        fn(qkv.double(), bias, **kw)
+    with pytest.raises(TypeError, match="float32"):
+        fn(qkv, bias.double(), **kw)
+    with pytest.raises(ValueError, match="shape"):
+        fn(qkv, bias[:, :8].contiguous(), **kw)
+    with pytest.raises(ValueError, match="multiples"):
+        fn(qkv[:, :7].contiguous(), bias, **kw)
+    with pytest.raises(ValueError, match="3C"):
+        fn(qkv[..., :47].contiguous(), bias, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(qkv.transpose(1, 2)[:, :8, :8], torch.zeros(2, 16, 16), **kw)
+    if name == "msa_qtile_attention":
+        with pytest.raises(ValueError, match="window 64, head dim 16 need"):
+            fn(torch.zeros(1, 64, 64, 48), torch.zeros(1, 4096, 4096),
+               heads=1, window_size=64)
 
 
 def test_build_fails_loudly_without_nvcc(monkeypatch, tmp_path):
