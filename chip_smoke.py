@@ -5,10 +5,11 @@ NVIDIA GPU.
 Phases, each of which raises on failure:
   1. probe: torch and CUDA versions, the card's name and power limit;
   2. build: nvcc builds the kernels from super_resolution_tpu_torch/csrc;
-  3. kernels: each of the thirteen kernel wrappers (and the bare gated FFN
+  3. kernels: each of the fifteen kernel wrappers (and the bare gated FFN
      entry) against its plain PyTorch version on the card, at the shapes
-     its main path gives it (the flagship HAT's, ESC's window 32 and
-     ESC-XL's window 48), in float32 (TF32 off) and bfloat16, with
+     its main path gives it (the flagship HAT's, ESC's window 32, ESC-XL's
+     window 48, ATD's head dim 35 and SRFormer's window 24 against its
+     permuted 12), in float32 (TF32 off) and bfloat16, with
      CUDA-event times of the kernel, the plain version and, where one
      PyTorch call computes the same function, that call; beside them the
      least time the card could take (bound), from the bytes and operations
@@ -18,7 +19,9 @@ Phases, each of which raises on failure:
      classic HAT x4 (HATClassic), the fork's HAT x2 with the ESC-infused
      OCAB, one request of the fork's HAT with the plain OCAB, ESC x4 on its
      own route and on ``fused_attention_v3``, ESC-XL x4 on its own route
-     and on ``msa_qtile_attention``. The launch counts are set to 0 before
+     and on ``msa_qtile_attention``, ATD x4 and the shipped ATD-light x4,
+     SRFormer x4 and the shipped SRFormer-light x4. The launch counts are
+     set to 0 before
      each path and read after it; the counts, the output shapes and
      values, and the PSNR against the port's float32 path are checked.
 
@@ -65,14 +68,38 @@ ESC_XL = dict(type="ESC", dim=192, pdim=48, kernel_size=13, n_blocks=8,
               conv_blocks=5, window_size=48, num_heads=12,
               upscaling_factor=4, exp_ratio=1.25, attn_type="xla",
               use_ln=True)
+# ATD x4 as published (scripts/bench_atd.py:28-31 of the JAX package builds
+# the same) and the shipped options/esc/test/ATDLight/ATD_light_DFLIP_X4.yml
+ATD = dict(type="ATD", upscale=4, in_chans=3, img_size=64, embed_dim=210,
+           depths=[6] * 6, num_heads=[6] * 6, window_size=16,
+           category_size=256, num_tokens=128, reducted_dim=20,
+           convffn_kernel_size=5, img_range=1.0, mlp_ratio=2,
+           upsampler="pixelshuffle", resi_connection="1conv")
+ATD_LIGHT = dict(type="ATD", upscale=4, in_chans=3, img_size=64, embed_dim=48,
+                 depths=[6] * 4, num_heads=[4] * 4, window_size=16,
+                 category_size=128, num_tokens=64, reducted_dim=8,
+                 convffn_kernel_size=7, img_range=1.0, mlp_ratio=1,
+                 upsampler="pixelshuffledirect", resi_connection="1conv")
+# SRFormer x4 as published (scripts/bench_srformer.py:14-15 builds the same)
+# and the shipped options/esc/test/SRFormerLight/SRFormer_light_DFLIP_X4.yml
+SRFORMER = dict(type="SRFormer", upscale=4, in_chans=3, img_size=64,
+                window_size=24, img_range=1.0, depths=[6] * 6, embed_dim=180,
+                num_heads=[6] * 6, mlp_ratio=2, upsampler="pixelshuffle",
+                resi_connection="1conv")
+SRFORMER_LIGHT = dict(type="SRFormer", upscale=4, in_chans=3, img_size=64,
+                      window_size=16, img_range=1.0, depths=[6] * 4,
+                      embed_dim=60, num_heads=[6] * 4, mlp_ratio=2,
+                      upsampler="pixelshuffledirect", resi_connection="1conv")
 TILE = dict(tile_size=128, tile_pad=16, chunk=4)
-# ESC-XL: a padded tile is 144 x 144, 3 x 3 windows of 48
+# ESC-XL: a padded tile is 144 x 144, 3 x 3 windows of 48; SRFormer: 6 x 6
+# windows of 24
 TILE_XL = dict(tile_size=112, tile_pad=16, chunk=4)
 # LR request sizes: one tile; two tiles and a reflect-pad (100 x 150 is no
 # window multiple); six tiles in two chunk forwards
 REQUESTS = [(64, 64), (100, 150), (300, 200)]
 # ESC-XL: one 96 x 96 tile; four tiles after a reflect pad to 144 x 192;
-# six tiles in two chunk forwards
+# six tiles in two chunk forwards (SRFormer: the pads are to 120 x 168 and
+# 168 x 264, the tile counts the same)
 REQUESTS_XL = [(96, 96), (100, 150), (150, 250)]
 PSNR_MIN_DB = 35.0
 TOL_F32 = 1e-4   # times max(1, max|plain|): accumulation order only
@@ -109,6 +136,16 @@ PATHS = {
     "esc_xl_qtile": dict(net=dict(ESC_XL, attn_route="msa_qtile_attention"),
                          runs=[(TILE_XL, REQUESTS_XL[:1])], cpu_reference=0,
                          calls={"msa_qtile_attention": 8}),
+    # one attention launch a layer: 6 x 6 (light: 4 x 6), half of them
+    # shifted; every tile is a window multiple
+    "atd": dict(net=ATD, runs=[(TILE, REQUESTS)], cpu_reference=1,
+                calls={"fused_msa_attention": 36}),
+    "atd_light": dict(net=ATD_LIGHT, runs=[(TILE, REQUESTS[:1])],
+                      cpu_reference=0, calls={"fused_msa_attention": 24}),
+    "srformer": dict(net=SRFORMER, runs=[(TILE_XL, REQUESTS_XL)],
+                     cpu_reference=1, calls={"fused_psa_block": 36}),
+    "srformer_light": dict(net=SRFORMER_LIGHT, runs=[(TILE, REQUESTS[:1])],
+                           cpu_reference=0, calls={"fused_psa_block": 24}),
 }
 _CSRC = "super_resolution_tpu_torch/csrc/"
 _POPS = "super_resolution_tpu/ops/"
@@ -139,6 +176,10 @@ KERNELS = {
     "msa_flash_attention": ("cuda_window_attention",
                             "large_window_attention.cu",
                             "pallas_attention.py:2124"),
+    "fused_msa_attention": ("cuda_window_attention", "msa_attention.cu",
+                            "pallas_attention.py:444"),
+    "fused_psa_block": ("cuda_psa", "psa_block.cu",
+                        "pallas_attention.py:1282"),
 }
 # the attention-only kernels at their paths' shapes: ESC's chunk of four
 # 160 x 160 tiles at window 32 is (100, 4, 1024, 16) windows; ESC-XL's chunk
@@ -147,6 +188,13 @@ KERNELS = {
 WINDOW_SHAPE = (100, 4, 1024, 1024, 16)
 WINDOW_RECT_SHAPE = (100, 6, 256, 576, 30)
 IMAGE_SHAPE = (4, 144, 144, 192, 12, 48)
+# the two kernels on a whole image with a shift mask, (B, H, W, C, heads,
+# ws): ATD's chunk of four 160 x 160 tiles (head dim 35) and ATD-light's
+# (head dim 12); SRFormer's chunk of four 144 x 144 tiles (window 24 against
+# its permuted 12) and SRFormer-light's. The first of each is the shape the
+# kernels line reports, with the shift mask.
+MSA_SHAPES = [(4, 160, 160, 210, 6, 16), (4, 160, 160, 48, 4, 16)]
+PSA_SHAPES = [(4, 144, 144, 180, 6, 24), (4, 160, 160, 60, 6, 16)]
 # elementwise operations of the softmax per score: scale, bias, running
 # maximum, subtraction, exponential, sum, division
 SOFTMAX_OPS = 7
@@ -444,14 +492,19 @@ def attention_cases(dtype, seed: int, window_shape, image_shape=None):
 
 
 def attention_bound(bw: int, heads: int, nq: int, nk: int, d: int,
-                    esize: int):
+                    esize: int, mask_windows: int = 0, proj_dim: int = 0):
     """(bound_ms, bound_by) of attention with a dense float32 bias over bw
     windows: q, k, v, out and the bias each moved once over the HBM rate,
     against the two products at the tensor cores' bf16 rate and the
-    softmax's elementwise work at the float32 rate."""
-    mm = 4 * bw * heads * nq * nk * d
+    softmax's elementwise work at the float32 rate. ``mask_windows``: the
+    windows of a float32 shift mask, read once. ``proj_dim``: the q and
+    output projections of ``fused_psa_block`` as matrix operations, their
+    two (C, C) weights and biases as bytes (x takes q's place)."""
+    mm = 4 * bw * heads * nq * nk * d + 4 * bw * nq * proj_dim * proj_dim
     vec = SOFTMAX_OPS * bw * heads * nq * nk
-    byts = bw * heads * (2 * nq + 2 * nk) * d * esize + heads * nq * nk * 4
+    byts = (bw * heads * (2 * nq + 2 * nk) * d * esize
+            + (heads + mask_windows) * nq * nk * 4
+            + 2 * (proj_dim + 1) * proj_dim * esize)
     t_ops = max(mm / PEAK["bf16"], vec / PEAK["f32"])
     t_bytes = byts / PEAK["hbm"]
     return (max(t_ops, t_bytes) * 1e3,
@@ -513,6 +566,157 @@ def check_attention_kernels() -> dict:
     return results
 
 
+def _device_randn(dtype, seed: int):
+    """t(*shape, s, dt): seeded normal tensors on the card."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, s=1.0, dt=dtype):
+        a = rng.standard_normal(shape, dtype=np.float32) * np.float32(s)
+        return torch.from_numpy(a).to("cuda", dt)
+    return t
+
+
+def _shifted_and_not(bias, shift_mask, dtype):
+    """(label, kernel mask, library mask) without and with the shift mask;
+    the library takes bias + mask as one (1, nW or 1, heads, Nq, Nk)
+    tensor."""
+    return [("", None, bias.to(dtype)[None, None]),
+            (" shifted", shift_mask,
+             (bias[None] + shift_mask[:, None]).to(dtype)[None])]
+
+
+def msa_attention_cases(dtype, seed: int, shape) -> dict:
+    """Inputs of ``fused_msa_attention`` on a whole qkv image: label ->
+    (wrapper name, args, kwargs, plain version, the library's attention on
+    windows cut beforehand, the bound's arguments)."""
+    import torch
+    import torch.nn.functional as F
+
+    from super_resolution_tpu_torch.ops import cuda_attention as ca
+    from super_resolution_tpu_torch.ops.attention import shift_attn_mask
+    from super_resolution_tpu_torch.ops.windowing import window_partition
+
+    t = _device_randn(dtype, seed)
+    b, h, w, c, heads, ws = shape
+    n, d, nwin = ws * ws, c // heads, (h // ws) * (w // ws)
+    qkv = t(b, h, w, 3 * c)
+    bias = t(heads, n, n, s=0.5, dt=torch.float32)
+    shift = torch.from_numpy(shift_attn_mask(h, w, ws, ws // 2)).cuda()
+    zeros = torch.zeros((1, n, n), device="cuda")
+    win = window_partition(qkv, ws).reshape(b, nwin, n, 3, heads, d)
+    qh, kh, vh = (win[:, :, :, i].transpose(2, 3).contiguous()
+                  for i in range(3))                  # (b, nW, heads, N, d)
+    cases = {}
+    for label, mask, m in _shifted_and_not(bias, shift, dtype):
+        cases[f"fused_msa_attention{label} d{d}"] = (
+            "fused_msa_attention", (qkv, bias, mask),
+            dict(heads=heads, window_size=ws),
+            lambda mask=mask: ca.msa_attention_reference(
+                qkv, bias, zeros if mask is None else mask, heads, ws),
+            lambda m=m: F.scaled_dot_product_attention(qh, kh, vh,
+                                                       attn_mask=m),
+            (b * nwin, heads, n, n, d, qkv.element_size(),
+             0 if mask is None else nwin, 0))
+    return cases
+
+
+def psa_block_cases(dtype, seed: int, shape) -> dict:
+    """Inputs of ``fused_psa_block`` on a whole image, as
+    :func:`msa_attention_cases`; the library's side is two ``F.linear``
+    calls around its attention."""
+    import torch
+    import torch.nn.functional as F
+
+    from super_resolution_tpu_torch.models.srformer_arch import (
+        psa_shift_mask)
+    from super_resolution_tpu_torch.ops import cuda_psa as cp
+    from super_resolution_tpu_torch.ops.windowing import window_partition
+
+    t = _device_randn(dtype, seed)
+    b, h, w, c, heads, ws = shape
+    n, nk, d, nwin = ws * ws, ws * ws // 4, c // heads, (h // ws) * (w // ws)
+    x = t(b, h, w, c)
+    proj = (t(c, c, s=c ** -0.5), t(c, s=0.1), t(c, c, s=c ** -0.5),
+            t(c, s=0.1))
+    kvw = t(b * nwin, nk, 2 * c)
+    bias = t(heads, n, nk, s=0.5, dt=torch.float32)
+    shift = torch.from_numpy(psa_shift_mask(h, w, ws, ws // 2)).cuda()
+    zeros = torch.zeros((1, n, nk), device="cuda")
+    xw = window_partition(x, ws).reshape(b, nwin, n, c)
+    wq_t, wp_t = proj[0].t().contiguous(), proj[2].t().contiguous()
+    kh, vh = (kvw[..., i * c:(i + 1) * c].reshape(b, nwin, nk, heads, d)
+              .transpose(2, 3).contiguous() for i in range(2))
+
+    def library(m):
+        q = F.linear(xw, wq_t, proj[1]).reshape(b, nwin, n, heads, d)
+        o = F.scaled_dot_product_attention(q.transpose(2, 3), kh, vh,
+                                           attn_mask=m)
+        return F.linear(o.transpose(2, 3).reshape(b, nwin, n, c), wp_t,
+                        proj[3])
+
+    cases = {}
+    for label, mask, m in _shifted_and_not(bias, shift, dtype):
+        cases[f"fused_psa_block{label} d{d}"] = (
+            "fused_psa_block", (x, *proj, kvw, bias, mask),
+            dict(heads=heads, window_size=ws),
+            lambda mask=mask: cp.psa_block_reference(
+                x, *proj, kvw, bias, zeros if mask is None else mask, heads,
+                ws),
+            lambda m=m: library(m),
+            (b * nwin, heads, n, nk, d, x.element_size(),
+             0 if mask is None else nwin, c))
+    return cases
+
+
+def check_image_attention_kernels() -> dict:
+    """Phase 3 for ``fused_msa_attention`` and ``fused_psa_block``: at the
+    chunk shapes of ATD and SRFormer and of their light forms, without and
+    with the shift mask, in float32 and bf16. Returns name -> timing of the
+    shifted call at the full width in bf16."""
+    import torch
+
+    fns = wrappers()
+    results = {}
+    for light, (msa_shape, psa_shape) in enumerate(zip(MSA_SHAPES,
+                                                       PSA_SHAPES)):
+        for dtype in (torch.float32, torch.bfloat16):
+            tol_rel = TOL_F32 if dtype == torch.float32 else TOL_BF16
+            cases = {**msa_attention_cases(dtype, 7 + light, msa_shape),
+                     **psa_block_cases(dtype, 9 + light, psa_shape)}
+            for label, (name, args, kw, plain, library,
+                        bound_args) in cases.items():
+                got = fns[name](*args, **kw)
+                torch.cuda.synchronize()
+                ref = plain()
+                err, ok = max_err_and_tol(got, ref, tol_rel)
+                del ref
+                line = (f"  {label:30s} {tuple(args[0].shape)} "
+                        f"{str(dtype)[6:]:8s} max|kernel-plain| {err:.3e} "
+                        f"(rel tol {tol_rel:.1e})")
+                if dtype == torch.bfloat16:
+                    ms = time_ms(lambda: fns[name](*args, **kw))
+                    plain_ms = time_ms(plain, reps=5, warmup=1)
+                    lib_ms = time_ms(library)
+                    bound_ms, by = attention_bound(*bound_args)
+                    if not light and "shifted" in label:
+                        results[name] = dict(
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=by,
+                            library_ms=lib_ms)
+                    line += (f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms"
+                             f"  bound {bound_ms:.4f} ms ({by})  library "
+                             f"{lib_ms:.3f} ms")
+                log(line)
+                if not ok:
+                    raise AssertionError(f"{label} disagrees with its plain "
+                                         f"version: {err}")
+            del cases
+            torch.cuda.empty_cache()
+    return results
+
+
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
     mse = float(np.mean((np.clip(a, 0, 1) - np.clip(b, 0, 1)) ** 2))
     return float("inf") if mse == 0 else -10.0 * float(np.log10(mse))
@@ -535,10 +739,12 @@ def net_scale(net: dict) -> int:
 
 def path_options(label: str, bf16: bool = True) -> dict:
     """Options of a path's runner, with the tile settings of its first
-    run; ESC runs under the runner its option files name."""
+    run; ESC, ATD and SRFormer run under the runner their option files
+    name."""
     net = PATHS[label]["net"]
     return dict(name=f"chip_smoke_{label}",
-                model_type="ESRModel" if net["type"] == "ESC" else "HATModel",
+                model_type="HATModel" if net["type"].startswith("HAT")
+                else "ESRModel",
                 scale=net_scale(net), manual_seed=0, network_g=net,
                 tile=PATHS[label]["runs"][0][0],
                 val=dict(inference_dtype="bf16") if bf16 else {})
@@ -571,6 +777,21 @@ def make_predictor(label: str, device: str, bf16: bool, state=None):
         net.load_state_dict(state, strict=True)
     pred.model._eval_net = None
     return pred
+
+
+def category_ids(pred, serve, tile, lq) -> list:
+    """The token each pixel falls to in every AC-MSA of an ATD predictor
+    while it serves one request: the argmax that sorts the pixels into
+    groups."""
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append(args[1].argmax(-1)))
+        for m in pred.model.eval_net().modules()
+        if type(m).__name__ == "AC_MSA"]
+    serve(pred, tile, lq)
+    for hook in hooks:
+        hook.remove()
+    return seen
 
 
 def main_path(label: str) -> dict:
@@ -615,9 +836,19 @@ def main_path(label: str) -> dict:
     # float32 references on the same weights: the float32 kernels on the
     # card for every request, the plain path on the host CPU for the first
     state = {k: v.cpu() for k, v in pred.model.net_g.state_dict().items()}
+    is_atd = net["type"] == "ATD"
+    ids16 = category_ids(pred, serve, *jobs[0][::2]) if is_atd else []
     del pred
     torch.cuda.empty_cache()
     gpu32 = make_predictor(label, "cuda", bf16=False, state=state)
+    if is_atd:
+        # the discrete step: pixels that bf16 sorts into another group
+        ids32 = category_ids(gpu32, serve, *jobs[0][::2])
+        moved = [float((a != b).float().mean()) for a, b in zip(ids16, ids32)]
+        log(f"  share of pixels whose AC-MSA category differs between bf16 "
+            f"and float32, first request: layer 0 {moved[0]:.4%}, last "
+            f"layer {moved[-1]:.4%}, mean of {len(moved)} layers "
+            f"{sum(moved) / len(moved):.4%}")
     cpu = (make_predictor(label, "cpu", bf16=False, state=state)
            if spec["cpu_reference"] else None)
     for i, ((tile, (h, w), lq), out, sec) in enumerate(zip(jobs, outs,
@@ -687,6 +918,7 @@ def main() -> int:
         f"; bounds against {PEAK}")
     timing = check_kernels()
     timing.update(check_attention_kernels())
+    timing.update(check_image_attention_kernels())
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
 
     by_path = {}

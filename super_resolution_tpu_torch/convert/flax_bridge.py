@@ -81,6 +81,12 @@ def flax_to_state_dict(flax_params: dict,
     out = {}
     for path, value in flatten_params(flax_params).items():
         name = flax_path_to_torch_name(path)
+        if name not in target and path[-1] in _LEAF_TO_TORCH:
+            # a parameter of the module's own can bear a leaf name that the
+            # map rewrites (ATD_CA's ``scale`` is no LayerNorm weight)
+            verbatim = ".".join(_SEQ_IDX.sub(r".\1", c) for c in path)
+            if verbatim in target:
+                name = verbatim
         if name not in target:
             raise KeyError(f"flax leaf {'/'.join(path)} -> {name}: no such "
                            f"tensor in {type(module).__name__}")

@@ -1,17 +1,22 @@
-// Tile routines of the attention-only kernels (window_attention.cu,
-// large_window_attention.cu): one block of kTileThreads threads works on a
-// tile of QT query rows of one (window, head) against a range of keys that
-// lies in shared memory.
+// Tile routines of the attention kernels (window_attention.cu,
+// large_window_attention.cu, msa_attention.cu, psa_block.cu): one block of
+// kTileThreads threads works on a tile of QT query rows of one (window,
+// head) against a range of keys that lies in shared memory.
 //
+//   Window        where the tokens of a ws x ws window lie in an image
 //   load_rows     rows of d values -> (rows x DP) float32, zero padded
+//   load_rows_any the same, with a row's address computed once per eight
+//                 threads where d is no padded width (d 35, 30, 12, 10)
 //   score_chunk   sc[i][col0 + j] = q_i . k_j * scale + bias(i, col0 + j)
 //   softmax_tile  exact row softmax, p rounded to T (the reference's cast)
 //   pv_chunk      acc += p[:, col0 : col0 + kc] @ v, keys split over warps
 //   pv_reduce     sums the warps' partial tiles and hands out each value
 //
-// Everything in shared memory is float32; DP is the head dim padded to 16 or
-// 32 with zeros, so the inner loops carry no bounds test and read 16 bytes
-// at a time. Both products are float32 FMA loops on the CUDA cores.
+// Everything in shared memory is float32; DP is the head dim padded with
+// zeros to a multiple of 16 (16 or 32 in the kernels on cut windows and the
+// large-window kernels, up to 48 in msa_attention.cu), so the inner loops
+// carry no bounds test and read 8 or 16 bytes at a time. Both products are
+// float32 FMA loops on the CUDA cores.
 //
 // score_chunk: a thread owns a key, keeps its DP values in registers and
 // walks the tile's queries, whose values every lane reads from the same
@@ -39,6 +44,27 @@ __host__ __device__ inline int round_up4(int n) { return (n + 3) & ~3; }
 
 // Row stride of a score tile over n keys.
 __host__ __device__ inline int score_stride(int n) { return round_up4(n) + 4; }
+
+// Where the tokens of a block's window lie in a (B, H, W, .) image.
+struct Window {
+  int ws, W;
+  long long first;  // pixel index of the window's first token
+  __device__ __forceinline__ long long pixel(int tok) const {
+    return first + static_cast<long long>(tok / ws) * W + tok % ws;
+  }
+};
+
+// Window widx of all images' windows, counted image by image, row by row.
+__device__ __forceinline__ Window window_of(int widx, int H, int W, int ws) {
+  const int nwx = W / ws, nw = (H / ws) * nwx;
+  const int b = widx / nw, wi = widx % nw;
+  Window win;
+  win.ws = ws;
+  win.W = W;
+  win.first =
+      (static_cast<long long>(b) * H + (wi / nwx) * ws) * W + (wi % nwx) * ws;
+  return win;
+}
 
 // dst[j * DP + t] = row_ptr(j)[t] for j < rows, t < d; 0 up to rows_pad, DP.
 // Where d == DP a row is a whole number of 16-byte pieces: a thread then
@@ -79,6 +105,33 @@ __device__ __forceinline__ void load_rows(float* dst, int rows, int rows_pad,
   for (int e = threadIdx.x; e < rows_pad * DP; e += blockDim.x) {
     const int j = e / DP, t = e % DP;
     dst[e] = (j < rows && t < d) ? to_f(row_ptr(j)[t]) : 0.f;
+  }
+}
+
+// load_rows for any d <= DP: where d < DP eight threads share a row, so its
+// address (a division where the rows are pixels of a window) is computed
+// once for DP / 8 values a thread and not once a value.
+template <typename T, int DP, typename FR>
+__device__ __forceinline__ void load_rows_any(float* dst, int rows,
+                                              int rows_pad, int d,
+                                              FR row_ptr) {
+  if (d == DP) {
+    load_rows<T, DP>(dst, rows, rows_pad, d, row_ptr);
+    return;
+  }
+  for (int e = threadIdx.x; e < rows_pad * 8; e += blockDim.x) {
+    const int j = e >> 3;
+    const T* p = j < rows ? row_ptr(j) : nullptr;
+    // DP / 8 loads in flight at once: one trip to the L2 a row, not one a
+    // value
+    float val[DP / 8];
+#pragma unroll
+    for (int u = 0; u < DP / 8; ++u) {
+      const int t = (e & 7) + 8 * u;
+      val[u] = (p != nullptr && t < d) ? to_f(p[t]) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < DP / 8; ++u) dst[j * DP + (e & 7) + 8 * u] = val[u];
   }
 }
 
@@ -180,16 +233,23 @@ __device__ __forceinline__ void pv_chunk(const float* sc, int ld, int col0,
     for (int kk = 0; kk < 4; ++kk) {
       const float* vr = vs + (j0 + kk) * DP + ci * CPL;
       float v[CPL];
-      if constexpr (CPL == 2) {
-        const float2 vv = *reinterpret_cast<const float2*>(vr);
-        v[0] = vv.x;
-        v[1] = vv.y;
+      if constexpr (CPL % 4 == 0) {
+#pragma unroll
+        for (int u = 0; u < CPL; u += 4) {
+          const float4 vv = *reinterpret_cast<const float4*>(vr + u);
+          v[u] = vv.x;
+          v[u + 1] = vv.y;
+          v[u + 2] = vv.z;
+          v[u + 3] = vv.w;
+        }
       } else {
-        const float4 vv = *reinterpret_cast<const float4*>(vr);
-        v[0] = vv.x;
-        v[1] = vv.y;
-        v[2] = vv.z;
-        v[3] = vv.w;
+        static_assert(CPL % 2 == 0, "DP must be a multiple of 16");
+#pragma unroll
+        for (int u = 0; u < CPL; u += 2) {
+          const float2 vv = *reinterpret_cast<const float2*>(vr + u);
+          v[u] = vv.x;
+          v[u + 1] = vv.y;
+        }
       }
 #pragma unroll
       for (int r = 0; r < RPL; ++r)

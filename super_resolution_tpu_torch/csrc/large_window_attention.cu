@@ -56,25 +56,8 @@ constexpr int kKC = 256;       // keys of a chunk
 constexpr int kFlashQT = 32;   // query rows of a flash block
 constexpr int kQtileQT = 16;   // query rows of a q-tile block
 
-// Where the tokens of a block's window lie in the image.
-struct Window {
-  int ws, W;
-  long long first;  // pixel index of the window's first token
-  __device__ __forceinline__ long long pixel(int tok) const {
-    return first + static_cast<long long>(tok / ws) * W + tok % ws;
-  }
-};
-
-__device__ __forceinline__ Window window_of(int widx, int H, int W, int ws) {
-  const int nwx = W / ws, nw = (H / ws) * nwx;
-  const int b = widx / nw, wi = widx % nw;
-  Window win;
-  win.ws = ws;
-  win.W = W;
-  win.first =
-      (static_cast<long long>(b) * H + (wi / nwx) * ws) * W + (wi % nwx) * ws;
-  return win;
-}
+using srk::Window;
+using srk::window_of;
 
 size_t flash_smem_bytes(int dp) {
   return sizeof(float) * (2 * kKC * dp + kFlashQT * srk::score_stride(kKC) +

@@ -1,8 +1,9 @@
 """Shared building blocks of the port's architectures, NHWC: the parts of
-super_resolution_tpu/models/arch_util.py the HAT family uses, and what the
-classic HAT and the fork's HAT have in common (the operand cache of the
-kernel-calling blocks, the RPB gather, and the network shell around the
-RHAG stack: shallow conv, final norm, body conv, pixel-shuffle tail).
+super_resolution_tpu/models/arch_util.py the Swin family uses, and what its
+networks have in common (the operand cache of the kernel-calling blocks, the
+RPB gather, the ConvFFN with a depthwise branch, and the network shell
+around the stack of residual groups: shallow conv, final norm, body conv,
+reconstruction tail).
 
 Convolutions keep torch's ``nn.Conv2d`` parameters (OIHW) so checkpoints
 load as they are, and run on ``x.permute(0, 3, 1, 2)``: a channels_last
@@ -138,66 +139,133 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             m.seeded_init(generator)
 
 
-class HATShell(nn.Module):
-    """What the classic HAT and the fork's HAT share around their RHAG
-    stacks: shallow conv -> [layers] -> norm, body conv and global residual
-    -> pixel-shuffle reconstruction, under the checkpoints' names. Input
-    and output are NHWC. A subclass builds ``layers`` and hands them over.
+def pad_symmetric(x, pad_h: int, pad_w: int):
+    """Pad an NHWC tensor at the bottom and the right with its own mirror
+    image, the edge row included: numpy's ``symmetric`` mode, which
+    ``F.pad`` lacks."""
+    for dim, need in ((1, pad_h), (2, pad_w)):
+        while need > 0:
+            ext = x.flip(dim).narrow(dim, 0, min(need, x.shape[dim]))
+            x = torch.cat([x, ext], dim)
+            need -= ext.shape[dim]
+    return x
+
+
+class DepthwiseConv(nn.Module):
+    """k x k depthwise conv + GELU, under the checkpoints' Sequential name
+    (``depthwise_conv.0``)."""
+
+    def __init__(self, hidden: int, kernel_size: int = 5):
+        super().__init__()
+        self.depthwise_conv = nn.Sequential(
+            nn.Conv2d(hidden, hidden, kernel_size, 1, (kernel_size - 1) // 2,
+                      groups=hidden), nn.GELU())
+
+    def forward(self, x):
+        return gelu_exact(conv_nhwc(self.depthwise_conv[0], x))
+
+
+class DepthwiseConvFFN(nn.Module):
+    """fc1 -> GELU -> (+ k x k depthwise conv, GELU) -> fc2 on NHWC: the
+    ConvFFN of SRFormer and ATD."""
+
+    def __init__(self, in_features: int, hidden: int, kernel_size: int = 5):
+        super().__init__()
+        self.fc1 = nn.Linear(in_features, hidden)
+        self.dwconv = DepthwiseConv(hidden, kernel_size)
+        self.fc2 = nn.Linear(hidden, in_features)
+
+    def forward(self, x):
+        x = gelu_exact(self.fc1(x))
+        return self.fc2(x + self.dwconv(x))
+
+
+def upsample_steps(upscale: int) -> list:
+    """Pixel-shuffle factors of the ``pixelshuffle`` tail."""
+    if upscale & (upscale - 1) == 0:
+        return [2] * int(math.log2(upscale))
+    if upscale == 3:
+        return [3]
+    raise ValueError(f"upscale {upscale} unsupported")
+
+
+class SRShell(nn.Module):
+    """What the Swin-family SR networks share around their stack of
+    residual groups: shallow conv -> [layers] -> norm, body conv and global
+    residual -> reconstruction, under the checkpoints' names. Input and
+    output are NHWC. A subclass builds ``layers`` and hands them over.
+
+    ``upsampler``: ``pixelshuffle`` (conv + LeakyReLU, [conv, shuffle]*,
+    conv), ``pixelshuffledirect`` (one conv and one shuffle) or ``""`` (no
+    upscaling: the input plus a last conv). ``pad_mode``: how ``forward``
+    pads the bottom and right of an input that is no window multiple
+    (``reflect``, ``symmetric``) before it crops the output; None leaves
+    that to the caller.
 
     Weights start at torch's defaults; :func:`init_weights` gives the seeded
     initialisation, a checkpoint gives trained ones.
     """
 
     def __init__(self, layers: Sequence[nn.Module], in_chans: int,
-                 embed_dim: int, window_size: int, overlap_ratio: float,
-                 patch_norm: bool, upscale: int, img_range: float,
-                 upsampler: str, resi_connection: str, stream_tail_rows: int):
+                 embed_dim: int, window_size: int, patch_norm: bool,
+                 upscale: int, img_range: float, upsampler: str,
+                 resi_connection: str, pad_mode: str | None = None):
         super().__init__()
-        if upsampler != "pixelshuffle":
-            raise NotImplementedError("only the 'pixelshuffle' upsampler")
+        if upsampler not in ("pixelshuffle", "pixelshuffledirect", ""):
+            raise NotImplementedError(f"upsampler {upsampler!r}")
         num_feat = 64
         self.img_range = img_range
-        self.upscale = upscale
+        self.upscale = upscale if upsampler else 1
+        self.upsampler = upsampler
         self.window_size = window_size
-        # >0: run the reconstruction tail over row bands of this height
-        # (ops/streamed_tail.py), which bounds its activation peak. Exact.
-        self.stream_tail_rows = stream_tail_rows
+        self.pad_mode = pad_mode
         self.conv_first = nn.Conv2d(in_chans, embed_dim, 3, 1, 1)
         self.patch_embed = PatchEmbedNorm(embed_dim, patch_norm)
         self.layers = nn.ModuleList(layers)
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
         self.conv_after_body = (nn.Conv2d(embed_dim, embed_dim, 3, 1, 1)
                                 if resi_connection == "1conv" else None)
-        self.conv_before_upsample = nn.Sequential(
-            nn.Conv2d(embed_dim, num_feat, 3, 1, 1), nn.LeakyReLU(inplace=True))
-        if upscale & (upscale - 1) == 0:
-            steps = [2] * int(math.log2(upscale))
-        elif upscale == 3:
-            steps = [3]
+        if upsampler == "pixelshuffle":
+            self.conv_before_upsample = nn.Sequential(
+                nn.Conv2d(embed_dim, num_feat, 3, 1, 1),
+                nn.LeakyReLU(inplace=True))
+            up = []
+            for r in upsample_steps(upscale):
+                up += [nn.Conv2d(num_feat, r * r * num_feat, 3, 1, 1),
+                       nn.PixelShuffle(r)]
+            self.upsample = nn.Sequential(*up)
+            self.conv_last = nn.Conv2d(num_feat, in_chans, 3, 1, 1)
+        elif upsampler == "pixelshuffledirect":
+            self.upsample = nn.Sequential(
+                nn.Conv2d(embed_dim, upscale * upscale * in_chans, 3, 1, 1),
+                nn.PixelShuffle(upscale))
         else:
-            raise ValueError(f"upscale {upscale} unsupported")
-        up = []
-        for r in steps:
-            up += [nn.Conv2d(num_feat, r * r * num_feat, 3, 1, 1),
-                   nn.PixelShuffle(r)]
-        self.upsample = nn.Sequential(*up)
-        self.conv_last = nn.Conv2d(num_feat, in_chans, 3, 1, 1)
-        # index buffers of the checkpoints, kept so those load strictly;
-        # each attention module holds its own copy
-        self.register_buffer("relative_position_index_SA", index_buffer(
-            relative_position_index_sa(window_size)))
-        self.register_buffer("relative_position_index_OCA", index_buffer(
-            relative_position_index_oca(window_size, overlap_ratio)))
+            self.conv_last = nn.Conv2d(embed_dim, in_chans, 3, 1, 1)
 
     def recon(self, f):
-        """Reconstruction tail: conv + LeakyReLU, [conv, shuffle]*, conv."""
-        y = F.leaky_relu(conv_nhwc(self.conv_before_upsample[0], f), 0.01)
+        """Reconstruction tail of the two upsamplers."""
+        y = f
+        if self.upsampler == "pixelshuffle":
+            y = F.leaky_relu(conv_nhwc(self.conv_before_upsample[0], f), 0.01)
         for i in range(0, len(self.upsample), 2):
             conv, shuffle = self.upsample[i], self.upsample[i + 1]
             y = pixel_shuffle(conv_nhwc(conv, y), shuffle.upscale_factor)
-        return conv_nhwc(self.conv_last, y)
+        return (conv_nhwc(self.conv_last, y)
+                if self.upsampler == "pixelshuffle" else y)
+
+    def reconstruct(self, feat):
+        return self.recon(feat)
 
     def forward(self, x):
+        h, w = x.shape[1], x.shape[2]
+        if self.pad_mode is not None:
+            ws = self.window_size
+            pad_h, pad_w = (ws - h % ws) % ws, (ws - w % ws) % ws
+            if self.pad_mode == "symmetric":
+                x = pad_symmetric(x, pad_h, pad_w)
+            elif pad_h or pad_w:
+                x = F.pad(x.permute(0, 3, 1, 2), (0, pad_w, 0, pad_h),
+                          mode=self.pad_mode).permute(0, 2, 3, 1)
         x = MeanShift.normalize(x, self.img_range)
         feat = conv_nhwc(self.conv_first, x).contiguous()
         body = self.patch_embed(feat)
@@ -207,9 +275,41 @@ class HATShell(nn.Module):
         if self.conv_after_body is not None:
             body = conv_nhwc(self.conv_after_body, body)
         feat = body + feat
-        if self.stream_tail_rows:
-            y = streamed_rows(self.recon, feat, self.upscale,
-                              self.stream_tail_rows)
+        if self.upsampler:
+            y = self.reconstruct(feat)
         else:
-            y = self.recon(feat)
-        return MeanShift.denormalize(y, self.img_range)
+            y = x + conv_nhwc(self.conv_last, feat)
+        y = MeanShift.denormalize(y, self.img_range)
+        if self.pad_mode is not None:
+            y = y[:, :h * self.upscale, :w * self.upscale, :]
+        return y
+
+
+class HATShell(SRShell):
+    """The shell of the classic HAT and the fork's HAT: the ``pixelshuffle``
+    :class:`SRShell` with the checkpoints' two index buffers and an optional
+    streamed reconstruction tail. The caller pads to a window multiple."""
+
+    def __init__(self, layers: Sequence[nn.Module], in_chans: int,
+                 embed_dim: int, window_size: int, overlap_ratio: float,
+                 patch_norm: bool, upscale: int, img_range: float,
+                 upsampler: str, resi_connection: str, stream_tail_rows: int):
+        if upsampler != "pixelshuffle":
+            raise NotImplementedError("only the 'pixelshuffle' upsampler")
+        super().__init__(layers, in_chans, embed_dim, window_size, patch_norm,
+                         upscale, img_range, upsampler, resi_connection)
+        # >0: run the reconstruction tail over row bands of this height
+        # (ops/streamed_tail.py), which bounds its activation peak. Exact.
+        self.stream_tail_rows = stream_tail_rows
+        # index buffers of the checkpoints, kept so those load strictly;
+        # each attention module holds its own copy
+        self.register_buffer("relative_position_index_SA", index_buffer(
+            relative_position_index_sa(window_size)))
+        self.register_buffer("relative_position_index_OCA", index_buffer(
+            relative_position_index_oca(window_size, overlap_ratio)))
+
+    def reconstruct(self, feat):
+        if self.stream_tail_rows:
+            return streamed_rows(self.recon, feat, self.upscale,
+                                 self.stream_tail_rows)
+        return self.recon(feat)

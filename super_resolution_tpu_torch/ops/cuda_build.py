@@ -53,6 +53,11 @@ _SIGNATURES = {
     "sr_msa_qtile_attention": [_I] + [_P] * 3 + [_I] * 6 + [_F] + [_P],
     "sr_msa_flash_smem": [_I],
     "sr_msa_qtile_smem": [_I] * 2,
+    "sr_msa_attention": [_I] + [_P] * 3 + [_I] + [_P] + [_I] * 6 + [_F]
+    + [_P],
+    "sr_msa_attention_smem": [_I] * 2,
+    "sr_psa_block": [_I] + [_P] * 8 + [_I] + [_P] + [_I] * 6 + [_F] + [_P],
+    "sr_psa_block_smem": [_I] * 3,
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

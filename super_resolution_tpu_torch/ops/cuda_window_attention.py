@@ -6,9 +6,16 @@ and ``fused_attention_v3`` on pre-cut windows (both launch
 ``csrc/window_attention.cu``), their ``window_attention_fused`` front, and
 the large-window ``msa_qtile_attention`` and ``msa_flash_attention`` on a
 qkv image (``csrc/large_window_attention.cu``), with
-``msa_qtile_reference``. They keep the JAX names and signatures, minus the
-Mosaic knobs (``block_windows``, ``chunk_rows``, ``interpret``), and the
+``msa_qtile_reference``, and ``fused_msa_attention``, the (S)W-MSA middle
+with a shift mask on an already rolled qkv image
+(``csrc/msa_attention.cu``), whose plain version is
+``msa_attention_reference``. They keep the JAX names and signatures, minus
+the Mosaic knobs (``block_windows``, ``chunk_rows``, ``interpret``), and the
 dense ``(heads, Nq, Nk)`` float32 bias.
+
+Head dims: the kernels on cut windows and the large-window kernels pad the
+head dim to 16 or 32 (``MAX_HEAD_DIM``); ``fused_msa_attention`` pads to a
+multiple of 16 up to 48 (``MSA_ATTENTION_MAX_HEAD_DIM``: ATD's 35 -> 48).
 
 Each kernel has a pure-Python ``*_supported`` predicate from its own need of
 shared memory (every buffer is float32, so the dtype plays no part); the
@@ -40,6 +47,7 @@ from super_resolution_tpu_torch.ops.cuda_build import (MAX_DYNAMIC_SMEM,
                                                        stream_of, use_kernel)
 
 MAX_HEAD_DIM = 32
+MSA_ATTENTION_MAX_HEAD_DIM = 48
 # tile sizes of the sources (csrc/window_attention.cu,
 # csrc/large_window_attention.cu), for the shared-memory formulas below
 _QT, _FLASH_QT, _KEY_CHUNK, _WARPS = 16, 32, 256, 8
@@ -78,6 +86,26 @@ def msa_flash_smem(head_dim: int) -> int:
     dp = _dpad(head_dim)
     return 4 * (2 * _KEY_CHUNK * dp + _FLASH_QT * _score_stride(_KEY_CHUNK)
                 + _FLASH_QT * dp + _WARPS * _FLASH_QT * dp + 3 * _FLASH_QT)
+
+
+def msa_attention_smem(window_size: int, head_dim: int) -> int:
+    """Bytes a block of ``fused_msa_attention`` takes: one head's k and v
+    of a window with the head dim padded to a multiple of 16, a 16-row score
+    tile, the q tile and the reduction space."""
+    n = window_size ** 2
+    dp = (head_dim + 15) // 16 * 16
+    return 4 * (2 * ((n + 3) // 4 * 4) * dp + _QT * _score_stride(n)
+                + _QT * dp + _WARPS * _QT * dp)
+
+
+def fused_msa_attention_supported(window_size: int, head_dim: int) -> bool:
+    """Whether ``fused_msa_attention`` runs this window and head dim on the
+    card: a head dim of at most 48 and one head's k and v of a window within
+    a block's shared memory (at head dim 35: windows up to 21; at 16: up to
+    34)."""
+    return (1 <= head_dim <= MSA_ATTENTION_MAX_HEAD_DIM
+            and msa_attention_smem(window_size, head_dim)
+            <= MAX_DYNAMIC_SMEM)
 
 
 def fused_attention_supported(nq: int, nk: int, head_dim: int) -> bool:
@@ -253,8 +281,68 @@ def msa_flash_attention(qkv_img, bias, *, heads: int, window_size: int,
     return out
 
 
+def fused_msa_attention(qkv_img, bias, mask=None, *, heads: int,
+                        window_size: int, scale: float | None = None):
+    """The whole (S)W-MSA middle on a qkv image: window partition, head
+    split, softmax(q k^T * scale + bias[h] + mask[window]) v, head concat
+    and window reverse.
+
+    qkv_img: (B, H, W, 3C) fused qkv projection of the (already rolled, for
+    a shifted layer) image, H and W multiples of window_size; bias:
+    (heads, N, N) float32 RPB, N = ws^2; mask: (nW, N, N) float32 additive
+    shift mask indexed by a window's position in its image, (1, N, N) for
+    every window, or None for no mask (the same result as zeros, without
+    their reads). Returns (B, H, W, C) in image layout, before the output
+    projection. One block per (window, head, 64 query rows); head dims up
+    to 48. Replaces
+    super_resolution_tpu/ops/pallas_attention.py::fused_msa_attention.
+    """
+    name = "fused_msa_attention"
+    if qkv_img.dim() != 4 or qkv_img.shape[-1] % 3:
+        raise ValueError(f"{name}: qkv_img must be (B, H, W, 3C), got "
+                         f"{tuple(qkv_img.shape)}")
+    b, h_img, w_img, c3 = qkv_img.shape
+    c, ws = c3 // 3, window_size
+    n = ws * ws
+    if scale is None:
+        scale = (c // heads) ** -0.5
+    if not use_kernel(qkv_img):
+        if mask is None:
+            mask = torch.zeros((1, n, n), dtype=torch.float32)
+        return msa_attention_reference(qkv_img, bias, mask, heads, ws, scale)
+    code = check_operands(name, qkv_img, qkv_img=qkv_img)
+    check_f32(name, qkv_img, bias=bias)
+    check_shape(name, "bias", bias, (heads, n, n))
+    if (h_img % ws or w_img % ws or c % heads
+            or c // heads > MSA_ATTENTION_MAX_HEAD_DIM):
+        raise ValueError(f"{name}: needs H, W multiples of {ws} and a head "
+                         f"dim of at most {MSA_ATTENTION_MAX_HEAD_DIM}, got "
+                         f"{tuple(qkv_img.shape)}, {heads} heads of {c}")
+    n_win = (h_img // ws) * (w_img // ws)
+    if mask is not None:
+        check_f32(name, qkv_img, mask=mask)
+        if mask.shape[0] not in (1, n_win) or tuple(mask.shape[1:]) != (n, n):
+            raise ValueError(f"{name}: mask shape {tuple(mask.shape)}, "
+                             f"expected (1 or {n_win}, {n}, {n})")
+    lib = load_library()
+    d = c // heads
+    check_smem(name, lib.sr_msa_attention_smem(ws, d),
+               f"window {ws}, head dim {d}")
+    out = torch.empty((b, h_img, w_img, c), dtype=qkv_img.dtype,
+                      device=qkv_img.device)
+    err = lib.sr_msa_attention(
+        code, qkv_img.data_ptr(), bias.data_ptr(),
+        None if mask is None else mask.data_ptr(),
+        0 if mask is None else mask.shape[0], out.data_ptr(), b, h_img,
+        w_img, c, heads, ws, scale, stream_of(qkv_img))
+    raise_on_error(name, err)
+    fused_msa_attention.launches += 1
+    return out
+
+
 # kernel launches of each wrapper; the plain path does not count
 fused_attention.launches = 0
 fused_attention_v3.launches = 0
 msa_qtile_attention.launches = 0
 msa_flash_attention.launches = 0
+fused_msa_attention.launches = 0

@@ -4,11 +4,11 @@ memory.
 
 The network, tile settings and weights are those of ``chip_smoke.py``'s
 main paths (``classic``: HATClassic x4; ``fork``: the fork's HAT x2 with
-the ESC-infused OCAB; ``esc``: ESC x4; ``esc_xl``: ESC-XL x4; any other
-label of its ``PATHS``), so run it from the repository root, where that
-script lies:
+the ESC-infused OCAB; ``esc``: ESC x4; ``esc_xl``: ESC-XL x4; ``atd``: ATD
+x4; ``srformer``: SRFormer x4; any other label of its ``PATHS``), so run it
+from the repository root, where that script lies:
 
-    python3 -m super_resolution_tpu_torch.tools.profile_forward fork
+    python3 -m super_resolution_tpu_torch.tools.profile_forward atd
 
 It prints the card's name and power limit, the median wall time of five
 forwards without the profiler, then from three profiled forwards the mean
@@ -33,7 +33,8 @@ PORT_KERNELS = ("msa_block_kernel", "ocab_block_kernel",
                 "ocab_attention_kernel", "mlp_tail_kernel",
                 "gated_dconv_ffn_kernel", "ln_split_kernel",
                 "fused_attention_kernel", "fused_attention_v3_kernel",
-                "msa_flash_kernel", "msa_qtile_kernel")
+                "msa_flash_kernel", "msa_qtile_kernel",
+                "msa_attention_kernel", "psa_block_kernel")
 
 
 def classify(name: str) -> str:

@@ -12,6 +12,7 @@ import torch
 from super_resolution_tpu_torch.ops import cuda_attention as ca
 from super_resolution_tpu_torch.ops import cuda_ffn as cf
 from super_resolution_tpu_torch.ops import cuda_hab as ch
+from super_resolution_tpu_torch.ops import cuda_psa as cp
 from super_resolution_tpu_torch.ops import cuda_window_attention as cw
 from super_resolution_tpu_torch.ops.attention import (
     relative_position_index_oca, relative_position_index_sa, shift_attn_mask)
@@ -230,6 +231,70 @@ def test_large_window_attention_matches_plain_version(cuda, fn, shape,
     _assert_close(got, ref, dtype)
 
 
+# (B, H, W, C, heads, ws): ATD's head dim 35 (padded to 48) on a 2 x 3 grid
+# of windows; head dim 12; head dim 48 with a window whose N = 36 is no
+# multiple of 16; ATD's published shape with one 160 x 160 tile; ATD-light's
+MSA_SHAPES = [(2, 16, 24, 70, 2, 8), (1, 16, 16, 48, 4, 8),
+              (2, 12, 18, 96, 2, 6), (1, 160, 160, 210, 6, 16),
+              (1, 64, 64, 48, 4, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", ["none", "one", "shifted"])
+@pytest.mark.parametrize("shape", MSA_SHAPES)
+def test_msa_attention_matches_plain_version(cuda, shape, masked, dtype):
+    """No mask, one mask for every window (random, not zeros) and the
+    shift mask by window position, on an image of several windows."""
+    b, h, w, c, heads, ws = shape
+    n = ws * ws
+    rng = np.random.default_rng(ws + c)
+    qkv = _rand(rng, dtype, b, h, w, 3 * c)
+    bias = _rand(rng, torch.float32, heads, n, n)
+    mask = {"none": None, "one": _rand(rng, torch.float32, 1, n, n),
+            "shifted": torch.from_numpy(
+                shift_attn_mask(h, w, ws, ws // 2)).cuda()}[masked]
+    before = cw.fused_msa_attention.launches
+    got = cw.fused_msa_attention(qkv, bias, mask, heads=heads, window_size=ws)
+    torch.cuda.synchronize()
+    assert cw.fused_msa_attention.launches == before + 1
+    ref_mask = torch.zeros((1, n, n), device="cuda") if mask is None else mask
+    _assert_close(got, ca.msa_attention_reference(qkv, bias, ref_mask, heads,
+                                                  ws), dtype)
+
+
+# (B, H, W, C, heads, ws): head dim 12 on a 2 x 3 grid of windows; head dim
+# 30 with a window whose N = 36 is no multiple of 16 and nk = 9 none of 4;
+# SRFormer's published shape with one 144 x 144 tile; SRFormer-light's
+PSA_SHAPES = [(2, 16, 24, 24, 2, 8), (2, 12, 18, 60, 2, 6),
+              (1, 144, 144, 180, 6, 24), (1, 64, 64, 60, 6, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", ["none", "one", "shifted"])
+@pytest.mark.parametrize("shape", PSA_SHAPES)
+def test_psa_block_matches_plain_version(cuda, shape, masked, dtype):
+    from super_resolution_tpu_torch.models.srformer_arch import psa_shift_mask
+
+    b, h, w, c, heads, ws = shape
+    n, nk = ws * ws, ws * ws // 4
+    rng = np.random.default_rng(ws + c)
+    x = _rand(rng, dtype, b, h, w, c)
+    ops = (_rand(rng, dtype, c, c, s=c ** -0.5), _rand(rng, dtype, c, s=0.1),
+           _rand(rng, dtype, c, c, s=c ** -0.5), _rand(rng, dtype, c, s=0.1),
+           _rand(rng, dtype, b * (h // ws) * (w // ws), nk, 2 * c),
+           _rand(rng, torch.float32, heads, n, nk))
+    mask = {"none": None, "one": _rand(rng, torch.float32, 1, n, nk),
+            "shifted": torch.from_numpy(
+                psa_shift_mask(h, w, ws, ws // 2)).cuda()}[masked]
+    before = cp.fused_psa_block.launches
+    got = cp.fused_psa_block(x, *ops, mask, heads=heads, window_size=ws)
+    torch.cuda.synchronize()
+    assert cp.fused_psa_block.launches == before + 1
+    ref_mask = torch.zeros((1, n, nk), device="cuda") if mask is None else mask
+    _assert_close(got, cp.psa_block_reference(x, *ops, ref_mask, heads, ws),
+                  dtype)
+
+
 def test_supported_predicates_agree_with_the_sources(cuda):
     """Each pure-Python shared-memory formula equals the C entry of its
     source, so a route chosen on the CPU is the route the card can run."""
@@ -241,9 +306,18 @@ def test_supported_predicates_agree_with_the_sources(cuda):
             assert ca.msa_block_smem(ws, d) == lib.sr_msa_block_smem(ws, d)
             assert cw.msa_qtile_smem(ws, d) == lib.sr_msa_qtile_smem(ws, d)
             assert cw.msa_flash_smem(d) == lib.sr_msa_flash_smem(d)
+            assert (cw.msa_attention_smem(ws, d)
+                    == lib.sr_msa_attention_smem(ws, d))
             for nk in (ws * ws, ws * ws + 3):
                 assert (cw.window_attention_smem(nk, d)
                         == lib.sr_window_attention_smem(nk, d))
+    for ws in (8, 16, 24, 48):
+        for d in (35, 40, 48):
+            assert (cw.msa_attention_smem(ws, d)
+                    == lib.sr_msa_attention_smem(ws, d))
+        for c, heads in ((180, 6), (60, 6), (64, 2), (24, 2)):
+            assert (cp.psa_block_smem(ws, c, heads)
+                    == lib.sr_psa_block_smem(ws, c, heads))
     assert ca.msa_block_supported(24, 16)
     assert not ca.msa_block_supported(32, 16)
 
@@ -274,6 +348,18 @@ def test_block_kernels_state_their_shared_memory_limit(cuda):
     with pytest.raises(ValueError, match=msg):
         ca.fused_ocab_block(*ocab, heads=heads, window_size=ws,
                             overlap_win=ow)
+    with pytest.raises(ValueError, match=msg):
+        cw.fused_msa_attention(torch.zeros((1, 24, 24, 3 * 70), device="cuda"),
+                               torch.zeros((2, 576, 576), device="cuda"),
+                               heads=2, window_size=24)
+    with pytest.raises(ValueError, match=msg):
+        cp.fused_psa_block(
+            torch.zeros((1, 96, 96, c), device="cuda"),
+            torch.zeros((c, c), device="cuda"), vec,
+            torch.zeros((c, c), device="cuda"), vec,
+            torch.zeros((1, 2304, 2 * c), device="cuda"),
+            torch.zeros((heads, 9216, 2304), device="cuda"), heads=heads,
+            window_size=96)
     q = torch.zeros((1, 1, 16, 16), device="cuda")
     kv = torch.zeros((1, 1, 3600, 16), device="cuda")
     with pytest.raises(ValueError, match=msg):
@@ -316,4 +402,60 @@ def test_small_esc_model_kernels_match_cpu_plain(cuda, route, use_ln):
         ref = net(x)
         got = net.to(cuda)(x.to(cuda)).cpu()
     assert wrappers[route].launches == before + 2
+    assert (got - ref).abs().max().item() < 1e-4
+
+
+def _smallest_sort_gap(model, x) -> float:
+    """The smallest gap between a pixel's two largest dictionary
+    similarities over every AC-MSA of ``model`` on ``x`` (inf without
+    one): a rounding difference below it moves no pixel to another group."""
+    gaps = [float("inf")]
+
+    def hook(module, args):
+        top = args[1].topk(2, -1).values
+        gaps.append((top[..., 0] - top[..., 1]).min().item())
+    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+             if type(m).__name__ == "AC_MSA"]
+    model(x)
+    for h in hooks:
+        h.remove()
+    return min(gaps)
+
+
+@pytest.mark.parametrize("net", ["atd", "srformer"])
+def test_small_atd_srformer_kernels_match_cpu_plain(cuda, net):
+    """A small ATD (head dim 35) and a small SRFormer through their float32
+    kernels on the card equal their plain paths on the CPU, for the same
+    seeded weights, on an input that is no window multiple and on which no
+    sort of ATD's is within 2e-5 of a tie."""
+    from super_resolution_tpu_torch.models.arch_util import init_weights
+    from super_resolution_tpu_torch.models.atd_arch import ATD
+    from super_resolution_tpu_torch.models.srformer_arch import SRFormer
+
+    if net == "atd":
+        model = ATD(embed_dim=70, depths=(2, 2), num_heads=(2, 2),
+                    window_size=8, category_size=64, num_tokens=16,
+                    reducted_dim=4, upscale=4).eval()
+        fn = cw.fused_msa_attention
+    else:
+        model = SRFormer(img_size=16, embed_dim=60, depths=(2, 2),
+                         num_heads=(2, 2), window_size=8, upscale=4,
+                         upsampler="pixelshuffle").eval()
+        fn = cp.fused_psa_block
+    gen = torch.Generator().manual_seed(0)
+    init_weights(model, gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("relative_position_bias_table"):
+                p.normal_(std=0.5, generator=gen)
+    rng = np.random.default_rng(0)
+    with torch.inference_mode():
+        for _ in range(100):
+            x = torch.from_numpy(rng.random((2, 21, 30, 3), dtype=np.float32))
+            if _smallest_sort_gap(model, x) > 2e-5:
+                break
+        ref = model(x)
+        before = fn.launches
+        got = model.to(cuda)(x.to(cuda)).cpu()
+    assert fn.launches == before + 4
     assert (got - ref).abs().max().item() < 1e-4

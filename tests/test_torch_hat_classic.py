@@ -215,9 +215,20 @@ def test_port_imports_no_jax(tmp_path):
         "out = Predictor(opt, device='cpu').predict_array(\n"
         "    np.zeros((10, 13, 3), np.float32))\n"
         "assert out.shape == (20, 26, 3), out.shape\n"
+        "for net in (dict(type='ATD', upscale=2, embed_dim=8, depths=[2],\n"
+        "                 num_heads=[2], window_size=8, category_size=16,\n"
+        "                 num_tokens=4, reducted_dim=2),\n"
+        "            dict(type='SRFormer', upscale=2, img_size=8, embed_dim=8,\n"
+        "                 depths=[2], num_heads=[2], window_size=8,\n"
+        "                 upsampler='pixelshuffledirect')):\n"
+        "    opt['network_g'] = net\n"
+        "    out = Predictor(opt, device='cpu').predict_array(\n"
+        "        np.zeros((10, 13, 3), np.float32))\n"
+        "    assert out.shape == (20, 26, 3), out.shape\n"
         "import super_resolution_tpu_torch.tools.profile_forward\n"
         "import super_resolution_tpu_torch.tools.inference\n"
         "import super_resolution_tpu_torch.ops.cuda_window_attention\n"
+        "import super_resolution_tpu_torch.ops.cuda_psa\n"
         "import pkgutil\n"
         "for m in pkgutil.walk_packages(super_resolution_tpu_torch.__path__,\n"
         "                               'super_resolution_tpu_torch.'):\n"

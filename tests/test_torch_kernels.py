@@ -31,6 +31,7 @@ from super_resolution_tpu_torch.ops import cuda_attention as ca
 from super_resolution_tpu_torch.ops import cuda_build
 from super_resolution_tpu_torch.ops import cuda_ffn as cf
 from super_resolution_tpu_torch.ops import cuda_hab as ch
+from super_resolution_tpu_torch.ops import cuda_psa as cp
 from super_resolution_tpu_torch.ops import cuda_window_attention as cw
 
 # float32 on both sides; the remaining difference is summation order and
@@ -313,6 +314,8 @@ class _SmemLib:
     sr_window_attention_smem = staticmethod(cw.window_attention_smem)
     sr_msa_qtile_smem = staticmethod(cw.msa_qtile_smem)
     sr_msa_flash_smem = staticmethod(cw.msa_flash_smem)
+    sr_msa_attention_smem = staticmethod(cw.msa_attention_smem)
+    sr_psa_block_smem = staticmethod(cp.psa_block_smem)
 
     @staticmethod
     def sr_ocab_block_smem(ws, ow, d):
@@ -404,6 +407,199 @@ def test_image_wrapper_checks_operands(name, monkeypatch):
         with pytest.raises(ValueError, match="window 64, head dim 16 need"):
             fn(torch.zeros(1, 64, 64, 48), torch.zeros(1, 4096, 4096),
                heads=1, window_size=64)
+
+
+def _pair(a, dtype):
+    return (torch.from_numpy(a).to(getattr(torch, dtype)),
+            jnp.asarray(a).astype(getattr(jnp, dtype)))
+
+
+def _f32(t):
+    return np.asarray(t.float().numpy() if isinstance(t, torch.Tensor)
+                      else jnp.asarray(t, jnp.float32))
+
+
+# float32 on both sides, summation order only; bf16: both sides round the
+# same operands at the same places up to the order of the float32 sums
+ATOL_ATTENTION = {"float32": 2e-5, "bfloat16": 5e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", ["none", "zeros", "shifted"])
+@pytest.mark.parametrize("c,heads", [(70, 2), (36, 3)], ids=["d35", "d12"])
+def test_msa_attention_plain_matches_jax(c, heads, masked, dtype, rng):
+    """``fused_msa_attention`` on a pre-rolled qkv image of 2 x 3 windows on
+    two images, head dims 35 and 12 (no multiples of 16): against the JAX
+    reference and the Pallas kernel in interpret mode. No mask equals the
+    zeros mask."""
+    ws, h, w = 8, 16, 24
+    n = ws * ws
+    qkv, jqkv = _pair(rng.standard_normal((2, h, w, 3 * c), np.float32) * 0.5,
+                      dtype)
+    bias = rng.standard_normal((heads, n, n), np.float32)
+    mask = (shift_attn_mask(h, w, ws, ws // 2) if masked == "shifted"
+            else np.zeros((1, n, n), np.float32))
+    got = _f32(cw.fused_msa_attention(
+        qkv, torch.from_numpy(bias),
+        None if masked == "none" else torch.from_numpy(mask), heads=heads,
+        window_size=ws))
+    assert got.shape == (2, h, w, c)
+    ref = pa.msa_attention_reference(jqkv, jnp.asarray(bias),
+                                     jnp.asarray(mask), heads, ws)
+    kernel = pa.fused_msa_attention(jqkv, jnp.asarray(bias),
+                                    jnp.asarray(mask), heads=heads,
+                                    window_size=ws, interpret=True)
+    atol = ATOL_ATTENTION[dtype]
+    np.testing.assert_allclose(got, _f32(ref), atol=atol, rtol=0)
+    np.testing.assert_allclose(got, _f32(kernel), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", ["none", "zeros", "shifted"])
+@pytest.mark.parametrize("c,heads", [(60, 2), (40, 4)], ids=["d30", "d10"])
+def test_psa_block_plain_matches_jax(c, heads, masked, dtype, rng):
+    """``fused_psa_block`` on a pre-rolled image of 2 x 3 windows on two
+    images, head dims 30 and 10: against the JAX reference and the Pallas
+    kernel in interpret mode."""
+    from super_resolution_tpu.models.srformer_arch import psa_shift_mask
+
+    ws, h, w = 8, 16, 24
+    n, nk = ws * ws, ws * ws // 4
+
+    def a(*shape, s=1.0):
+        return rng.standard_normal(shape, np.float32) * np.float32(s)
+
+    arrays = (a(2, h, w, c), a(c, c, s=c ** -0.5), a(c, s=0.1),
+              a(c, c, s=c ** -0.5), a(c, s=0.1), a(2 * 6, nk, 2 * c))
+    t_ops, j_ops = zip(*(_pair(v, dtype) for v in arrays))
+    bias = a(heads, n, nk)
+    mask = (psa_shift_mask(h, w, ws, ws // 2) if masked == "shifted"
+            else np.zeros((1, n, nk), np.float32))
+    got = _f32(cp.fused_psa_block(
+        *t_ops, torch.from_numpy(bias),
+        None if masked == "none" else torch.from_numpy(mask), heads=heads,
+        window_size=ws))
+    assert got.shape == (2, h, w, c)
+    ref = pa.psa_block_reference(*j_ops, jnp.asarray(bias), jnp.asarray(mask),
+                                 heads, ws)
+    kernel = pa.fused_psa_block(*j_ops, jnp.asarray(bias), jnp.asarray(mask),
+                                heads=heads, window_size=ws, interpret=True)
+    atol = ATOL_ATTENTION[dtype]
+    np.testing.assert_allclose(got, _f32(ref), atol=atol, rtol=0)
+    np.testing.assert_allclose(got, _f32(kernel), atol=atol, rtol=0)
+
+
+def test_msa_attention_wrapper_checks_operands(monkeypatch):
+    monkeypatch.setattr(cw, "use_kernel", lambda x: True)
+    monkeypatch.setattr(cw, "load_library", lambda: _SmemLib())
+    fn = cw.fused_msa_attention
+    qkv, bias = torch.zeros(1, 8, 12, 48), torch.zeros(2, 16, 16)
+    mask = torch.zeros(6, 16, 16)
+    kw = dict(heads=2, window_size=4)
+    with pytest.raises(TypeError, match="dtype"):
+        fn(qkv.double(), bias, mask, **kw)
+    with pytest.raises(TypeError, match="float32"):
+        fn(qkv, bias, mask.double(), **kw)
+    with pytest.raises(ValueError, match="shape"):
+        fn(qkv, bias[:, :8].contiguous(), mask, **kw)
+    with pytest.raises(ValueError, match=r"mask shape \(5, 16, 16\)"):
+        fn(qkv, bias, mask[:5], **kw)
+    with pytest.raises(ValueError, match="multiples"):
+        fn(qkv[:, :7].contiguous(), bias, mask, **kw)
+    with pytest.raises(ValueError, match="3C"):
+        fn(qkv[..., :47].contiguous(), bias, mask, **kw)
+    with pytest.raises(ValueError, match="head dim of at most 48"):
+        fn(torch.zeros(1, 4, 4, 3 * 49), torch.zeros(1, 16, 16),
+           heads=1, window_size=4)
+    with pytest.raises(ValueError, match="window 24, head dim 35 need 285952"):
+        fn(torch.zeros(1, 24, 24, 3 * 70), torch.zeros(2, 576, 576),
+           heads=2, window_size=24)
+
+
+def test_psa_block_wrapper_checks_operands(monkeypatch):
+    monkeypatch.setattr(cp, "use_kernel", lambda x: True)
+    monkeypatch.setattr(cp, "load_library", lambda: _SmemLib())
+    c, heads, ws = 24, 2, 4
+    x, w, b = torch.zeros(1, 8, 12, c), torch.zeros(c, c), torch.zeros(c)
+    kv, bias = torch.zeros(6, 4, 2 * c), torch.zeros(heads, 16, 4)
+    mask = torch.zeros(6, 16, 4)
+    kw = dict(heads=heads, window_size=ws)
+    with pytest.raises(TypeError, match="dtype"):
+        cp.fused_psa_block(x.double(), w, b, w, b, kv, bias, mask, **kw)
+    with pytest.raises(TypeError):
+        cp.fused_psa_block(x, w.to(torch.bfloat16), b, w, b, kv, bias, **kw)
+    with pytest.raises(TypeError, match="float32"):
+        cp.fused_psa_block(x, w, b, w, b, kv, bias.double(), **kw)
+    with pytest.raises(ValueError, match="kv_windows has shape"):
+        cp.fused_psa_block(x, w, b, w, b, kv[:5], bias, **kw)
+    with pytest.raises(ValueError, match=r"mask shape \(6, 16, 16\)"):
+        cp.fused_psa_block(x, w, b, w, b, kv, bias, torch.zeros(6, 16, 16),
+                           **kw)
+    with pytest.raises(ValueError, match="even window"):
+        cp.fused_psa_block(torch.zeros(1, 9, 9, c), w, b, w, b, kv, bias,
+                           heads=heads, window_size=3)
+    with pytest.raises(ValueError, match="head dim of at most 32"):
+        cp.fused_psa_block(torch.zeros(1, 4, 4, 40), torch.zeros(40, 40),
+                           torch.zeros(40), torch.zeros(40, 40),
+                           torch.zeros(40), torch.zeros(1, 4, 80),
+                           torch.zeros(1, 16, 4), heads=1, window_size=4)
+    need = cp.psa_block_smem(96, 32, 2)
+    assert need > 232448 and not cp.fused_psa_block_supported(96, 32, 2)
+    with pytest.raises(ValueError, match=f"window 96, 32 channels in 2 heads "
+                                         f"need {need}"):
+        cp.fused_psa_block(torch.zeros(1, 96, 96, 32), torch.zeros(32, 32),
+                           torch.zeros(32), torch.zeros(32, 32),
+                           torch.zeros(32), torch.zeros(1, 2304, 64),
+                           torch.zeros(2, 9216, 2304), heads=2,
+                           window_size=96)
+
+
+def test_new_predicates_at_the_published_shapes():
+    """ATD's head dim 35 at window 16 and ATD-light's 12, SRFormer's window
+    24 (180 channels in 6 heads) and SRFormer-light's 16 run on the card;
+    the older wrappers keep their limit of 32."""
+    assert cw.fused_msa_attention_supported(16, 35)
+    assert cw.fused_msa_attention_supported(16, 12)
+    assert cw.msa_attention_smem(16, 35) == 142592
+    assert cw.fused_msa_attention_supported(21, 35)
+    assert not cw.fused_msa_attention_supported(24, 35)
+    assert not cw.fused_msa_attention_supported(8, 49)
+    assert not cw.fused_attention_supported(256, 256, 35)
+    assert not ca.msa_block_supported(16, 35)
+    assert cp.fused_psa_block_supported(24, 180, 6)
+    assert cp.psa_block_smem(24, 180, 6) == 86528
+    assert cp.fused_psa_block_supported(16, 60, 6)
+    assert cp.fused_psa_block_supported(48, 180, 6)
+    assert not cp.fused_psa_block_supported(50, 180, 6)
+    assert not cp.fused_psa_block_supported(7, 60, 6)
+    assert not cp.fused_psa_block_supported(8, 70, 2)
+
+
+@pytest.mark.parametrize("name", ["fused_msa_attention", "fused_psa_block"])
+def test_new_wrapper_never_falls_back(name, monkeypatch):
+    """A tensor for the kernel goes to the kernel: with the library gone the
+    wrapper raises, it does not run the plain version; a CPU tensor never
+    counts as a launch."""
+    if name == "fused_msa_attention":
+        mod, fn = cw, cw.fused_msa_attention
+        args = (torch.zeros(1, 2, 2, 12), torch.zeros(1, 4, 4))
+    else:
+        mod, fn = cp, cp.fused_psa_block
+        args = (torch.zeros(1, 2, 2, 4), torch.zeros(4, 4), torch.zeros(4),
+                torch.zeros(4, 4), torch.zeros(4), torch.zeros(1, 1, 8),
+                torch.zeros(1, 4, 1))
+    kw = dict(heads=1, window_size=2)
+    before = fn.launches
+    fn(*args, **kw)
+    assert fn.launches == before
+
+    def no_library():
+        raise RuntimeError("no library")
+    monkeypatch.setattr(mod, "use_kernel", lambda x: True)
+    monkeypatch.setattr(mod, "load_library", no_library)
+    with pytest.raises(RuntimeError, match="no library"):
+        fn(*args, **kw)
+    assert fn.launches == before
 
 
 def test_build_fails_loudly_without_nvcc(monkeypatch, tmp_path):
