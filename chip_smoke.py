@@ -5,11 +5,12 @@ NVIDIA GPU.
 Phases, each of which raises on failure:
   1. probe: torch and CUDA versions, the card's name and power limit;
   2. build: nvcc builds the kernels from super_resolution_tpu_torch/csrc;
-  3. kernels: each of the fifteen kernel wrappers (and the bare gated FFN
+  3. kernels: each of the seventeen kernel wrappers (and the bare gated FFN
      entry) against its plain PyTorch version on the card, at the shapes
      its main path gives it (the flagship HAT's, ESC's window 32, ESC-XL's
-     window 48, ATD's head dim 35 and SRFormer's window 24 against its
-     permuted 12), in float32 (TF32 off) and bfloat16, with
+     window 48, ATD's head dim 35, SRFormer's window 24 against its
+     permuted 12 and HiT-SRF's six window sizes from 4 to 64 at head dim
+     5), in float32 (TF32 off) and bfloat16, with
      CUDA-event times of the kernel, the plain version and, where one
      PyTorch call computes the same function, that call; beside them the
      least time the card could take (bound), from the bytes and operations
@@ -20,10 +21,11 @@ Phases, each of which raises on failure:
      OCAB, one request of the fork's HAT with the plain OCAB, ESC x4 on its
      own route and on ``fused_attention_v3``, ESC-XL x4 on its own route
      and on ``msa_qtile_attention``, ATD x4 and the shipped ATD-light x4,
-     SRFormer x4 and the shipped SRFormer-light x4. The launch counts are
-     set to 0 before
-     each path and read after it; the counts, the output shapes and
-     values, and the PSNR against the port's float32 path are checked.
+     SRFormer x4 and the shipped SRFormer-light x4, HiT-SRF x4, and
+     classic HAT x4 on its whole-block route (``fused_hab_block``). The
+     launch counts are set to 0 before each path and read after it; the
+     counts, the output shapes and values, and the PSNR against the port's
+     float32 path are checked.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Exits non-zero, printing neither, when there
@@ -90,10 +92,20 @@ SRFORMER_LIGHT = dict(type="SRFormer", upscale=4, in_chans=3, img_size=64,
                       window_size=16, img_range=1.0, depths=[6] * 4,
                       embed_dim=60, num_heads=[6] * 4, mlp_ratio=2,
                       upsampler="pixelshuffledirect", resi_connection="1conv")
+# HiT-SRF x4 (options/esc/test/HiTSRF/HiTSRF_DFLIP_X4.yml), as published
+HITSRF = dict(type="HiT_SRF", upscale=4, in_chans=3, img_size=64,
+              base_win_size=[8, 8], img_range=1.0, depths=[6] * 4,
+              embed_dim=60, num_heads=[6] * 4, expansion_factor=2,
+              resi_connection="1conv",
+              hier_win_ratios=[0.5, 1, 2, 4, 6, 8],
+              upsampler="pixelshuffledirect")
 TILE = dict(tile_size=128, tile_pad=16, chunk=4)
 # ESC-XL: a padded tile is 144 x 144, 3 x 3 windows of 48; SRFormer: 6 x 6
 # windows of 24
 TILE_XL = dict(tile_size=112, tile_pad=16, chunk=4)
+# HiT-SRF: a padded tile is 192 x 192, the least common multiple of its six
+# windows (4, 8, 16, 32, 48, 64)
+TILE_HIT = dict(tile_size=160, tile_pad=16, chunk=4)
 # LR request sizes: one tile; two tiles and a reflect-pad (100 x 150 is no
 # window multiple); six tiles in two chunk forwards
 REQUESTS = [(64, 64), (100, 150), (300, 200)]
@@ -101,10 +113,16 @@ REQUESTS = [(64, 64), (100, 150), (300, 200)]
 # six tiles in two chunk forwards (SRFormer: the pads are to 120 x 168 and
 # 168 x 264, the tile counts the same)
 REQUESTS_XL = [(96, 96), (100, 150), (150, 250)]
+# HiT-SRF: one 64 x 64 tile; four 192 x 192 tiles in one forward (200 x 300
+# is padded to 208 x 304); six in two forwards
+REQUESTS_HIT = [(64, 64), (200, 300), (300, 400)]
 PSNR_MIN_DB = 35.0
 TOL_F32 = 1e-4   # times max(1, max|plain|): accumulation order only
 TOL_BF16 = 2 ** -5  # times max(1, max|plain|): a few bf16 ulps at the
 #                     output's scale; kernel and plain round at other points
+# fused_scc_block in bf16, beside the bound on its worst element:
+# |kernel - float32 plain|_2 / |float32 plain|_2 on the same bf16 inputs
+TOL_SCC_BF16_L2 = 1e-2
 # the main paths: network, requests, how many of them also get a float32
 # plain reference on the host CPU, and kernel launches per chunk forward
 # (6 RHAGs; classic: 3 unshifted + 3 shifted HABs + 1 OCAB each; fork:
@@ -146,6 +164,20 @@ PATHS = {
                      cpu_reference=1, calls={"fused_psa_block": 36}),
     "srformer_light": dict(net=SRFORMER_LIGHT, runs=[(TILE, REQUESTS[:1])],
                            cpu_reference=0, calls={"fused_psa_block": 24}),
+    # one launch a block, 4 groups of 6, whatever its window. The last run
+    # has 160 x 160 tiles, no multiple of 48 or 64: the reflect pad of those
+    # blocks acts (160 -> 192).
+    "hitsrf": dict(net=HITSRF,
+                   runs=[(TILE_HIT, REQUESTS_HIT), (TILE, [(160, 160)])],
+                   cpu_reference=1, calls={"fused_scc_block": 24}),
+    # the classic path's weights and first request on the whole-block
+    # route: each unshifted HAB is one launch instead of two
+    "classic_hab_block": dict(
+        net=dict(CLASSIC, hab_route="fused_hab_block"),
+        runs=[(TILE, REQUESTS[:1])], cpu_reference=0, same_as="classic",
+        calls={"fused_hab_block": 18, "fused_msa_block_shifted": 18,
+               "mlp_block_sum3_shifted": 18, "fused_ocab_block": 6,
+               "mlp_block": 6}),
 }
 _CSRC = "super_resolution_tpu_torch/csrc/"
 _POPS = "super_resolution_tpu/ops/"
@@ -180,6 +212,10 @@ KERNELS = {
                             "pallas_attention.py:444"),
     "fused_psa_block": ("cuda_psa", "psa_block.cu",
                         "pallas_attention.py:1282"),
+    "fused_scc_block": ("cuda_scc", "scc_block.cu",
+                        "pallas_attention.py:1539"),
+    "fused_hab_block": ("cuda_hab_block", "hab_block.cu",
+                        "pallas_attention.py:1707"),
 }
 # the attention-only kernels at their paths' shapes: ESC's chunk of four
 # 160 x 160 tiles at window 32 is (100, 4, 1024, 16) windows; ESC-XL's chunk
@@ -195,6 +231,12 @@ IMAGE_SHAPE = (4, 144, 144, 192, 12, 48)
 # kernels line reports, with the shift mask.
 MSA_SHAPES = [(4, 160, 160, 210, 6, 16), (4, 160, 160, 48, 4, 16)]
 PSA_SHAPES = [(4, 144, 144, 180, 6, 24), (4, 160, 160, 60, 6, 16)]
+# HiT-SRF's SCC on the qv image of a chunk of four 192 x 192 tiles, (B, H, W,
+# C, heads, base), at each window size of a group; and a rectangular window
+# on a smaller base, checked beside them
+SCC_SHAPE = (4, 192, 192, 60, 6, 8)
+SCC_WINDOWS = [4, 8, 16, 32, 48, 64]
+SCC_RECT = ((2, 48, 40, 20, 2), (8, 4), (4, 4))
 # elementwise operations of the softmax per score: scale, bias, running
 # maximum, subtraction, exponential, sum, division
 SOFTMAX_OPS = 7
@@ -248,6 +290,7 @@ def kernel_cases(b: int, hw: int, dtype, seed: int):
     from super_resolution_tpu_torch.ops import cuda_attention as ca
     from super_resolution_tpu_torch.ops import cuda_ffn as cf
     from super_resolution_tpu_torch.ops import cuda_hab as ch
+    from super_resolution_tpu_torch.ops import cuda_hab_block as chb
     from super_resolution_tpu_torch.ops.attention import (
         relative_position_index_oca, relative_position_index_sa,
         shift_attn_mask)
@@ -315,6 +358,11 @@ def kernel_cases(b: int, hw: int, dtype, seed: int):
             (x, a, cv, *tail), dict(conv_scale=0.01, shift=SS),
             lambda: cf.mlp_block_sum3_shifted_reference(x, a, cv, *tail,
                                                         0.01, SS), None),
+        "fused_hab_block": ((a, x, cv, *msa, *tail),
+                            dict(msa_kw, conv_scale=0.01),
+                            lambda: chb.hab_block_reference(
+                                a, x, cv, *msa, *tail, HEADS, WS,
+                                conv_scale=0.01), None),
         "fused_ocab_block": ((x, *ocab), oca_kw,
                              lambda: ca.ocab_block_reference(
                                  x, *ocab, HEADS, WS, OW), None),
@@ -352,6 +400,13 @@ def kernel_bound(name: str, b: int, hw: int, esize: int, shifted_mask: int):
         mask_rows = shifted_mask if name.endswith("shifted") else 1
         byts = (2 * act + (4 * C * C + 4 * C) * esize
                 + (HEADS + mask_rows) * n * n * 4)
+    elif name == "fused_hab_block":
+        # fused_msa_block and mlp_block_sum3 together, less one write and
+        # one read of the attention image
+        mm = (2 * tok * C * 3 * C + 2 * tok * C * C
+              + 4 * nwin * HEADS * n * n * d + 4 * tok * C * HID)
+        byts = (4 * act + (4 * C * C + 4 * C) * esize + HEADS * n * n * 4
+                + (2 * C * HID + HID + 3 * C) * esize)
     elif name == "fused_ocab_block":
         mm = (4 * tok * C * C + 2 * nwin * nk * C * 2 * C
               + 4 * nwin * HEADS * n * nk * d)
@@ -717,6 +772,107 @@ def check_image_attention_kernels() -> dict:
     return results
 
 
+def scc_inputs(dtype, seed: int, shape, win, base):
+    """(qv image, sl_w, sl_b, w_proj, b_proj, bias) of ``fused_scc_block``
+    on the card."""
+    import torch
+
+    t = _device_randn(dtype, seed)
+    b, h, w, c, heads = shape
+    L, bl = win[0] * win[1], base[0] * base[1]
+    return (t(b, h, w, c), t(L // bl, s=(L // bl) ** -0.5), t(1, s=0.1)[0],
+            t(c, c, s=c ** -0.5), t(c, s=0.1),
+            t(heads, L, bl, s=0.5, dt=torch.float32))
+
+
+def scc_bound(shape, win, base, esize: int):
+    """(bound_ms, bound_by) of one ``fused_scc_block`` call: the image read
+    and written once, the float32 bias and the weights read once, over the
+    HBM rate, against its products (the base projection, the correlation
+    and its product with vs per head, the channel Gram and its product
+    with v, the output projection) at the tensor cores' bf16 rate and the
+    scale and bias of every correlation at the float32 rate."""
+    b, h, w, c, heads = shape
+    L, bl, c2 = win[0] * win[1], base[0] * base[1], c // 2
+    tok = b * h * w
+    mm = tok * (2 * c2 + 4 * bl * c2 + 4 * c2 * c2 + 2 * c * c)
+    vec = 2 * tok * heads * bl
+    byts = (2 * tok * c * esize + heads * L * bl * 4
+            + (c * c + c + L // bl + 1) * esize)
+    t_ops = max(mm / PEAK["bf16"], vec / PEAK["f32"])
+    t_bytes = byts / PEAK["hbm"]
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def check_scc_kernel() -> dict:
+    """Phase 3 for ``fused_scc_block``: at the chunk shape of HiT-SRF at
+    each window size of a group, and at a rectangular window, in float32
+    and bf16. A chunk forward launches every window size equally often, so
+    the kernels line reports the means over the six sizes; the time of each
+    stands beside them (``ms_by_window``)."""
+    import torch
+
+    from super_resolution_tpu_torch.ops import cuda_scc as cs
+
+    fn = wrappers()["fused_scc_block"]
+    b, h, w, c, heads, bs = SCC_SHAPE
+    cases = [((b, h, w, c, heads), (ws, ws), (min(ws, bs),) * 2)
+             for ws in SCC_WINDOWS] + [SCC_RECT]
+    rows = []
+    for shape, win, base in cases:
+        kw = dict(heads=shape[4], window_size=win, base=base)
+        for dtype in (torch.float32, torch.bfloat16):
+            tol_rel = TOL_F32 if dtype == torch.float32 else TOL_BF16
+            args = scc_inputs(dtype, win[0] + win[1], shape, win, base)
+
+            def plain():
+                return cs.scc_block_reference(*args, shape[4], win, base)
+
+            got = fn(*args, **kw)
+            torch.cuda.synchronize()
+            ref = plain()
+            err, ok = max_err_and_tol(got, ref, tol_rel)
+            line = (f"  fused_scc_block window {win} base {base} "
+                    f"{tuple(args[0].shape)} {str(dtype)[6:]:8s} "
+                    f"max|kernel-plain| {err:.3e} (rel tol {tol_rel:.1e})")
+            if dtype == torch.bfloat16:
+                # the worst element's bound is loose at the output's scale;
+                # the error over the whole image, of the kernel and of the
+                # bf16 plain version, against the float32 plain version
+                exact = cs.scc_block_reference(*(a.float() for a in args),
+                                               shape[4], win, base)
+                l2 = [((x.float() - exact).norm() / exact.norm()).item()
+                      for x in (got, ref)]
+                del exact
+                ok = ok and l2[0] <= TOL_SCC_BF16_L2
+                line += (f" rel L2 to float32 plain {l2[0]:.2e} (tol "
+                         f"{TOL_SCC_BF16_L2:.0e}; bf16 plain {l2[1]:.2e})")
+                ms = time_ms(lambda: fn(*args, **kw))
+                plain_ms = time_ms(plain, reps=5, warmup=1)
+                bound_ms, by = scc_bound(shape, win, base, 2)
+                if (shape, win, base) != SCC_RECT:
+                    rows.append(dict(window=win[0], max_abs_err=err, ms=ms,
+                                     plain_ms=plain_ms, bound_ms=bound_ms,
+                                     bound_by=by))
+                line += (f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
+                         f"bound {bound_ms:.4f} ms ({by})  library none")
+            del ref
+            log(line)
+            if not ok:
+                raise AssertionError(f"fused_scc_block at window {win} "
+                                     f"disagrees with its plain version: "
+                                     f"{err}")
+            del args
+            torch.cuda.empty_cache()
+    mean = {k: statistics.fmean(r[k] for r in rows)
+            for k in ("ms", "plain_ms", "bound_ms")}
+    return {"fused_scc_block": dict(
+        max_abs_err=max(r["max_abs_err"] for r in rows), **mean,
+        bound_by=rows[0]["bound_by"], library_ms=None,
+        ms_by_window={r["window"]: r["ms"] for r in rows})}
+
+
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
     mse = float(np.mean((np.clip(a, 0, 1) - np.clip(b, 0, 1)) ** 2))
     return float("inf") if mse == 0 else -10.0 * float(np.log10(mse))
@@ -794,8 +950,9 @@ def category_ids(pred, serve, tile, lq) -> list:
     return seen
 
 
-def main_path(label: str) -> dict:
-    """Phase 4, one path. Returns the launch counts of the timed pass."""
+def main_path(label: str, first_outputs: dict) -> dict:
+    """Phase 4, one path. Returns the launch counts of the timed pass and
+    adds the output of its first request to ``first_outputs``."""
     import torch
 
     spec = PATHS[label]
@@ -824,7 +981,8 @@ def main_path(label: str) -> dict:
         times.append(time.perf_counter() - t0)
     counts = {name: fn.launches for name, fn in fns.items()}
 
-    fwd = sum(n_forwards(h, w, net["window_size"], tile)
+    # the runner pads to the network's window, 16 where it names none
+    fwd = sum(n_forwards(h, w, net.get("window_size", 16), tile)
               for tile, (h, w), _ in jobs)
     for name, count in counts.items():
         if count != calls.get(name, 0) * fwd:
@@ -832,6 +990,14 @@ def main_path(label: str) -> dict:
                                  f"expected {calls.get(name, 0)} x {fwd} "
                                  f"chunk forwards")
     log(f"  launches in the timed pass ({fwd} chunk forwards): {counts}")
+    first_outputs[label] = outs[0]
+    if "same_as" in spec:
+        other = first_outputs[spec["same_as"]]
+        log(f"  first request against path {spec['same_as']} on the same "
+            f"weights: PSNR {psnr(outs[0], other):.2f} dB, max abs "
+            f"difference {np.abs(outs[0] - other).max():.3e}")
+        if psnr(outs[0], other) < PSNR_MIN_DB:
+            raise AssertionError(f"{label} differs from {spec['same_as']}")
 
     # float32 references on the same weights: the float32 kernels on the
     # card for every request, the plain path on the host CPU for the first
@@ -919,15 +1085,16 @@ def main() -> int:
     timing = check_kernels()
     timing.update(check_attention_kernels())
     timing.update(check_image_attention_kernels())
+    timing.update(check_scc_kernel())
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
 
-    by_path = {}
+    by_path, first_outputs = {}, {}
     for label, spec in PATHS.items():
         t0 = time.perf_counter()
         log(f"[main:{label}] Predictor -> runner in tile mode -> "
             f"{spec['net']['type']} x{net_scale(spec['net'])} at the "
             f"published width, bf16")
-        by_path[label] = main_path(label)
+        by_path[label] = main_path(label, first_outputs)
         log(f"[main:{label}] done in {time.perf_counter() - t0:.1f} s")
 
     kernels = []

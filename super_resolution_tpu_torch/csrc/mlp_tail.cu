@@ -22,13 +22,14 @@
 // Design: one block takes kRows pixels. The float32 block input, its
 // LayerNorm (rounded to T as the reference casts before fc1) and
 // gelu(fc1) (rounded to T before fc2) stay in shared memory, so the
-// hidden activation never reaches device memory. GELU is the exact erff
-// form; the TPU kernel uses the A&S approximation of erf (error < 1.5e-7).
-#include "common.cuh"
+// hidden activation never reaches device memory
+// (block_parts.cuh::mlp_tail_rows). GELU is the exact erff form; the TPU
+// kernel uses the A&S approximation of erf (error < 1.5e-7).
+#include "block_parts.cuh"
 
 namespace {
 
-constexpr int kRows = 32;
+constexpr int kRows = srk::kTailRows;
 constexpr int kThreads = 256;
 
 template <typename T>
@@ -69,36 +70,10 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  for (int r = threadIdx.x >> 5; r < rows; r += nwarps) {
-    const float* xr = xs + r * C;
-    float mu, rstd;
-    srk::warp_ln_stats([&](int c) { return xr[c]; }, C, eps, mu, rstd);
-    for (int c = lane; c < C; c += 32)
-      ys[r * C + c] = srk::round_to<T>((xr[c] - mu) * rstd * srk::to_f(gamma[c]) +
-                                       srk::to_f(beta[c]));
-  }
-  __syncthreads();
-
-  srk::block_gemm<4, 4>(
-      rows, hid, C, [&](int m, int k) { return ys[m * C + k]; },
-      [&](int k, int n) { return srk::to_f(w1[static_cast<long long>(k) * hid + n]); },
-      [&](int m, int n, float acc) {
-        const float h = acc + srk::to_f(b1[n]);
-        const float g = 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
-        gs[m * hid + n] = srk::round_to<T>(g);
-      });
-  __syncthreads();
-
-  srk::block_gemm<4, 4>(
-      rows, C, hid, [&](int m, int k) { return gs[m * hid + k]; },
-      [&](int k, int n) { return srk::to_f(w2[static_cast<long long>(k) * C + n]); },
-      [&](int m, int n, float acc) {
-        const float x = xs[m * C + n];
-        const float o = acc + srk::to_f(b2[n]) + (rs == 1.f ? x : x * rs);
-        out[(p0 + m) * C + n] = srk::from_f<T>(o);
-      });
+  srk::mlp_tail_rows<T>(xs, ys, gs, rows, C, hid, gamma, beta, w1, b1, w2, b2,
+                        eps, rs, [&](int m, int n, float o) {
+                          out[(p0 + m) * C + n] = srk::from_f<T>(o);
+                        });
 }
 
 template <typename T>
@@ -108,7 +83,7 @@ cudaError_t launch(const void* s, const void* a, const void* cv,
                    int B, int H, int W, int C, int hid, int sum3, int ss,
                    float cs, float eps, float rs, cudaStream_t stream) {
   const long long n_pix = static_cast<long long>(B) * H * W;
-  const size_t smem = sizeof(float) * (2 * kRows * C + kRows * hid);
+  const size_t smem = sizeof(float) * srk::mlp_tail_floats(C, hid);
   cudaError_t err = srk::set_smem(mlp_tail_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   const unsigned blocks = static_cast<unsigned>((n_pix + kRows - 1) / kRows);

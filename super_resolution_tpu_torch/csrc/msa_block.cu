@@ -23,19 +23,18 @@
 // them.
 //
 // Design: one block per window. Per head, q, k and v (256 x 30 each,
-// float32) sit in shared memory; scores are formed for kQChunk query rows
-// at a time (16 x 256 float32), so the 256 x 256 score matrix never exists
-// whole. The concatenated head outputs go to a wrapper-allocated scratch
+// float32) sit in shared memory; scores are formed for 16 query rows at a
+// time (16 x 256 float32; block_parts.cuh::msa_window_heads), so the
+// 256 x 256 score matrix never exists whole. The concatenated head outputs go to a wrapper-allocated scratch
 // image; after a block barrier the same block applies the output
 // projection to its own window. Shared memory per block at the flagship
 // shape: 108 kB, two blocks per SM.
-#include "common.cuh"
+#include "block_parts.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kQChunk = 16;
-constexpr int kMaxD = 32;
+constexpr int kMaxD = srk::kMsaMaxD;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -54,12 +53,9 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.y;
   const int wy = wid / nwx, wx = wid % nwx;
 
-  float* q = smem;                 // n x d
-  float* k = q + n * d;            // n x d
-  float* v = k + n * d;            // n x d
-  float* sc = v + n * d;           // kQChunk x n scores / probabilities
-  int* src = reinterpret_cast<int*>(sc + kQChunk * n);  // n input pixels
-  int* dst = src + n;                                    // n output pixels
+  const size_t work = srk::msa_heads_floats(n, d);  // q, k, v, scores
+  int* src = reinterpret_cast<int*>(smem + work);   // n input pixels
+  int* dst = src + n;                               // n output pixels
 
   for (int t = threadIdx.x; t < n; t += blockDim.x) {
     const int ty = wy * ws + t / ws, tx = wx * ws + t % ws;  // rolled space
@@ -69,38 +65,8 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   const float* mk = mask + static_cast<long long>(wid % mask_n) * n * n;
-  for (int h = 0; h < heads; ++h) {
-    // q, k, v of head h: columns part * cloc + h * d + j of the projection
-    srk::block_gemm<4, 2>(
-        n, 3 * d, cin,
-        [&](int m, int c) {
-          return srk::to_f(x[static_cast<long long>(src[m]) * cin + c]);
-        },
-        [&](int c, int col) {
-          const int part = col / d;
-          return srk::to_f(wqkv[static_cast<long long>(c) * 3 * cloc +
-                                part * cloc + h * d + col % d]);
-        },
-        [&](int m, int col, float acc) {
-          const int part = col / d, j = col % d;
-          const float val =
-              srk::round_to<T>(acc + srk::to_f(bqkv[part * cloc + h * d + j]));
-          (part == 0 ? q : part == 1 ? k : v)[m * d + j] = val;
-        });
-    __syncthreads();
-
-    const float* bh = bias + static_cast<long long>(h) * n * n;
-    srk::attend_head<T, kQChunk, kMaxD>(
-        q, k, v, sc, n, n, d, scale,
-        [&](int i, int j) {
-          const long long e = static_cast<long long>(i) * n + j;
-          return bh[e] + mk[e];
-        },
-        [&](int i, int t, float o) {
-          o_scr[static_cast<long long>(dst[i]) * cloc + h * d + t] =
-              srk::from_f<T>(o);
-        });
-  }
+  srk::msa_window_heads<T>(x, wqkv, bqkv, bias, mk, o_scr, src, dst, smem, n,
+                           cin, cloc, heads, scale);
 
   // output projection of this window's head concat (rounded to T above)
   srk::block_gemm<4, 4>(
@@ -119,7 +85,7 @@ __global__ void __launch_bounds__(kThreads)
 
 size_t smem_bytes(int ws, int d) {
   const int n = ws * ws;
-  return sizeof(float) * (3 * n * d + kQChunk * n) + sizeof(int) * 2 * n;
+  return sizeof(float) * srk::msa_heads_floats(n, d) + sizeof(int) * 2 * n;
 }
 
 template <typename T>

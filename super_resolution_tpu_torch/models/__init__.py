@@ -5,7 +5,7 @@ from copy import deepcopy
 from super_resolution_tpu_torch.models import (atd_arch,  # noqa: F401 registry
                                                esc_arch, hat_arch,
                                                hat_classic_arch,
-                                               srformer_arch)
+                                               hitsrf_arch, srformer_arch)
 from super_resolution_tpu_torch.utils.registry import ARCH_REGISTRY
 
 

@@ -12,7 +12,10 @@ plain PyTorch version for a CPU tensor and launches its CUDA kernel for a
 CUDA tensor. Per RHAG: each unshifted HAB calls ``fused_msa_block`` then
 ``mlp_block_sum3``, each shifted HAB ``fused_msa_block_shifted`` then
 ``mlp_block_sum3_shifted``, and the OCAB ``fused_ocab_block`` then
-``mlp_block``. The module is for inference: drop path is the identity.
+``mlp_block``. With ``hab_route="fused_hab_block"`` each unshifted HAB
+calls ``fused_hab_block`` (``ops/cuda_hab_block.py``) once instead of its
+two: the whole block in one kernel, the attention image never written. The
+module is for inference: drop path is the identity.
 """
 
 from __future__ import annotations
@@ -36,10 +39,13 @@ from super_resolution_tpu_torch.ops.attention import (
     shift_attn_mask_tensor)
 from super_resolution_tpu_torch.ops.cuda_attention import (
     fused_msa_block, fused_msa_block_shifted, fused_ocab_block)
+from super_resolution_tpu_torch.ops.cuda_hab_block import fused_hab_block
 from super_resolution_tpu_torch.ops.cuda_ffn import (mlp_block,
                                                      mlp_block_sum3,
                                                      mlp_block_sum3_shifted)
 from super_resolution_tpu_torch.utils.registry import ARCH_REGISTRY
+
+HAB_ROUTES = ("split", "fused_hab_block")
 
 
 class ChannelAttention(nn.Module):
@@ -112,13 +118,19 @@ class Mlp(nn.Module):
 
 class HABClassic(KernelOperands):
     """Classic hybrid attention block: (S)W-MSA + conv_scale * CAB, then
-    the MLP tail with the 3-way residual."""
+    the MLP tail with the 3-way residual. ``hab_route``: ``split`` runs the
+    attention and the tail as two kernels, ``fused_hab_block`` an unshifted
+    block as one (a shifted block keeps the two: its roll-back lies between
+    them)."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int = 7,
                  shift_size: int = 0, compress_ratio: int = 3,
                  squeeze_factor: int = 30, conv_scale: float = 0.01,
-                 mlp_ratio: float = 4.0):
+                 mlp_ratio: float = 4.0, hab_route: str = "split"):
         super().__init__()
+        if hab_route not in HAB_ROUTES:
+            raise ValueError(f"hab_route {hab_route!r}: one of {HAB_ROUTES}")
+        self.hab_route = hab_route
         self.num_heads = num_heads
         self.window_size = window_size
         self.shift_size = shift_size
@@ -156,6 +168,11 @@ class HABClassic(KernelOperands):
             return mlp_block_sum3_shifted(x, attn, conv_x, *ops["tail"],
                                           conv_scale=self.conv_scale,
                                           shift=ss)
+        if self.hab_route == "fused_hab_block":
+            return fused_hab_block(xn, x, conv_x, *ops["msa"], *ops["tail"],
+                                   heads=self.num_heads, window_size=ws,
+                                   scale=scale, conv_scale=self.conv_scale,
+                                   eps=self.norm2.eps)
         attn = fused_msa_block(xn, *ops["msa"], ops["no_mask"],
                                heads=self.num_heads, window_size=ws,
                                scale=scale)
@@ -215,12 +232,13 @@ class AttenBlocksClassic(nn.Module):
     def __init__(self, dim: int, depth: int, num_heads: int,
                  window_size: int, compress_ratio: int, squeeze_factor: int,
                  conv_scale: float, overlap_ratio: float,
-                 mlp_ratio: float = 4.0):
+                 mlp_ratio: float = 4.0, hab_route: str = "split"):
         super().__init__()
         self.blocks = nn.ModuleList([
             HABClassic(dim, num_heads, window_size,
                        0 if i % 2 == 0 else window_size // 2,
-                       compress_ratio, squeeze_factor, conv_scale, mlp_ratio)
+                       compress_ratio, squeeze_factor, conv_scale, mlp_ratio,
+                       hab_route)
             for i in range(depth)])
         self.overlap_attn = OCABClassic(dim, window_size, overlap_ratio,
                                         num_heads, mlp_ratio)
@@ -235,11 +253,12 @@ class RHAGClassic(nn.Module):
     def __init__(self, dim: int, depth: int, num_heads: int,
                  window_size: int, compress_ratio: int, squeeze_factor: int,
                  conv_scale: float, overlap_ratio: float,
-                 mlp_ratio: float = 4.0, resi_connection: str = "1conv"):
+                 mlp_ratio: float = 4.0, resi_connection: str = "1conv",
+                 hab_route: str = "split"):
         super().__init__()
         self.residual_group = AttenBlocksClassic(
             dim, depth, num_heads, window_size, compress_ratio,
-            squeeze_factor, conv_scale, overlap_ratio, mlp_ratio)
+            squeeze_factor, conv_scale, overlap_ratio, mlp_ratio, hab_route)
         if resi_connection == "1conv":
             self.conv = nn.Conv2d(dim, dim, 3, 1, 1)
         elif resi_connection == "identity":
@@ -258,7 +277,8 @@ class RHAGClassic(nn.Module):
 class HATClassic(HATShell):
     """Classic HAT: shallow conv -> RHAGs -> norm, body conv and global
     residual -> pixel-shuffle reconstruction (``arch_util.HATShell``). Input
-    and output are NHWC.
+    and output are NHWC. ``hab_route`` picks the kernels of the unshifted
+    HABs (:class:`HABClassic`); the default is the split route.
 
     Weights start at torch's defaults; ``models.arch_util.init_weights``
     gives the seeded initialisation, a checkpoint gives trained ones.
@@ -274,11 +294,11 @@ class HATClassic(HATShell):
                  upscale: int = 2, img_range: float = 1.0,
                  upsampler: str = "pixelshuffle",
                  resi_connection: str = "1conv",
-                 stream_tail_rows: int = 0):
+                 stream_tail_rows: int = 0, hab_route: str = "split"):
         layers = [
             RHAGClassic(embed_dim, depth, num_heads[i], window_size,
                         compress_ratio, squeeze_factor, conv_scale,
-                        overlap_ratio, mlp_ratio, resi_connection)
+                        overlap_ratio, mlp_ratio, resi_connection, hab_route)
             for i, depth in enumerate(depths)]
         super().__init__(layers, in_chans, embed_dim, window_size,
                          overlap_ratio, patch_norm, upscale, img_range,

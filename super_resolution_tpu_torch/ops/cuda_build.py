@@ -58,6 +58,11 @@ _SIGNATURES = {
     "sr_msa_attention_smem": [_I] * 2,
     "sr_psa_block": [_I] + [_P] * 8 + [_I] + [_P] + [_I] * 6 + [_F] + [_P],
     "sr_psa_block_smem": [_I] * 3,
+    "sr_scc_block": [_I] + [_P] * 8 + [_I] * 9 + [_P],
+    "sr_scc_block_scratch": [_I] * 6,
+    "sr_scc_block_smem": [_I] * 6,
+    "sr_hab_block": [_I] + [_P] * 16 + [_I] * 7 + [_F] * 3 + [_P],
+    "sr_hab_block_smem": [_I] * 4,
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -1,0 +1,149 @@
+"""The whole unshifted classic HAB after norm1 and the CAB as one kernel:
+the CUDA kernel wrapper and its plain PyTorch version.
+
+Ports ``fused_hab_block`` and ``hab_block_reference`` of
+super_resolution_tpu/ops/pallas_attention.py (the wrapper launches
+``csrc/hab_block.cu``, which runs the device code of ``msa_block.cu`` and
+``mlp_tail.cu`` in one block per window), with the JAX name and signature
+minus the Mosaic knob (``interpret``). Weights are in the JAX layout
+(in, out).
+
+Numerics of the kernel against the plain version: the kernel keeps the
+projected attention and the 3-way sum in float32 up to LN2, as the TPU
+kernel does; the plain version rounds the attention and then the sum to the
+input dtype, as the JAX reference does. In float32 they agree to rounding.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from super_resolution_tpu_torch.ops.cuda_attention import (
+    msa_block_reference, msa_block_smem)
+from super_resolution_tpu_torch.ops.cuda_build import (MAX_DYNAMIC_SMEM,
+                                                       check_f32,
+                                                       check_operands,
+                                                       check_shape,
+                                                       check_smem,
+                                                       load_library,
+                                                       raise_on_error,
+                                                       stream_of, use_kernel)
+from super_resolution_tpu_torch.ops.cuda_ffn import mlp_block_sum3_reference
+
+MAX_HEAD_DIM = 32
+_TAIL_ROWS = 32   # pixels the MLP half of csrc/hab_block.cu takes at a time
+
+
+def hab_block_reference(lnx_img, x_img, conv_img, w_qkv, b_qkv, w_proj,
+                        b_proj, bias, gamma, beta, w1, b1, w2, b2,
+                        heads: int, window_size: int,
+                        scale: float | None = None, conv_scale: float = 0.01,
+                        eps: float = 1e-5):
+    """Plain version of :func:`fused_hab_block`: the W-MSA block, the 3-way
+    sum in float32 rounded to the input dtype, then the MLP tail."""
+    n = window_size ** 2
+    mask = torch.zeros((1, n, n), dtype=torch.float32, device=lnx_img.device)
+    attn = msa_block_reference(lnx_img, w_qkv, b_qkv, w_proj, b_proj, bias,
+                               mask, heads, window_size, scale)
+    return mlp_block_sum3_reference(x_img, attn, conv_img, gamma, beta, w1,
+                                    b1, w2, b2, conv_scale, eps)
+
+
+def hab_block_smem(window_size: int, dim: int, heads: int,
+                   hidden: int) -> int:
+    """Bytes a block of ``csrc/hab_block.cu`` takes: the larger of its
+    attention half (as ``msa_block.cu``: one head's q, k, v and 16 score
+    rows) and its MLP half (32 pixels' input, LayerNorm and hidden
+    activation, float32), and a pixel index a token (the formula of its
+    ``sr_hab_block_smem``)."""
+    n = window_size * window_size
+    attn = msa_block_smem(window_size, dim // heads) - 8 * n
+    tail = 4 * _TAIL_ROWS * (2 * dim + hidden)
+    return max(attn, tail) + 4 * n
+
+
+def hab_block_supported(window_size: int, dim: int, heads: int,
+                        hidden: int) -> bool:
+    """Whether ``fused_hab_block`` runs this shape on the card: a head dim
+    of at most 32 and a block within the card's shared memory (at the
+    flagship's 180 channels in 6 heads and an MLP of 360: windows up to
+    23)."""
+    return (heads >= 1 and dim % heads == 0
+            and dim // heads <= MAX_HEAD_DIM
+            and hab_block_smem(window_size, dim, heads, hidden)
+            <= MAX_DYNAMIC_SMEM)
+
+
+def fused_hab_block(lnx_img, x_img, conv_img, w_qkv, b_qkv, w_proj, b_proj,
+                    bias, gamma, beta, w1, b1, w2, b2, *, heads: int,
+                    window_size: int, scale: float | None = None,
+                    conv_scale: float = 0.01, eps: float = 1e-5):
+    """The entire unshifted classic HAB after norm1 and the CAB:
+
+        attn = proj(W-MSA(qkv(ln_x)))          per ws-window, with RPB
+        x    = shortcut + attn + conv_scale * conv_x
+        out  = x + fc2(gelu(fc1(LN2(x))))
+
+    lnx_img: (B, H, W, C) norm1 output, H and W multiples of window_size;
+    x_img: the block input (shortcut); conv_img: the CAB's output
+    (unscaled). w_qkv (C, 3C); w_proj (C, C); bias (heads, N, N) float32
+    RPB, N = ws^2; gamma, beta: norm2; w1 (C, HID); w2 (HID, C). Returns
+    (B, H, W, C). The attention output never reaches device memory as an
+    image of its own. Replaces
+    super_resolution_tpu/ops/pallas_attention.py::fused_hab_block.
+    """
+    c = lnx_img.shape[-1]
+    if scale is None:
+        scale = (c // heads) ** -0.5
+    if not use_kernel(lnx_img):
+        return hab_block_reference(lnx_img, x_img, conv_img, w_qkv, b_qkv,
+                                   w_proj, b_proj, bias, gamma, beta, w1, b1,
+                                   w2, b2, heads, window_size, scale,
+                                   conv_scale, eps)
+    name = "fused_hab_block"
+    if lnx_img.dim() != 4:
+        raise ValueError(f"{name}: lnx_img must be (B, H, W, C), got "
+                         f"{tuple(lnx_img.shape)}")
+    b, h_img, w_img, _ = lnx_img.shape
+    ws = window_size
+    n = ws * ws
+    hid = w1.shape[1]
+    code = check_operands(name, lnx_img, lnx_img=lnx_img, x_img=x_img,
+                          conv_img=conv_img, w_qkv=w_qkv, b_qkv=b_qkv,
+                          w_proj=w_proj, b_proj=b_proj, gamma=gamma,
+                          beta=beta, w1=w1, b1=b1, w2=w2, b2=b2)
+    check_f32(name, lnx_img, bias=bias)
+    for arg, t, shape in (("x_img", x_img, lnx_img.shape),
+                          ("conv_img", conv_img, lnx_img.shape),
+                          ("w_qkv", w_qkv, (c, 3 * c)),
+                          ("b_qkv", b_qkv, (3 * c,)),
+                          ("w_proj", w_proj, (c, c)), ("b_proj", b_proj, (c,)),
+                          ("bias", bias, (heads, n, n)),
+                          ("gamma", gamma, (c,)), ("beta", beta, (c,)),
+                          ("w1", w1, (c, hid)), ("b1", b1, (hid,)),
+                          ("w2", w2, (hid, c)), ("b2", b2, (c,))):
+        check_shape(name, arg, t, shape)
+    if (heads < 1 or h_img % ws or w_img % ws or c % heads
+            or c // heads > MAX_HEAD_DIM):
+        raise ValueError(f"{name}: needs H, W multiples of {ws} and a head "
+                         f"dim of at most {MAX_HEAD_DIM}, got "
+                         f"{tuple(lnx_img.shape)}, {heads} heads of {c}")
+    lib = load_library()
+    check_smem(name, lib.sr_hab_block_smem(ws, c, heads, hid),
+               f"window {ws}, {c} channels in {heads} heads, hidden {hid}")
+    scratch = torch.empty_like(lnx_img)
+    out = torch.empty_like(lnx_img)
+    err = lib.sr_hab_block(
+        code, lnx_img.data_ptr(), x_img.data_ptr(), conv_img.data_ptr(),
+        w_qkv.data_ptr(), b_qkv.data_ptr(), w_proj.data_ptr(),
+        b_proj.data_ptr(), bias.data_ptr(), gamma.data_ptr(),
+        beta.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), scratch.data_ptr(), out.data_ptr(), b, h_img, w_img,
+        c, hid, heads, ws, scale, conv_scale, eps, stream_of(lnx_img))
+    raise_on_error(name, err)
+    fused_hab_block.launches += 1
+    return out
+
+
+# kernel launches of the wrapper; the plain path does not count
+fused_hab_block.launches = 0

@@ -5,8 +5,10 @@ memory.
 The network, tile settings and weights are those of ``chip_smoke.py``'s
 main paths (``classic``: HATClassic x4; ``fork``: the fork's HAT x2 with
 the ESC-infused OCAB; ``esc``: ESC x4; ``esc_xl``: ESC-XL x4; ``atd``: ATD
-x4; ``srformer``: SRFormer x4; any other label of its ``PATHS``), so run it
-from the repository root, where that script lies:
+x4; ``srformer``: SRFormer x4; ``hitsrf``: HiT-SRF x4; ``classic_hab_block``:
+HATClassic x4 on its whole-block route; any other label of its ``PATHS``,
+see :func:`labels`), so run it from the repository root, where that script
+lies:
 
     python3 -m super_resolution_tpu_torch.tools.profile_forward atd
 
@@ -34,7 +36,15 @@ PORT_KERNELS = ("msa_block_kernel", "ocab_block_kernel",
                 "gated_dconv_ffn_kernel", "ln_split_kernel",
                 "fused_attention_kernel", "fused_attention_v3_kernel",
                 "msa_flash_kernel", "msa_qtile_kernel",
-                "msa_attention_kernel", "psa_block_kernel")
+                "msa_attention_kernel", "psa_block_kernel",
+                "scc_block_kernel", "scc_reduce_kernel", "hab_block_kernel")
+
+
+def labels() -> list:
+    """The paths this script profiles: the labels of ``chip_smoke.PATHS``."""
+    import chip_smoke
+
+    return list(chip_smoke.PATHS)
 
 
 def classify(name: str) -> str:
@@ -72,6 +82,10 @@ def main(label: str) -> int:
 
     import chip_smoke
 
+    if label not in labels():
+        print(f"profile_forward: unknown path {label!r}; one of {labels()}",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("profile_forward: no CUDA device", file=sys.stderr)
         return 2

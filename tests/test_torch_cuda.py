@@ -12,7 +12,9 @@ import torch
 from super_resolution_tpu_torch.ops import cuda_attention as ca
 from super_resolution_tpu_torch.ops import cuda_ffn as cf
 from super_resolution_tpu_torch.ops import cuda_hab as ch
+from super_resolution_tpu_torch.ops import cuda_hab_block as chb
 from super_resolution_tpu_torch.ops import cuda_psa as cp
+from super_resolution_tpu_torch.ops import cuda_scc as cs
 from super_resolution_tpu_torch.ops import cuda_window_attention as cw
 from super_resolution_tpu_torch.ops.attention import (
     relative_position_index_oca, relative_position_index_sa, shift_attn_mask)
@@ -295,6 +297,73 @@ def test_psa_block_matches_plain_version(cuda, shape, masked, dtype):
                   dtype)
 
 
+# (B, H, W, C, heads, window, base): every window size of the published
+# HiT-SRF on one 192 x 192 tile (6 heads of 5; the 4 x 4 window on its own
+# base); a rectangular window; one window in H and several in W; a window
+# whose 36 tokens end in a ragged tile of 4 rows; windows of 4 and of 12
+# tokens, 8 and 2 to a block, with a last block that is not full; head dims
+# 10 and 20 (padded to 16 and 32); a 16 x 16 base
+SCC_SHAPES = [(1, 192, 192, 60, 6, (ws, ws), (min(ws, 8),) * 2)
+              for ws in (4, 8, 16, 32, 48, 64)] + [
+    (2, 16, 8, 20, 2, (8, 4), (4, 4)), (2, 8, 24, 20, 2, (8, 8), (4, 4)),
+    (1, 12, 18, 20, 2, (6, 6), (3, 3)), (3, 6, 6, 20, 2, (2, 2), (2, 2)),
+    (1, 12, 9, 12, 3, (4, 3), (2, 3)), (2, 16, 16, 40, 2, (8, 8), (4, 4)),
+    (1, 16, 32, 80, 2, (16, 16), (8, 8)),
+    (1, 32, 64, 60, 6, (32, 32), (16, 16))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SCC_SHAPES)
+def test_scc_block_matches_plain_version(cuda, shape, dtype):
+    b, h, w, c, heads, win, base = shape
+    L, bl = win[0] * win[1], base[0] * base[1]
+    rng = np.random.default_rng(L + c)
+    args = (_rand(rng, dtype, b, h, w, c),
+            _rand(rng, dtype, L // bl, s=(L // bl) ** -0.5),
+            _rand(rng, dtype, 1, s=0.1)[0],
+            _rand(rng, dtype, c, c, s=c ** -0.5),
+            _rand(rng, dtype, c, s=0.1),
+            _rand(rng, torch.float32, heads, L, bl, s=0.5))
+    before = cs.fused_scc_block.launches
+    got = cs.fused_scc_block(*args, heads=heads, window_size=win, base=base)
+    torch.cuda.synchronize()
+    assert cs.fused_scc_block.launches == before + 1
+    _assert_close(got, cs.scc_block_reference(*args, heads, win, base), dtype)
+
+
+# (B, H, W, C, heads, ws, hidden): a 3 x 4 grid of windows; the flagship
+# width with one window in H; a window whose 36 tokens end in a ragged
+# chunk of 4 rows for the MLP half
+HAB_SHAPES = [(2, 24, 32, 60, 2, 8, 120), (1, 16, 48, 180, 6, 16, 360),
+              (2, 12, 18, 24, 2, 6, 40)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", HAB_SHAPES)
+def test_hab_block_matches_plain_version(cuda, shape, dtype):
+    b, h, w, c, heads, ws, hid = shape
+    n = ws * ws
+    rng = np.random.default_rng(ws + c)
+    args = (_rand(rng, dtype, b, h, w, c), _rand(rng, dtype, b, h, w, c),
+            _rand(rng, dtype, b, h, w, c),
+            _rand(rng, dtype, c, 3 * c, s=c ** -0.5),
+            _rand(rng, dtype, 3 * c, s=0.1),
+            _rand(rng, dtype, c, c, s=c ** -0.5), _rand(rng, dtype, c, s=0.1),
+            _rand(rng, torch.float32, heads, n, n, s=0.5),
+            1.0 + _rand(rng, dtype, c, s=0.1), _rand(rng, dtype, c, s=0.1),
+            _rand(rng, dtype, c, hid, s=c ** -0.5),
+            _rand(rng, dtype, hid, s=0.1),
+            _rand(rng, dtype, hid, c, s=hid ** -0.5),
+            _rand(rng, dtype, c, s=0.1))
+    before = chb.fused_hab_block.launches
+    got = chb.fused_hab_block(*args, heads=heads, window_size=ws,
+                              conv_scale=0.01)
+    torch.cuda.synchronize()
+    assert chb.fused_hab_block.launches == before + 1
+    _assert_close(got, chb.hab_block_reference(*args, heads, ws,
+                                               conv_scale=0.01), dtype)
+
+
 def test_supported_predicates_agree_with_the_sources(cuda):
     """Each pure-Python shared-memory formula equals the C entry of its
     source, so a route chosen on the CPU is the route the card can run."""
@@ -318,6 +387,25 @@ def test_supported_predicates_agree_with_the_sources(cuda):
         for c, heads in ((180, 6), (60, 6), (64, 2), (24, 2)):
             assert (cp.psa_block_smem(ws, c, heads)
                     == lib.sr_psa_block_smem(ws, c, heads))
+    for ws in (4, 7, 8, 16, 23, 24, 32):
+        for c, heads, hid in ((180, 6, 360), (60, 2, 120), (24, 2, 40)):
+            assert (chb.hab_block_smem(ws, c, heads, hid)
+                    == lib.sr_hab_block_smem(ws, c, heads, hid))
+    for win, base in (((4, 4), (4, 4)), ((8, 8), (8, 8)), ((8, 4), (4, 4)),
+                      ((2, 2), (2, 2)), ((6, 6), (3, 3)), ((48, 48), (8, 8)),
+                      ((64, 64), (8, 8)), ((64, 64), (16, 16)),
+                      ((64, 64), (32, 32))):
+        for c, heads in ((60, 6), (20, 2), (128, 4), (80, 2)):
+            assert (cs.scc_block_smem(*win, *base, c, heads)
+                    == lib.sr_scc_block_smem(*win, *base, c, heads))
+    # scratch floats a window: vs (64 cells x 6 heads of 8) and a 30 x 30
+    # Gram a slice of the reduction pass (1, 1, 4, 8, 8 slices); none for a
+    # window one block reduces itself, nor for a shape the kernel refuses
+    assert [lib.sr_scc_block_scratch(w, w, min(w, 8), min(w, 8), 60, 6)
+            for w in (4, 8, 16, 32, 48, 64)] == [
+                0, 3972, 3972, 6672, 10272, 10272]
+    assert lib.sr_scc_block_scratch(8, 4, 4, 4, 20, 2) == 0
+    assert lib.sr_scc_block_scratch(8, 8, 3, 4, 60, 6) == 0
     assert ca.msa_block_supported(24, 16)
     assert not ca.msa_block_supported(32, 16)
 
@@ -360,6 +448,22 @@ def test_block_kernels_state_their_shared_memory_limit(cuda):
             torch.zeros((1, 2304, 2 * c), device="cuda"),
             torch.zeros((heads, 9216, 2304), device="cuda"), heads=heads,
             window_size=96)
+    with pytest.raises(ValueError, match=msg):
+        chb.fused_hab_block(
+            x, x, x, *msa[1:6], vec, vec,
+            torch.zeros((c, 2 * c), device="cuda"),
+            torch.zeros((2 * c,), device="cuda"),
+            torch.zeros((2 * c, c), device="cuda"), vec, heads=heads,
+            window_size=ws)
+    # HiT-SRF's width on a 32 x 32 base: vs of 1,024 base cells does not fit
+    with pytest.raises(ValueError, match=msg):
+        cs.fused_scc_block(
+            torch.zeros((1, 64, 64, 60), device="cuda"),
+            torch.zeros((4,), device="cuda"), torch.zeros((), device="cuda"),
+            torch.zeros((60, 60), device="cuda"),
+            torch.zeros((60,), device="cuda"),
+            torch.zeros((6, 4096, 1024), device="cuda"), heads=6,
+            window_size=(64, 64), base=(32, 32))
     q = torch.zeros((1, 1, 16, 16), device="cuda")
     kv = torch.zeros((1, 1, 3600, 16), device="cuda")
     with pytest.raises(ValueError, match=msg):
@@ -458,4 +562,40 @@ def test_small_atd_srformer_kernels_match_cpu_plain(cuda, net):
         before = fn.launches
         got = model.to(cuda)(x.to(cuda)).cpu()
     assert fn.launches == before + 4
+    assert (got - ref).abs().max().item() < 1e-4
+
+
+@pytest.mark.parametrize("net", ["hitsrf", "classic_hab_block"])
+def test_small_hitsrf_and_hab_block_kernels_match_cpu_plain(cuda, net):
+    """A small HiT-SRF (windows 4, 8, 16 on a base of 8, every block on the
+    kernel) and a small HATClassic on its whole-block route through their
+    float32 kernels on the card equal their plain paths on the CPU, for the
+    same seeded weights, on an input that is no window multiple."""
+    from super_resolution_tpu_torch.models.arch_util import init_weights
+    from super_resolution_tpu_torch.models.hat_classic_arch import HATClassic
+    from super_resolution_tpu_torch.models.hitsrf_arch import HiT_SRF
+
+    if net == "hitsrf":
+        model = HiT_SRF(embed_dim=20, depths=(3, 3), num_heads=(2, 2),
+                        hier_win_ratios=(0.5, 1, 2), upscale=4).eval()
+        fn, launches = cs.fused_scc_block, 6
+    else:
+        model = HATClassic(embed_dim=60, depths=(2, 2), num_heads=(2, 2),
+                           window_size=8, squeeze_factor=6, mlp_ratio=2.0,
+                           upscale=4, hab_route="fused_hab_block").eval()
+        fn, launches = chb.fused_hab_block, 2
+    gen = torch.Generator().manual_seed(0)
+    init_weights(model, gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("relative_position_bias_table"):
+                p.normal_(std=0.5, generator=gen)
+    hw = (21, 30) if net == "hitsrf" else (32, 40)
+    x = torch.from_numpy(
+        np.random.default_rng(0).random((2, *hw, 3), dtype=np.float32))
+    with torch.inference_mode():
+        ref = model(x)
+        before = fn.launches
+        got = model.to(cuda)(x.to(cuda)).cpu()
+    assert fn.launches == before + launches
     assert (got - ref).abs().max().item() < 1e-4

@@ -220,7 +220,14 @@ def test_port_imports_no_jax(tmp_path):
         "                 num_tokens=4, reducted_dim=2),\n"
         "            dict(type='SRFormer', upscale=2, img_size=8, embed_dim=8,\n"
         "                 depths=[2], num_heads=[2], window_size=8,\n"
-        "                 upsampler='pixelshuffledirect')):\n"
+        "                 upsampler='pixelshuffledirect'),\n"
+        "            dict(type='HiT_SRF', upscale=2, embed_dim=20, depths=[2],\n"
+        "                 num_heads=[2], base_win_size=[4, 4],\n"
+        "                 hier_win_ratios=[0.5, 2]),\n"
+        "            dict(type='HATClassic', embed_dim=12, depths=[2],\n"
+        "                 num_heads=[2], window_size=4, squeeze_factor=4,\n"
+        "                 mlp_ratio=2, upscale=2,\n"
+        "                 hab_route='fused_hab_block')):\n"
         "    opt['network_g'] = net\n"
         "    out = Predictor(opt, device='cpu').predict_array(\n"
         "        np.zeros((10, 13, 3), np.float32))\n"
