@@ -5,12 +5,13 @@ NVIDIA GPU.
 Phases, each of which raises on failure:
   1. probe: torch and CUDA versions, the card's name and power limit;
   2. build: nvcc builds the kernels from super_resolution_tpu_torch/csrc;
-  3. kernels: each of the seventeen kernel wrappers (and the bare gated FFN
+  3. kernels: each of the eighteen kernel wrappers (and the bare gated FFN
      entry) against its plain PyTorch version on the card, at the shapes
      its main path gives it (the flagship HAT's, ESC's window 32, ESC-XL's
      window 48, ATD's head dim 35, SRFormer's window 24 against its
      permuted 12 and HiT-SRF's six window sizes from 4 to 64 at head dim
-     5), in float32 (TF32 off) and bfloat16, with
+     5), in float32 (TF32 off) and bfloat16 (the two global sums of
+     ``hab_front`` by their error relative to the magnitudes they add), with
      CUDA-event times of the kernel, the plain version and, where one
      PyTorch call computes the same function, that call; beside them the
      least time the card could take (bound), from the bytes and operations
@@ -21,11 +22,14 @@ Phases, each of which raises on failure:
      OCAB, one request of the fork's HAT with the plain OCAB, ESC x4 on its
      own route and on ``fused_attention_v3``, ESC-XL x4 on its own route
      and on ``msa_qtile_attention``, ATD x4 and the shipped ATD-light x4,
-     SRFormer x4 and the shipped SRFormer-light x4, HiT-SRF x4, and
-     classic HAT x4 on its whole-block route (``fused_hab_block``). The
-     launch counts are set to 0 before each path and read after it; the
-     counts, the output shapes and values, and the PSNR against the port's
-     float32 path are checked.
+     SRFormer x4 and the shipped SRFormer-light x4, HiT-SRF x4,
+     classic HAT x4 on its whole-block route (``fused_hab_block``), the
+     fork's HAT x2 on its ``hab_front`` route, SwinIR-M x4 (classical),
+     lightweight SwinIR x4 and real-world SwinIR-L x4. The launch counts
+     are set to 0 before each path and read after it; the counts, the
+     output shapes and values, and the PSNR against the port's float32
+     path are checked; a route of another path's network is held against
+     that path's output.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Exits non-zero, printing neither, when there
@@ -99,6 +103,19 @@ HITSRF = dict(type="HiT_SRF", upscale=4, in_chans=3, img_size=64,
               resi_connection="1conv",
               hier_win_ratios=[0.5, 1, 2, 4, 6, 8],
               upsampler="pixelshuffledirect")
+# SwinIR x4: classical SwinIR-M (SwinIR's main_test_swinir.py,
+# classical_sr: 001_classicalSR_DF2K_s64w8_SwinIR-M_x4), lightweight
+# (lightweight_sr: 002_lightweightSR_DIV2K_s64w8_SwinIR-S_x4) and real-world
+# SwinIR-L (real_sr, large_model: 003_realSR_BSRGAN_DFOWMFC_s64w8_SwinIR-L_x4)
+SWINIR = dict(type="SwinIR", upscale=4, in_chans=3, img_size=64,
+              window_size=8, img_range=1.0, depths=[6] * 6, embed_dim=180,
+              num_heads=[6] * 6, mlp_ratio=2, upsampler="pixelshuffle",
+              resi_connection="1conv")
+SWINIR_LIGHT = dict(SWINIR, depths=[6] * 4, embed_dim=60, num_heads=[6] * 4,
+                    upsampler="pixelshuffledirect")
+SWINIR_REAL_L = dict(SWINIR, depths=[6] * 9, embed_dim=240,
+                     num_heads=[8] * 9, upsampler="nearest+conv",
+                     resi_connection="3conv")
 TILE = dict(tile_size=128, tile_pad=16, chunk=4)
 # ESC-XL: a padded tile is 144 x 144, 3 x 3 windows of 48; SRFormer: 6 x 6
 # windows of 24
@@ -123,11 +140,17 @@ TOL_BF16 = 2 ** -5  # times max(1, max|plain|): a few bf16 ulps at the
 # fused_scc_block in bf16, beside the bound on its worst element:
 # |kernel - float32 plain|_2 / |float32 plain|_2 on the same bf16 inputs
 TOL_SCC_BF16_L2 = 1e-2
+# hab_front's two global sums: |kernel - plain| over the sum of the
+# magnitudes each adds up, within TOL_F32 or TOL_BF16
+FRONT_MID = C // 3
 # the main paths: network, requests, how many of them also get a float32
 # plain reference on the host CPU, and kernel launches per chunk forward
 # (6 RHAGs; classic: 3 unshifted + 3 shifted HABs + 1 OCAB each; fork:
 # 6 HABs + 1 OCAB each)
 _FORK_HAB = {"ln_split": 36, "gated_dconv_ffn_block": 36, "mlp_block": 6}
+# SwinIR: each RSTB's blocks alternate unshifted and shifted, each then
+# mlp_block (6 RSTBs of 6; light 4 of 6; SwinIR-L 9 of 6)
+_SWIN = ("fused_msa_block", "fused_msa_block_shifted", "mlp_block")
 # ``runs``: (tile settings, requests) pairs served by one predictor. ESC has
 # one attention launch a block (5 blocks, ESC-XL 8). ESC-XL's last run has
 # 160 x 160 tiles, no multiple of 48: the reflect pad inside its window
@@ -178,6 +201,21 @@ PATHS = {
         calls={"fused_hab_block": 18, "fused_msa_block_shifted": 18,
                "mlp_block_sum3_shifted": 18, "fused_ocab_block": 6,
                "mlp_block": 6}),
+    # the fork path's weights and first request with each HAB's front as
+    # one hab_front launch in place of ln_split and the CAB's convs
+    "fork_hab_front": dict(
+        net=dict(FORK, front_route="hab_front"), runs=[(TILE, REQUESTS[:1])],
+        cpu_reference=0, same_as="fork",
+        calls={"hab_front": 36, "gated_dconv_ffn_block": 36,
+               "fused_ocab_attention": 6, "mlp_block": 6}),
+    "swinir": dict(net=SWINIR, runs=[(TILE, REQUESTS)], cpu_reference=1,
+                   calls=dict(zip(_SWIN, (18, 18, 36)))),
+    "swinir_light": dict(net=SWINIR_LIGHT, runs=[(TILE, REQUESTS[:1])],
+                         cpu_reference=0,
+                         calls=dict(zip(_SWIN, (12, 12, 24)))),
+    "swinir_real_l": dict(net=SWINIR_REAL_L, runs=[(TILE, REQUESTS[:1])],
+                          cpu_reference=0,
+                          calls=dict(zip(_SWIN, (27, 27, 54)))),
 }
 _CSRC = "super_resolution_tpu_torch/csrc/"
 _POPS = "super_resolution_tpu/ops/"
@@ -216,6 +254,7 @@ KERNELS = {
                         "pallas_attention.py:1539"),
     "fused_hab_block": ("cuda_hab_block", "hab_block.cu",
                         "pallas_attention.py:1707"),
+    "hab_front": ("cuda_hab", "hab_front.cu", "pallas_hab.py:167"),
 }
 # the attention-only kernels at their paths' shapes: ESC's chunk of four
 # 160 x 160 tiles at window 32 is (100, 4, 1024, 16) windows; ESC-XL's chunk
@@ -329,6 +368,10 @@ def kernel_cases(b: int, hw: int, dtype, seed: int):
            t(2 * HID, s=0.1), w(HID, C), t(C, s=0.1))
     q_img, kv_img = t(b, hw, hw, C), t(b, hw, hw, 2 * C)
     oca_kw = dict(msa_kw, overlap_win=OW)
+    # the CAB's two 3 x 3 convs (HWIO) of the fork's HAB front
+    front = (lns, lnb, t(3, 3, C, FRONT_MID, s=(9 * C) ** -0.5),
+             t(FRONT_MID, s=0.1),
+             t(3, 3, FRONT_MID, C, s=(9 * FRONT_MID) ** -0.5), t(C, s=0.1))
 
     def sdpa():
         """The library's attention on windows cut beforehand: it has no
@@ -376,11 +419,42 @@ def kernel_cases(b: int, hw: int, dtype, seed: int):
         "ln_split": ((x, lns, lnb), dict(pdim=PDIM),
                      lambda: ch.ln_split_reference(x, lns, lnb, 1e-5, PDIM),
                      lambda: (lambda: F.layer_norm(x, (C,), lns, lnb, 1e-5))),
+        "hab_front": ((x, *front), dict(pdim=PDIM),
+                      lambda: ch.hab_front_reference(x, *front, 1e-5, PDIM),
+                      lambda: front_library(x, *front)),
         "fused_ocab_attention": (
             (q_img, kv_img, bias_oca), oca_kw,
             lambda: ca.ocab_attention_reference(q_img, kv_img, bias_oca,
                                                 HEADS, WS, OW), sdpa),
     }
+
+
+def front_library(x, gamma, beta, w1, b1, w2, b2):
+    """The library's composition of ``hab_front``'s first two outputs:
+    ``F.layer_norm``, two cuDNN convs on channels-last views with
+    channels-last filters, ``F.gelu`` (no single PyTorch call computes the
+    function; the sums are left out)."""
+    import torch
+    import torch.nn.functional as F
+
+    cl = torch.channels_last
+    k1 = w1.permute(3, 2, 0, 1).contiguous(memory_format=cl)
+    k2 = w2.permute(3, 2, 0, 1).contiguous(memory_format=cl)
+
+    def run():
+        y = F.layer_norm(x, (x.shape[-1],), gamma, beta, 1e-5)
+        t1 = F.gelu(F.conv2d(y.permute(0, 3, 1, 2), k1, b1, padding=1))
+        return F.conv2d(t1, k2, b2, padding=1)
+    return run
+
+
+def front_sums_rel_err(got, ref) -> float:
+    """Largest error of ``hab_front``'s two sums (gap_cab, gap16) over the
+    sum of the magnitudes each adds up."""
+    mass = (ref[1].float().abs().sum(dim=(1, 2)),
+            ref[0][..., :ref[3].shape[1]].float().abs().sum(dim=(1, 2)))
+    return max(((g - r).abs() / m.clamp_min(1.0)).max().item()
+               for g, r, m in zip(got[2:], ref[2:], mass))
 
 
 def kernel_bound(name: str, b: int, hw: int, esize: int, shifted_mask: int):
@@ -422,6 +496,14 @@ def kernel_bound(name: str, b: int, hw: int, esize: int, shifted_mask: int):
     elif name == "ln_split":
         vec = 8 * tok * C
         byts = 2 * act + tok * PDIM * esize + 2 * C * esize
+    elif name == "hab_front":
+        # the two 3 x 3 convs as matrix products; LayerNorm, GELU and the
+        # two sums elementwise; x in, ln1 and cab_mid out, the weights and
+        # the float32 sums once
+        mm = 2 * 2 * tok * 9 * C * FRONT_MID
+        vec = 8 * tok * C + 8 * tok * FRONT_MID + tok * (C + PDIM)
+        byts = (3 * act + (18 * C * FRONT_MID + 3 * C + FRONT_MID) * esize
+                + 4 * b * (C + PDIM))
     elif name == "fused_ocab_attention":
         mm = 4 * nwin * HEADS * n * nk * d
         byts = 4 * act + HEADS * n * nk * 4
@@ -466,9 +548,21 @@ def check_kernels() -> dict:
         for name, (args, kw, plain, library) in cases.items():
             got = fns[name](*args, **kw)
             torch.cuda.synchronize()
-            err, ok = max_err_and_tol(got, plain(), tol_rel)
+            ref = plain()
+            sums = ""
+            if name == "hab_front":
+                # ln1 and cab_mid by the rule of every kernel, the two sums
+                # by their error relative to the magnitudes they add
+                err, ok = max_err_and_tol(got[:2], ref[:2], tol_rel)
+                rel = front_sums_rel_err(got, ref)
+                ok = ok and rel <= tol_rel
+                sums = f"; sums rel err {rel:.2e}"
+            else:
+                err, ok = max_err_and_tol(got, ref, tol_rel)
             line = (f"  {name:24s} B{b} {hw}x{hw} {str(dtype)[6:]:8s} "
-                    f"max|kernel-plain| {err:.3e} (rel tol {tol_rel:.1e})")
+                    f"max|kernel-plain| {err:.3e} (rel tol {tol_rel:.1e})"
+                    + sums)
+            del got, ref
             if timed and name in KERNELS:
                 ms = time_ms(lambda: fns[name](*args, **kw))
                 plain_ms = time_ms(plain)
@@ -482,6 +576,8 @@ def check_kernels() -> dict:
                          f"bound {bound_ms:.4f} ms ({by})")
                 if lib_ms is not None:
                     line += f"  library {lib_ms:.3f} ms"
+                    if name == "hab_front":
+                        line += " (LayerNorm, two convs and GELU)"
             log(line)
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain "
@@ -893,14 +989,18 @@ def net_scale(net: dict) -> int:
     return net["upscaling_factor"] if net["type"] == "ESC" else net["upscale"]
 
 
+# the runner of each network type; ESC, ATD, SRFormer and HiT-SRF run
+# under the one their option files name, ESRModel
+RUNNERS = {"HATClassic": "HATModel", "HAT": "HATModel",
+           "SwinIR": "SwinIRModel"}
+
+
 def path_options(label: str, bf16: bool = True) -> dict:
     """Options of a path's runner, with the tile settings of its first
-    run; ESC, ATD and SRFormer run under the runner their option files
-    name."""
+    run."""
     net = PATHS[label]["net"]
     return dict(name=f"chip_smoke_{label}",
-                model_type="HATModel" if net["type"].startswith("HAT")
-                else "ESRModel",
+                model_type=RUNNERS.get(net["type"], "ESRModel"),
                 scale=net_scale(net), manual_seed=0, network_g=net,
                 tile=PATHS[label]["runs"][0][0],
                 val=dict(inference_dtype="bf16") if bf16 else {})

@@ -25,6 +25,7 @@ from super_resolution_tpu_torch.ops.attention import (
 from super_resolution_tpu_torch.ops.cuda_ffn import layer_norm_f32
 from super_resolution_tpu_torch.ops.pixelshuffle import pixel_shuffle
 from super_resolution_tpu_torch.ops.streamed_tail import streamed_rows
+from super_resolution_tpu_torch.ops.windowing import reflect_pad
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default
 
@@ -180,6 +181,30 @@ class DepthwiseConvFFN(nn.Module):
         return self.fc2(x + self.dwconv(x))
 
 
+def residual_conv(dim: int, resi_connection: str) -> nn.Module | None:
+    """The conv after a stack of blocks, under the checkpoints' names:
+    ``1conv`` a 3 x 3 conv, ``3conv`` 3 x 3 to dim / 4, LeakyReLU(0.2),
+    1 x 1, LeakyReLU(0.2), 3 x 3 back to dim (``.0``, ``.2``, ``.4``);
+    anything else none."""
+    if resi_connection == "1conv":
+        return nn.Conv2d(dim, dim, 3, 1, 1)
+    if resi_connection == "3conv":
+        return nn.Sequential(
+            nn.Conv2d(dim, dim // 4, 3, 1, 1), nn.LeakyReLU(0.2, True),
+            nn.Conv2d(dim // 4, dim // 4, 1, 1, 0), nn.LeakyReLU(0.2, True),
+            nn.Conv2d(dim // 4, dim, 3, 1, 1))
+    return None
+
+
+def apply_residual_conv(conv: nn.Module, x):
+    """:func:`residual_conv`'s module on an NHWC tensor."""
+    if isinstance(conv, nn.Conv2d):
+        return conv_nhwc(conv, x)
+    y = F.leaky_relu(conv_nhwc(conv[0], x), 0.2)
+    y = F.leaky_relu(conv_nhwc(conv[2], y), 0.2)
+    return conv_nhwc(conv[4], y)
+
+
 def upsample_steps(upscale: int) -> list:
     """Pixel-shuffle factors of the ``pixelshuffle`` tail."""
     if upscale & (upscale - 1) == 0:
@@ -196,11 +221,15 @@ class SRShell(nn.Module):
     output are NHWC. A subclass builds ``layers`` and hands them over.
 
     ``upsampler``: ``pixelshuffle`` (conv + LeakyReLU, [conv, shuffle]*,
-    conv), ``pixelshuffledirect`` (one conv and one shuffle) or ``""`` (no
-    upscaling: the input plus a last conv). ``pad_mode``: how ``forward``
+    conv), ``pixelshuffledirect`` (one conv and one shuffle), ``nearest+conv``
+    (x4 only: two nearest-neighbour doublings, each followed by a conv and
+    LeakyReLU(0.2)) or ``""`` (no upscaling: the input plus a last conv).
+    ``resi_connection``: the body conv, ``1conv`` or ``3conv``
+    (:func:`residual_conv`). The input is mean-shifted where it has three
+    channels, else only scaled by ``img_range``. ``pad_mode``: how ``forward``
     pads the bottom and right of an input that is no window multiple
-    (``reflect``, ``symmetric``) before it crops the output; None leaves
-    that to the caller.
+    (``reflect`` as often as needed, ``symmetric``) before it crops the
+    output; None leaves that to the caller.
 
     Weights start at torch's defaults; :func:`init_weights` gives the seeded
     initialisation, a checkpoint gives trained ones.
@@ -211,42 +240,59 @@ class SRShell(nn.Module):
                  upscale: int, img_range: float, upsampler: str,
                  resi_connection: str, pad_mode: str | None = None):
         super().__init__()
-        if upsampler not in ("pixelshuffle", "pixelshuffledirect", ""):
+        if upsampler not in ("pixelshuffle", "pixelshuffledirect",
+                             "nearest+conv", ""):
             raise NotImplementedError(f"upsampler {upsampler!r}")
+        if upsampler == "nearest+conv" and upscale != 4:
+            raise ValueError("the nearest+conv upsampler is x4 only")
         num_feat = 64
         self.img_range = img_range
+        self.in_chans = in_chans
         self.upscale = upscale if upsampler else 1
         self.upsampler = upsampler
         self.window_size = window_size
         self.pad_mode = pad_mode
+        # the factor of the output crop after a pad
+        self.crop_scale = self.upscale
         self.conv_first = nn.Conv2d(in_chans, embed_dim, 3, 1, 1)
         self.patch_embed = PatchEmbedNorm(embed_dim, patch_norm)
         self.layers = nn.ModuleList(layers)
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        self.conv_after_body = (nn.Conv2d(embed_dim, embed_dim, 3, 1, 1)
-                                if resi_connection == "1conv" else None)
-        if upsampler == "pixelshuffle":
+        self.conv_after_body = residual_conv(embed_dim, resi_connection)
+        if upsampler in ("pixelshuffle", "nearest+conv"):
             self.conv_before_upsample = nn.Sequential(
                 nn.Conv2d(embed_dim, num_feat, 3, 1, 1),
                 nn.LeakyReLU(inplace=True))
+        if upsampler == "pixelshuffle":
             up = []
             for r in upsample_steps(upscale):
                 up += [nn.Conv2d(num_feat, r * r * num_feat, 3, 1, 1),
                        nn.PixelShuffle(r)]
             self.upsample = nn.Sequential(*up)
-            self.conv_last = nn.Conv2d(num_feat, in_chans, 3, 1, 1)
+        elif upsampler == "nearest+conv":
+            self.conv_up1 = nn.Conv2d(num_feat, num_feat, 3, 1, 1)
+            self.conv_up2 = nn.Conv2d(num_feat, num_feat, 3, 1, 1)
+            self.conv_hr = nn.Conv2d(num_feat, num_feat, 3, 1, 1)
         elif upsampler == "pixelshuffledirect":
             self.upsample = nn.Sequential(
                 nn.Conv2d(embed_dim, upscale * upscale * in_chans, 3, 1, 1),
                 nn.PixelShuffle(upscale))
-        else:
+        if upsampler in ("pixelshuffle", "nearest+conv"):
+            self.conv_last = nn.Conv2d(num_feat, in_chans, 3, 1, 1)
+        elif not upsampler:
             self.conv_last = nn.Conv2d(embed_dim, in_chans, 3, 1, 1)
 
     def recon(self, f):
-        """Reconstruction tail of the two upsamplers."""
+        """Reconstruction tail of the upsamplers."""
         y = f
-        if self.upsampler == "pixelshuffle":
+        if self.upsampler in ("pixelshuffle", "nearest+conv"):
             y = F.leaky_relu(conv_nhwc(self.conv_before_upsample[0], f), 0.01)
+        if self.upsampler == "nearest+conv":
+            for conv in (self.conv_up1, self.conv_up2):
+                y = y.repeat_interleave(2, 1).repeat_interleave(2, 2)
+                y = F.leaky_relu(conv_nhwc(conv, y), 0.2)
+            y = F.leaky_relu(conv_nhwc(self.conv_hr, y), 0.2)
+            return conv_nhwc(self.conv_last, y)
         for i in range(0, len(self.upsample), 2):
             conv, shuffle = self.upsample[i], self.upsample[i + 1]
             y = pixel_shuffle(conv_nhwc(conv, y), shuffle.upscale_factor)
@@ -261,27 +307,27 @@ class SRShell(nn.Module):
         if self.pad_mode is not None:
             ws = self.window_size
             pad_h, pad_w = (ws - h % ws) % ws, (ws - w % ws) % ws
-            if self.pad_mode == "symmetric":
-                x = pad_symmetric(x, pad_h, pad_w)
-            elif pad_h or pad_w:
-                x = F.pad(x.permute(0, 3, 1, 2), (0, pad_w, 0, pad_h),
-                          mode=self.pad_mode).permute(0, 2, 3, 1)
-        x = MeanShift.normalize(x, self.img_range)
+            pad = (pad_symmetric if self.pad_mode == "symmetric"
+                   else reflect_pad)
+            x = pad(x, pad_h, pad_w)
+        x = (MeanShift.normalize(x, self.img_range) if self.in_chans == 3
+             else x * self.img_range)
         feat = conv_nhwc(self.conv_first, x).contiguous()
         body = self.patch_embed(feat)
         for layer in self.layers:
             body = layer(body)
         body = layer_norm(self.norm, body)
         if self.conv_after_body is not None:
-            body = conv_nhwc(self.conv_after_body, body)
+            body = apply_residual_conv(self.conv_after_body, body)
         feat = body + feat
         if self.upsampler:
             y = self.reconstruct(feat)
         else:
             y = x + conv_nhwc(self.conv_last, feat)
-        y = MeanShift.denormalize(y, self.img_range)
+        y = (MeanShift.denormalize(y, self.img_range) if self.in_chans == 3
+             else y / self.img_range)
         if self.pad_mode is not None:
-            y = y[:, :h * self.upscale, :w * self.upscale, :]
+            y = y[:, :h * self.crop_scale, :w * self.crop_scale, :]
         return y
 
 

@@ -20,12 +20,12 @@ Module and parameter names follow the torch checkpoints
 ``layers.0.residual_group.td``), so a state_dict with the official names
 loads with ``strict=True``. The module is for inference.
 
-A layer whose input is a window multiple sends the (S)W-MSA through
-``fused_msa_attention`` (``ops/cuda_window_attention.py``: the plain
-version for a CPU tensor, the CUDA kernel for a CUDA tensor) where
-:func:`fused_msa_attention_supported` holds; any other shape takes the
-windowed plain path. The roll of a shifted layer stays outside the kernel:
-AC-MSA reads the same qkv image unrolled.
+On the card every layer sends the (S)W-MSA through ``fused_msa_attention``
+(``ops/cuda_window_attention.py``), which launches its CUDA kernel or
+raises a ``ValueError`` that names the limit; the network pads its input
+to a window multiple first. A CPU tensor takes the windowed plain path.
+The roll of a shifted layer stays outside the kernel: AC-MSA reads the
+same qkv image unrolled.
 
 Precision in bf16: the dictionary similarity (normalisation, product,
 softmax) and both attentions' scores and softmax are float32, so the
@@ -51,8 +51,9 @@ from super_resolution_tpu_torch.models.arch_util import (LN_EPS,
                                                          layer_norm)
 from super_resolution_tpu_torch.ops.attention import (
     attention_with_bias, relative_position_index_sa, shift_attn_mask_tensor)
-from super_resolution_tpu_torch.ops.cuda_window_attention import (
-    fused_msa_attention, fused_msa_attention_supported)
+from super_resolution_tpu_torch.ops.cuda_build import use_kernel
+from super_resolution_tpu_torch.ops.cuda_window_attention import \
+    fused_msa_attention
 from super_resolution_tpu_torch.ops.windowing import (window_partition,
                                                       window_reverse)
 from super_resolution_tpu_torch.utils.registry import ARCH_REGISTRY
@@ -229,8 +230,7 @@ class ATDTransformerLayer(KernelOperands):
         if ss > 0:
             shifted_qkv = torch.roll(qkv, (-ss, -ss), dims=(1, 2))
             mask = shift_attn_mask_tensor(h, w, ws, ss, str(x.device))
-        if (ws % 8 == 0 and h % ws == 0 and w % ws == 0
-                and fused_msa_attention_supported(ws, c // heads)):
+        if use_kernel(x):
             out_img = fused_msa_attention(
                 shifted_qkv.contiguous(), self.kernel_operands()["bias"],
                 mask, heads=heads, window_size=ws,

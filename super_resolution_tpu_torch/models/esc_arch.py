@@ -102,11 +102,14 @@ class ConvolutionalAttention(nn.Module):
         nn.init.zeros_(self.dwc_proj[3].weight)
         nn.init.zeros_(self.dwc_proj[3].bias)
 
-    def attended(self, x1, lk_filter):
+    def attended(self, x1, lk_filter, mean=None):
         """The processed slab, from the compact (B, H, W, pdim) slab of the
-        first pdim channels (no concat with the passthrough channels)."""
+        first pdim channels (no concat with the passthrough channels).
+        ``mean``: the slab's (B, pdim) pixel mean in x1's dtype, where the
+        caller already has it."""
         down, up = self.dwc_proj[1], self.dwc_proj[3]
-        g = x1.float().mean(dim=(1, 2)).to(x1.dtype)          # (B, pdim)
+        g = (x1.float().mean(dim=(1, 2)).to(x1.dtype) if mean is None
+             else mean)                                       # (B, pdim)
         dk = gelu_exact(F.linear(g, down.weight.flatten(1), down.bias))
         dk = F.linear(dk, up.weight.flatten(1), up.bias)      # (B, pdim*9)
         dk = dk.reshape(-1, self.pdim, 3, 3).permute(0, 2, 3, 1)
@@ -149,12 +152,13 @@ class ConvAttnWrapper(nn.Module):
         self.plk = ConvolutionalAttention(pdim, kernel_size)
         self.aggr = SplitPointwise(dim, pdim, dim)
 
-    def forward(self, x, lk_filter, x1=None):
+    def forward(self, x, lk_filter, x1=None, mean=None):
         """x: (B, H, W, dim); x1: its first pdim channels as a compact
-        tensor, where the caller already has them."""
+        tensor, and ``mean`` their pixel mean, where the caller already has
+        them."""
         if x1 is None:
             x1 = x[..., :self.pdim].contiguous()
-        return self.aggr(self.plk.attended(x1, lk_filter), x)
+        return self.aggr(self.plk.attended(x1, lk_filter, mean), x)
 
 
 def pointwise(conv: nn.Conv2d, x):

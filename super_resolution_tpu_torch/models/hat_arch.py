@@ -13,7 +13,10 @@ the identity and there is no rematerialisation.
 Kernels per RHAG: each HAB calls ``ln_split`` (front LayerNorm plus the ESC
 slab) and ``gated_dconv_ffn_block`` (the whole FFN residual); the OCAB
 calls ``fused_ocab_attention`` when ``esc_enable`` is set, else
-``fused_ocab_block``, and then ``mlp_block``. Each wrapper runs its plain
+``fused_ocab_block``, and then ``mlp_block``. With
+``front_route="hab_front"`` each HAB calls ``hab_front`` (LayerNorm, the
+CAB's two convs and both global pools in one kernel) in place of
+``ln_split`` and the CAB's cuDNN convs. Each wrapper runs its plain
 PyTorch version for a CPU tensor and launches its CUDA kernel for a CUDA
 tensor.
 """
@@ -42,8 +45,10 @@ from super_resolution_tpu_torch.ops.cuda_attention import (
     fused_ocab_attention, fused_ocab_block)
 from super_resolution_tpu_torch.ops.cuda_ffn import (gated_dconv_ffn_block,
                                                      mlp_block)
-from super_resolution_tpu_torch.ops.cuda_hab import ln_split
+from super_resolution_tpu_torch.ops.cuda_hab import hab_front, ln_split
 from super_resolution_tpu_torch.utils.registry import ARCH_REGISTRY
+
+FRONT_ROUTES = ("ln_split", "hab_front")
 
 
 class ECA(nn.Module):
@@ -54,8 +59,10 @@ class ECA(nn.Module):
         super().__init__()
         self.conv = nn.Conv1d(1, 1, k_size, padding=k_size // 2, bias=False)
 
-    def forward(self, x):
-        y = x.mean(dim=(1, 2))                                # (B, C)
+    def forward(self, x, mean=None):
+        """``mean``: the (B, C) pixel mean of the gated input, where the
+        caller already has it (it may gate a scaled copy of that input)."""
+        y = x.mean(dim=(1, 2)) if mean is None else mean      # (B, C)
         y = torch.sigmoid(self.conv(y[:, None, :])[:, 0])
         return x * y[:, None, None, :]
 
@@ -102,22 +109,34 @@ class ESCConvAttn(nn.Module):
     def seeded_init(self, generator: torch.Generator) -> None:
         orthogonal_oihw(self.plk_filter, generator)
 
-    def forward(self, x, x1=None):
-        return self.core(x, self.plk_filter, x1)
+    def forward(self, x, x1=None, mean=None):
+        return self.core(x, self.plk_filter, x1, mean)
 
 
 class HAB(KernelOperands):
     """Hybrid attention block of the fork: norm1 -> {ESC conv attention +
     conv_scale * CAB} residual, then the gated depthwise-conv FFN residual.
     ``num_heads``, ``window_size``, ``shift_size`` and ``squeeze_factor``
-    are taken for the options' sake; the conv attention uses none."""
+    are taken for the options' sake; the conv attention uses none.
+
+    ``front_route`` picks the kernels of the first residual: ``ln_split``
+    (the LayerNorm kernel, then the CAB's convs in cuDNN) or ``hab_front``
+    (one kernel up to the two global pools, whose sums feed the ECA gate
+    and the dynamic-kernel head; it needs dim > esc_pdim)."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int = 7,
                  shift_size: int = 0, compress_ratio: int = 3,
                  squeeze_factor: int = 30, conv_scale: float = 0.01,
                  mlp_ratio: float = 4.0, esc_pdim: int = 16,
-                 esc_kernel: int = 13):
+                 esc_kernel: int = 13, front_route: str = "ln_split"):
         super().__init__()
+        if front_route not in FRONT_ROUTES:
+            raise ValueError(f"front_route {front_route!r}: one of "
+                             f"{FRONT_ROUTES}")
+        if front_route == "hab_front" and dim <= esc_pdim:
+            raise ValueError(f"front_route 'hab_front' needs dim > esc_pdim, "
+                             f"got {dim} and {esc_pdim}")
+        self.front_route = front_route
         self.conv_scale = conv_scale
         self.esc_pdim = esc_pdim
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
@@ -127,23 +146,46 @@ class HAB(KernelOperands):
         self.mlp = GatedDconvFFN(dim, mlp_ratio)
 
     def _build_operands(self) -> dict:
-        mp = self.mlp
+        mp, cab = self.mlp, self.conv_block.cab
         return {"ffn": (self.norm2.weight, self.norm2.bias,
                         mp.fc1.weight.t().contiguous(), mp.fc1.bias,
                         mp.dw.weight[:, 0].permute(1, 2, 0).contiguous(),
                         mp.dw.bias, mp.fc2.weight.t().contiguous(),
-                        mp.fc2.bias)}
+                        mp.fc2.bias),
+                # the CAB's convs as HWIO filters
+                "front": (self.norm1.weight, self.norm1.bias,
+                          cab[0].weight.permute(2, 3, 1, 0).contiguous(),
+                          cab[0].bias,
+                          cab[2].weight.permute(2, 3, 1, 0).contiguous(),
+                          cab[2].bias)}
 
     def forward(self, x):
         ops = self.kernel_operands()
         x = x.contiguous()
-        ln1, x1 = ln_split(x, self.norm1.weight, self.norm1.bias,
-                           eps=self.norm1.eps, pdim=self.esc_pdim)
-        conv_x = self.conv_block(ln1)
-        attn_x = self.esc_attn(ln1, x1)
-        x = x + attn_x + self.conv_scale * conv_x
+        if self.front_route == "hab_front":
+            x = self._hab_front(x, ops)
+        else:
+            ln1, x1 = ln_split(x, self.norm1.weight, self.norm1.bias,
+                               eps=self.norm1.eps, pdim=self.esc_pdim)
+            conv_x = self.conv_block(ln1)
+            attn_x = self.esc_attn(ln1, x1)
+            x = x + attn_x + self.conv_scale * conv_x
         return gated_dconv_ffn_block(x.contiguous(), *ops["ffn"],
                                      eps=self.norm2.eps)
+
+    def _hab_front(self, x, ops):
+        """The first residual from ``hab_front``'s outputs: the ECA gate
+        from the mean of cab_mid, the dynamic-kernel head from the mean of
+        the ESC slab, then x + attn_x + conv_scale * cab_mid * gate."""
+        pdim = self.esc_pdim
+        ln1, cab_mid, gap_cab, gap16 = hab_front(
+            x, *ops["front"], eps=self.norm1.eps, pdim=pdim)
+        inv_hw = 1.0 / (x.shape[1] * x.shape[2])
+        attn_x = self.esc_attn(ln1, ln1[..., :pdim].contiguous(),
+                               (gap16 * inv_hw).to(x.dtype))
+        conv_x = self.conv_block.cab[3](self.conv_scale * cab_mid,
+                                        (gap_cab * inv_hw).to(x.dtype))
+        return x + attn_x + conv_x
 
 
 class OCAB(KernelOperands):
@@ -228,12 +270,14 @@ class AttenBlocks(nn.Module):
                  conv_scale: float, overlap_ratio: float,
                  mlp_ratio: float = 4.0, esc_pdim: int = 16,
                  esc_kernel: int = 13, ocab_esc_enable: bool = False,
-                 ocab_esc_pdim: int = 16, ocab_esc_kernel: int = 13):
+                 ocab_esc_pdim: int = 16, ocab_esc_kernel: int = 13,
+                 front_route: str = "ln_split"):
         super().__init__()
         self.blocks = nn.ModuleList([
             HAB(dim, num_heads, window_size,
                 0 if i % 2 == 0 else window_size // 2, compress_ratio,
-                squeeze_factor, conv_scale, mlp_ratio, esc_pdim, esc_kernel)
+                squeeze_factor, conv_scale, mlp_ratio, esc_pdim, esc_kernel,
+                front_route)
             for i in range(depth)])
         self.overlap_attn = OCAB(dim, window_size, overlap_ratio, num_heads,
                                  mlp_ratio, ocab_esc_enable, ocab_esc_pdim,
@@ -277,6 +321,9 @@ class HAT(HATShell):
     -> NHWC upscaled RGB. ``drop_path_rate`` and ``use_checkpoint`` are
     training options of the YAML files and change nothing at inference.
 
+    ``front_route`` (``ln_split`` or ``hab_front``) picks the kernels of
+    every HAB's first residual (:class:`HAB`); the default is ``ln_split``.
+
     Weights start at torch's defaults; ``models.arch_util.init_weights``
     gives the seeded initialisation, a checkpoint gives trained ones.
     """
@@ -293,14 +340,15 @@ class HAT(HATShell):
                  resi_connection: str = "1conv", esc_pdim: int = 16,
                  esc_kernel: int = 13, ocab_esc_enable: bool = False,
                  ocab_esc_pdim: int = 16, ocab_esc_kernel: int = 13,
-                 use_checkpoint: bool = False, stream_tail_rows: int = 0):
+                 use_checkpoint: bool = False, stream_tail_rows: int = 0,
+                 front_route: str = "ln_split"):
         layers = [
             RHAG(embed_dim, depth, num_heads[i], window_size, compress_ratio,
                  squeeze_factor, conv_scale, overlap_ratio, mlp_ratio,
                  resi_connection, esc_pdim=esc_pdim, esc_kernel=esc_kernel,
                  ocab_esc_enable=ocab_esc_enable,
                  ocab_esc_pdim=ocab_esc_pdim,
-                 ocab_esc_kernel=ocab_esc_kernel)
+                 ocab_esc_kernel=ocab_esc_kernel, front_route=front_route)
             for i, depth in enumerate(depths)]
         super().__init__(layers, in_chans, embed_dim, window_size,
                          overlap_ratio, patch_norm, upscale, img_range,

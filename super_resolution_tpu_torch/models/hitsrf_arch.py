@@ -42,6 +42,7 @@ from super_resolution_tpu_torch.models.arch_util import (LN_EPS,
                                                          index_buffer,
                                                          layer_norm)
 from super_resolution_tpu_torch.ops.cuda_scc import fused_scc_block
+from super_resolution_tpu_torch.ops.windowing import reflect_pad
 from super_resolution_tpu_torch.utils.registry import ARCH_REGISTRY
 
 
@@ -159,11 +160,6 @@ class ConvFFNHiT(DepthwiseConvFFN):
         super().__init__(in_features, hidden, 5)
 
 
-def _reflect_pad(x, pad_h: int, pad_w: int):
-    return F.pad(x.permute(0, 3, 1, 2), (0, pad_w, 0, pad_h),
-                 mode="reflect").permute(0, 2, 3, 1)
-
-
 class HierarchicalTransformerBlock(nn.Module):
     """Post-norm hierarchical block: SCC at its own window size, then the
     ConvFFN, each followed by its norm and added to its input."""
@@ -180,20 +176,10 @@ class HierarchicalTransformerBlock(nn.Module):
         self.mlp = ConvFFNHiT(dim, int(dim * mlp_ratio))
 
     def _pad(self, x):
-        """Reflect-pad the bottom and the right to a window multiple. A
-        reflection is shorter than the side it mirrors, so an input
-        smaller than its pad is first padded by its own size less one."""
+        """Reflect-pad the bottom and the right to a window multiple."""
         wh, ww = self.window_size
         h, w = x.shape[1], x.shape[2]
-        mph = (wh - h % wh) % wh
-        mpw = (ww - w % ww) % ww
-        if mph >= h or mpw >= w:
-            ph, pw = h - 1, w - 1
-            x = _reflect_pad(x, ph, pw)
-            mph, mpw = mph - ph, mpw - pw
-        if mph or mpw:
-            x = _reflect_pad(x, mph, mpw)
-        return x
+        return reflect_pad(x, (wh - h % wh) % wh, (ww - w % ww) % ww)
 
     def forward(self, x):
         h, w = x.shape[1], x.shape[2]

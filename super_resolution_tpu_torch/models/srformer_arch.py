@@ -15,11 +15,12 @@ Module and parameter names follow the torch checkpoints
 a state_dict with the official names loads with ``strict=True``. The module
 is for inference: drop path is the identity.
 
-A block whose input is a window multiple goes through ``fused_psa_block``
-(``ops/cuda_psa.py``: the plain version for a CPU tensor, the CUDA kernel
-for a CUDA tensor) where :func:`fused_psa_block_supported` holds; the kv
-projection and the permuted fold run on the whole image before it. Any
-other shape takes the windowed plain path through :class:`PSA`.
+On the card every block goes through ``fused_psa_block``
+(``ops/cuda_psa.py``), which launches its CUDA kernel or raises a
+``ValueError`` that names the limit; the kv projection and the permuted
+fold run on the whole image before it, which the network pads to a window
+multiple first. A CPU tensor takes the windowed plain path through
+:class:`PSA`.
 """
 
 from __future__ import annotations
@@ -39,8 +40,8 @@ from super_resolution_tpu_torch.models.arch_util import (LN_EPS,
                                                          index_buffer,
                                                          layer_norm)
 from super_resolution_tpu_torch.ops.attention import attention_with_bias
-from super_resolution_tpu_torch.ops.cuda_psa import (
-    fused_psa_block, fused_psa_block_supported)
+from super_resolution_tpu_torch.ops.cuda_build import use_kernel
+from super_resolution_tpu_torch.ops.cuda_psa import fused_psa_block
 from super_resolution_tpu_torch.ops.windowing import (window_partition,
                                                       window_reverse)
 from super_resolution_tpu_torch.utils.registry import ARCH_REGISTRY
@@ -203,8 +204,7 @@ class PSABlock(KernelOperands):
         if ss > 0:
             x = torch.roll(x, (-ss, -ss), dims=(1, 2))
             mask = psa_shift_mask_tensor(hh, ww, ws, ss, str(x.device))
-        if (ws % 8 == 0 and hh % ws == 0 and ww % ws == 0
-                and fused_psa_block_supported(ws, c, heads)):
+        if use_kernel(x):
             ops = self.kernel_operands()
             kvw = permuted_kv_windows(self.attn.kv(x), ws)
             x = fused_psa_block(x.contiguous(), *ops["psa"],
@@ -275,6 +275,8 @@ class SRFormer(SRShell):
                  drop_path_rate: float = 0.1, patch_norm: bool = True,
                  upscale: int = 2, img_range: float = 1.0,
                  upsampler: str = "", resi_connection: str = "1conv"):
+        if upsampler not in ("pixelshuffle", "pixelshuffledirect", ""):
+            raise NotImplementedError(upsampler)
         layers = [
             PSAGroup(embed_dim, depth, num_heads[i], window_size, mlp_ratio,
                      resi_connection, (img_size, img_size))

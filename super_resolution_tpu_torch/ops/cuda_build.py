@@ -63,6 +63,8 @@ _SIGNATURES = {
     "sr_scc_block_smem": [_I] * 6,
     "sr_hab_block": [_I] + [_P] * 16 + [_I] * 7 + [_F] * 3 + [_P],
     "sr_hab_block_smem": [_I] * 4,
+    "sr_hab_front": [_I] + [_P] * 12 + [_I] * 6 + [_F] + [_P],
+    "sr_hab_front_smem": [_I] * 3,
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

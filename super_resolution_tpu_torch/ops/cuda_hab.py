@@ -1,25 +1,36 @@
-"""The front of the fork-HAT HAB: CUDA kernel wrapper and its plain
-PyTorch version.
+"""The front of the fork-HAT HAB: CUDA kernel wrappers and their plain
+PyTorch versions.
 
-Ports super_resolution_tpu/ops/pallas_hab.py: ``ln_split`` keeps the JAX
-name and signature, minus the Mosaic knobs (``tile_rows``, ``interpret``),
-and launches ``csrc/ln_split.cu``. The TPU kernel's row-tile limit (H a
-multiple of the tile) does not carry over: any B, H and W go through.
+Ports super_resolution_tpu/ops/pallas_hab.py: ``ln_split`` and
+``hab_front`` keep the JAX names and signatures, minus the Mosaic knobs
+(``tile_rows``, ``interpret``), and launch ``csrc/ln_split.cu`` and
+``csrc/hab_front.cu``. The TPU kernels' row-tile limits (H a multiple of
+the tile, or padded to one) do not carry over: any B, H and W go through.
 
-Numerics: kernel and plain version take the statistics in float32 and
-round once, to the input dtype; they differ by the order of the sums.
+Numerics: ``ln_split``'s kernel and plain version take the statistics in
+float32 and round once, to the input dtype; they differ by the order of
+the sums. ``hab_front``'s round where the JAX reference casts: ln1 to the
+input dtype before conv1, conv1's output before the float32 GELU, the
+GELU's output before conv2, cab_mid before the sums; the kernel sums in
+float32 by 8 x 8 tiles, then the tiles in order.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from super_resolution_tpu_torch.ops.cuda_build import (check_operands,
+from super_resolution_tpu_torch.ops.cuda_build import (MAX_DYNAMIC_SMEM,
+                                                       check_operands,
                                                        check_shape,
+                                                       check_smem,
                                                        load_library,
                                                        raise_on_error,
                                                        stream_of, use_kernel)
 from super_resolution_tpu_torch.ops.cuda_ffn import layer_norm_f32
+
+# output tile side and LayerNorm patch side of csrc/hab_front.cu
+_TILE, _LN_SIDE = 8, 12
 
 
 def ln_split_reference(x, gamma, beta, eps: float = 1e-5, pdim: int = 16):
@@ -57,5 +68,95 @@ def ln_split(x, gamma, beta, *, eps: float = 1e-5, pdim: int = 16):
     return ln1, x1
 
 
-# kernel launches of the wrapper; the plain path does not count
+def _conv3x3_hwio(x, w, b):
+    """3 x 3 conv with zero padding on NHWC x, an HWIO filter and a bias,
+    in x's dtype."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).to(x.dtype),
+                 b.to(x.dtype), padding=1)
+    return y.permute(0, 2, 3, 1)
+
+
+def hab_front_reference(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5,
+                        pdim: int = 16):
+    """Plain version of :func:`hab_front`: (ln1, cab_mid, gap_cab, gap16)."""
+    ln1 = layer_norm_f32(x, gamma, beta, eps)
+    t1 = F.gelu(_conv3x3_hwio(ln1, w1, b1).float()).to(x.dtype)
+    cab = _conv3x3_hwio(t1, w2, b2)
+    gap_cab = cab.float().sum(dim=(1, 2))
+    gap16 = ln1[..., :pdim].float().sum(dim=(1, 2))
+    return ln1, cab, gap_cab, gap16
+
+
+def hab_front_smem(c: int, mid: int, esize: int = 4) -> int:
+    """Bytes of shared memory a block of ``csrc/hab_front.cu`` takes for
+    elements of ``esize`` bytes: the pixel indices of the 12 x 12 LayerNorm
+    patch, the patch, conv1's 10 x 10 outputs and one tap's (C x MID)
+    weights (the formula of its ``sr_hab_front_smem``)."""
+    ln = _LN_SIDE * _LN_SIDE
+    return 4 * ln + esize * (ln * c + (_TILE + 2) ** 2 * mid + c * mid)
+
+
+def hab_front_supported(c: int, mid: int, pdim: int,
+                        dtype=torch.float32) -> bool:
+    """Whether ``hab_front`` runs this shape on the card in ``dtype`` (by
+    default float32, the larger, so that both run): 0 <= pdim <= C and a
+    block within the card's shared memory (in float32: C up to about 250 at
+    MID = C / 3; the fork's 180 and 60 take 171 kB, 86 kB in bf16)."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    return (0 <= pdim <= c and mid >= 1
+            and hab_front_smem(c, mid, esize) <= MAX_DYNAMIC_SMEM)
+
+
+def hab_front(x, gamma, beta, w1, b1, w2, b2, *, eps: float = 1e-5,
+              pdim: int = 16):
+    """The HAB's front up to its two global pools:
+
+        ln1     = LayerNorm(x)                        (B, H, W, C)
+        cab_mid = conv2(gelu(conv1(ln1)))             (B, H, W, C)
+        gap_cab = sum over pixels of cab_mid          (B, C) float32
+        gap16   = sum over pixels of ln1[..., :pdim]  (B, pdim) float32
+
+    x: (B, H, W, C); gamma, beta, b2 (C,); w1 (3, 3, C, MID), b1 (MID,);
+    w2 (3, 3, MID, C): 3 x 3 convs with zero padding in the HWIO layout.
+    Returns (ln1, cab_mid, gap_cab, gap16). On the card: one launch of the
+    kernel and one of its short reduction pass, counted once. Replaces
+    super_resolution_tpu/ops/pallas_hab.py::hab_front.
+    """
+    name = "hab_front"
+    if x.dim() != 4:
+        raise ValueError(f"{name}: x must be (B, H, W, C), got "
+                         f"{tuple(x.shape)}")
+    b, h, w, c = x.shape
+    mid = w1.shape[-1]
+    if not 0 <= pdim <= c:
+        raise ValueError(f"{name}: pdim {pdim} outside [0, {c}]")
+    if not use_kernel(x):
+        return hab_front_reference(x, gamma, beta, w1, b1, w2, b2, eps, pdim)
+    code = check_operands(name, x, x=x, gamma=gamma, beta=beta, w1=w1,
+                          b1=b1, w2=w2, b2=b2)
+    for arg, t, shape in (("gamma", gamma, (c,)), ("beta", beta, (c,)),
+                          ("w1", w1, (3, 3, c, mid)), ("b1", b1, (mid,)),
+                          ("w2", w2, (3, 3, mid, c)), ("b2", b2, (c,))):
+        check_shape(name, arg, t, shape)
+    lib = load_library()
+    check_smem(name, lib.sr_hab_front_smem(code, c, mid),
+               f"{c} channels and a conv1 width of {mid} in {x.dtype}")
+    tiles = -(-h // _TILE) * -(-w // _TILE)
+    ln1, cab = torch.empty_like(x), torch.empty_like(x)
+    partial = torch.empty(b * tiles * (c + pdim), dtype=torch.float32,
+                          device=x.device)
+    gap_cab = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    gap16 = torch.empty((b, pdim), dtype=torch.float32, device=x.device)
+    err = lib.sr_hab_front(
+        code, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ln1.data_ptr(),
+        cab.data_ptr(), partial.data_ptr(), gap_cab.data_ptr(),
+        gap16.data_ptr(), b, h, w, c, mid, pdim, eps, stream_of(x))
+    raise_on_error(name, err)
+    hab_front.launches += 1
+    return ln1, cab, gap_cab, gap16
+
+
+# kernel launches of each wrapper; the plain path does not count
 ln_split.launches = 0
+hab_front.launches = 0

@@ -45,13 +45,30 @@ def extract_overlap_windows(x, window_size: int, overlap_win_size: int):
     return patches.reshape(b * nh * nw, ow * ow, c)
 
 
-def pad_to_multiple(x, multiple: int, mode: str = "reflect"):
-    """Pad NHWC H and W up to the next multiple. Returns (padded,
-    (pad_h, pad_w))."""
+def reflect_pad(x, pad_h: int, pad_w: int):
+    """Pad NHWC H and W at the bottom and the right with their mirror image
+    (the edge not repeated), as often as the pad needs: numpy's and
+    ``jnp.pad``'s ``reflect`` mode, which ``F.pad`` takes only for a pad
+    shorter than the side. A side of one is repeated."""
+    for dim, pad in ((1, pad_h), (2, pad_w)):
+        if pad:
+            n = x.shape[dim]
+            i = torch.arange(n + pad, device=x.device)
+            if n > 1:
+                i = i % (2 * n - 2)
+                i = torch.where(i < n, i, 2 * n - 2 - i)
+            else:
+                i = torch.zeros_like(i)
+            x = x.index_select(dim, i)
+    return x
+
+
+def pad_to_multiple(x, multiple: int):
+    """Reflect-pad NHWC H and W up to the next multiple (:func:`reflect_pad`).
+    Returns (padded, (pad_h, pad_w))."""
     h, w = x.shape[1], x.shape[2]
     pad_h = (multiple - h % multiple) % multiple
     pad_w = (multiple - w % multiple) % multiple
     if pad_h or pad_w:
-        x = F.pad(x.permute(0, 3, 1, 2), (0, pad_w, 0, pad_h), mode=mode)
-        x = x.permute(0, 2, 3, 1).contiguous()
+        x = reflect_pad(x, pad_h, pad_w).contiguous()
     return x, (pad_h, pad_w)

@@ -23,6 +23,35 @@ from super_resolution_tpu_torch.utils.precision import (cast_floating,
 from super_resolution_tpu_torch.utils.registry import MODEL_REGISTRY
 
 
+def derived_buffer(name: str) -> bool:
+    """Whether a state-dict entry is a buffer the network derives from its
+    shape (an attention mask, a relative position index, a batch counter):
+    a strict load passes over such an entry where the file has it and the
+    network does not, or the other way round (the names the JAX
+    package's ``convert/torch_import.py`` passes over)."""
+    return (name.endswith(("attn_mask", "init_pos", "MetaUpsample",
+                           "num_batches_tracked"))
+            or "relative_position_index" in name)
+
+
+def load_state_dict(net: torch.nn.Module, state: dict, strict: bool = True):
+    """``net.load_state_dict(state)``; with ``strict`` every name must match
+    but those of :func:`derived_buffer`: one the file lacks keeps what the
+    network built, one the network lacks is dropped."""
+    own = net.state_dict()
+    if strict:
+        missing = [k for k in own if k not in state and not derived_buffer(k)]
+        unexpected = [k for k in state
+                      if k not in own and not derived_buffer(k)]
+        if missing or unexpected:
+            raise RuntimeError(
+                f"Error(s) in loading state_dict for "
+                f"{type(net).__name__}: missing keys {missing}, unexpected "
+                f"keys {unexpected}")
+        state = {k: v for k, v in state.items() if k in own}
+    return net.load_state_dict(state, strict=False)
+
+
 @MODEL_REGISTRY.register()
 class SRModel:
     """Single-network SR runner (inference)."""
@@ -58,7 +87,7 @@ class SRModel:
             state = ckpt
         state = {(k[7:] if k.startswith("module.") else k): v
                  for k, v in state.items()}
-        self.net_g.load_state_dict(state, strict=strict)
+        load_state_dict(self.net_g, state, strict)
         self._eval_net = None
 
     def inference_dtype(self):
@@ -122,3 +151,9 @@ class ESRModel(HATModel):
     """The runner the ESC option files name. Its training strategy (AMP,
     clipped gradients, momentum resets, self-distillation) is not ported;
     at inference it is a :class:`HATModel`."""
+
+
+@MODEL_REGISTRY.register()
+class SwinIRModel(HATModel):
+    """The SwinIR runner: pads to a window multiple like :class:`HATModel`
+    (the network pads again only where a tile is no window multiple)."""

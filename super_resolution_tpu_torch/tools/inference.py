@@ -43,7 +43,12 @@ MODEL_ZOO = {
                         "window_size": 16, "compress_ratio": 24,
                         "squeeze_factor": 24, "mlp_ratio": 2, "upscale": s,
                         "upsampler": "pixelshuffle"},
-    "SwinIR": "SwinIR",
+    # mlp_ratio stays at the architecture's default of 4, as in the JAX
+    # package's zoo (the official classical SwinIR-M has 2)
+    "SwinIR": lambda s: {"type": "SwinIR", "img_size": 48, "embed_dim": 180,
+                         "depths": [6] * 6, "num_heads": [6] * 6,
+                         "window_size": 8, "upscale": s,
+                         "upsampler": "pixelshuffle"},
 }
 
 

@@ -20,6 +20,13 @@ convolutions, matrix products, the rest) and the 15 device ops that take
 most time; and, for the fork path, CUDA-event times of the parts
 of one HAB front that run outside the port's kernels: the large-kernel
 conv on the ESC slab, the per-sample dynamic depthwise conv and the CAB.
+
+    python3 -m super_resolution_tpu_torch.tools.profile_forward --ab \
+        fork fork_hab_front fork_hab_front fork
+
+times the chunk forwards of several paths in turn in one process, on one
+card (median of five each, after two warm-up forwards): an A/B of two
+routes.
 """
 
 from __future__ import annotations
@@ -37,7 +44,8 @@ PORT_KERNELS = ("msa_block_kernel", "ocab_block_kernel",
                 "fused_attention_kernel", "fused_attention_v3_kernel",
                 "msa_flash_kernel", "msa_qtile_kernel",
                 "msa_attention_kernel", "psa_block_kernel",
-                "scc_block_kernel", "scc_reduce_kernel", "hab_block_kernel")
+                "scc_block_kernel", "scc_reduce_kernel", "hab_block_kernel",
+                "hab_front_kernel", "hab_front_sum_kernel")
 
 
 def labels() -> list:
@@ -76,25 +84,34 @@ def device_us(ev) -> float:
     return 0
 
 
-def main(label: str) -> int:
+def _setup(names) -> bool:
+    """Check the labels and the card; print the card's name and power
+    limit."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    import chip_smoke
-
-    if label not in labels():
-        print(f"profile_forward: unknown path {label!r}; one of {labels()}",
+    unknown = [n for n in names if n not in labels()]
+    if unknown:
+        print(f"profile_forward: unknown path {unknown}; one of {labels()}",
               file=sys.stderr)
-        return 2
+        return False
     if not torch.cuda.is_available():
         print("profile_forward: no CUDA device", file=sys.stderr)
-        return 2
+        return False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    return True
+
+
+def chunk_forward(label: str):
+    """(predictor, forward, chunk input, ms of one forward) of a path at
+    its first run's tile plan, seeded weights, bf16."""
+    import torch
+
+    import chip_smoke
 
     pred = chip_smoke.make_predictor(label, "cuda", bf16=True)
     fwd = pred.model._apply_fn()
@@ -102,17 +119,48 @@ def main(label: str) -> int:
     tile = plan["tile_size"] + 2 * plan["tile_pad"]
     x = torch.rand((plan["chunk"], tile, tile, 3), device="cuda",
                    generator=torch.Generator("cuda").manual_seed(0))
-    with torch.inference_mode():
-        def forward_ms():
-            t0 = time.perf_counter()
-            fwd(x)
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t0) * 1e3
 
-        for _ in range(2):
-            fwd(x)
+    def forward_ms():
+        t0 = time.perf_counter()
+        fwd(x)
         torch.cuda.synchronize()
-        plain_ms = statistics.median(forward_ms() for _ in range(5))
+        return (time.perf_counter() - t0) * 1e3
+    return pred, fwd, x, forward_ms
+
+
+def median_ms(forward_ms) -> float:
+    """Median of five forwards after two warm-up ones."""
+    for _ in range(2):
+        forward_ms()
+    return statistics.median(forward_ms() for _ in range(5))
+
+
+def ab(names) -> int:
+    """Chunk forwards of ``names`` in turn, in one process."""
+    import torch
+
+    if not _setup(names):
+        return 2
+    runs = {}
+    with torch.inference_mode():
+        for name in dict.fromkeys(names):
+            runs[name] = chunk_forward(name)[3]
+        for name in names:
+            print(f"path {name}: one chunk forward {median_ms(runs[name]):.1f}"
+                  f" ms (median of 5)", flush=True)
+    return 0
+
+
+def main(label: str) -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not _setup([label]):
+        return 2
+    pred, fwd, x, forward_ms = chunk_forward(label)
+    tile = x.shape[1]
+    with torch.inference_mode():
+        plain_ms = median_ms(forward_ms)
         torch.cuda.reset_peak_memory_stats()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -201,4 +249,6 @@ def hab_parts(net, b: int, hw: int) -> None:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--ab":
+        sys.exit(ab(sys.argv[2:]))
     sys.exit(main(sys.argv[1] if len(sys.argv) > 1 else "fork"))

@@ -98,9 +98,13 @@ def _robust(root, draw, run):
     raise AssertionError("no input with a safe sort in 100 draws")
 
 
-def _count_calls(monkeypatch, module, name):
+def _count_calls(monkeypatch, module, name, card=True):
+    """Record the calls of the wrapper ``name``. ``card``: the module routes
+    as for a tensor on the card (its device test patched; the wrapper still
+    runs its plain version on the CPU tensor), else as for a CPU tensor."""
     calls = []
     fn = getattr(module, name)
+    monkeypatch.setattr(module, "use_kernel", lambda t: card)
     monkeypatch.setattr(module, name,
                         lambda *a, **kw: (calls.append(name), fn(*a, **kw))[1])
     return calls
@@ -213,8 +217,9 @@ _D12, _D35, _WS4 = (24, 8, (2, 16, 24)), (70, 8, (1, 24, 16)), (24, 4, (1, 12, 1
                    1: "shifted"}.get(v, v))
 def test_layer_matches_jax(is_last, shift, cfg, attn, rng, monkeypatch):
     """``ATDTransformerLayer`` returns x and the refined dictionary: on the
-    fused route (window 8; at dim 70 with groups of 256 against 384 pixels,
-    the padded tail) and on the windowed plain path (window 4)."""
+    card's route (window 8; at dim 70 with groups of 256 against 384 pixels,
+    the padded tail) and on a CPU tensor's windowed plain path (window
+    4)."""
     monkeypatch.setenv("SR_TPU_ATTN", attn)
     dim, ws, shape = cfg
     kw = dict(LAYER, dim=dim, window_size=ws, shift_size=shift * ws // 2,
@@ -230,7 +235,8 @@ def test_layer_matches_jax(is_last, shift, cfg, attn, rng, monkeypatch):
                                                    torch.from_numpy(b)))
     ref_x, ref_td = jmod.apply({"params": params}, jnp.asarray(x),
                                jnp.asarray(td))
-    calls = _count_calls(monkeypatch, tatd, "fused_msa_attention")
+    calls = _count_calls(monkeypatch, tatd, "fused_msa_attention",
+                         card=ws == 8)
     with torch.no_grad():
         got_x, got_td = tmod(torch.from_numpy(x), torch.from_numpy(td))
     assert len(calls) == (1 if ws == 8 else 0)
@@ -287,9 +293,10 @@ def test_atd_matches_jax(upsampler, scale, kw, attn, rng, monkeypatch):
 def test_atd_kernel_calls_per_forward(rng, monkeypatch):
     """One forward calls ``fused_msa_attention`` once a layer; the
     unshifted layers pass no mask, the shifted ones the mask of the shape,
-    built once. A window that is no multiple of 8 takes the plain path."""
+    built once. A CPU tensor takes the windowed plain path."""
     _, _, model = _nets(rng, upscale=2)
-    masks = []
+    masks, card = [], [True]
+    monkeypatch.setattr(tatd, "use_kernel", lambda t: card[0])
     fn = tatd.fused_msa_attention
     monkeypatch.setattr(tatd, "fused_msa_attention", lambda *a, **kw: (
         masks.append(a[2]), fn(*a, **kw))[1])
@@ -299,6 +306,7 @@ def test_atd_kernel_calls_per_forward(rng, monkeypatch):
     assert [m is None for m in masks] == [True, False, True, False]
     assert masks[1] is masks[3] and masks[1].shape == (6, 64, 64)
     del masks[:]
+    card[0] = False
     plain = tatd.ATD(upscale=2, **{**SMALL, "window_size": 4}).eval()
     with torch.no_grad():
         assert plain(x).shape == (1, 32, 48, 3)
@@ -414,6 +422,8 @@ def test_shipped_options_build_with_the_flax_names():
     shape (the flax tree is only traced for its shapes)."""
     from super_resolution_tpu_torch.models import build_network
     from super_resolution_tpu_torch.runtime import sr_model
+    from super_resolution_tpu_torch.ops.cuda_window_attention import \
+        fused_msa_attention_supported
     from super_resolution_tpu_torch.utils.options import yaml_load
     from super_resolution_tpu_torch.utils.registry import MODEL_REGISTRY
 
@@ -433,8 +443,8 @@ def test_shipped_options_build_with_the_flax_names():
     assert layer.convffn.dwconv.depthwise_conv[0].weight.shape == (48, 1, 7, 7)
     assert layer.attn_atd.wq.weight.shape == (8, 48)
     assert model.layers[0].residual_group.td.shape == (64, 48)
-    assert tatd.fused_msa_attention_supported(16, 12)
-    assert tatd.fused_msa_attention_supported(16, 35)    # ATD x4's head dim
+    assert fused_msa_attention_supported(16, 12)
+    assert fused_msa_attention_supported(16, 35)    # ATD x4's head dim
 
 
 YAML = """

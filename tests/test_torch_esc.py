@@ -551,7 +551,8 @@ def test_inference_tool_on_a_folder(tmp_path, rng, monkeypatch):
         assert np.abs(out_w.astype(int) - out_t.astype(int)).max() <= 40
     assert inference.network_options("ESC-light", 4)["n_blocks"] == 3
     assert inference.network_options("HAT", 2)["type"] == "HAT"
-    for name in ("ESC-FP", "ESC-Real", "SwinIR"):
+    assert inference.network_options("SwinIR", 4)["type"] == "SwinIR"
+    for name in ("ESC-FP", "ESC-Real"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             inference.network_options(name, 4)
     args = inference.build_parser().parse_args(["--input", str(src)])

@@ -183,7 +183,8 @@ def test_profile_forward_labels_are_the_smoke_tests_paths():
     from super_resolution_tpu_torch.tools import profile_forward as pf
 
     assert pf.labels() == list(chip_smoke.PATHS)
-    assert {"hitsrf", "classic_hab_block"} <= set(pf.labels())
+    assert {"hitsrf", "classic_hab_block", "fork_hab_front", "swinir",
+            "swinir_light", "swinir_real_l"} <= set(pf.labels())
     assert pf.classify("void (anonymous namespace)::scc_block_kernel"
                        "<__nv_bfloat16>(...)") == "scc_block_kernel"
     assert pf.classify("hab_block_kernel<float>") == "hab_block_kernel"

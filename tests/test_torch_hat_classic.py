@@ -232,6 +232,20 @@ def test_port_imports_no_jax(tmp_path):
         "    out = Predictor(opt, device='cpu').predict_array(\n"
         "        np.zeros((10, 13, 3), np.float32))\n"
         "    assert out.shape == (20, 26, 3), out.shape\n"
+        "for runner, net in (\n"
+        "        ('SwinIRModel', dict(type='SwinIR', embed_dim=12,\n"
+        "             depths=[2], num_heads=[2], window_size=4, mlp_ratio=2,\n"
+        "             upscale=2, upsampler='pixelshuffle')),\n"
+        "        ('HATModel', dict(type='HAT', embed_dim=12, depths=[2],\n"
+        "             num_heads=[2], window_size=4, squeeze_factor=4,\n"
+        "             mlp_ratio=2, upscale=2, esc_pdim=4, esc_kernel=5,\n"
+        "             front_route='hab_front'))):\n"
+        "    opt.update(model_type=runner, network_g=net)\n"
+        "    out = Predictor(opt, device='cpu').predict_array(\n"
+        "        np.zeros((10, 13, 3), np.float32))\n"
+        "    assert out.shape == (20, 26, 3), out.shape\n"
+        "import super_resolution_tpu_torch.models.swinir_arch\n"
+        "import super_resolution_tpu_torch.ops.cuda_hab\n"
         "import super_resolution_tpu_torch.tools.profile_forward\n"
         "import super_resolution_tpu_torch.tools.inference\n"
         "import super_resolution_tpu_torch.ops.cuda_window_attention\n"

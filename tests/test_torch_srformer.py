@@ -43,9 +43,13 @@ def _randomised(params, rng):
     return jax.tree_util.tree_map_with_path(fix, jax.device_get(params))
 
 
-def _count_calls(monkeypatch, module, name):
+def _count_calls(monkeypatch, module, name, card=True):
+    """Record the calls of the wrapper ``name``. ``card``: the module routes
+    as for a tensor on the card (its device test patched; the wrapper still
+    runs its plain version on the CPU tensor), else as for a CPU tensor."""
     calls = []
     fn = getattr(module, name)
+    monkeypatch.setattr(module, "use_kernel", lambda t: card)
     monkeypatch.setattr(module, name,
                         lambda *a, **kw: (calls.append(name), fn(*a, **kw))[1])
     return calls
@@ -122,8 +126,8 @@ def test_permuted_kv_windows_match_the_fold_per_window(rng):
                          ids=["fused", "window4"])
 @pytest.mark.parametrize("shift", [0, 1], ids=["unshifted", "shifted"])
 def test_psa_block_matches_jax(shift, shape, ws, attn, rng, monkeypatch):
-    """``PSABlock`` on the route each window takes: the fused block at a
-    window that is a multiple of 8, else the windowed plain path."""
+    """``PSABlock`` on the card's route (the fused block; window 8) and on a
+    CPU tensor's windowed plain path (window 4)."""
     monkeypatch.setenv("SR_TPU_ATTN", attn)
     x = rng.standard_normal(shape).astype(np.float32)
     kw = dict(dim=24, num_heads=2, window_size=ws, shift_size=shift * ws // 2)
@@ -133,7 +137,8 @@ def test_psa_block_matches_jax(shift, shape, ws, attn, rng, monkeypatch):
     ref = np.asarray(jmod.apply({"params": params}, jnp.asarray(x)))
     tmod = tsrf.PSABlock(**kw).eval()
     tmod.load_state_dict(flax_to_state_dict(params, tmod), strict=True)
-    calls = _count_calls(monkeypatch, tsrf, "fused_psa_block")
+    calls = _count_calls(monkeypatch, tsrf, "fused_psa_block",
+                         card=ws % 8 == 0)
     with torch.no_grad():
         got = tmod(torch.from_numpy(x)).numpy()
     assert len(calls) == (1 if ws % 8 == 0 else 0)
@@ -174,6 +179,7 @@ def test_srformer_kernel_calls_per_forward(rng, monkeypatch):
     calls carry the shift mask, which is built once per shape."""
     _, _, model = _nets(rng, upscale=2, upsampler="pixelshuffledirect")
     masks = []
+    monkeypatch.setattr(tsrf, "use_kernel", lambda t: True)
     fn = tsrf.fused_psa_block
     monkeypatch.setattr(tsrf, "fused_psa_block", lambda *a, **kw: (
         masks.append(a[7]), fn(*a, **kw))[1])
@@ -278,6 +284,8 @@ def test_shipped_options_build_with_the_flax_names():
     shapes)."""
     from super_resolution_tpu_torch.models import build_network
     from super_resolution_tpu_torch.runtime import sr_model
+    from super_resolution_tpu_torch.ops.cuda_psa import \
+        fused_psa_block_supported
     from super_resolution_tpu_torch.utils.options import yaml_load
     from super_resolution_tpu_torch.utils.registry import MODEL_REGISTRY
 
@@ -297,7 +305,7 @@ def test_shipped_options_build_with_the_flax_names():
     blk = model.layers[0].residual_group.blocks[1]
     assert blk.attn.relative_position_bias_table.shape == (15 * 15, 6)
     assert blk.attn_mask.shape == (16, 256, 64)
-    assert tsrf.fused_psa_block_supported(16, 60, 6)
+    assert fused_psa_block_supported(16, 60, 6)
 
 
 YAML = """
