@@ -5,6 +5,9 @@ NVIDIA GPU.
 Phases, each of which raises on failure:
   1. probe: torch and CUDA versions, the card's name and power limit;
   2. build: nvcc builds the kernels from super_resolution_tpu_torch/csrc;
+     each kernel's registers, stack and spills (ptxas) and its HMMA
+     instructions (the SASS, where the toolkit has cuobjdump): the
+     tensor-core kernels must hold some;
   3. kernels: each of the eighteen kernel wrappers (and the bare gated FFN
      entry) against its plain PyTorch version on the card, at the shapes
      its main path gives it (the flagship HAT's, ESC's window 32, ESC-XL's
@@ -15,7 +18,11 @@ Phases, each of which raises on failure:
      CUDA-event times of the kernel, the plain version and, where one
      PyTorch call computes the same function, that call; beside them the
      least time the card could take (bound), from the bytes and operations
-     of the call;
+     of the call, and for the attention-only kernels the time of their
+     exponentials on the special-function units (exp floor).
+     ``fused_attention`` and ``msa_flash_attention`` run bf16 on their
+     tensor-core kernels and float32 on their FMA kernels, so both are
+     checked;
   4. main paths: Predictor -> runner in tile mode -> network at the
      published width (bf16, seeded random weights) answers requests:
      classic HAT x4 (HATClassic), the fork's HAT x2 with the ESC-infused
@@ -41,6 +48,9 @@ Usage: python3 chip_smoke.py
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -285,6 +295,10 @@ EXTRA_ENTRY = {"gated_dconv_ffn": "cuda_ffn"}
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet,
 # dense rates): tensor cores bf16 and TF32, float32 outside them, HBM3
 PEAK = dict(bf16=989e12, tf32=495e12, f32=67e12, hbm=3.35e12)
+# exponentials a second on the special-function units of one H100 SXM: 16 a
+# clock on each of its 132 SMs, at about 1.85 GHz. The attention kernels'
+# floor beside the bound (which counts an exponential at the float32 rate)
+EXP_RATE = 3.9e12
 
 
 def log(msg: str) -> None:
@@ -662,6 +676,12 @@ def attention_bound(bw: int, heads: int, nq: int, nk: int, d: int,
             "operations" if t_ops > t_bytes else "bytes")
 
 
+def exp_floor_ms(bw: int, heads: int, nq: int, nk: int, *_) -> float:
+    """Least time for the bw * heads * nq * nk exponentials of the softmax
+    on the special-function units; stated beside the bound, not in it."""
+    return bw * heads * nq * nk / EXP_RATE * 1e3
+
+
 def check_attention_kernels() -> dict:
     """Phase 3 for the attention-only kernels. Returns name -> timing at
     the ESC / ESC-XL chunk shapes in bf16; the rectangular case of
@@ -672,10 +692,14 @@ def check_attention_kernels() -> dict:
     b, h, w, c, iheads, ws = IMAGE_SHAPE
     bounds = {name: attention_bound(*WINDOW_SHAPE, 2)
               for name in ("fused_attention", "fused_attention_v3")}
-    image_bound = attention_bound(b * (h // ws) * (w // ws), iheads, ws * ws,
-                                  ws * ws, c // iheads, 2)
+    image_shape = (b * (h // ws) * (w // ws), iheads, ws * ws, ws * ws,
+                   c // iheads)
+    image_bound = attention_bound(*image_shape, 2)
     bounds.update(msa_qtile_attention=image_bound,
                   msa_flash_attention=image_bound)
+    floors = {name: exp_floor_ms(*(image_shape if name.startswith("msa")
+                                   else WINDOW_SHAPE))
+              for name in bounds}
     results = {}
     for shape, image in ((WINDOW_SHAPE, IMAGE_SHAPE),
                          (WINDOW_RECT_SHAPE, None)):
@@ -699,15 +723,17 @@ def check_attention_kernels() -> dict:
                     lib_ms = time_ms(library())
                     if shape == WINDOW_SHAPE:
                         bound_ms, by = bounds[name]
+                        floor = floors[name]
                         results[name] = dict(
                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=by,
                             library_ms=lib_ms)
                     else:
                         bound_ms, by = attention_bound(*shape, 2)
+                        floor = exp_floor_ms(*shape)
                     line += (f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms"
-                             f"  bound {bound_ms:.4f} ms ({by})  library "
-                             f"{lib_ms:.3f} ms")
+                             f"  bound {bound_ms:.4f} ms ({by})  exp floor "
+                             f"{floor:.4f} ms  library {lib_ms:.3f} ms")
                 log(line)
                 if not ok:
                     raise AssertionError(f"{name} disagrees with its plain "
@@ -1146,6 +1172,65 @@ def main_path(label: str, first_outputs: dict) -> dict:
     return counts
 
 
+def _short_names(mangled) -> dict:
+    """Mangled kernel name -> ``name<template arguments>`` (c++filt, where
+    the toolkit's host compiler brought it)."""
+    tool = shutil.which("c++filt")
+    if tool is None or not mangled:
+        return {m: m for m in mangled}
+    out = subprocess.run([tool], input="\n".join(mangled), text=True,
+                         capture_output=True, timeout=60,
+                         check=True).stdout.splitlines()
+    return {m: re.sub(r"\(anonymous namespace\)::|^void ", "",
+                      d).split("(")[0]
+            for m, d in zip(mangled, out)}
+
+
+def build_report(lib, ptxas: str) -> None:
+    """Phase 2's report: each kernel's registers, stack and spills from
+    ptxas's report (``ptxas``: empty where the library was built before)
+    and its HMMA instructions from the SASS. Raises if a tensor-core kernel
+    (``mma_*``) holds none."""
+    from super_resolution_tpu_torch.ops import cuda_build
+    from super_resolution_tpu_torch.ops import cuda_window_attention as cw
+
+    usage, fn = {}, None
+    for line in ptxas.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            usage[fn] = []
+        elif fn is not None and ("bytes stack" in line
+                                 or "registers" in line):
+            usage[fn].append(line.split(" : ")[-1].strip())
+    tool = (shutil.which("cuobjdump")
+            or shutil.which("cuobjdump",
+                            path=os.path.dirname(cuda_build._nvcc())))
+    hmma = {}
+    if tool is None:
+        log("  cuobjdump not found: no SASS report")
+    else:
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                hmma.setdefault(fn, 0)
+            elif fn in hmma and "HMMA" in line:
+                hmma[fn] += 1
+    names = _short_names(sorted(set(usage) | set(hmma)))
+    for fn in sorted(names, key=names.get):
+        parts = usage.get(fn, []) + ([f"{hmma[fn]} HMMA"] if fn in hmma
+                                     else [])
+        log(f"  {names[fn]}: {'; '.join(parts)}")
+    log(f"  tensor-core attention: {cw.mma_attention_smem(16)} / "
+        f"{cw.mma_attention_smem(32)} bytes of shared memory a block at "
+        f"head dim 16 / 32")
+    bare = [names[fn] for fn, n in hmma.items() if "mma_" in names[fn]
+            and n == 0]
+    if bare or (hmma and not any("mma_" in names[fn] for fn in hmma)):
+        raise AssertionError(f"no HMMA in the tensor-core kernels: {bare}")
+
+
 def main() -> int:
     import torch
 
@@ -1174,9 +1259,7 @@ def main() -> int:
     lib, out = cuda_build.build(verbose=True)
     cuda_build.load_library()
     log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s")
-    for line in out.splitlines():
-        if "registers" in line or "bytes stack" in line or "error" in line:
-            log(f"  {line.strip()}")
+    build_report(lib, out)
 
     t0 = time.perf_counter()
     log("[kernels] tolerances: float32 "

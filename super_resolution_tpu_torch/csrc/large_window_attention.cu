@@ -13,33 +13,41 @@
 // write the image layout: the per-head planes and the transposed output
 // that the TPU versions build in device memory do not exist here.
 //
-// What bounds them on the H100: per (window, head) at ESC-XL's shape
-// (N 2304, d 16) the two products are 4 * 2304 * 2304 * 16 = 340 MFLOP
-// against 295 kB of bf16 q, k, v and out, and a 21 MB float32 bias slice a
-// head (255 MB for 12 heads) that every window shares. A chunk of four
-// 144 x 144 tiles has 36 windows: 147 GFLOP against 0.27 GB read once,
-// compute-bound on the tensor cores' scale, and bound by the CUDA cores in
-// this first version, whose products are float32 FMA loops.
+// msa_flash_attention in bf16 is mma_flash_attention_kernel, the
+// tensor-core tile of mma_attention.cuh (which says what bounds it and how),
+// with the rows of q, k and v gathered from the qkv image by pixel index
+// (32 bytes a token at d 16, 16-byte cp.async) and the output written to
+// the image layout.
 //
-// The grid of both kernels is (windows of all images, query tiles, heads),
-// windows fastest: the blocks that run together are the same rows of one
-// head's bias for different windows, so each bias row comes from device
-// memory once and from the 50 MB L2 for the other windows (32 rows are
-// 295 kB, the 36 windows of a chunk read it 36 times). k and v are re-read
-// by every query tile of their window: 147 kB in bf16, 72 tiles of 32 rows
-// (flash) or 144 of 16 (q-tile) a (window, head), 4.6 GB or 9.2 GB a call,
-// which the L2 serves as well, the tiles of a window being 36 blocks apart.
+// msa_flash_attention in float32, and msa_qtile_attention in both dtypes, are
+// the float32 FMA kernels below. What bounds them on the H100: per (window,
+// head) at ESC-XL's shape (N 2304, d 16) the two products are 4 * 2304 * 2304 *
+// 16 = 340 MFLOP against 295 kB of bf16 q, k, v and out, and a 21 MB float32
+// bias slice a head (255 MB for 12 heads) that every window shares. A chunk of
+// four 144 x 144 tiles has 36 windows: 147 GFLOP against 0.27 GB read once,
+// compute-bound on the tensor cores' scale, and bound by the CUDA cores here,
+// whose products are float32 FMA loops.
 //
-// Design, msa_flash_attention: one block per (window, head, 32 query rows)
-// loops over chunks of 256 keys: k and v of the chunk go to shared memory,
-// the 32 x 256 scores are formed there, and the running maximum, the
+// The grid of both FMA kernels is (windows of all images, query tiles,
+// heads), windows fastest: the blocks that run together are the same rows
+// of one head's bias for different windows, so each bias row comes from
+// device memory once and from the 50 MB L2 for the other windows (32 rows
+// are 295 kB, the 36 windows of a chunk read it 36 times). k and v are
+// re-read by every query tile of their window: 147 kB in bf16, 72 tiles of
+// 32 rows (flash) or 144 of 16 (q-tile) a (window, head), 4.6 GB or 9.2 GB
+// a call, which the L2 serves as well, the tiles of a window being 36
+// blocks apart.
+//
+// Design, msa_flash_attention (float32): one block per (window, head, 32 query
+// rows) loops over chunks of 256 keys: k and v of the chunk go to shared
+// memory, the 32 x 256 scores are formed there, and the running maximum, the
 // denominator (in shared memory, a float a row) and the accumulator (in
 // registers, spread over the block as attention_tiles.cuh describes) are
-// updated. The TPU version carries these across a sequential grid axis and
-// runs transposed for its lanes; here nothing is carried between blocks.
-// As there, p = exp(s - m) is rounded to the input dtype before P @ V, the
-// denominator sums the unrounded p, and the output is acc / l, rounded
-// once. 85 kB a block at d 16: two blocks an SM.
+// updated. The TPU version carries these across a sequential grid axis and runs
+// transposed for its lanes; here nothing is carried between blocks. As there, p
+// = exp(s - m) is rounded to the input dtype before P @ V, the denominator sums
+// the unrounded p, and the output is acc / l, rounded once. 85 kB a block at d
+// 16: two blocks an SM.
 //
 // Design, msa_qtile_attention: exact softmax over whole rows. A block owns
 // 16 query rows of one (window, head) and keeps their 16 x N float32 scores
@@ -48,7 +56,10 @@
 // normalised (p rounded to the input dtype), then v chunks accumulate the
 // output. One head's k and v at N 2304 would take 295 kB as float32, so
 // they are not kept. 173 kB a block at N 2304, d 16: one block an SM.
+#include <type_traits>
+
 #include "attention_tiles.cuh"
+#include "mma_attention.cuh"
 
 namespace {
 
@@ -222,12 +233,16 @@ cudaError_t launch(bool flash, const void* qkv, const float* bias, void* out,
   T* ot = static_cast<T*>(out);
   cudaError_t err;
   if (flash) {
-    const size_t smem = flash_smem_bytes(DP);
-    err = srk::set_smem(msa_flash_kernel<T, DP>, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(windows, (n + kFlashQT - 1) / kFlashQT, heads);
-    msa_flash_kernel<T, DP><<<grid, srk::kTileThreads, smem, stream>>>(
-        in, bias, ot, H, W, C, heads, ws, scale);
+    if constexpr (std::is_same<T, float>::value) {
+      const size_t smem = flash_smem_bytes(DP);
+      err = srk::set_smem(msa_flash_kernel<T, DP>, smem);
+      if (err != cudaSuccess) return err;
+      const dim3 grid(windows, (n + kFlashQT - 1) / kFlashQT, heads);
+      msa_flash_kernel<T, DP><<<grid, srk::kTileThreads, smem, stream>>>(
+          in, bias, ot, H, W, C, heads, ws, scale);
+    } else {
+      return cudaErrorInvalidValue;  // bf16: mma_flash_attention_kernel's
+    }
   } else {
     const size_t smem = qtile_smem_bytes(n, DP);
     err = srk::set_smem(msa_qtile_kernel<T, DP>, smem);
@@ -261,10 +276,88 @@ int dispatch(bool flash, int dtype, const void* qkv, const void* bias,
                                              heads, ws, scale, st);
 }
 
+// Windows of a qkv image as rows of the tensor-core tile
+// (mma_attention.cuh): q, k, v are channel slices of a pixel's 3C values.
+struct ImageRows {
+  const __nv_bfloat16* qkv;
+  __nv_bfloat16* out;
+  int H, W, C, heads, ws, d;
+  struct Win {
+    Window w;
+    int hd;  // the head's first channel
+  };
+  __device__ __forceinline__ Win win(int widx, int h) const {
+    return Win{window_of(widx, H, W, ws), h * d};
+  }
+  __device__ __forceinline__ const __nv_bfloat16* row(const Win& w, int part,
+                                                      int i) const {
+    return qkv + w.w.pixel(i) * 3 * C + part * C + w.hd;
+  }
+  __device__ __forceinline__ __nv_bfloat16* out_row(const Win& w,
+                                                    int i) const {
+    return out + w.w.pixel(i) * C + w.hd;
+  }
+};
+
+template <int DP>
+__global__ void __launch_bounds__(srk::mma::kThreads)
+    mma_flash_attention_kernel(ImageRows rows, const float* __restrict__ bias,
+                               int windows, int n, float scale, int vec_kv,
+                               int vec_bias) {
+  srk::mma::attention_block<DP>(rows, bias, windows, n, n, rows.d, scale,
+                                vec_kv != 0, vec_bias != 0);
+}
+
+template <int DP>
+cudaError_t launch_mma(const ImageRows& rows, const float* bias, int windows,
+                       float scale, bool vec_kv, bool vec_bias,
+                       cudaStream_t stream) {
+  constexpr int G = srk::mma::kWindowGroup;
+  const int smem = srk::mma::smem_bytes(DP);
+  cudaError_t err = srk::set_smem(mma_flash_attention_kernel<DP>, smem);
+  if (err != cudaSuccess) return err;
+  const int n = rows.ws * rows.ws;
+  const dim3 grid((windows + G - 1) / G,
+                  (n + srk::mma::kQRows - 1) / srk::mma::kQRows, rows.heads);
+  mma_flash_attention_kernel<DP><<<grid, srk::mma::kThreads, smem, stream>>>(
+      rows, bias, windows, n, scale, vec_kv, vec_bias);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Bytes of dynamic shared memory a block needs; the wrappers hold these
-// against the card's limit.
+// msa_flash_attention in bf16 on the tensor cores: qkv (B, H, W, 3C), out
+// (B, H, W, C) bf16, bias (heads, ws^2, ws^2) float32; the shared memory is
+// sr_mma_attention_smem's. Returns the cudaError_t of the launch.
+extern "C" int sr_mma_flash_attention(const void* qkv, const void* bias,
+                                      void* out, int B, int H, int W, int C,
+                                      int heads, int ws, float scale,
+                                      void* stream) {
+  if (heads < 1 || heads > 65535 || C % heads || ws < 1 || H % ws || W % ws ||
+      B < 1)
+    return cudaErrorInvalidValue;
+  const int d = C / heads, n = ws * ws;
+  if (d > 32 || (n + srk::mma::kQRows - 1) / srk::mma::kQRows > 65535)
+    return cudaErrorInvalidValue;
+  const int dp = d <= 16 ? 16 : 32;
+  const int windows = B * (H / ws) * (W / ws);
+  const ImageRows rows{static_cast<const __nv_bfloat16*>(qkv),
+                       static_cast<__nv_bfloat16*>(out), H, W, C, heads, ws,
+                       d};
+  // a row starts at pixel * 3C + part * C + h * d values: 16-byte aligned
+  // for every pixel, part and head where C and d are multiples of 8
+  const bool vec_kv = d == dp && C % 8 == 0 && srk::mma::aligned16(qkv);
+  const bool vec_bias = n % 4 == 0 && srk::mma::aligned16(bias);
+  const float* bf32 = static_cast<const float*>(bias);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dp == 16
+             ? launch_mma<16>(rows, bf32, windows, scale, vec_kv, vec_bias, st)
+             : launch_mma<32>(rows, bf32, windows, scale, vec_kv, vec_bias,
+                              st);
+}
+
+// Bytes of dynamic shared memory a block of the FMA kernels needs; the
+// wrappers hold these against the card's limit.
 extern "C" int sr_msa_flash_smem(int d) {
   return static_cast<int>(flash_smem_bytes(d <= 16 ? 16 : 32));
 }
@@ -273,7 +366,8 @@ extern "C" int sr_msa_qtile_smem(int ws, int d) {
   return static_cast<int>(qtile_smem_bytes(ws * ws, d <= 16 ? 16 : 32));
 }
 
-// dtype: 0 float32, 1 bfloat16. qkv (B, H, W, 3C), out (B, H, W, C), bias
+// dtype: 0 float32, 1 bfloat16 (msa_qtile_attention only: msa_flash_attention
+// in bf16 is sr_mma_flash_attention). qkv (B, H, W, 3C), out (B, H, W, C), bias
 // (heads, ws^2, ws^2) float32. Returns the cudaError_t of the launch.
 extern "C" int sr_msa_flash_attention(int dtype, const void* qkv,
                                       const void* bias, void* out, int B,

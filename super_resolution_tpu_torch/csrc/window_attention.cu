@@ -10,24 +10,33 @@
 // scores and softmax in float32, the scale applied to the float32 scores,
 // p rounded to v's dtype before P @ V, the output rounded once.
 //
-// What bounds it on the H100: per (window, head) at ESC's shape (N 1024,
-// d 16) the two products are 4 * 1024 * 1024 * 16 = 67 MFLOP against
-// 4 * 1024 * 16 * 2 = 131 kB of bf16 q, k, v and out and a 4 MB float32
-// bias slice that every window of the head shares: compute-bound, about
-// 500 FLOP per byte of window traffic. This first version runs both
-// products as float32 FMA loops on the CUDA cores and is bound by them.
+// fused_attention in bf16 is mma_window_attention_kernel, the tensor-core
+// tile of mma_attention.cuh (which says what bounds it and how): a block
+// per (group of windows, 64 query rows, head), an online softmax over key
+// chunks whose bias tile every window of the group shares. Its p = exp(s -
+// m) is rounded before P @ V unnormalised and the output divided by the
+// float32 denominator, where the TPU kernel rounds the normalised p.
 //
-// Design, fused_attention: one block per (window, head, 64 query rows).
-// The TPU grid is (heads, window blocks) with several windows a program and
-// zero windows padded on; here a block is a window's share, so nothing is
-// padded. The head's k and v (Nk x d each) are loaded once into shared
-// memory as float32 with d padded to 16 or 32; the block then walks its 64
-// query rows in tiles of 16, for each forming the 16 x Nk float32 score
-// tile in shared memory (attention_tiles.cuh), so the Nq x Nk matrix never
-// exists. At N 1024, d 16: 128 kB of k and v, 64 kB of scores, 9 kB of q
-// tile and reduction space, 206 kB a block in either dtype. The grid puts
-// windows fastest, then query blocks, heads slowest: blocks that run
-// together share one head's bias rows, which the L2 holds (4 MB a head).
+// fused_attention in float32, and fused_attention_v3 in both dtypes, are
+// the float32 FMA kernels below (the float32 one is the exact check of the
+// algorithm on the card). What bounds them: per (window, head) at ESC's
+// shape (N 1024, d 16) the two products are 4 * 1024 * 1024 * 16 = 67 MFLOP
+// against 4 * 1024 * 16 * 2 = 131 kB of bf16 q, k, v and out and a 4 MB
+// float32 bias slice that every window of the head shares: compute-bound,
+// about 500 FLOP per byte of window traffic. They run both products as
+// float32 FMA loops on the CUDA cores and are bound by them.
+//
+// Design, fused_attention (float32): one block per (window, head, 64 query
+// rows). The TPU grid is (heads, window blocks) with several windows a program
+// and zero windows padded on; here a block is a window's share, so nothing is
+// padded. The head's k and v (Nk x d each) are loaded once into shared memory
+// as float32 with d padded to 16 or 32; the block then walks its 64 query rows
+// in tiles of 16, for each forming the 16 x Nk float32 score tile in shared
+// memory (attention_tiles.cuh), so the Nq x Nk matrix never exists. At N 1024,
+// d 16: 128 kB of k and v, 64 kB of scores, 9 kB of q tile and reduction space,
+// 206 kB a block. The grid puts windows fastest, then query blocks, heads
+// slowest: blocks that run together share one head's bias rows, which the L2
+// holds (4 MB a head).
 //
 // Design, fused_attention_v3: the same tile loop with one block per window
 // that walks all heads and all query tiles, so a window's q, k and v are
@@ -35,7 +44,10 @@
 // its v2 re-fetched k and v per head). On this card that is BW blocks for
 // 132 SMs, each with heads * Nq / 16 tiles in series; it is kept as the
 // A/B partner of fused_attention.
+#include <type_traits>
+
 #include "attention_tiles.cuh"
+#include "mma_attention.cuh"
 
 namespace {
 
@@ -154,12 +166,14 @@ cudaError_t launch(bool v3, const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
     fused_attention_v3_kernel<T, DP><<<bw, srk::kTileThreads, smem, stream>>>(
         qt, kt, vt, bias, ot, heads, nq, nk, d, scale);
-  } else {
+  } else if constexpr (std::is_same<T, float>::value) {
     err = srk::set_smem(fused_attention_kernel<T, DP>, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid(bw * ((nq + kQBlock - 1) / kQBlock), heads);
     fused_attention_kernel<T, DP><<<grid, srk::kTileThreads, smem, stream>>>(
         qt, kt, vt, bias, ot, bw, heads, nq, nk, d, scale);
+  } else {
+    return cudaErrorInvalidValue;  // bf16: mma_window_attention_kernel's
   }
   return cudaGetLastError();
 }
@@ -183,15 +197,101 @@ int dispatch(bool v3, int dtype, const void* q, const void* k, const void* v,
                                              nq, nk, d, scale, st);
 }
 
+// Pre-cut windows as rows of the tensor-core tile (mma_attention.cuh).
+struct WindowRows {
+  const __nv_bfloat16 *q, *k, *v;
+  __nv_bfloat16* out;
+  int heads, nq, nk, d;
+  struct Win {
+    long long qo, ko;  // element offsets of the (window, head) q and k
+  };
+  __device__ __forceinline__ Win win(int w, int h) const {
+    const long long wh = static_cast<long long>(w) * heads + h;
+    return Win{wh * nq * d, wh * nk * d};
+  }
+  __device__ __forceinline__ const __nv_bfloat16* row(const Win& w, int part,
+                                                      int i) const {
+    if (part == 0) return q + w.qo + static_cast<long long>(i) * d;
+    return (part == 1 ? k : v) + w.ko + static_cast<long long>(i) * d;
+  }
+  __device__ __forceinline__ __nv_bfloat16* out_row(const Win& w,
+                                                    int i) const {
+    return out + w.qo + static_cast<long long>(i) * d;
+  }
+};
+
+template <int DP>
+__global__ void __launch_bounds__(srk::mma::kThreads)
+    mma_window_attention_kernel(WindowRows rows,
+                                const float* __restrict__ bias, int bw,
+                                int nq, int nk, int d, float scale,
+                                int vec_kv, int vec_bias) {
+  srk::mma::attention_block<DP>(rows, bias, bw, nq, nk, d, scale,
+                                vec_kv != 0, vec_bias != 0);
+}
+
+template <int DP>
+cudaError_t launch_mma(const WindowRows& rows, const float* bias, int bw,
+                       int nq, int nk, int d, float scale, bool vec_kv,
+                       bool vec_bias, cudaStream_t stream) {
+  constexpr int G = srk::mma::kWindowGroup;
+  const int smem = srk::mma::smem_bytes(DP);
+  cudaError_t err = srk::set_smem(mma_window_attention_kernel<DP>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((bw + G - 1) / G,
+                  (nq + srk::mma::kQRows - 1) / srk::mma::kQRows,
+                  rows.heads);
+  mma_window_attention_kernel<DP><<<grid, srk::mma::kThreads, smem, stream>>>(
+      rows, bias, bw, nq, nk, d, scale, vec_kv, vec_bias);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Bytes of dynamic shared memory a block of either kernel needs for nk keys
-// of head dim d; the wrappers hold this against the card's limit.
+// Bytes of dynamic shared memory a block of the bf16 tensor-core kernels
+// (fused_attention, msa_flash_attention) needs at head dim d, whatever the
+// window.
+extern "C" int sr_mma_attention_smem(int d) {
+  return srk::mma::smem_bytes(d <= 16 ? 16 : 32);
+}
+
+// fused_attention in bf16 on the tensor cores. q, out (bw, heads, nq, d);
+// k, v (bw, heads, nk, d) bf16; bias (heads, nq, nk) float32. Returns the
+// cudaError_t of the launch.
+extern "C" int sr_mma_window_attention(const void* q, const void* k,
+                                       const void* v, const void* bias,
+                                       void* out, int bw, int heads, int nq,
+                                       int nk, int d, float scale,
+                                       void* stream) {
+  if (d < 1 || d > 32 || bw < 1 || heads < 1 || heads > 65535 || nq < 1 ||
+      nk < 1 || (nq + srk::mma::kQRows - 1) / srk::mma::kQRows > 65535)
+    return cudaErrorInvalidValue;
+  const int dp = d <= 16 ? 16 : 32;
+  using bf = __nv_bfloat16;
+  const WindowRows rows{static_cast<const bf*>(q), static_cast<const bf*>(k),
+                        static_cast<const bf*>(v), static_cast<bf*>(out),
+                        heads, nq, nk, d};
+  // rows of d == dp values start on 16-byte boundaries if the tensors do
+  const bool vec_kv =
+      d == dp && srk::mma::aligned16(k) && srk::mma::aligned16(v);
+  const bool vec_bias = nk % 4 == 0 && srk::mma::aligned16(bias);
+  const float* bf32 = static_cast<const float*>(bias);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dp == 16 ? launch_mma<16>(rows, bf32, bw, nq, nk, d, scale, vec_kv,
+                                   vec_bias, st)
+                  : launch_mma<32>(rows, bf32, bw, nq, nk, d, scale, vec_kv,
+                                   vec_bias, st);
+}
+
+// Bytes of dynamic shared memory a block of either FMA kernel
+// (fused_attention in float32, fused_attention_v3) needs for nk keys of head
+// dim d; the wrappers hold this against the card's limit.
 extern "C" int sr_window_attention_smem(int nk, int d) {
   return static_cast<int>(smem_bytes(nk, d <= 16 ? 16 : 32));
 }
 
-// dtype: 0 float32, 1 bfloat16. q, out (bw, heads, nq, d); k, v
+// dtype: 0 float32, 1 bfloat16 (fused_attention_v3 only: fused_attention in
+// bf16 is sr_mma_window_attention). q, out (bw, heads, nq, d); k, v
 // (bw, heads, nk, d); bias (heads, nq, nk) float32. Returns the
 // cudaError_t of the launch.
 extern "C" int sr_fused_attention(int dtype, const void* q, const void* k,

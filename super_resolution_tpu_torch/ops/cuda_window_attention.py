@@ -17,17 +17,28 @@ Head dims: the kernels on cut windows and the large-window kernels pad the
 head dim to 16 or 32 (``MAX_HEAD_DIM``); ``fused_msa_attention`` pads to a
 multiple of 16 up to 48 (``MSA_ATTENTION_MAX_HEAD_DIM``: ATD's 35 -> 48).
 
-Each kernel has a pure-Python ``*_supported`` predicate from its own need of
-shared memory (every buffer is float32, so the dtype plays no part); the
-same formulas are the ``sr_*_smem`` entries of the sources, which the
-wrappers hold against the card's limit before a launch.
+``fused_attention`` and ``msa_flash_attention`` take bf16 on the tensor
+cores (``csrc/mma_attention.cuh``: a block per group of ``MMA_WINDOW_GROUP``
+windows, 64 query rows and a head, an online softmax over chunks of 64
+keys whose bias tile the group shares) and float32 on the float32 FMA
+kernels, the exact check of the algorithm on the card; the other kernels
+take both dtypes on their FMA kernels. A bf16 CUDA tensor launches the
+tensor-core kernel or raises: it never gives way to the FMA kernel.
+
+Each kernel has a pure-Python ``*_supported`` predicate from its need of
+shared memory in every layout it launches (``fused_attention`` and
+``msa_flash_attention`` run where both their float32 and their bf16 layout
+fit, so that a route is the same in both dtypes); the same formulas are the
+``sr_*_smem`` entries of the sources, which the wrappers hold against the
+card's limit before a launch.
 
 Numerics against the plain versions: scores and softmax in float32, p
 rounded to the input dtype before P @ V, the output rounded once. The
 kernels scale the float32 scores, the plain versions scale q in the input
-dtype first. ``msa_flash_attention`` rounds the unnormalised p = exp(s - m)
-and divides the accumulated output by the float32 denominator, as the TPU
-kernel does; the others round the normalised p.
+dtype first. ``msa_flash_attention`` and ``fused_attention`` in bf16 round
+the unnormalised p = exp(s - m) and divide the accumulated output by the
+float32 denominator, as the TPU flash kernel does; the others round the
+normalised p.
 """
 
 from __future__ import annotations
@@ -51,6 +62,11 @@ MSA_ATTENTION_MAX_HEAD_DIM = 48
 # tile sizes of the sources (csrc/window_attention.cu,
 # csrc/large_window_attention.cu), for the shared-memory formulas below
 _QT, _FLASH_QT, _KEY_CHUNK, _WARPS = 16, 32, 256, 8
+# the tensor-core tile (csrc/mma_attention.cuh): query rows of a block, keys
+# of a chunk, the pad after each bias row (floats) and k or v row (bf16),
+# and the windows of a block, which share each bias tile (kWindowGroup)
+MMA_Q_ROWS, MMA_KEY_CHUNK, MMA_BIAS_PAD, MMA_KV_PAD = 64, 64, 8, 8
+MMA_WINDOW_GROUP = 2
 
 
 def _dpad(head_dim: int) -> int:
@@ -61,10 +77,21 @@ def _score_stride(n: int) -> int:
     return (n + 3) // 4 * 4 + 4
 
 
+def mma_attention_smem(head_dim: int) -> int:
+    """Bytes a block of the bf16 tensor-core kernels (``fused_attention``,
+    ``msa_flash_attention``) takes, whatever the window: two stages, each a
+    64 x 64 float32 bias tile and 64-key k and v tiles of the block's
+    ``MMA_WINDOW_GROUP`` windows in bf16, rows padded."""
+    stage = (4 * MMA_Q_ROWS * (MMA_KEY_CHUNK + MMA_BIAS_PAD)
+             + 2 * 2 * MMA_WINDOW_GROUP * MMA_KEY_CHUNK
+             * (_dpad(head_dim) + MMA_KV_PAD))
+    return 2 * stage
+
+
 def window_attention_smem(nk: int, head_dim: int) -> int:
-    """Bytes a block of ``fused_attention`` / ``fused_attention_v3`` takes:
-    one head's k and v, a 16-row score tile, the q tile and the reduction
-    space."""
+    """Bytes a block of the FMA kernels of ``fused_attention`` (float32) and
+    ``fused_attention_v3`` takes: one head's k and v, a 16-row score tile,
+    the q tile and the reduction space."""
     dp = _dpad(head_dim)
     return 4 * (2 * ((nk + 3) // 4 * 4) * dp + _QT * _score_stride(nk)
                 + _QT * dp + _WARPS * _QT * dp)
@@ -80,9 +107,9 @@ def msa_qtile_smem(window_size: int, head_dim: int) -> int:
 
 
 def msa_flash_smem(head_dim: int) -> int:
-    """Bytes a block of ``msa_flash_attention`` takes, whatever the
-    window: a 256-key chunk of k and v, a 32 x 256 score tile, the q tile,
-    the reduction space and three floats a row."""
+    """Bytes a block of ``msa_flash_attention``'s float32 FMA kernel takes,
+    whatever the window: a 256-key chunk of k and v, a 32 x 256 score
+    tile, the q tile, the reduction space and three floats a row."""
     dp = _dpad(head_dim)
     return 4 * (2 * _KEY_CHUNK * dp + _FLASH_QT * _score_stride(_KEY_CHUNK)
                 + _FLASH_QT * dp + _WARPS * _FLASH_QT * dp + 3 * _FLASH_QT)
@@ -110,14 +137,17 @@ def fused_msa_attention_supported(window_size: int, head_dim: int) -> bool:
 
 def fused_attention_supported(nq: int, nk: int, head_dim: int) -> bool:
     """Whether ``fused_attention`` runs (nq, nk) windows of this head dim on
-    the card; nq plays no part, a block walks the queries in tiles."""
-    return (1 <= head_dim <= MAX_HEAD_DIM
-            and window_attention_smem(nk, head_dim) <= MAX_DYNAMIC_SMEM)
+    the card in both dtypes: the float32 kernel holds one head's k and v
+    (at head dim 16: up to 1,160 keys), the bf16 one streams them."""
+    return (fused_attention_v3_supported(nq, nk, head_dim)
+            and mma_attention_smem(head_dim) <= MAX_DYNAMIC_SMEM)
 
 
 def fused_attention_v3_supported(nq: int, nk: int, head_dim: int) -> bool:
-    """As :func:`fused_attention_supported`: the blocks are laid out alike."""
-    return fused_attention_supported(nq, nk, head_dim)
+    """Whether ``fused_attention_v3`` runs (nq, nk) windows of this head dim
+    on the card; nq plays no part, a block walks the queries in tiles."""
+    return (1 <= head_dim <= MAX_HEAD_DIM
+            and window_attention_smem(nk, head_dim) <= MAX_DYNAMIC_SMEM)
 
 
 def msa_qtile_supported(window_size: int, head_dim: int) -> bool:
@@ -127,9 +157,11 @@ def msa_qtile_supported(window_size: int, head_dim: int) -> bool:
 
 
 def msa_flash_supported(window_size: int, head_dim: int) -> bool:
+    """Both layouts of ``msa_flash_attention`` fit, whatever the window."""
     return (1 <= head_dim <= MAX_HEAD_DIM
             and window_size ** 2 <= 65535 * _QT
-            and msa_flash_smem(head_dim) <= MAX_DYNAMIC_SMEM)
+            and msa_flash_smem(head_dim) <= MAX_DYNAMIC_SMEM
+            and mma_attention_smem(head_dim) <= MAX_DYNAMIC_SMEM)
 
 
 def msa_qtile_reference(qkv_img, bias, heads: int, window_size: int,
@@ -143,7 +175,9 @@ def msa_qtile_reference(qkv_img, bias, heads: int, window_size: int,
                                    scale)
 
 
-def _launch_windows(name: str, entry: str, q, k, v, bias, scale):
+def _launch_windows(name: str, entry: str, q, k, v, bias, scale,
+                    mma: bool = False):
+    """``mma``: bf16 goes to the tensor-core kernel, float32 to ``entry``."""
     if q.dim() != 4:
         raise ValueError(f"{name}: q must be (BW, heads, Nq, d), got "
                          f"{tuple(q.shape)}")
@@ -157,12 +191,19 @@ def _launch_windows(name: str, entry: str, q, k, v, bias, scale):
     if d > MAX_HEAD_DIM:
         raise ValueError(f"{name}: head dim {d} is above {MAX_HEAD_DIM}")
     lib = load_library()
-    check_smem(name, lib.sr_window_attention_smem(nk, d),
-               f"{nk} keys of head dim {d}")
     out = torch.empty_like(q)
-    err = getattr(lib, entry)(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              bias.data_ptr(), out.data_ptr(), bw, heads, nq,
-                              nk, d, scale, stream_of(q))
+    if mma and q.dtype == torch.bfloat16:
+        check_smem(name, lib.sr_mma_attention_smem(d), f"head dim {d}")
+        err = lib.sr_mma_window_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), bw, heads, nq, nk, d, scale, stream_of(q))
+    else:
+        check_smem(name, lib.sr_window_attention_smem(nk, d),
+                   f"{nk} keys of head dim {d}")
+        err = getattr(lib, entry)(code, q.data_ptr(), k.data_ptr(),
+                                  v.data_ptr(), bias.data_ptr(),
+                                  out.data_ptr(), bw, heads, nq, nk, d, scale,
+                                  stream_of(q))
     raise_on_error(name, err)
     return out
 
@@ -173,7 +214,9 @@ def fused_attention(q, k, v, bias, *, scale: float | None = None):
 
     q: (BW, heads, Nq, d); k, v: (BW, heads, Nk, d), float32 or bfloat16,
     contiguous; bias: (heads, Nq, Nk) float32. Returns (BW, heads, Nq, d) in
-    the input dtype. One block per (window, head, 64 query rows). Replaces
+    the input dtype. bf16: one block per (``MMA_WINDOW_GROUP`` windows, 64
+    query rows, head) on the tensor cores; float32: one block per (window,
+    head, 64 query rows) on the CUDA cores. Replaces
     super_resolution_tpu/ops/pallas_attention.py::fused_attention.
     """
     if scale is None:
@@ -181,7 +224,7 @@ def fused_attention(q, k, v, bias, *, scale: float | None = None):
     if not use_kernel(q):
         return attention_with_bias(q, k, v, bias, scale=scale)
     out = _launch_windows("fused_attention", "sr_fused_attention", q, k, v,
-                          bias, scale)
+                          bias, scale, mma=True)
     fused_attention.launches += 1
     return out
 
@@ -216,8 +259,9 @@ def window_attention_fused(qkv_windows, num_heads: int, bias,
 
 
 def _launch_image(name: str, entry: str, smem_of, qkv_img, bias, heads, ws,
-                  scale):
-    """``smem_of(lib, ws, d)``: the bytes a block of the kernel needs."""
+                  scale, mma: bool = False):
+    """``smem_of(lib, ws, d)``: the bytes a block of ``entry``'s kernel
+    needs. ``mma``: bf16 goes to the tensor-core kernel instead."""
     if qkv_img.dim() != 4 or qkv_img.shape[-1] % 3:
         raise ValueError(f"{name}: qkv_img must be (B, H, W, 3C), got "
                          f"{tuple(qkv_img.shape)}")
@@ -232,12 +276,18 @@ def _launch_image(name: str, entry: str, smem_of, qkv_img, bias, heads, ws,
                          f"{tuple(qkv_img.shape)}, {heads} heads of {c}")
     lib = load_library()
     d = c // heads
-    check_smem(name, smem_of(lib, ws, d), f"window {ws}, head dim {d}")
     out = torch.empty((b, h_img, w_img, c), dtype=qkv_img.dtype,
                       device=qkv_img.device)
-    err = getattr(lib, entry)(code, qkv_img.data_ptr(), bias.data_ptr(),
-                              out.data_ptr(), b, h_img, w_img, c, heads, ws,
-                              scale, stream_of(qkv_img))
+    if mma and qkv_img.dtype == torch.bfloat16:
+        check_smem(name, lib.sr_mma_attention_smem(d), f"head dim {d}")
+        err = lib.sr_mma_flash_attention(
+            qkv_img.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h_img,
+            w_img, c, heads, ws, scale, stream_of(qkv_img))
+    else:
+        check_smem(name, smem_of(lib, ws, d), f"window {ws}, head dim {d}")
+        err = getattr(lib, entry)(code, qkv_img.data_ptr(), bias.data_ptr(),
+                                  out.data_ptr(), b, h_img, w_img, c, heads,
+                                  ws, scale, stream_of(qkv_img))
     raise_on_error(name, err)
     return out
 
@@ -266,7 +316,9 @@ def msa_qtile_attention(qkv_img, bias, *, heads: int, window_size: int,
 def msa_flash_attention(qkv_img, bias, *, heads: int, window_size: int,
                         scale: float | None = None):
     """Unshifted window MSA on a qkv image with an online softmax over
-    chunks of 256 keys, 32 query rows a block. Shapes as
+    chunks of keys: in bf16 64 keys, a block per (``MMA_WINDOW_GROUP``
+    windows, 64 query rows, head) on the tensor cores; in float32 256 keys,
+    a block per (window, head, 32 query rows) on the CUDA cores. Shapes as
     :func:`msa_qtile_attention`. Replaces
     super_resolution_tpu/ops/pallas_attention.py::msa_flash_attention.
     """
@@ -276,7 +328,7 @@ def msa_flash_attention(qkv_img, bias, *, heads: int, window_size: int,
         return msa_qtile_reference(qkv_img, bias, heads, window_size, scale)
     out = _launch_image("msa_flash_attention", "sr_msa_flash_attention",
                         lambda lib, ws, d: lib.sr_msa_flash_smem(d),
-                        qkv_img, bias, heads, window_size, scale)
+                        qkv_img, bias, heads, window_size, scale, mma=True)
     msa_flash_attention.launches += 1
     return out
 

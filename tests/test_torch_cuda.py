@@ -180,12 +180,26 @@ def _assert_close(got, ref, dtype):
     assert (got.float() - ref.float()).abs().max().item() <= tol
 
 
-# (BW, heads, Nq, Nk, d): square; rectangular at head dim 30; a ragged
-# last query tile with a key count that is no multiple of 4; ESC's
+# (BW, heads, Nq, Nk, d[, bias bound]): square; rectangular at head dim 30;
+# a ragged last query tile with a key count that is no multiple of 4; ESC's
 # published shape (a chunk of four 160 x 160 tiles at window 32); the
-# OCAB shape of the flagship HAT
+# OCAB shape of the flagship HAT; for the bf16 tensor-core kernel, whose
+# blocks take windows in groups of 2 and keys in chunks of 64: 5
+# windows (an odd count) of 200 queries and 200 keys, head dim 32
+# on 6 windows, and a bias drawn uniformly from [-30, 30], so that a row's
+# maximum moves from chunk to chunk
 WINDOW_SHAPES = [(5, 2, 64, 64, 16), (3, 2, 64, 144, 30), (2, 3, 50, 70, 12),
-                 (100, 4, 1024, 1024, 16), (7, 6, 256, 576, 30)]
+                 (100, 4, 1024, 1024, 16), (7, 6, 256, 576, 30),
+                 (5, 2, 200, 200, 16), (6, 2, 128, 256, 32),
+                 (3, 2, 192, 320, 16, 30.0)]
+
+
+def _bias(rng, heads, nq, nk, bound=None):
+    """Standard normal, or uniform on [-bound, bound]."""
+    if bound is None:
+        return _rand(rng, torch.float32, heads, nq, nk)
+    return torch.from_numpy(rng.uniform(-bound, bound, (heads, nq, nk))
+                            .astype(np.float32)).cuda()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -193,12 +207,12 @@ WINDOW_SHAPES = [(5, 2, 64, 64, 16), (3, 2, 64, 144, 30), (2, 3, 50, 70, 12),
 @pytest.mark.parametrize("fn", [cw.fused_attention, cw.fused_attention_v3],
                          ids=["fused_attention", "fused_attention_v3"])
 def test_window_attention_matches_plain_version(cuda, fn, shape, dtype):
-    bw, heads, nq, nk, d = shape
+    bw, heads, nq, nk, d, *bound = shape
     rng = np.random.default_rng(nq + nk)
     q = _rand(rng, dtype, bw, heads, nq, d)
     k = _rand(rng, dtype, bw, heads, nk, d)
     v = _rand(rng, dtype, bw, heads, nk, d)
-    bias = _rand(rng, torch.float32, heads, nq, nk)
+    bias = _bias(rng, heads, nq, nk, *bound)
     before = fn.launches
     got = fn(q, k, v, bias, scale=0.3)
     torch.cuda.synchronize()
@@ -207,11 +221,16 @@ def test_window_attention_matches_plain_version(cuda, fn, shape, dtype):
     _assert_close(got, attention_with_bias(q, k, v, bias, scale=0.3), dtype)
 
 
-# (B, H, W, C, heads, ws): one key chunk; three chunks with a ragged last
-# one (N 576); a window whose N = 49 is no multiple of 4, head dim 10; ESC-XL's
-# published shape with one tile of 3 x 3 windows
+# (B, H, W, C, heads, ws[, bias bound]): one key chunk; three chunks with a
+# ragged last one (N 576); a window whose N = 49 is no multiple of 4, head
+# dim 10; ESC-XL's published shape with one tile of 3 x 3 windows; for the
+# bf16 tensor-core kernel: 15 windows (an odd count), the same at
+# head dim 32, and 6 windows of N 576 under a bias drawn uniformly from
+# [-30, 30]
 IMAGE_SHAPES = [(2, 16, 24, 32, 2, 8), (1, 24, 48, 32, 2, 24),
-                (1, 14, 21, 20, 2, 7), (1, 144, 144, 192, 12, 48)]
+                (1, 14, 21, 20, 2, 7), (1, 144, 144, 192, 12, 48),
+                (1, 24, 40, 32, 2, 8), (1, 24, 40, 64, 2, 8),
+                (1, 48, 72, 32, 2, 24, 30.0)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -221,10 +240,10 @@ IMAGE_SHAPES = [(2, 16, 24, 32, 2, 8), (1, 24, 48, 32, 2, 24),
                          ids=["msa_qtile_attention", "msa_flash_attention"])
 def test_large_window_attention_matches_plain_version(cuda, fn, shape,
                                                       dtype):
-    b, h, w, c, heads, ws = shape
+    b, h, w, c, heads, ws, *bound = shape
     rng = np.random.default_rng(ws)
     qkv = _rand(rng, dtype, b, h, w, 3 * c)
-    bias = _rand(rng, torch.float32, heads, ws * ws, ws * ws)
+    bias = _bias(rng, heads, ws * ws, ws * ws, *bound)
     before = fn.launches
     got = fn(qkv, bias, heads=heads, window_size=ws)
     torch.cuda.synchronize()
@@ -375,6 +394,7 @@ def test_supported_predicates_agree_with_the_sources(cuda):
             assert ca.msa_block_smem(ws, d) == lib.sr_msa_block_smem(ws, d)
             assert cw.msa_qtile_smem(ws, d) == lib.sr_msa_qtile_smem(ws, d)
             assert cw.msa_flash_smem(d) == lib.sr_msa_flash_smem(d)
+            assert cw.mma_attention_smem(d) == lib.sr_mma_attention_smem(d)
             assert (cw.msa_attention_smem(ws, d)
                     == lib.sr_msa_attention_smem(ws, d))
             for nk in (ws * ws, ws * ws + 3):
@@ -469,6 +489,36 @@ def test_block_kernels_state_their_shared_memory_limit(cuda):
     with pytest.raises(ValueError, match=msg):
         cw.fused_attention(q, kv, kv, torch.zeros((1, 16, 3600),
                                                   device="cuda"))
+
+
+def test_bf16_attention_runs_on_the_tensor_core_kernels_only(cuda):
+    """fused_attention in bf16 streams its keys: it runs 3,600 keys, whose
+    k and v the float32 kernel cannot hold; the FMA entries of
+    fused_attention and msa_flash_attention refuse bf16, so no bf16 call
+    can reach them."""
+    from super_resolution_tpu_torch.ops.attention import attention_with_bias
+    from super_resolution_tpu_torch.ops.cuda_build import (load_library,
+                                                           stream_of)
+
+    rng = np.random.default_rng(3)
+    bf16 = torch.bfloat16
+    q = _rand(rng, bf16, 2, 2, 80, 16)
+    k, v = _rand(rng, bf16, 2, 2, 3600, 16), _rand(rng, bf16, 2, 2, 3600, 16)
+    bias = _rand(rng, torch.float32, 2, 80, 3600)
+    assert not cw.fused_attention_supported(80, 3600, 16)
+    got = cw.fused_attention(q, k, v, bias, scale=0.25)
+    torch.cuda.synchronize()
+    _assert_close(got, attention_with_bias(q, k, v, bias, scale=0.25), bf16)
+    lib = load_library()
+    assert lib.sr_fused_attention(
+        1, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        got.data_ptr(), 2, 2, 80, 3600, 16, 0.25, stream_of(q)) != 0
+    qkv = _rand(rng, bf16, 1, 16, 16, 96)
+    out = torch.empty((1, 16, 16, 32), dtype=bf16, device="cuda")
+    ibias = _rand(rng, torch.float32, 2, 64, 64)
+    assert lib.sr_msa_flash_attention(
+        1, qkv.data_ptr(), ibias.data_ptr(), out.data_ptr(), 1, 16, 16, 32, 2,
+        8, 0.25, stream_of(qkv)) != 0
 
 
 @pytest.mark.parametrize("route", [None, "fused_attention",
