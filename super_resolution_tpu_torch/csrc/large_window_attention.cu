@@ -13,20 +13,44 @@
 // write the image layout: the per-head planes and the transposed output
 // that the TPU versions build in device memory do not exist here.
 //
-// msa_flash_attention in bf16 is mma_flash_attention_kernel, the
-// tensor-core tile of mma_attention.cuh (which says what bounds it and how),
-// with the rows of q, k and v gathered from the qkv image by pixel index
-// (32 bytes a token at d 16, 16-byte cp.async) and the output written to
-// the image layout.
+// In bf16 both run on the tensor-core tile of mma_attention.cuh (which says
+// what bounds it and how), with the rows of q, k and v gathered from the qkv
+// image by pixel index (32 bytes a token at d 16, 16-byte cp.async) and the
+// output written to the image layout; a block per (kWindowGroup = 2
+// windows, 64 query rows, head), windows fastest:
 //
-// msa_flash_attention in float32, and msa_qtile_attention in both dtypes, are
-// the float32 FMA kernels below. What bounds them on the H100: per (window,
-// head) at ESC-XL's shape (N 2304, d 16) the two products are 4 * 2304 * 2304 *
-// 16 = 340 MFLOP against 295 kB of bf16 q, k, v and out, and a 21 MB float32
-// bias slice a head (255 MB for 12 heads) that every window shares. A chunk of
-// four 144 x 144 tiles has 36 windows: 147 GFLOP against 0.27 GB read once,
-// compute-bound on the tensor cores' scale, and bound by the CUDA cores here,
-// whose products are float32 FMA loops.
+// msa_flash_attention is mma_flash_attention_kernel, an online softmax over
+// 64-key chunks whose bias tile the group's windows share.
+//
+// msa_qtile_attention is mma_qtile_attention_kernel. It keeps the qtile's
+// identity, an exact row softmax with p normalised before it is rounded
+// (the TPU kernel's cast points), so the whole row's maximum and sum must
+// be known before any P @ V: two passes over the key chunks. Pass 1 stages
+// the bias tile and k only, forms S = Q K^T on mma.sync, scale and bias in
+// float32, and keeps each row's running maximum m and denominator l (only
+// l is rescaled; there is no accumulator and v is not read). Pass 2 stages
+// bias, k and v, forms S again, p = ex2(s log2 e - m log2 e) / l in float32,
+// rounds p to bf16 into A fragments and accumulates P V; the output is
+// rounded once, with no division. The first chunk of pass 2 is in flight
+// while pass 1 ends. What bounds it on the H100 at ESC-XL's chunk (36
+// windows, 12 heads, N 2304, d 16): the function's 2.29 G exponentials take
+// 0.588 ms on the special-function units, and this design computes each
+// twice, 1.176 ms; its float32 bias stream through the L2 is twice
+// msa_flash_attention's: 18 window groups x 2 passes x 255 MB = 9.2 GB.
+// The products, S being formed in both passes, are 1.5 times the
+// function's 147 GFLOP: 0.22 ms on the tensor cores, below both. So it is
+// expected at about twice msa_flash_attention's time; it is kept as the
+// exact-softmax A/B partner of msa_flash_attention.
+//
+// In float32 both are the FMA kernels below, the exact check of the
+// algorithm on the card; their entries refuse bf16. What bounds them on the
+// H100: per (window, head) at ESC-XL's shape (N 2304, d 16) the two
+// products are 4 * 2304 * 2304 * 16 = 340 MFLOP against 295 kB of bf16 q,
+// k, v and out, and a 21 MB float32 bias slice a head (255 MB for 12 heads)
+// that every window shares. A chunk of four 144 x 144 tiles has 36
+// windows: 147 GFLOP against 0.27 GB read once, compute-bound on the tensor
+// cores' scale, and bound by the CUDA cores here, whose products are
+// float32 FMA loops.
 //
 // The grid of both FMA kernels is (windows of all images, query tiles,
 // heads), windows fastest: the blocks that run together are the same rows
@@ -49,7 +73,7 @@
 // the unrounded p, and the output is acc / l, rounded once. 85 kB a block at d
 // 16: two blocks an SM.
 //
-// Design, msa_qtile_attention: exact softmax over whole rows. A block owns
+// Design, msa_qtile_attention (float32): exact softmax over whole rows. A block owns
 // 16 query rows of one (window, head) and keeps their 16 x N float32 scores
 // in shared memory (148 kB at N 2304). k and v are streamed through one
 // 256-key buffer in two passes: k chunks fill the scores, the rows are
@@ -227,13 +251,15 @@ template <typename T, int DP>
 cudaError_t launch(bool flash, const void* qkv, const float* bias, void* out,
                    int B, int H, int W, int C, int heads, int ws, float scale,
                    cudaStream_t stream) {
-  const int n = ws * ws;
-  const int windows = B * (H / ws) * (W / ws);
-  const T* in = static_cast<const T*>(qkv);
-  T* ot = static_cast<T*>(out);
-  cudaError_t err;
-  if (flash) {
-    if constexpr (std::is_same<T, float>::value) {
+  if constexpr (!std::is_same<T, float>::value) {
+    return cudaErrorInvalidValue;  // bf16: the sr_mma_* entries
+  } else {
+    const int n = ws * ws;
+    const int windows = B * (H / ws) * (W / ws);
+    const T* in = static_cast<const T*>(qkv);
+    T* ot = static_cast<T*>(out);
+    cudaError_t err;
+    if (flash) {
       const size_t smem = flash_smem_bytes(DP);
       err = srk::set_smem(msa_flash_kernel<T, DP>, smem);
       if (err != cudaSuccess) return err;
@@ -241,17 +267,15 @@ cudaError_t launch(bool flash, const void* qkv, const float* bias, void* out,
       msa_flash_kernel<T, DP><<<grid, srk::kTileThreads, smem, stream>>>(
           in, bias, ot, H, W, C, heads, ws, scale);
     } else {
-      return cudaErrorInvalidValue;  // bf16: mma_flash_attention_kernel's
+      const size_t smem = qtile_smem_bytes(n, DP);
+      err = srk::set_smem(msa_qtile_kernel<T, DP>, smem);
+      if (err != cudaSuccess) return err;
+      const dim3 grid(windows, (n + kQtileQT - 1) / kQtileQT, heads);
+      msa_qtile_kernel<T, DP><<<grid, srk::kTileThreads, smem, stream>>>(
+          in, bias, ot, H, W, C, heads, ws, scale);
     }
-  } else {
-    const size_t smem = qtile_smem_bytes(n, DP);
-    err = srk::set_smem(msa_qtile_kernel<T, DP>, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(windows, (n + kQtileQT - 1) / kQtileQT, heads);
-    msa_qtile_kernel<T, DP><<<grid, srk::kTileThreads, smem, stream>>>(
-        in, bias, ot, H, W, C, heads, ws, scale);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 int dispatch(bool flash, int dtype, const void* qkv, const void* bias,
@@ -309,30 +333,35 @@ __global__ void __launch_bounds__(srk::mma::kThreads)
 }
 
 template <int DP>
-cudaError_t launch_mma(const ImageRows& rows, const float* bias, int windows,
-                       float scale, bool vec_kv, bool vec_bias,
+__global__ void __launch_bounds__(srk::mma::kThreads)
+    mma_qtile_attention_kernel(ImageRows rows, const float* __restrict__ bias,
+                               int windows, int n, float scale, int vec_kv,
+                               int vec_bias) {
+  srk::mma::exact_attention_block<DP>(rows, bias, windows, n, n, rows.d,
+                                      scale, vec_kv != 0, vec_bias != 0);
+}
+
+template <int DP>
+cudaError_t launch_mma(bool qtile, const ImageRows& rows, const float* bias,
+                       int windows, float scale, bool vec_kv, bool vec_bias,
                        cudaStream_t stream) {
   constexpr int G = srk::mma::kWindowGroup;
   const int smem = srk::mma::smem_bytes(DP);
-  cudaError_t err = srk::set_smem(mma_flash_attention_kernel<DP>, smem);
+  auto kernel = qtile ? mma_qtile_attention_kernel<DP>
+                      : mma_flash_attention_kernel<DP>;
+  cudaError_t err = srk::set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int n = rows.ws * rows.ws;
   const dim3 grid((windows + G - 1) / G,
                   (n + srk::mma::kQRows - 1) / srk::mma::kQRows, rows.heads);
-  mma_flash_attention_kernel<DP><<<grid, srk::mma::kThreads, smem, stream>>>(
-      rows, bias, windows, n, scale, vec_kv, vec_bias);
+  kernel<<<grid, srk::mma::kThreads, smem, stream>>>(rows, bias, windows, n,
+                                                     scale, vec_kv, vec_bias);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// msa_flash_attention in bf16 on the tensor cores: qkv (B, H, W, 3C), out
-// (B, H, W, C) bf16, bias (heads, ws^2, ws^2) float32; the shared memory is
-// sr_mma_attention_smem's. Returns the cudaError_t of the launch.
-extern "C" int sr_mma_flash_attention(const void* qkv, const void* bias,
-                                      void* out, int B, int H, int W, int C,
-                                      int heads, int ws, float scale,
-                                      void* stream) {
+int dispatch_mma(bool qtile, const void* qkv, const void* bias, void* out,
+                 int B, int H, int W, int C, int heads, int ws, float scale,
+                 void* stream) {
   if (heads < 1 || heads > 65535 || C % heads || ws < 1 || H % ws || W % ws ||
       B < 1)
     return cudaErrorInvalidValue;
@@ -350,10 +379,32 @@ extern "C" int sr_mma_flash_attention(const void* qkv, const void* bias,
   const bool vec_bias = n % 4 == 0 && srk::mma::aligned16(bias);
   const float* bf32 = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dp == 16
-             ? launch_mma<16>(rows, bf32, windows, scale, vec_kv, vec_bias, st)
-             : launch_mma<32>(rows, bf32, windows, scale, vec_kv, vec_bias,
-                              st);
+  return dp == 16 ? launch_mma<16>(qtile, rows, bf32, windows, scale, vec_kv,
+                                   vec_bias, st)
+                  : launch_mma<32>(qtile, rows, bf32, windows, scale, vec_kv,
+                                   vec_bias, st);
+}
+
+}  // namespace
+
+// msa_flash_attention (sr_mma_flash_attention) and msa_qtile_attention
+// (sr_mma_qtile_attention) in bf16 on the tensor cores: qkv (B, H, W, 3C),
+// out (B, H, W, C) bf16, bias (heads, ws^2, ws^2) float32; the shared
+// memory is sr_mma_attention_smem's. Return the cudaError_t of the launch.
+extern "C" int sr_mma_flash_attention(const void* qkv, const void* bias,
+                                      void* out, int B, int H, int W, int C,
+                                      int heads, int ws, float scale,
+                                      void* stream) {
+  return dispatch_mma(false, qkv, bias, out, B, H, W, C, heads, ws, scale,
+                      stream);
+}
+
+extern "C" int sr_mma_qtile_attention(const void* qkv, const void* bias,
+                                      void* out, int B, int H, int W, int C,
+                                      int heads, int ws, float scale,
+                                      void* stream) {
+  return dispatch_mma(true, qkv, bias, out, B, H, W, C, heads, ws, scale,
+                      stream);
 }
 
 // Bytes of dynamic shared memory a block of the FMA kernels needs; the
@@ -366,8 +417,8 @@ extern "C" int sr_msa_qtile_smem(int ws, int d) {
   return static_cast<int>(qtile_smem_bytes(ws * ws, d <= 16 ? 16 : 32));
 }
 
-// dtype: 0 float32, 1 bfloat16 (msa_qtile_attention only: msa_flash_attention
-// in bf16 is sr_mma_flash_attention). qkv (B, H, W, 3C), out (B, H, W, C), bias
+// The FMA kernels. dtype: 0 float32; 1 (bf16) is refused, bf16 is the
+// sr_mma_* entries'. qkv (B, H, W, 3C), out (B, H, W, C), bias
 // (heads, ws^2, ws^2) float32. Returns the cudaError_t of the launch.
 extern "C" int sr_msa_flash_attention(int dtype, const void* qkv,
                                       const void* bias, void* out, int B,

@@ -10,21 +10,39 @@
 // scores and softmax in float32, the scale applied to the float32 scores,
 // p rounded to v's dtype before P @ V, the output rounded once.
 //
-// fused_attention in bf16 is mma_window_attention_kernel, the tensor-core
-// tile of mma_attention.cuh (which says what bounds it and how): a block
-// per (group of windows, 64 query rows, head), an online softmax over key
-// chunks whose bias tile every window of the group shares. Its p = exp(s -
-// m) is rounded before P @ V unnormalised and the output divided by the
-// float32 denominator, where the TPU kernel rounds the normalised p.
+// In bf16 both run on the tensor-core tile of mma_attention.cuh (which says
+// what bounds it and how), with p = exp(s - m) rounded before P @ V
+// unnormalised and the output divided by the float32 denominator, where the
+// TPU kernels round the normalised p:
 //
-// fused_attention in float32, and fused_attention_v3 in both dtypes, are
-// the float32 FMA kernels below (the float32 one is the exact check of the
-// algorithm on the card). What bounds them: per (window, head) at ESC's
-// shape (N 1024, d 16) the two products are 4 * 1024 * 1024 * 16 = 67 MFLOP
-// against 4 * 1024 * 16 * 2 = 131 kB of bf16 q, k, v and out and a 4 MB
-// float32 bias slice that every window of the head shares: compute-bound,
-// about 500 FLOP per byte of window traffic. They run both products as
-// float32 FMA loops on the CUDA cores and are bound by them.
+// fused_attention is mma_window_attention_kernel: a block per (group of
+// windows, 64 query rows, head), an online softmax over key chunks whose
+// bias tile every window of the group shares.
+//
+// fused_attention_v3 is mma_window_attention_v3_kernel. It keeps v3's
+// identity: a block walks all heads, so a window's q, k and v of every head
+// are read by one block. It computes fused_attention's function at its
+// shape, so the same floors bound it: at ESC's chunk (100 windows, 4 heads,
+// N 1024, d 16) the bound is 0.0438 ms (the softmax's elementwise work)
+// and the 419 M exponentials take 0.1075 ms on the special-function units,
+// against 0.027 ms of products on the tensor cores. Design: a block of four
+// warps owns (kWindowGroup = 2 windows, 64 query rows) and loops over the
+// heads; for each it loads the head's q fragments, streams k, v and the
+// bias tile in 64-key chunks through the double-buffered cp.async stages,
+// runs the online softmax and writes the head's output. The copies of the
+// next step are in flight across a head boundary, so the pipeline does not
+// drain between heads. The grid is (window groups, query blocks), windows
+// fastest: the blocks that run together walk the same head's bias rows.
+// ESC's chunk gives 800 blocks (fused_attention: 3,200), about two waves
+// at three blocks an SM, so the last partial wave costs more here.
+//
+// In float32 both are the FMA kernels below, the exact check of the
+// algorithm on the card; their entries refuse bf16. What bounds them: per
+// (window, head) at ESC's shape (N 1024, d 16) the two products are 4 *
+// 1024 * 1024 * 16 = 67 MFLOP against 4 * 1024 * 16 * 2 = 131 kB of q, k, v
+// and out and a 4 MB float32 bias slice that every window of the head
+// shares: compute-bound. They run both products as float32 FMA loops on
+// the CUDA cores and are bound by them.
 //
 // Design, fused_attention (float32): one block per (window, head, 64 query
 // rows). The TPU grid is (heads, window blocks) with several windows a program
@@ -38,12 +56,10 @@
 // slowest: blocks that run together share one head's bias rows, which the L2
 // holds (4 MB a head).
 //
-// Design, fused_attention_v3: the same tile loop with one block per window
-// that walks all heads and all query tiles, so a window's q, k and v are
-// read from device memory exactly once (the TPU version's reason to exist:
-// its v2 re-fetched k and v per head). On this card that is BW blocks for
-// 132 SMs, each with heads * Nq / 16 tiles in series; it is kept as the
-// A/B partner of fused_attention.
+// Design, fused_attention_v3 (float32): the same tile loop with one block
+// per window that walks all heads and all query tiles, so a window's q, k
+// and v are read from device memory exactly once (the TPU version's reason
+// to exist: its v2 re-fetched k and v per head).
 #include <type_traits>
 
 #include "attention_tiles.cuh"
@@ -155,27 +171,30 @@ template <typename T, int DP>
 cudaError_t launch(bool v3, const void* q, const void* k, const void* v,
                    const float* bias, void* out, int bw, int heads, int nq,
                    int nk, int d, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(nk, DP);
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  T* ot = static_cast<T*>(out);
-  cudaError_t err;
-  if (v3) {
-    err = srk::set_smem(fused_attention_v3_kernel<T, DP>, smem);
-    if (err != cudaSuccess) return err;
-    fused_attention_v3_kernel<T, DP><<<bw, srk::kTileThreads, smem, stream>>>(
-        qt, kt, vt, bias, ot, heads, nq, nk, d, scale);
-  } else if constexpr (std::is_same<T, float>::value) {
-    err = srk::set_smem(fused_attention_kernel<T, DP>, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(bw * ((nq + kQBlock - 1) / kQBlock), heads);
-    fused_attention_kernel<T, DP><<<grid, srk::kTileThreads, smem, stream>>>(
-        qt, kt, vt, bias, ot, bw, heads, nq, nk, d, scale);
+  if constexpr (!std::is_same<T, float>::value) {
+    return cudaErrorInvalidValue;  // bf16: the sr_mma_window_attention* entries
   } else {
-    return cudaErrorInvalidValue;  // bf16: mma_window_attention_kernel's
+    const size_t smem = smem_bytes(nk, DP);
+    const T* qt = static_cast<const T*>(q);
+    const T* kt = static_cast<const T*>(k);
+    const T* vt = static_cast<const T*>(v);
+    T* ot = static_cast<T*>(out);
+    cudaError_t err;
+    if (v3) {
+      err = srk::set_smem(fused_attention_v3_kernel<T, DP>, smem);
+      if (err != cudaSuccess) return err;
+      fused_attention_v3_kernel<T, DP>
+          <<<bw, srk::kTileThreads, smem, stream>>>(qt, kt, vt, bias, ot,
+                                                    heads, nq, nk, d, scale);
+    } else {
+      err = srk::set_smem(fused_attention_kernel<T, DP>, smem);
+      if (err != cudaSuccess) return err;
+      const dim3 grid(bw * ((nq + kQBlock - 1) / kQBlock), heads);
+      fused_attention_kernel<T, DP><<<grid, srk::kTileThreads, smem, stream>>>(
+          qt, kt, vt, bias, ot, bw, heads, nq, nk, d, scale);
+    }
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 int dispatch(bool v3, int dtype, const void* q, const void* k, const void* v,
@@ -231,38 +250,37 @@ __global__ void __launch_bounds__(srk::mma::kThreads)
 }
 
 template <int DP>
-cudaError_t launch_mma(const WindowRows& rows, const float* bias, int bw,
-                       int nq, int nk, int d, float scale, bool vec_kv,
-                       bool vec_bias, cudaStream_t stream) {
+__global__ void __launch_bounds__(srk::mma::kThreads)
+    mma_window_attention_v3_kernel(WindowRows rows,
+                                   const float* __restrict__ bias, int bw,
+                                   int nq, int nk, int d, float scale,
+                                   int vec_kv, int vec_bias) {
+  srk::mma::head_walk_block<DP>(rows, bias, bw, rows.heads, nq, nk, d, scale,
+                                vec_kv != 0, vec_bias != 0);
+}
+
+// v3: a block walks the heads, the grid has no head axis
+template <int DP>
+cudaError_t launch_mma(bool v3, const WindowRows& rows, const float* bias,
+                       int bw, int nq, int nk, int d, float scale,
+                       bool vec_kv, bool vec_bias, cudaStream_t stream) {
   constexpr int G = srk::mma::kWindowGroup;
   const int smem = srk::mma::smem_bytes(DP);
-  cudaError_t err = srk::set_smem(mma_window_attention_kernel<DP>, smem);
+  auto kernel = v3 ? mma_window_attention_v3_kernel<DP>
+                   : mma_window_attention_kernel<DP>;
+  cudaError_t err = srk::set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((bw + G - 1) / G,
                   (nq + srk::mma::kQRows - 1) / srk::mma::kQRows,
-                  rows.heads);
-  mma_window_attention_kernel<DP><<<grid, srk::mma::kThreads, smem, stream>>>(
+                  v3 ? 1 : rows.heads);
+  kernel<<<grid, srk::mma::kThreads, smem, stream>>>(
       rows, bias, bw, nq, nk, d, scale, vec_kv, vec_bias);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Bytes of dynamic shared memory a block of the bf16 tensor-core kernels
-// (fused_attention, msa_flash_attention) needs at head dim d, whatever the
-// window.
-extern "C" int sr_mma_attention_smem(int d) {
-  return srk::mma::smem_bytes(d <= 16 ? 16 : 32);
-}
-
-// fused_attention in bf16 on the tensor cores. q, out (bw, heads, nq, d);
-// k, v (bw, heads, nk, d) bf16; bias (heads, nq, nk) float32. Returns the
-// cudaError_t of the launch.
-extern "C" int sr_mma_window_attention(const void* q, const void* k,
-                                       const void* v, const void* bias,
-                                       void* out, int bw, int heads, int nq,
-                                       int nk, int d, float scale,
-                                       void* stream) {
+int dispatch_mma(bool v3, const void* q, const void* k, const void* v,
+                 const void* bias, void* out, int bw, int heads, int nq,
+                 int nk, int d, float scale, void* stream) {
   if (d < 1 || d > 32 || bw < 1 || heads < 1 || heads > 65535 || nq < 1 ||
       nk < 1 || (nq + srk::mma::kQRows - 1) / srk::mma::kQRows > 65535)
     return cudaErrorInvalidValue;
@@ -277,21 +295,52 @@ extern "C" int sr_mma_window_attention(const void* q, const void* k,
   const bool vec_bias = nk % 4 == 0 && srk::mma::aligned16(bias);
   const float* bf32 = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dp == 16 ? launch_mma<16>(rows, bf32, bw, nq, nk, d, scale, vec_kv,
-                                   vec_bias, st)
-                  : launch_mma<32>(rows, bf32, bw, nq, nk, d, scale, vec_kv,
-                                   vec_bias, st);
+  return dp == 16 ? launch_mma<16>(v3, rows, bf32, bw, nq, nk, d, scale,
+                                   vec_kv, vec_bias, st)
+                  : launch_mma<32>(v3, rows, bf32, bw, nq, nk, d, scale,
+                                   vec_kv, vec_bias, st);
 }
 
-// Bytes of dynamic shared memory a block of either FMA kernel
-// (fused_attention in float32, fused_attention_v3) needs for nk keys of head
-// dim d; the wrappers hold this against the card's limit.
+}  // namespace
+
+// Bytes of dynamic shared memory a block of the bf16 tensor-core kernels
+// (fused_attention, fused_attention_v3, msa_flash_attention,
+// msa_qtile_attention) needs at head dim d, whatever the window.
+extern "C" int sr_mma_attention_smem(int d) {
+  return srk::mma::smem_bytes(d <= 16 ? 16 : 32);
+}
+
+// fused_attention (sr_mma_window_attention) and fused_attention_v3
+// (sr_mma_window_attention_v3) in bf16 on the tensor cores. q, out (bw,
+// heads, nq, d); k, v (bw, heads, nk, d) bf16; bias (heads, nq, nk)
+// float32. Return the cudaError_t of the launch.
+extern "C" int sr_mma_window_attention(const void* q, const void* k,
+                                       const void* v, const void* bias,
+                                       void* out, int bw, int heads, int nq,
+                                       int nk, int d, float scale,
+                                       void* stream) {
+  return dispatch_mma(false, q, k, v, bias, out, bw, heads, nq, nk, d, scale,
+                      stream);
+}
+
+extern "C" int sr_mma_window_attention_v3(const void* q, const void* k,
+                                          const void* v, const void* bias,
+                                          void* out, int bw, int heads,
+                                          int nq, int nk, int d, float scale,
+                                          void* stream) {
+  return dispatch_mma(true, q, k, v, bias, out, bw, heads, nq, nk, d, scale,
+                      stream);
+}
+
+// Bytes of dynamic shared memory a block of either FMA kernel (float32)
+// needs for nk keys of head dim d; the wrappers hold this against the
+// card's limit.
 extern "C" int sr_window_attention_smem(int nk, int d) {
   return static_cast<int>(smem_bytes(nk, d <= 16 ? 16 : 32));
 }
 
-// dtype: 0 float32, 1 bfloat16 (fused_attention_v3 only: fused_attention in
-// bf16 is sr_mma_window_attention). q, out (bw, heads, nq, d); k, v
+// The FMA kernels. dtype: 0 float32; 1 (bf16) is refused, bf16 is the
+// sr_mma_window_attention* entries'. q, out (bw, heads, nq, d); k, v
 // (bw, heads, nk, d); bias (heads, nq, nk) float32. Returns the
 // cudaError_t of the launch.
 extern "C" int sr_fused_attention(int dtype, const void* q, const void* k,

@@ -50,7 +50,9 @@ _SIGNATURES = {
     "sr_fused_attention_v3": [_I] + [_P] * 5 + [_I] * 5 + [_F] + [_P],
     "sr_window_attention_smem": [_I] * 2,
     "sr_mma_window_attention": [_P] * 5 + [_I] * 5 + [_F] + [_P],
+    "sr_mma_window_attention_v3": [_P] * 5 + [_I] * 5 + [_F] + [_P],
     "sr_mma_flash_attention": [_P] * 3 + [_I] * 6 + [_F] + [_P],
+    "sr_mma_qtile_attention": [_P] * 3 + [_I] * 6 + [_F] + [_P],
     "sr_mma_attention_smem": [_I],
     "sr_msa_flash_attention": [_I] + [_P] * 3 + [_I] * 6 + [_F] + [_P],
     "sr_msa_qtile_attention": [_I] + [_P] * 3 + [_I] * 6 + [_F] + [_P],

@@ -17,28 +17,30 @@ Head dims: the kernels on cut windows and the large-window kernels pad the
 head dim to 16 or 32 (``MAX_HEAD_DIM``); ``fused_msa_attention`` pads to a
 multiple of 16 up to 48 (``MSA_ATTENTION_MAX_HEAD_DIM``: ATD's 35 -> 48).
 
-``fused_attention`` and ``msa_flash_attention`` take bf16 on the tensor
-cores (``csrc/mma_attention.cuh``: a block per group of ``MMA_WINDOW_GROUP``
-windows, 64 query rows and a head, an online softmax over chunks of 64
-keys whose bias tile the group shares) and float32 on the float32 FMA
-kernels, the exact check of the algorithm on the card; the other kernels
-take both dtypes on their FMA kernels. A bf16 CUDA tensor launches the
-tensor-core kernel or raises: it never gives way to the FMA kernel.
+The four attention-only kernels take bf16 on the tensor cores
+(``csrc/mma_attention.cuh``: a block per group of ``MMA_WINDOW_GROUP``
+windows and 64 query rows, over chunks of 64 keys whose bias tile the group
+shares; ``fused_attention_v3``'s block walks the heads, the others take a
+head each; ``msa_qtile_attention`` runs an exact softmax in two passes, the
+others an online one) and float32 on their float32 FMA kernels, the exact
+check of the algorithm on the card; ``fused_msa_attention`` takes both
+dtypes on its FMA kernel. A bf16 CUDA tensor launches the tensor-core
+kernel or raises: it never gives way to the FMA kernel.
 
 Each kernel has a pure-Python ``*_supported`` predicate from its need of
-shared memory in every layout it launches (``fused_attention`` and
-``msa_flash_attention`` run where both their float32 and their bf16 layout
-fit, so that a route is the same in both dtypes); the same formulas are the
+shared memory in every layout it launches (the four attention-only kernels
+run where both their float32 and their bf16 layout fit, so that a route is
+the same in both dtypes); the same formulas are the
 ``sr_*_smem`` entries of the sources, which the wrappers hold against the
 card's limit before a launch.
 
 Numerics against the plain versions: scores and softmax in float32, p
 rounded to the input dtype before P @ V, the output rounded once. The
 kernels scale the float32 scores, the plain versions scale q in the input
-dtype first. ``msa_flash_attention`` and ``fused_attention`` in bf16 round
-the unnormalised p = exp(s - m) and divide the accumulated output by the
-float32 denominator, as the TPU flash kernel does; the others round the
-normalised p.
+dtype first. ``fused_attention``, ``fused_attention_v3`` and
+``msa_flash_attention`` in bf16 round the unnormalised p = exp(s - m) and
+divide the accumulated output by the float32 denominator, as the TPU flash
+kernel does; the others, and every float32 kernel, round the normalised p.
 """
 
 from __future__ import annotations
@@ -78,8 +80,8 @@ def _score_stride(n: int) -> int:
 
 
 def mma_attention_smem(head_dim: int) -> int:
-    """Bytes a block of the bf16 tensor-core kernels (``fused_attention``,
-    ``msa_flash_attention``) takes, whatever the window: two stages, each a
+    """Bytes a block of the four bf16 tensor-core kernels takes, whatever
+    the window: two stages, each a
     64 x 64 float32 bias tile and 64-key k and v tiles of the block's
     ``MMA_WINDOW_GROUP`` windows in bf16, rows padded."""
     stage = (4 * MMA_Q_ROWS * (MMA_KEY_CHUNK + MMA_BIAS_PAD)
@@ -89,7 +91,7 @@ def mma_attention_smem(head_dim: int) -> int:
 
 
 def window_attention_smem(nk: int, head_dim: int) -> int:
-    """Bytes a block of the FMA kernels of ``fused_attention`` (float32) and
+    """Bytes a block of the float32 FMA kernels of ``fused_attention`` and
     ``fused_attention_v3`` takes: one head's k and v, a 16-row score tile,
     the q tile and the reduction space."""
     dp = _dpad(head_dim)
@@ -98,7 +100,8 @@ def window_attention_smem(nk: int, head_dim: int) -> int:
 
 
 def msa_qtile_smem(window_size: int, head_dim: int) -> int:
-    """Bytes a block of ``msa_qtile_attention`` takes: 16 rows of scores
+    """Bytes a block of ``msa_qtile_attention``'s float32 FMA kernel takes:
+    16 rows of scores
     over the whole window, one 256-key chunk, the q tile and the reduction
     space."""
     dp = _dpad(head_dim)
@@ -138,22 +141,27 @@ def fused_msa_attention_supported(window_size: int, head_dim: int) -> bool:
 def fused_attention_supported(nq: int, nk: int, head_dim: int) -> bool:
     """Whether ``fused_attention`` runs (nq, nk) windows of this head dim on
     the card in both dtypes: the float32 kernel holds one head's k and v
-    (at head dim 16: up to 1,160 keys), the bf16 one streams them."""
-    return (fused_attention_v3_supported(nq, nk, head_dim)
+    (at head dim 16: up to 1,160 keys), the bf16 one streams them; nq plays
+    no part."""
+    return (1 <= head_dim <= MAX_HEAD_DIM
+            and window_attention_smem(nk, head_dim) <= MAX_DYNAMIC_SMEM
             and mma_attention_smem(head_dim) <= MAX_DYNAMIC_SMEM)
 
 
 def fused_attention_v3_supported(nq: int, nk: int, head_dim: int) -> bool:
     """Whether ``fused_attention_v3`` runs (nq, nk) windows of this head dim
-    on the card; nq plays no part, a block walks the queries in tiles."""
-    return (1 <= head_dim <= MAX_HEAD_DIM
-            and window_attention_smem(nk, head_dim) <= MAX_DYNAMIC_SMEM)
+    on the card in both dtypes: the same layouts as ``fused_attention``."""
+    return fused_attention_supported(nq, nk, head_dim)
 
 
 def msa_qtile_supported(window_size: int, head_dim: int) -> bool:
+    """Whether ``msa_qtile_attention`` runs in both dtypes: the float32
+    kernel holds 16 rows of scores over the whole window (at head dim 16:
+    windows up to 56), the bf16 one streams its keys."""
     return (1 <= head_dim <= MAX_HEAD_DIM
             and window_size ** 2 <= 65535 * _QT
-            and msa_qtile_smem(window_size, head_dim) <= MAX_DYNAMIC_SMEM)
+            and msa_qtile_smem(window_size, head_dim) <= MAX_DYNAMIC_SMEM
+            and mma_attention_smem(head_dim) <= MAX_DYNAMIC_SMEM)
 
 
 def msa_flash_supported(window_size: int, head_dim: int) -> bool:
@@ -175,9 +183,10 @@ def msa_qtile_reference(qkv_img, bias, heads: int, window_size: int,
                                    scale)
 
 
-def _launch_windows(name: str, entry: str, q, k, v, bias, scale,
-                    mma: bool = False):
-    """``mma``: bf16 goes to the tensor-core kernel, float32 to ``entry``."""
+def _launch_windows(name: str, entry: str, mma_entry: str, q, k, v, bias,
+                    scale):
+    """bf16 goes to the tensor-core entry ``mma_entry``, float32 to the FMA
+    entry ``entry``."""
     if q.dim() != 4:
         raise ValueError(f"{name}: q must be (BW, heads, Nq, d), got "
                          f"{tuple(q.shape)}")
@@ -192,9 +201,9 @@ def _launch_windows(name: str, entry: str, q, k, v, bias, scale,
         raise ValueError(f"{name}: head dim {d} is above {MAX_HEAD_DIM}")
     lib = load_library()
     out = torch.empty_like(q)
-    if mma and q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16:
         check_smem(name, lib.sr_mma_attention_smem(d), f"head dim {d}")
-        err = lib.sr_mma_window_attention(
+        err = getattr(lib, mma_entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             out.data_ptr(), bw, heads, nq, nk, d, scale, stream_of(q))
     else:
@@ -223,23 +232,25 @@ def fused_attention(q, k, v, bias, *, scale: float | None = None):
         scale = q.shape[-1] ** -0.5
     if not use_kernel(q):
         return attention_with_bias(q, k, v, bias, scale=scale)
-    out = _launch_windows("fused_attention", "sr_fused_attention", q, k, v,
-                          bias, scale, mma=True)
+    out = _launch_windows("fused_attention", "sr_fused_attention",
+                          "sr_mma_window_attention", q, k, v, bias, scale)
     fused_attention.launches += 1
     return out
 
 
 def fused_attention_v3(q, k, v, bias, *, scale: float | None = None):
-    """:func:`fused_attention` with one block per window that walks all
-    heads, so a window's q, k and v are read once. Replaces
+    """:func:`fused_attention` with blocks that walk all heads, so a
+    window's q, k and v of every head are read by one block. bf16: one
+    block per (``MMA_WINDOW_GROUP`` windows, 64 query rows) on the tensor
+    cores; float32: one block per window on the CUDA cores. Replaces
     super_resolution_tpu/ops/pallas_attention.py::fused_attention_v3.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if not use_kernel(q):
         return attention_with_bias(q, k, v, bias, scale=scale)
-    out = _launch_windows("fused_attention_v3", "sr_fused_attention_v3", q,
-                          k, v, bias, scale)
+    out = _launch_windows("fused_attention_v3", "sr_fused_attention_v3",
+                          "sr_mma_window_attention_v3", q, k, v, bias, scale)
     fused_attention_v3.launches += 1
     return out
 
@@ -258,10 +269,10 @@ def window_attention_fused(qkv_windows, num_heads: int, bias,
     return out.permute(0, 2, 1, 3).reshape(bw, n, c)
 
 
-def _launch_image(name: str, entry: str, smem_of, qkv_img, bias, heads, ws,
-                  scale, mma: bool = False):
-    """``smem_of(lib, ws, d)``: the bytes a block of ``entry``'s kernel
-    needs. ``mma``: bf16 goes to the tensor-core kernel instead."""
+def _launch_image(name: str, entry: str, mma_entry: str, smem_of, qkv_img,
+                  bias, heads, ws, scale):
+    """bf16 goes to the tensor-core entry ``mma_entry``, float32 to the FMA
+    entry ``entry``, whose block needs ``smem_of(lib, ws, d)`` bytes."""
     if qkv_img.dim() != 4 or qkv_img.shape[-1] % 3:
         raise ValueError(f"{name}: qkv_img must be (B, H, W, 3C), got "
                          f"{tuple(qkv_img.shape)}")
@@ -278,9 +289,9 @@ def _launch_image(name: str, entry: str, smem_of, qkv_img, bias, heads, ws,
     d = c // heads
     out = torch.empty((b, h_img, w_img, c), dtype=qkv_img.dtype,
                       device=qkv_img.device)
-    if mma and qkv_img.dtype == torch.bfloat16:
+    if qkv_img.dtype == torch.bfloat16:
         check_smem(name, lib.sr_mma_attention_smem(d), f"head dim {d}")
-        err = lib.sr_mma_flash_attention(
+        err = getattr(lib, mma_entry)(
             qkv_img.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h_img,
             w_img, c, heads, ws, scale, stream_of(qkv_img))
     else:
@@ -294,8 +305,12 @@ def _launch_image(name: str, entry: str, smem_of, qkv_img, bias, heads, ws,
 
 def msa_qtile_attention(qkv_img, bias, *, heads: int, window_size: int,
                         scale: float | None = None):
-    """Unshifted window MSA on a qkv image with an exact row softmax over
-    tiles of 16 query rows against all keys.
+    """Unshifted window MSA on a qkv image with an exact row softmax: in
+    bf16 two passes over chunks of 64 keys (the rows' maxima and
+    denominators, then P @ V with p normalised before it is rounded), a
+    block per (``MMA_WINDOW_GROUP`` windows, 64 query rows, head) on the
+    tensor cores; in float32 a block per (window, head, 16 query rows)
+    holding their scores over all keys, on the CUDA cores.
 
     qkv_img: (B, H, W, 3C), H and W multiples of window_size; bias:
     (heads, N, N) float32, N = ws^2. Returns (B, H, W, C), the attention
@@ -307,6 +322,7 @@ def msa_qtile_attention(qkv_img, bias, *, heads: int, window_size: int,
     if not use_kernel(qkv_img):
         return msa_qtile_reference(qkv_img, bias, heads, window_size, scale)
     out = _launch_image("msa_qtile_attention", "sr_msa_qtile_attention",
+                        "sr_mma_qtile_attention",
                         lambda lib, ws, d: lib.sr_msa_qtile_smem(ws, d),
                         qkv_img, bias, heads, window_size, scale)
     msa_qtile_attention.launches += 1
@@ -327,8 +343,9 @@ def msa_flash_attention(qkv_img, bias, *, heads: int, window_size: int,
     if not use_kernel(qkv_img):
         return msa_qtile_reference(qkv_img, bias, heads, window_size, scale)
     out = _launch_image("msa_flash_attention", "sr_msa_flash_attention",
+                        "sr_mma_flash_attention",
                         lambda lib, ws, d: lib.sr_msa_flash_smem(d),
-                        qkv_img, bias, heads, window_size, scale, mma=True)
+                        qkv_img, bias, heads, window_size, scale)
     msa_flash_attention.launches += 1
     return out
 

@@ -187,17 +187,26 @@ def _assert_close(got, ref, dtype):
 # blocks take windows in groups of 2 and keys in chunks of 64: 5
 # windows (an odd count) of 200 queries and 200 keys, head dim 32
 # on 6 windows, and a bias drawn uniformly from [-30, 30], so that a row's
-# maximum moves from chunk to chunk
+# maximum moves from chunk to chunk; and 3 windows of 96 queries against
+# 200 keys whose every row peaks only in the ragged last chunk of 8 keys
+# (LATE), where pass 1 of msa_qtile_attention's two finds the maximum and
+# pass 2 normalises
+LATE = "late"
 WINDOW_SHAPES = [(5, 2, 64, 64, 16), (3, 2, 64, 144, 30), (2, 3, 50, 70, 12),
                  (100, 4, 1024, 1024, 16), (7, 6, 256, 576, 30),
                  (5, 2, 200, 200, 16), (6, 2, 128, 256, 32),
-                 (3, 2, 192, 320, 16, 30.0)]
+                 (3, 2, 192, 320, 16, 30.0), (3, 2, 96, 200, 16, LATE)]
 
 
 def _bias(rng, heads, nq, nk, bound=None):
-    """Standard normal, or uniform on [-bound, bound]."""
-    if bound is None:
-        return _rand(rng, torch.float32, heads, nq, nk)
+    """Standard normal; uniform on [-bound, bound]; or, for LATE, standard
+    normal raised by 8 on the keys of the ragged last chunk of the
+    tensor-core kernels, which then holds every row's maximum."""
+    if bound is None or bound == LATE:
+        bias = _rand(rng, torch.float32, heads, nq, nk)
+        if bound == LATE:
+            bias[..., nk // cw.MMA_KEY_CHUNK * cw.MMA_KEY_CHUNK:] += 8.0
+        return bias
     return torch.from_numpy(rng.uniform(-bound, bound, (heads, nq, nk))
                             .astype(np.float32)).cuda()
 
@@ -225,12 +234,13 @@ def test_window_attention_matches_plain_version(cuda, fn, shape, dtype):
 # ragged last one (N 576); a window whose N = 49 is no multiple of 4, head
 # dim 10; ESC-XL's published shape with one tile of 3 x 3 windows; for the
 # bf16 tensor-core kernel: 15 windows (an odd count), the same at
-# head dim 32, and 6 windows of N 576 under a bias drawn uniformly from
-# [-30, 30]
+# head dim 32, 6 windows of N 576 under a bias drawn uniformly from [-30,
+# 30], and 6 windows of N 100 (64 + 36 keys) whose rows peak only in the
+# ragged last chunk (LATE)
 IMAGE_SHAPES = [(2, 16, 24, 32, 2, 8), (1, 24, 48, 32, 2, 24),
                 (1, 14, 21, 20, 2, 7), (1, 144, 144, 192, 12, 48),
                 (1, 24, 40, 32, 2, 8), (1, 24, 40, 64, 2, 8),
-                (1, 48, 72, 32, 2, 24, 30.0)]
+                (1, 48, 72, 32, 2, 24, 30.0), (1, 20, 30, 32, 2, 10, LATE)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -386,7 +396,8 @@ def test_hab_block_matches_plain_version(cuda, shape, dtype):
 def test_supported_predicates_agree_with_the_sources(cuda):
     """Each pure-Python shared-memory formula equals the C entry of its
     source, so a route chosen on the CPU is the route the card can run."""
-    from super_resolution_tpu_torch.ops.cuda_build import load_library
+    from super_resolution_tpu_torch.ops.cuda_build import (MAX_DYNAMIC_SMEM,
+                                                           load_library)
 
     lib = load_library()
     for ws in (7, 8, 16, 24, 32, 48, 64):
@@ -400,6 +411,20 @@ def test_supported_predicates_agree_with_the_sources(cuda):
             for nk in (ws * ws, ws * ws + 3):
                 assert (cw.window_attention_smem(nk, d)
                         == lib.sr_window_attention_smem(nk, d))
+    # the bf16 layout of all four attention-only kernels is
+    # sr_mma_attention_smem's; their predicates ask for both layouts
+    for ws in (7, 8, 16, 24, 32, 48, 56, 57, 64):
+        for d in (8, 16, 30, 32):
+            mma = lib.sr_mma_attention_smem(d) <= MAX_DYNAMIC_SMEM
+            assert cw.msa_qtile_supported(ws, d) == (
+                lib.sr_msa_qtile_smem(ws, d) <= MAX_DYNAMIC_SMEM and mma)
+            assert cw.msa_flash_supported(ws, d) == (
+                lib.sr_msa_flash_smem(d) <= MAX_DYNAMIC_SMEM and mma)
+            for fn in (cw.fused_attention_supported,
+                       cw.fused_attention_v3_supported):
+                assert fn(ws * ws, ws * ws, d) == (
+                    lib.sr_window_attention_smem(ws * ws, d)
+                    <= MAX_DYNAMIC_SMEM and mma)
     for ws in (8, 16, 24, 48):
         for d in (35, 40, 48):
             assert (cw.msa_attention_smem(ws, d)
@@ -492,10 +517,10 @@ def test_block_kernels_state_their_shared_memory_limit(cuda):
 
 
 def test_bf16_attention_runs_on_the_tensor_core_kernels_only(cuda):
-    """fused_attention in bf16 streams its keys: it runs 3,600 keys, whose
-    k and v the float32 kernel cannot hold; the FMA entries of
-    fused_attention and msa_flash_attention refuse bf16, so no bf16 call
-    can reach them."""
+    """fused_attention and fused_attention_v3 in bf16 stream their keys:
+    they run 3,600 keys, whose k and v the float32 kernels cannot hold; the
+    FMA entries of all four attention-only kernels refuse bf16, so no bf16
+    call can reach them."""
     from super_resolution_tpu_torch.ops.attention import attention_with_bias
     from super_resolution_tpu_torch.ops.cuda_build import (load_library,
                                                            stream_of)
@@ -506,19 +531,23 @@ def test_bf16_attention_runs_on_the_tensor_core_kernels_only(cuda):
     k, v = _rand(rng, bf16, 2, 2, 3600, 16), _rand(rng, bf16, 2, 2, 3600, 16)
     bias = _rand(rng, torch.float32, 2, 80, 3600)
     assert not cw.fused_attention_supported(80, 3600, 16)
-    got = cw.fused_attention(q, k, v, bias, scale=0.25)
-    torch.cuda.synchronize()
-    _assert_close(got, attention_with_bias(q, k, v, bias, scale=0.25), bf16)
+    assert not cw.fused_attention_v3_supported(80, 3600, 16)
+    ref = attention_with_bias(q, k, v, bias, scale=0.25)
     lib = load_library()
-    assert lib.sr_fused_attention(
-        1, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        got.data_ptr(), 2, 2, 80, 3600, 16, 0.25, stream_of(q)) != 0
+    for fn, entry in ((cw.fused_attention, lib.sr_fused_attention),
+                      (cw.fused_attention_v3, lib.sr_fused_attention_v3)):
+        got = fn(q, k, v, bias, scale=0.25)
+        torch.cuda.synchronize()
+        _assert_close(got, ref, bf16)
+        assert entry(1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     bias.data_ptr(), got.data_ptr(), 2, 2, 80, 3600, 16,
+                     0.25, stream_of(q)) != 0
     qkv = _rand(rng, bf16, 1, 16, 16, 96)
     out = torch.empty((1, 16, 16, 32), dtype=bf16, device="cuda")
     ibias = _rand(rng, torch.float32, 2, 64, 64)
-    assert lib.sr_msa_flash_attention(
-        1, qkv.data_ptr(), ibias.data_ptr(), out.data_ptr(), 1, 16, 16, 32, 2,
-        8, 0.25, stream_of(qkv)) != 0
+    for entry in (lib.sr_msa_flash_attention, lib.sr_msa_qtile_attention):
+        assert entry(1, qkv.data_ptr(), ibias.data_ptr(), out.data_ptr(), 1,
+                     16, 16, 32, 2, 8, 0.25, stream_of(qkv)) != 0
 
 
 @pytest.mark.parametrize("route", [None, "fused_attention",
