@@ -18,10 +18,11 @@ Phases, each of which raises on failure:
      CUDA-event times of the kernel, the plain version and, where one
      PyTorch call computes the same function, that call; beside them the
      least time the card could take (bound), from the bytes and operations
-     of the call, and for the attention-only kernels the time of their
+     of the call, and for every kernel with a softmax the time of its
      exponentials on the special-function units (exp floor; for
-     ``msa_qtile_attention`` also its two-pass design's, two exponentials
-     a score). The four attention-only kernels run bf16 on their
+     ``msa_qtile_attention`` and ``fused_psa_block`` also their two-pass
+     designs', two exponentials a score). The four attention-only kernels,
+     ``fused_ocab_attention`` and ``fused_psa_block`` run bf16 on their
      tensor-core kernels and float32 on their FMA kernels, so both are
      checked;
   4. main paths: Predictor -> runner in tile mode -> network at the
@@ -301,8 +302,18 @@ PEAK = dict(bf16=989e12, tf32=495e12, f32=67e12, hbm=3.35e12)
 # floor beside the bound (which counts an exponential at the float32 rate)
 EXP_RATE = 3.9e12
 # exponentials a score of a kernel's design, where it computes each more
-# than once: msa_qtile_attention's exact softmax takes two passes
-EXP_PASSES = {"msa_qtile_attention": 2}
+# than once: the exact softmax of msa_qtile_attention and of
+# fused_psa_block's tensor-core kernel takes two passes
+EXP_PASSES = {"msa_qtile_attention": 2, "fused_psa_block": 2}
+# the scores of the kernels of check_kernels, (windows, heads, Nq, Nk), on
+# (b, hw, hw, C) activations: the exp floor's arguments
+SOFTMAX_SHAPES = {
+    "fused_msa_block": lambda nwin: (nwin, HEADS, WS * WS, WS * WS),
+    "fused_msa_block_shifted": lambda nwin: (nwin, HEADS, WS * WS, WS * WS),
+    "fused_hab_block": lambda nwin: (nwin, HEADS, WS * WS, WS * WS),
+    "fused_ocab_block": lambda nwin: (nwin, HEADS, WS * WS, OW * OW),
+    "fused_ocab_attention": lambda nwin: (nwin, HEADS, WS * WS, OW * OW),
+}
 
 
 def log(msg: str) -> None:
@@ -592,6 +603,10 @@ def check_kernels() -> dict:
                                      bound_by=by, library_ms=lib_ms)
                 line += (f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
                          f"bound {bound_ms:.4f} ms ({by})")
+                if name in SOFTMAX_SHAPES:
+                    floor = exp_floor_ms(*SOFTMAX_SHAPES[name](
+                        b * hw * hw // (WS * WS)))
+                    line += f"  exp floor {floor:.4f} ms"
                 if lib_ms is not None:
                     line += f"  library {lib_ms:.3f} ms"
                     if name == "hab_front":
@@ -884,13 +899,17 @@ def check_image_attention_kernels() -> dict:
                     plain_ms = time_ms(plain, reps=5, warmup=1)
                     lib_ms = time_ms(library)
                     bound_ms, by = attention_bound(*bound_args)
+                    floor = exp_floor_ms(*bound_args)
                     if not light and "shifted" in label:
                         results[name] = dict(
                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=by,
                             library_ms=lib_ms)
+                    design = (f" (design {floor * EXP_PASSES[name]:.4f} ms)"
+                              if name in EXP_PASSES else "")
                     line += (f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms"
-                             f"  bound {bound_ms:.4f} ms ({by})  library "
+                             f"  bound {bound_ms:.4f} ms ({by})  exp floor "
+                             f"{floor:.4f} ms{design}  library "
                              f"{lib_ms:.3f} ms")
                 log(line)
                 if not ok:
@@ -1199,6 +1218,7 @@ def build_report(lib, ptxas: str) -> None:
     and its HMMA instructions from the SASS. Raises if a tensor-core kernel
     (``mma_*``) holds none."""
     from super_resolution_tpu_torch.ops import cuda_build
+    from super_resolution_tpu_torch.ops import cuda_psa as cp
     from super_resolution_tpu_torch.ops import cuda_window_attention as cw
 
     usage, fn = {}, None
@@ -1231,7 +1251,9 @@ def build_report(lib, ptxas: str) -> None:
         log(f"  {names[fn]}: {'; '.join(parts)}")
     log(f"  tensor-core attention: {cw.mma_attention_smem(16)} / "
         f"{cw.mma_attention_smem(32)} bytes of shared memory a block at "
-        f"head dim 16 / 32")
+        f"head dim 16 / 32; fused_psa_block's "
+        f"{cp.mma_psa_block_smem(C, HEADS)} at SRFormer's width (C {C}, "
+        f"{HEADS} heads)")
     bare = [names[fn] for fn, n in hmma.items() if "mma_" in names[fn]
             and n == 0]
     if bare or (hmma and not any("mma_" in names[fn] for fn in hmma)):

@@ -9,10 +9,11 @@
 // Replaces, with the kernels that include it, the TPU kernels of
 // super_resolution_tpu/ops/pallas_attention.py: fused_attention (pallas_call
 // at :105, kernel :48-66), fused_attention_v3 (:186, kernel :127-149),
-// msa_qtile_attention (:1902, kernel :1797-1814) and msa_flash_attention
-// (:2124, kernel :1998-2031). Three blocks share the tile:
-// attention_block (a head a block, online softmax: fused_attention,
-// msa_flash_attention), head_walk_block (the same with the heads walked
+// msa_qtile_attention (:1902, kernel :1797-1814), msa_flash_attention
+// (:2124, kernel :1998-2031) and fused_ocab_attention (:296, kernel
+// :208-231). Three blocks share the tile: attention_block (a head a block,
+// online softmax: fused_attention, msa_flash_attention,
+// fused_ocab_attention), head_walk_block (the same with the heads walked
 // inside the block: fused_attention_v3) and exact_attention_block (a head a
 // block, exact softmax in two passes: msa_qtile_attention).
 //
@@ -72,11 +73,17 @@
 // a multiple of 64 (rows past it are computed on zeros and not stored), Nk
 // not a multiple of the chunk (keys past it get s = -inf and zero k, v).
 // Where d is no multiple of 8, or a row is not 16-byte aligned, the copies
-// are plain loads and stores, and the bias likewise where Nk % 4 != 0.
+// are plain loads and stores, and the bias likewise where Nk % 4 != 0. A
+// layout whose rows are only 4-byte aligned (ocab_attention.cu: head slices
+// of 60 bytes in 720-byte pixel rows) sets kWordCopies in its row policy:
+// attention_block then copies k and v as 4-byte words (load_kv_words), and
+// the other instantiations compile as before (the branch is if constexpr).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -119,6 +126,22 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(ok ? 16 : 0));
+}
+
+// 8 or 4 bytes global -> shared through the L1 (.ca: the only cache mode
+// of copies below 16 bytes); zeros where !ok.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 8 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -185,19 +208,18 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // S = Q K^T of one chunk for one window, by one warp: its 16 query rows (A
-// fragments qf) against the chunk's k tile (ks: kKeyChunk rows of DP +
-// kKvPad bf16), then s * scale + bias in float32 with the bias of its rows
-// gid and gid + 8 (b0, b1). kc: the chunk's valid keys; MASK: kc <
-// kKeyChunk, keys past kc get -inf. mx0, mx1: this lane's maxima of the two
-// rows.
-template <int DP, bool MASK>
+// fragments qf) against the chunk's k tile (ks: KC rows of DP + kKvPad
+// bf16), then s * scale + bias in float32 with the bias of its rows gid and
+// gid + 8 (b0, b1). kc: the chunk's valid keys; MASK: kc < KC, keys past kc
+// get -inf. mx0, mx1: this lane's maxima of the two rows.
+template <int DP, bool MASK, int KC = kKeyChunk>
 __device__ __forceinline__ void chunk_scores(const uint32_t (&qf)[DP / 16][4],
                                              const bf16* ks, const float* b0,
                                              const float* b1, int kc,
                                              float scale,
-                                             float (&s)[kKeyChunk / 8][4],
+                                             float (&s)[KC / 8][4],
                                              float& mx0, float& mx1) {
-  constexpr int KC = kKeyChunk, KST = DP + kKvPad;
+  constexpr int KST = DP + kKvPad;
   const int lane = threadIdx.x & 31, tig = lane & 3;
   const int mi = lane >> 3, r8 = lane & 7;
 #pragma unroll
@@ -237,12 +259,12 @@ __device__ __forceinline__ void chunk_scores(const uint32_t (&qf)[DP / 16][4],
 }
 
 // O += P V for one chunk: pf the bf16 A fragments of p, vs the chunk's v
-// tile (kKeyChunk rows of DP + kKvPad bf16).
-template <int DP>
-__device__ __forceinline__ void chunk_pv(const uint32_t (&pf)[kKeyChunk / 16][4],
+// tile (KC rows of DP + kKvPad bf16).
+template <int DP, int KC = kKeyChunk>
+__device__ __forceinline__ void chunk_pv(const uint32_t (&pf)[KC / 16][4],
                                          const bf16* vs,
                                          float (&o)[DP / 8][4]) {
-  constexpr int KC = kKeyChunk, KST = DP + kKvPad;
+  constexpr int KST = DP + kKvPad;
   const int lane = threadIdx.x & 31;
   const int mi = lane >> 3, r8 = lane & 7;
   // ldmatrix x4 .trans on v: matrices (keys +0, dims +0), (+8, +0),
@@ -316,17 +338,16 @@ __device__ __forceinline__ void chunk_step(const uint32_t (&qf)[DP / 16][4],
 
 // Pass 1 of the exact softmax, one chunk: the running maximum m and this
 // lane's share l of the denominator sum(exp(s - m)) of rows gid and gid + 8;
-// only l is rescaled, there is no accumulator and no v.
-template <int DP, bool MASK>
+// only l is rescaled, there is no accumulator and no v. KC as chunk_scores.
+template <int DP, bool MASK, int KC = kKeyChunk>
 __device__ __forceinline__ void stats_step(const uint32_t (&qf)[DP / 16][4],
                                            const bf16* ks, const float* b0,
                                            const float* b1, int kc,
                                            float scale, float (&m)[2],
                                            float (&l)[2]) {
-  constexpr int KC = kKeyChunk;
   float s[KC / 8][4];
   float mx0, mx1;
-  chunk_scores<DP, MASK>(qf, ks, b0, b1, kc, scale, s, mx0, mx1);
+  chunk_scores<DP, MASK, KC>(qf, ks, b0, b1, kc, scale, s, mx0, mx1);
   const float mn0 = fmaxf(m[0], quad_max(mx0));
   const float mn1 = fmaxf(m[1], quad_max(mx1));
   const float base0 = exp_base(mn0), base1 = exp_base(mn1);
@@ -346,16 +367,15 @@ __device__ __forceinline__ void stats_step(const uint32_t (&qf)[DP / 16][4],
 
 // Pass 2 of the exact softmax, one chunk: p = exp(s - m) / l in float32
 // from each row's exponent base (exp_base of its maximum) and 1 / l, p
-// rounded to bf16, O += P V.
-template <int DP, bool MASK>
+// rounded to bf16, O += P V. KC as chunk_scores.
+template <int DP, bool MASK, int KC = kKeyChunk>
 __device__ __forceinline__ void normalised_step(
     const uint32_t (&qf)[DP / 16][4], const bf16* ks, const bf16* vs,
     const float* b0, const float* b1, int kc, float scale,
     const float (&base)[2], const float (&inv)[2], float (&o)[DP / 8][4]) {
-  constexpr int KC = kKeyChunk;
   float s[KC / 8][4];
   float mx0, mx1;
-  chunk_scores<DP, MASK>(qf, ks, b0, b1, kc, scale, s, mx0, mx1);
+  chunk_scores<DP, MASK, KC>(qf, ks, b0, b1, kc, scale, s, mx0, mx1);
   uint32_t pf[KC / 16][4];
 #pragma unroll
   for (int j = 0; j < KC / 8; ++j) {
@@ -366,7 +386,7 @@ __device__ __forceinline__ void normalised_step(
     pf[j / 2][(j & 1) * 2] = pack(p0, p1);
     pf[j / 2][(j & 1) * 2 + 1] = pack(p2, p3);
   }
-  chunk_pv<DP>(pf, vs, o);
+  chunk_pv<DP, KC>(pf, vs, o);
 }
 
 // A block's stage st in dynamic shared memory: the (64 x chunk) bias tile,
@@ -484,6 +504,35 @@ __device__ __forceinline__ void store_out(const P& rows,
   }
 }
 
+// Whether a row policy asks for 4-byte copies of k and v (a static member
+// kWordCopies = true); false for a policy without the member.
+template <typename P, typename = void>
+struct word_copies : std::false_type {};
+template <typename P>
+struct word_copies<P, std::void_t<decltype(P::kWordCopies)>>
+    : std::bool_constant<P::kWordCopies> {};
+
+// k and v of the chunk of keys from c0 for window w into ks and vs, as
+// 4-byte words (cp.async.ca): a thread takes the same word of k and of v of
+// a key, so the key's row is found once for both. Words at or past d / 2
+// (the pad of the head dim) and keys past nk are zero. Needs d even and
+// every row 4-byte aligned.
+template <int DP, typename P>
+__device__ __forceinline__ void load_kv_words(const P& rows,
+                                              const typename P::Win& w,
+                                              bf16* ks, bf16* vs, int c0,
+                                              int nk, int d) {
+  constexpr int KST = DP + kKvPad, WORDS = DP / 2;
+  for (int e = threadIdx.x; e < kKeyChunk * WORDS; e += kThreads) {
+    const int j = e / WORDS, t = 2 * (e % WORDS);
+    const bool key = c0 + j < nk;
+    const bool ok = key && t < d;
+    const int i = key ? c0 + j : 0;
+    cp_async4(ks + j * KST + t, rows.row(w, 1, i) + t, ok);
+    cp_async4(vs + j * KST + t, rows.row(w, 2, i) + t, ok);
+  }
+}
+
 // A fresh online softmax: o = 0, m = -inf, l = 0.
 template <int DP>
 __device__ __forceinline__ void clear_rows(float (&o)[DP / 8][4],
@@ -502,8 +551,9 @@ __device__ __forceinline__ void clear_rows(float (&o)[DP / 8][4],
 //   P::Win win(int w, int h)                        a window's handle
 //   const bf16* row(const Win&, int part, int i)    part 0 q, 1 k, 2 v
 //   bf16* out_row(const Win&, int i)
-// vec_kv: d == DP and every k and v row 16-byte aligned; vec_bias: the bias
-// rows 16-byte aligned (nk % 4 == 0).
+// vec_kv: d == DP and every k and v row 16-byte aligned (for a policy with
+// kWordCopies: d even and every row 4-byte aligned); vec_bias: the bias rows
+// 16-byte aligned (nk % 4 == 0).
 // It writes its copies, q fragments and output itself, not through
 // load_stage, load_q and store_out: through those helpers ptxas spills 32
 // bytes in place of 16 at d 16 (fused_attention) and 12 in place of 8
@@ -562,6 +612,13 @@ __device__ __forceinline__ void attention_block(const P& rows,
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       if (g >= nwin) break;
+      if constexpr (word_copies<P>::value) {
+        if (vec_kv) {
+          load_kv_words<DP>(rows, win[g], kv_tile(st, g, 0),
+                            kv_tile(st, g, 1), c0, nk, d);
+          continue;
+        }
+      }
 #pragma unroll
       for (int part = 0; part < 2; ++part) {
         bf16* dst = kv_tile(st, g, part);

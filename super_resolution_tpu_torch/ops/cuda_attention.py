@@ -5,7 +5,11 @@ Ports super_resolution_tpu/ops/pallas_attention.py: ``fused_msa_block``,
 ``fused_msa_block_shifted`` (both launch ``csrc/msa_block.cu``),
 ``fused_ocab_block`` (``csrc/ocab_block.cu``) and ``fused_ocab_attention``
 (``csrc/ocab_attention.cu``) keep the JAX names and signatures, minus the
-Mosaic knobs (``window_block``, ``interpret``).
+Mosaic knobs (``window_block``, ``interpret``). ``fused_ocab_attention``
+takes bf16 on the tensor cores (``mma_ocab_attention_kernel``, the tile of
+``csrc/mma_attention.cuh``) and float32 on its FMA kernel, the exact check
+of the algorithm on the card; a bf16 CUDA tensor never reaches the FMA
+kernel.
 Weights are in the JAX layout (in, out); head slices for tensor
 parallelism come in through the weight shapes (c_loc, c_out, Cq) and
 ``residual_scale``, as in JAX.
@@ -14,7 +18,10 @@ Numerics of the kernels against the plain versions (the ports of the JAX
 ``*_reference`` functions): both round qkv, the softmax probabilities and
 the head concat to the input dtype; the kernels scale the float32 scores,
 the plain versions scale q in the input dtype first. In float32 they agree
-to rounding.
+to rounding. ``fused_ocab_attention`` in bf16 runs an online softmax over
+chunks of 64 keys: it rounds the unnormalised p = exp(s - m) and divides the
+output by the float32 denominator, where the plain version (and the TPU
+kernel) round the normalised p.
 """
 
 from __future__ import annotations
@@ -34,6 +41,10 @@ from super_resolution_tpu_torch.ops.cuda_ffn import layer_norm_f32
 from super_resolution_tpu_torch.ops.windowing import (extract_overlap_windows,
                                                       window_partition,
                                                       window_reverse)
+
+# the largest overlap window of the bf16 kernel, which finds a key's row by
+# a multiply-high that is exact for keys up to ow^2 while ow^3 < 2^32
+OCAB_MAX_OVERLAP = 1024
 
 
 def msa_attention_reference(qkv_img, bias, mask, heads: int,
@@ -290,9 +301,11 @@ def fused_ocab_attention(q_img, kv_img, bias, *, heads: int,
 
     q_img: (B, H, W, C), H and W multiples of window_size; kv_img:
     (B, H, W, 2C) with k in channels [0, C) and v in the rest; bias
-    (heads, ws^2, ow^2) float32. Returns (B, H, W, C). One window's q, k
-    and v of one head must fit a block's shared memory: the wrapper raises
-    beyond that. Replaces
+    (heads, ws^2, ow^2) float32. Returns (B, H, W, C). bf16: a block per
+    (``cuda_window_attention.MMA_WINDOW_GROUP`` windows, 64 query rows,
+    head) on the tensor cores, over chunks of 64 keys; float32: a block per
+    window on the CUDA cores, whose q, k and v of one head must fit its
+    shared memory (the wrapper raises beyond that). Replaces
     super_resolution_tpu/ops/pallas_attention.py::fused_ocab_attention.
     """
     c = q_img.shape[-1]
@@ -311,20 +324,27 @@ def fused_ocab_attention(q_img, kv_img, bias, *, heads: int,
     check_f32(name, q_img, bias=bias)
     check_shape(name, "kv_img", kv_img, (b, h_img, w_img, 2 * c))
     check_shape(name, "bias", bias, (heads, ws * ws, ow * ow))
-    if (h_img % ws or w_img % ws or ow < ws or (ow - ws) % 2 or c % heads
-            or c // heads > 32):
+    if (h_img % ws or w_img % ws or ow < ws or ow > OCAB_MAX_OVERLAP
+            or (ow - ws) % 2 or c % heads or c // heads > 32):
         raise ValueError(f"{name}: needs H, W multiples of {ws}, an even "
-                         f"overlap and a head dim of at most 32, got "
-                         f"{tuple(q_img.shape)}, ow {ow}, {heads} heads of "
-                         f"{c}")
+                         f"overlap of at most {OCAB_MAX_OVERLAP} and a head "
+                         f"dim of at most 32, got {tuple(q_img.shape)}, ow "
+                         f"{ow}, {heads} heads of {c}")
     lib = load_library()
-    check_smem(name, lib.sr_ocab_attention_smem(c, heads, ws, ow),
-               f"window {ws}, overlap window {ow}, head dim {c // heads}")
+    d = c // heads
+    args = (q_img.data_ptr(), kv_img.data_ptr(), bias.data_ptr())
     out = torch.empty_like(q_img)
-    err = lib.sr_ocab_attention(
-        code, q_img.data_ptr(), kv_img.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), b, h_img, w_img, c, heads, ws, ow, scale,
-        stream_of(q_img))
+    if q_img.dtype == torch.bfloat16:
+        check_smem(name, lib.sr_mma_attention_smem(d), f"head dim {d}")
+        err = lib.sr_mma_ocab_attention(*args, out.data_ptr(), b, h_img,
+                                        w_img, c, heads, ws, ow, scale,
+                                        stream_of(q_img))
+    else:
+        check_smem(name, lib.sr_ocab_attention_smem(c, heads, ws, ow),
+                   f"window {ws}, overlap window {ow}, head dim {d}")
+        err = lib.sr_ocab_attention(code, *args, out.data_ptr(), b, h_img,
+                                    w_img, c, heads, ws, ow, scale,
+                                    stream_of(q_img))
     raise_on_error(name, err)
     fused_ocab_attention.launches += 1
     return out

@@ -44,6 +44,7 @@ _SIGNATURES = {
     "sr_gated_dconv_ffn_smem": [_I] * 3,
     "sr_ocab_attention": [_I] + [_P] * 4 + [_I] * 7 + [_F] + [_P],
     "sr_ocab_attention_smem": [_I] * 4,
+    "sr_mma_ocab_attention": [_P] * 4 + [_I] * 7 + [_F] + [_P],
     "sr_msa_block_smem": [_I] * 2,
     "sr_ocab_block_smem": [_I] * 3,
     "sr_fused_attention": [_I] + [_P] * 5 + [_I] * 5 + [_F] + [_P],
@@ -63,6 +64,8 @@ _SIGNATURES = {
     "sr_msa_attention_smem": [_I] * 2,
     "sr_psa_block": [_I] + [_P] * 8 + [_I] + [_P] + [_I] * 6 + [_F] + [_P],
     "sr_psa_block_smem": [_I] * 3,
+    "sr_mma_psa_block": [_P] * 8 + [_I] + [_P] + [_I] * 6 + [_F] + [_P],
+    "sr_mma_psa_block_smem": [_I] * 2,
     "sr_scc_block": [_I] + [_P] * 8 + [_I] * 9 + [_P],
     "sr_scc_block_scratch": [_I] * 6,
     "sr_scc_block_smem": [_I] * 6,

@@ -7,11 +7,18 @@ super_resolution_tpu/ops/pallas_attention.py (the wrapper launches
 knob (``interpret``). Weights are in the JAX layout (in, out). The kv
 projection and the 2 x 2 permuted fold stay with the caller, as in JAX.
 
-Numerics of the kernel against the plain version: both round q, the softmax
-probabilities and the head concat to the input dtype and sum in float32;
-the kernel adds b_q to the float32 product and rounds once and scales the
-float32 scores, the plain version rounds the product, adds and rounds again
-and scales q in the input dtype first. In float32 they agree to rounding.
+bf16 runs on the tensor cores (``mma_psa_block_kernel``: every product on
+``mma.sync``, a block per (window, 64 query rows) walking the heads, an
+exact softmax in two passes over chunks of ``MMA_KEY_CHUNK`` keys); float32
+runs on the FMA kernel, the exact check of the algorithm on the card. A
+bf16 CUDA tensor never reaches the FMA kernel.
+
+Numerics of the kernels against the plain version: all round q, the
+softmax probabilities (normalised) and the head concat to the input dtype
+and sum in float32; the kernels add b_q to the float32 product and round
+once and scale the float32 scores, the plain version rounds the product,
+adds and rounds again and scales q in the input dtype first. In float32
+they agree to rounding.
 """
 
 from __future__ import annotations
@@ -31,8 +38,13 @@ from super_resolution_tpu_torch.ops.windowing import (window_partition,
                                                       window_reverse)
 
 MAX_HEAD_DIM = 32
-# tile sizes of csrc/psa_block.cu, for the shared-memory formula below
+# tile sizes of csrc/psa_block.cu's FMA kernel, for the shared-memory
+# formula below
 _QT, _WARPS, _SLAB = 16, 8, 32
+# the tensor-core kernel's (its namespace tc): query rows of a block, keys of
+# a chunk, weight rows and output columns of a projection step, and the pad
+# after each shared-memory row
+MMA_ROWS, MMA_KEY_CHUNK, MMA_SLAB, MMA_PANEL, MMA_PAD = 64, 48, 64, 64, 8
 
 
 def psa_block_reference(x_img, w_q, b_q, w_proj, b_proj, kv_windows, bias,
@@ -80,13 +92,32 @@ def psa_block_smem(window_size: int, dim: int, heads: int) -> int:
     return 4 * (_QT * dim + heads * _QT * dp + 2 * nk4 * dp + work)
 
 
+def mma_psa_block_smem(dim: int, heads: int) -> int:
+    """Bytes a block of the tensor-core kernel takes, whatever the window:
+    the q tile (64 rows of the width rounded up to 16, in bf16), a pixel
+    offset a row and two stages, each the larger of an attention step's
+    (float32 bias and mask tiles, bf16 k and v of a key chunk) and a
+    projection step's (slabs of x and of a weight in bf16); rows padded
+    (the formula of its ``sr_mma_psa_block_smem``)."""
+    dp = 16 if dim // heads <= 16 else 32
+    q_tile = 2 * MMA_ROWS * ((dim + 15) // 16 * 16 + MMA_PAD)
+    att = (2 * 4 * MMA_ROWS * (MMA_KEY_CHUNK + MMA_PAD)
+           + 2 * 2 * MMA_KEY_CHUNK * (dp + MMA_PAD))
+    proj = (2 * MMA_ROWS * (MMA_SLAB + MMA_PAD)
+            + 2 * MMA_SLAB * (MMA_PANEL + MMA_PAD))
+    return q_tile + 4 * MMA_ROWS + 2 * max(att, proj)
+
+
 def fused_psa_block_supported(window_size: int, dim: int, heads: int) -> bool:
-    """Whether ``fused_psa_block`` runs this shape on the card: an even
-    window, a head dim of at most 32 and a block within the card's shared
-    memory (at SRFormer's 180 channels in 6 heads: windows up to 48)."""
+    """Whether ``fused_psa_block`` runs this shape on the card in both
+    dtypes: an even window, a head dim of at most 32 and a block of each
+    kernel within the card's shared memory (at SRFormer's 180 channels in 6
+    heads: windows up to 48). The tensor-core kernel fits wherever the FMA
+    kernel does: its block grows with the width only, and more slowly."""
     return (window_size >= 2 and window_size % 2 == 0 and dim % heads == 0
             and dim // heads <= MAX_HEAD_DIM
-            and psa_block_smem(window_size, dim, heads) <= MAX_DYNAMIC_SMEM)
+            and psa_block_smem(window_size, dim, heads) <= MAX_DYNAMIC_SMEM
+            and mma_psa_block_smem(dim, heads) <= MAX_DYNAMIC_SMEM)
 
 
 def fused_psa_block(x_img, w_q, b_q, w_proj, b_proj, kv_windows, bias,
@@ -104,8 +135,10 @@ def fused_psa_block(x_img, w_q, b_q, w_proj, b_proj, kv_windows, bias,
     (heads, N, nk) float32 aligned RPB, N = ws^2; mask (nW, N, nk) float32
     indexed by a window's position in its image, (1, N, nk) for every
     window, or None for no mask (the same result as zeros, without their
-    reads). Returns (B, H, W, C). One block per (window, 16 query rows).
-    Replaces super_resolution_tpu/ops/pallas_attention.py::fused_psa_block.
+    reads). Returns (B, H, W, C). bf16: one block per (window, 64 query
+    rows) on the tensor cores; float32: one per (window, 16 query rows) on
+    the CUDA cores. Replaces
+    super_resolution_tpu/ops/pallas_attention.py::fused_psa_block.
     """
     name = "fused_psa_block"
     if x_img.dim() != 4:
@@ -143,15 +176,21 @@ def fused_psa_block(x_img, w_q, b_q, w_proj, b_proj, kv_windows, bias,
             raise ValueError(f"{name}: mask shape {tuple(mask.shape)}, "
                              f"expected (1 or {n_win}, {n}, {nk})")
     lib = load_library()
-    check_smem(name, lib.sr_psa_block_smem(ws, c, heads),
-               f"window {ws}, {c} channels in {heads} heads")
+    tensor_cores = x_img.dtype == torch.bfloat16
+    if tensor_cores:
+        check_smem(name, lib.sr_mma_psa_block_smem(c, heads),
+                   f"{c} channels in {heads} heads")
+    else:
+        check_smem(name, lib.sr_psa_block_smem(ws, c, heads),
+                   f"window {ws}, {c} channels in {heads} heads")
     out = torch.empty_like(x_img)
-    err = lib.sr_psa_block(
-        code, x_img.data_ptr(), w_q.data_ptr(), b_q.data_ptr(),
-        w_proj.data_ptr(), b_proj.data_ptr(), kv_windows.data_ptr(),
-        bias.data_ptr(), None if mask is None else mask.data_ptr(),
-        0 if mask is None else mask.shape[0], out.data_ptr(), b, h_img,
-        w_img, c, heads, ws, scale, stream_of(x_img))
+    args = (x_img.data_ptr(), w_q.data_ptr(), b_q.data_ptr(),
+            w_proj.data_ptr(), b_proj.data_ptr(), kv_windows.data_ptr(),
+            bias.data_ptr(), None if mask is None else mask.data_ptr(),
+            0 if mask is None else mask.shape[0], out.data_ptr(), b, h_img,
+            w_img, c, heads, ws, scale, stream_of(x_img))
+    err = (lib.sr_mma_psa_block(*args) if tensor_cores
+           else lib.sr_psa_block(code, *args))
     raise_on_error(name, err)
     fused_psa_block.launches += 1
     return out

@@ -38,15 +38,18 @@ import time
 
 PROFILED_FORWARDS = 3
 
+# a tensor-core kernel's name holds its FMA partner's: it is matched first
 PORT_KERNELS = ("msa_block_kernel", "ocab_block_kernel",
-                "ocab_attention_kernel", "mlp_tail_kernel",
+                "mma_ocab_attention_kernel", "ocab_attention_kernel",
+                "mlp_tail_kernel",
                 "gated_dconv_ffn_kernel", "ln_split_kernel",
                 "fused_attention_kernel", "fused_attention_v3_kernel",
                 "mma_window_attention_kernel",
                 "mma_window_attention_v3_kernel", "msa_flash_kernel",
                 "mma_flash_attention_kernel", "msa_qtile_kernel",
                 "mma_qtile_attention_kernel",
-                "msa_attention_kernel", "psa_block_kernel",
+                "msa_attention_kernel", "mma_psa_block_kernel",
+                "psa_block_kernel",
                 "scc_block_kernel", "scc_reduce_kernel", "hab_block_kernel",
                 "hab_front_kernel", "hab_front_sum_kernel")
 

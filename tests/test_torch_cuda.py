@@ -678,3 +678,70 @@ def test_small_hitsrf_and_hab_block_kernels_match_cpu_plain(cuda, net):
         got = model.to(cuda)(x.to(cuda)).cpu()
     assert fn.launches == before + launches
     assert (got - ref).abs().max().item() < 1e-4
+
+
+# (B, H, W, C, heads, ws, ow[, bias]) of fused_ocab_attention: the flagship
+# OCAB (6 heads of 30) on 4 x 4 windows, whose border windows reach past the
+# image; 3 x 3 windows at head dim 16; three windows (an odd count for the
+# tensor-core kernel's groups of 2) at head dim 30; head dim 9, odd, whose
+# rows the tensor-core kernel copies element by element; and a bias raised
+# by 8 on the last chunk of 64 keys (LATE), where every row then peaks
+OCAB_SHAPES = [(1, 64, 64, 180, 6, 16, 24), (1, 48, 48, 32, 2, 16, 24),
+               (1, 16, 48, 60, 2, 16, 24), (2, 24, 24, 18, 2, 8, 12),
+               (1, 48, 48, 32, 2, 16, 24, LATE)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", OCAB_SHAPES)
+def test_ocab_attention_matches_plain_version(cuda, shape, dtype):
+    b, h, w, c, heads, ws, ow, *late = shape
+    rng = np.random.default_rng(h + w + c)
+    q = _rand(rng, dtype, b, h, w, c)
+    kv = _rand(rng, dtype, b, h, w, 2 * c)
+    bias = _rand(rng, torch.float32, heads, ws * ws, ow * ow)
+    if late:
+        bias[..., -cw.MMA_KEY_CHUNK:] += 8.0
+    fn = ca.fused_ocab_attention
+    before = fn.launches
+    got = fn(q, kv, bias, heads=heads, window_size=ws, overlap_win=ow)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    _assert_close(got, ca.ocab_attention_reference(q, kv, bias, heads, ws,
+                                                   ow), dtype)
+
+
+# (B, H, W, C, heads, ws) of fused_psa_block beside PSA_SHAPES: window 20,
+# whose 400 queries end in a ragged block of 16 rows and whose 100 keys in a
+# ragged chunk of 4 for the tensor-core kernel's chunks of 48; and C 18 in
+# heads of 9, which that kernel copies element by element (C % 4, d odd)
+PSA_EDGE_SHAPES = [(1, 40, 40, 60, 6, 20), (2, 8, 12, 18, 2, 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", ["none", "shifted"])
+@pytest.mark.parametrize("shape", PSA_EDGE_SHAPES)
+def test_psa_block_edges_match_plain_version(cuda, shape, masked, dtype):
+    test_psa_block_matches_plain_version(cuda, shape, masked, dtype)
+
+
+def test_ocab_and_psa_fma_entries_refuse_bf16(cuda):
+    """bf16 reaches fused_ocab_attention's and fused_psa_block's FMA
+    kernels by no route: their entries refuse it."""
+    from super_resolution_tpu_torch.ops.cuda_build import (load_library,
+                                                           stream_of)
+
+    lib = load_library()
+    bf16 = torch.bfloat16
+    z = dict(dtype=bf16, device="cuda")
+    q, kv = torch.zeros((1, 16, 16, 32), **z), torch.zeros((1, 16, 16, 64), **z)
+    bias = torch.zeros((2, 64, 144), device="cuda")
+    assert lib.sr_ocab_attention(1, q.data_ptr(), kv.data_ptr(),
+                                 bias.data_ptr(), q.data_ptr(), 1, 16, 16,
+                                 32, 2, 8, 12, 0.25, stream_of(q)) != 0
+    w, v = torch.zeros((32, 32), **z), torch.zeros((32,), **z)
+    kvw = torch.zeros((4, 16, 64), **z)
+    pbias = torch.zeros((2, 64, 16), device="cuda")
+    assert lib.sr_psa_block(1, q.data_ptr(), w.data_ptr(), v.data_ptr(),
+                            w.data_ptr(), v.data_ptr(), kvw.data_ptr(),
+                            pbias.data_ptr(), None, 0, q.data_ptr(), 1, 16,
+                            16, 32, 2, 8, 0.25, stream_of(q)) != 0
