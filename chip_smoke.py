@@ -22,9 +22,10 @@ Phases, each of which raises on failure:
      exponentials on the special-function units (exp floor; for
      ``msa_qtile_attention`` and ``fused_psa_block`` also their two-pass
      designs', two exponentials a score). The four attention-only kernels,
-     ``fused_ocab_attention`` and ``fused_psa_block`` run bf16 on their
-     tensor-core kernels and float32 on their FMA kernels, so both are
-     checked;
+     ``fused_ocab_attention``, ``fused_psa_block``, ``fused_msa_attention``
+     and ``fused_ocab_block`` run bf16 on their tensor-core kernels and
+     float32 on their FMA kernels, so both are checked; the library time of
+     ``hab_front`` and ``fused_ocab_block`` is a composition of calls;
   4. main paths: Predictor -> runner in tile mode -> network at the
      published width (bf16, seeded random weights) answers requests:
      classic HAT x4 (HATClassic), the fork's HAT x2 with the ESC-infused
@@ -291,6 +292,13 @@ SCC_RECT = ((2, 48, 40, 20, 2), (8, 4), (4, 4))
 # elementwise operations of the softmax per score: scale, bias, running
 # maximum, subtraction, exponential, sum, division
 SOFTMAX_OPS = 7
+# the kernels whose library time is a composition of calls: no one PyTorch
+# call computes their function
+COMPOSITIONS = {
+    "hab_front": " (composition: LayerNorm, two convs and GELU)",
+    "fused_ocab_block": " (composition: LayerNorm, two linears, windows cut, "
+                        "attention, linear, add)",
+}
 # a second entry point of gated_dconv_ffn.cu, off the main paths: checked
 # against its plain version, not listed among the kernels
 EXTRA_ENTRY = {"gated_dconv_ffn": "cuda_ffn"}
@@ -363,7 +371,7 @@ def kernel_cases(b: int, hw: int, dtype, seed: int):
         relative_position_index_oca, relative_position_index_sa,
         shift_attn_mask)
     from super_resolution_tpu_torch.ops.windowing import (
-        extract_overlap_windows, window_partition)
+        extract_overlap_windows, window_partition, window_reverse)
 
     rng = np.random.default_rng(seed)
 
@@ -402,18 +410,41 @@ def kernel_cases(b: int, hw: int, dtype, seed: int):
              t(FRONT_MID, s=0.1),
              t(3, 3, FRONT_MID, C, s=(9 * FRONT_MID) ** -0.5), t(C, s=0.1))
 
+    def heads_of(q, kv):
+        """q windows and overlap windows of k and v, split by head."""
+        d = C // HEADS
+        qw = window_partition(q, WS).reshape(-1, n, HEADS, d)
+        kvw = extract_overlap_windows(kv, WS, OW)
+        kw_ = kvw[..., :C].reshape(-1, nk, HEADS, d)
+        vw = kvw[..., C:].reshape(-1, nk, HEADS, d)
+        return (v.transpose(1, 2).contiguous() for v in (qw, kw_, vw))
+
     def sdpa():
         """The library's attention on windows cut beforehand: it has no
         windowing of its own."""
-        d = C // HEADS
-        qw = window_partition(q_img, WS).reshape(-1, n, HEADS, d)
-        kvw = extract_overlap_windows(kv_img, WS, OW)
-        kw_ = kvw[..., :C].reshape(-1, nk, HEADS, d)
-        vw = kvw[..., C:].reshape(-1, nk, HEADS, d)
-        qh, kh, vh = (v.transpose(1, 2).contiguous() for v in (qw, kw_, vw))
+        qh, kh, vh = heads_of(q_img, kv_img)
         m = bias_oca.to(dtype)[None]
         return lambda: F.scaled_dot_product_attention(qh, kh, vh,
                                                       attn_mask=m)
+
+    def ocab_library():
+        """The library's composition of ``fused_ocab_block`` (no one call
+        computes it): ``F.layer_norm``, the q and kv ``F.linear``, the
+        windows and overlap windows cut, ``F.scaled_dot_product_attention``
+        with the RPB, the output ``F.linear`` and the residual add."""
+        lns_, lnb_, wq, bq, wkv, bkv, wp, bp, rpb = ocab
+        wq_t, wkv_t, wp_t = (t_.t().contiguous() for t_ in (wq, wkv, wp))
+        m = rpb.to(dtype)[None]
+
+        def run():
+            xn = F.layer_norm(x, (C,), lns_, lnb_, 1e-5)
+            qh, kh, vh = heads_of(F.linear(xn, wq_t, bq),
+                                  F.linear(xn, wkv_t, bkv))
+            o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m)
+            o = window_reverse(o.transpose(1, 2).reshape(-1, WS, WS, C), WS,
+                               hw, hw)
+            return F.linear(o, wp_t, bp) + x
+        return run
 
     return {
         "fused_msa_block": ((x, *msa, zero), msa_kw,
@@ -437,7 +468,7 @@ def kernel_cases(b: int, hw: int, dtype, seed: int):
                                 conv_scale=0.01), None),
         "fused_ocab_block": ((x, *ocab), oca_kw,
                              lambda: ca.ocab_block_reference(
-                                 x, *ocab, HEADS, WS, OW), None),
+                                 x, *ocab, HEADS, WS, OW), ocab_library),
         "mlp_block": ((x, *tail), {},
                       lambda: cf.mlp_block_reference(x, *tail), None),
         "gated_dconv_ffn_block": (
@@ -511,8 +542,8 @@ def kernel_bound(name: str, b: int, hw: int, esize: int, shifted_mask: int):
         byts = (4 * act + (4 * C * C + 4 * C) * esize + HEADS * n * n * 4
                 + (2 * C * HID + HID + 3 * C) * esize)
     elif name == "fused_ocab_block":
-        mm = (4 * tok * C * C + 2 * nwin * nk * C * 2 * C
-              + 4 * nwin * HEADS * n * nk * d)
+        # the q, kv and output projections once a pixel, the attention
+        mm = 2 * tok * C * 4 * C + 4 * nwin * HEADS * n * nk * d
         byts = 2 * act + (4 * C * C + 6 * C) * esize + HEADS * n * nk * 4
     elif name.startswith("mlp_block"):
         mm = 4 * tok * C * HID
@@ -609,8 +640,7 @@ def check_kernels() -> dict:
                     line += f"  exp floor {floor:.4f} ms"
                 if lib_ms is not None:
                     line += f"  library {lib_ms:.3f} ms"
-                    if name == "hab_front":
-                        line += " (LayerNorm, two convs and GELU)"
+                    line += COMPOSITIONS.get(name, "")
             log(line)
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain "
@@ -1217,6 +1247,7 @@ def build_report(lib, ptxas: str) -> None:
     ptxas's report (``ptxas``: empty where the library was built before)
     and its HMMA instructions from the SASS. Raises if a tensor-core kernel
     (``mma_*``) holds none."""
+    from super_resolution_tpu_torch.ops import cuda_attention as ca
     from super_resolution_tpu_torch.ops import cuda_build
     from super_resolution_tpu_torch.ops import cuda_psa as cp
     from super_resolution_tpu_torch.ops import cuda_window_attention as cw
@@ -1253,7 +1284,11 @@ def build_report(lib, ptxas: str) -> None:
         f"{cw.mma_attention_smem(32)} bytes of shared memory a block at "
         f"head dim 16 / 32; fused_psa_block's "
         f"{cp.mma_psa_block_smem(C, HEADS)} at SRFormer's width (C {C}, "
-        f"{HEADS} heads)")
+        f"{HEADS} heads); fused_msa_attention's "
+        f"{cw.mma_msa_attention_smem(35, False)} / "
+        f"{cw.mma_msa_attention_smem(35, True)} at ATD's head dim 35 "
+        f"without / with a mask; fused_ocab_block's projections "
+        f"{ca.mma_ocab_block_smem(C, C)} at C {C}")
     bare = [names[fn] for fn, n in hmma.items() if "mma_" in names[fn]
             and n == 0]
     if bare or (hmma and not any("mma_" in names[fn] for fn in hmma)):

@@ -8,8 +8,12 @@ Ports super_resolution_tpu/ops/pallas_attention.py: ``fused_msa_block``,
 Mosaic knobs (``window_block``, ``interpret``). ``fused_ocab_attention``
 takes bf16 on the tensor cores (``mma_ocab_attention_kernel``, the tile of
 ``csrc/mma_attention.cuh``) and float32 on its FMA kernel, the exact check
-of the algorithm on the card; a bf16 CUDA tensor never reaches the FMA
-kernel.
+of the algorithm on the card; ``fused_ocab_block`` likewise, its bf16 route
+three kernels behind one C entry (``mma_ln_proj_kernel``: LN1 and the q
+and kv projections into scratch images; the tensor-core attention of
+``fused_ocab_attention``, launched by the C entry, so that wrapper's count
+does not move; ``mma_proj_residual_kernel``: the output projection and the
+residual). A bf16 CUDA tensor never reaches an FMA kernel.
 Weights are in the JAX layout (in, out); head slices for tensor
 parallelism come in through the weight shapes (c_loc, c_out, Cq) and
 ``residual_scale``, as in JAX.
@@ -18,10 +22,10 @@ Numerics of the kernels against the plain versions (the ports of the JAX
 ``*_reference`` functions): both round qkv, the softmax probabilities and
 the head concat to the input dtype; the kernels scale the float32 scores,
 the plain versions scale q in the input dtype first. In float32 they agree
-to rounding. ``fused_ocab_attention`` in bf16 runs an online softmax over
-chunks of 64 keys: it rounds the unnormalised p = exp(s - m) and divides the
-output by the float32 denominator, where the plain version (and the TPU
-kernel) round the normalised p.
+to rounding. ``fused_ocab_attention`` and ``fused_ocab_block`` in bf16 run
+an online softmax over chunks of 64 keys: they round the unnormalised
+p = exp(s - m) and divide the output by the float32 denominator, where the
+plain versions (and the TPU kernels) round the normalised p.
 """
 
 from __future__ import annotations
@@ -45,6 +49,22 @@ from super_resolution_tpu_torch.ops.windowing import (extract_overlap_windows,
 # the largest overlap window of the bf16 kernel, which finds a key's row by
 # a multiply-high that is exact for keys up to ow^2 while ow^3 < 2^32
 OCAB_MAX_OVERLAP = 1024
+# the projections of fused_ocab_block's bf16 route (csrc/mma_proj.cuh): rows
+# of a block, weight rows of a step, output columns of a panel, and the pad
+# (bf16) after each row of a tile
+PROJ_ROWS, PROJ_SLAB, PROJ_PANEL, PROJ_PAD = 128, 192, 64, 8
+
+
+def mma_ocab_block_smem(c: int, cq: int) -> int:
+    """Bytes a block of the larger of ``fused_ocab_block``'s two bf16
+    projection kernels takes (its attention's are
+    ``cuda_window_attention.mma_attention_smem``'s): the block's rows of the
+    activation, whole (C or Cq columns rounded up to 16, padded), and two
+    stages of a weight slab."""
+    def proj(k):
+        return (2 * PROJ_ROWS * ((k + 15) // 16 * 16 + PROJ_PAD)
+                + 2 * 2 * PROJ_SLAB * (PROJ_PANEL + PROJ_PAD))
+    return max(proj(c), proj(cq))
 
 
 def msa_attention_reference(qkv_img, bias, mask, heads: int,
@@ -242,8 +262,11 @@ def fused_ocab_block(x_img, ln_scale, ln_bias, w_q, b_q, w_kv, b_kv, w_proj,
 
     x_img: (B, H, W, C) raw block input, H and W multiples of window_size.
     w_q (C, Cq); b_q (Cq,); w_kv (C, 2 Cq); b_kv (2 Cq,); w_proj (Cq, C);
-    b_proj (C,); bias (heads, ws^2, ow^2) float32. Replaces
-    super_resolution_tpu/ops/pallas_attention.py::fused_ocab_block.
+    b_proj (C,); bias (heads, ws^2, ow^2) float32. bf16: three kernels on
+    the tensor cores, with q, kv and the head concat in scratch images;
+    float32: a block per window on the CUDA cores, whose q, k and v of one
+    head must fit its shared memory (the wrapper raises beyond that).
+    Replaces super_resolution_tpu/ops/pallas_attention.py::fused_ocab_block.
     """
     cq = w_q.shape[1]
     if scale is None:
@@ -275,17 +298,34 @@ def fused_ocab_block(x_img, ln_scale, ln_bias, w_q, b_q, w_kv, b_kv, w_proj,
                          f"{tuple(x_img.shape)}, ow {ow}, {heads} heads of "
                          f"{cq}")
     lib = load_library()
-    check_smem(name, lib.sr_ocab_block_smem(ws, ow, cq // heads),
-               f"window {ws}, overlap window {ow}, head dim {cq // heads}")
-    scratch = torch.empty((b, h_img, w_img, cq), dtype=x_img.dtype,
-                          device=x_img.device)
+    d = cq // heads
+    ops = (x_img, ln_scale, ln_bias, w_q, b_q, w_kv, b_kv, w_proj, b_proj,
+           bias)
+
+    def image(width):
+        return torch.empty((b, h_img, w_img, width), dtype=x_img.dtype,
+                           device=x_img.device)
     out = torch.empty_like(x_img)
-    err = lib.sr_ocab_block(
-        code, x_img.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-        w_q.data_ptr(), b_q.data_ptr(), w_kv.data_ptr(), b_kv.data_ptr(),
-        w_proj.data_ptr(), b_proj.data_ptr(), bias.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), b, h_img, w_img, c, cq, heads,
-        ws, ow, scale, ln_eps, residual_scale, stream_of(x_img))
+    if x_img.dtype == torch.bfloat16:
+        if ow > OCAB_MAX_OVERLAP:
+            raise ValueError(f"{name}: an overlap window of at most "
+                             f"{OCAB_MAX_OVERLAP}, got {ow}")
+        check_smem(name, lib.sr_mma_ocab_block_smem(c, cq),
+                   f"{c} and {cq} channels")
+        check_smem(name, lib.sr_mma_attention_smem(d), f"head dim {d}")
+        # q, kv and the head concat between the three kernels
+        scratch = (image(cq), image(2 * cq), image(cq), out)
+        err = lib.sr_mma_ocab_block(
+            *(t.data_ptr() for t in ops + scratch), b, h_img, w_img, c, cq,
+            heads, ws, ow, scale, ln_eps, residual_scale, stream_of(x_img))
+    else:
+        check_smem(name, lib.sr_ocab_block_smem(ws, ow, d),
+                   f"window {ws}, overlap window {ow}, head dim {d}")
+        scratch = (image(cq), out)
+        err = lib.sr_ocab_block(
+            code, *(t.data_ptr() for t in ops + scratch), b, h_img, w_img,
+            c, cq, heads, ws, ow, scale, ln_eps, residual_scale,
+            stream_of(x_img))
     raise_on_error(name, err)
     fused_ocab_block.launches += 1
     return out

@@ -17,30 +17,33 @@ Head dims: the kernels on cut windows and the large-window kernels pad the
 head dim to 16 or 32 (``MAX_HEAD_DIM``); ``fused_msa_attention`` pads to a
 multiple of 16 up to 48 (``MSA_ATTENTION_MAX_HEAD_DIM``: ATD's 35 -> 48).
 
-The four attention-only kernels take bf16 on the tensor cores
-(``csrc/mma_attention.cuh``: a block per group of ``MMA_WINDOW_GROUP``
-windows and 64 query rows, over chunks of 64 keys whose bias tile the group
-shares; ``fused_attention_v3``'s block walks the heads, the others take a
-head each; ``msa_qtile_attention`` runs an exact softmax in two passes, the
-others an online one) and float32 on their float32 FMA kernels, the exact
-check of the algorithm on the card; ``fused_msa_attention`` takes both
-dtypes on its FMA kernel. A bf16 CUDA tensor launches the tensor-core
-kernel or raises: it never gives way to the FMA kernel.
+The five kernels take bf16 on the tensor cores (``csrc/mma_attention.cuh``:
+a block per window or group of windows and 64 query rows, over chunks of 64
+keys whose bias tile the group shares; ``fused_attention_v3``'s block walks the
+heads, the others take a head each; ``msa_qtile_attention`` runs an exact
+softmax in two passes, the others an online one) and float32 on their
+float32 FMA kernels, the exact check of the algorithm on the card. The
+four attention-only kernels group ``MMA_WINDOW_GROUP`` windows;
+``fused_msa_attention``'s block (``mma_msa_attention_kernel``) takes one
+window and stages its mask tile. A bf16 CUDA tensor launches the
+tensor-core kernel or raises: it never gives way to the FMA kernel.
 
 Each kernel has a pure-Python ``*_supported`` predicate from its need of
 shared memory in every layout it launches (the four attention-only kernels
 run where both their float32 and their bf16 layout fit, so that a route is
-the same in both dtypes); the same formulas are the
+the same in both dtypes; ``fused_msa_attention``'s bf16 layout streams its
+keys and fits wherever its float32 one does); the same formulas are the
 ``sr_*_smem`` entries of the sources, which the wrappers hold against the
 card's limit before a launch.
 
 Numerics against the plain versions: scores and softmax in float32, p
 rounded to the input dtype before P @ V, the output rounded once. The
 kernels scale the float32 scores, the plain versions scale q in the input
-dtype first. ``fused_attention``, ``fused_attention_v3`` and
-``msa_flash_attention`` in bf16 round the unnormalised p = exp(s - m) and
-divide the accumulated output by the float32 denominator, as the TPU flash
-kernel does; the others, and every float32 kernel, round the normalised p.
+dtype first. ``fused_attention``, ``fused_attention_v3``,
+``msa_flash_attention`` and ``fused_msa_attention`` in bf16 round the
+unnormalised p = exp(s - m) and divide the accumulated output by the
+float32 denominator, as the TPU flash kernel does; the others, and every
+float32 kernel, round the normalised p.
 """
 
 from __future__ import annotations
@@ -69,6 +72,10 @@ _QT, _FLASH_QT, _KEY_CHUNK, _WARPS = 16, 32, 256, 8
 # and the windows of a block, which share each bias tile (kWindowGroup)
 MMA_Q_ROWS, MMA_KEY_CHUNK, MMA_BIAS_PAD, MMA_KV_PAD = 64, 64, 8, 8
 MMA_WINDOW_GROUP = 2
+# the largest window of fused_msa_attention's tensor-core kernel, which
+# finds a token's row by a multiply-high that is exact for tokens up to ws^2
+# while ws^3 < 2^32
+MSA_MAX_WINDOW = 1024
 
 
 def _dpad(head_dim: int) -> int:
@@ -87,6 +94,19 @@ def mma_attention_smem(head_dim: int) -> int:
     stage = (4 * MMA_Q_ROWS * (MMA_KEY_CHUNK + MMA_BIAS_PAD)
              + 2 * 2 * MMA_WINDOW_GROUP * MMA_KEY_CHUNK
              * (_dpad(head_dim) + MMA_KV_PAD))
+    return 2 * stage
+
+
+def mma_msa_attention_smem(head_dim: int, masked: bool) -> int:
+    """Bytes a block of ``fused_msa_attention``'s bf16 tensor-core kernel
+    takes, whatever the window: two stages, each a 64 x 64 float32 bias
+    tile, its window's mask tile where there is a mask, and 64-key k and v
+    tiles in bf16 at the head dim padded to a multiple of 16, rows
+    padded."""
+    dp = (head_dim + 15) // 16 * 16
+    stage = (4 * MMA_Q_ROWS * (MMA_KEY_CHUNK + MMA_BIAS_PAD)
+             * (2 if masked else 1)
+             + 2 * 2 * MMA_KEY_CHUNK * (dp + MMA_KV_PAD))
     return 2 * stage
 
 
@@ -362,9 +382,11 @@ def fused_msa_attention(qkv_img, bias, mask=None, *, heads: int,
     shift mask indexed by a window's position in its image, (1, N, N) for
     every window, or None for no mask (the same result as zeros, without
     their reads). Returns (B, H, W, C) in image layout, before the output
-    projection. One block per (window, head, 64 query rows); head dims up
-    to 48. Replaces
-    super_resolution_tpu/ops/pallas_attention.py::fused_msa_attention.
+    projection. Head dims up to 48. bf16: a block per (window, 64 query
+    rows, head) on the tensor cores, over chunks of 64 keys; float32: a
+    block per (window, head, 64 query rows) on the CUDA cores, which holds
+    one head's k and v of a window (the wrapper raises beyond that).
+    Replaces super_resolution_tpu/ops/pallas_attention.py::fused_msa_attention.
     """
     name = "fused_msa_attention"
     if qkv_img.dim() != 4 or qkv_img.shape[-1] % 3:
@@ -395,15 +417,24 @@ def fused_msa_attention(qkv_img, bias, mask=None, *, heads: int,
                              f"expected (1 or {n_win}, {n}, {n})")
     lib = load_library()
     d = c // heads
-    check_smem(name, lib.sr_msa_attention_smem(ws, d),
-               f"window {ws}, head dim {d}")
     out = torch.empty((b, h_img, w_img, c), dtype=qkv_img.dtype,
                       device=qkv_img.device)
-    err = lib.sr_msa_attention(
-        code, qkv_img.data_ptr(), bias.data_ptr(),
-        None if mask is None else mask.data_ptr(),
-        0 if mask is None else mask.shape[0], out.data_ptr(), b, h_img,
-        w_img, c, heads, ws, scale, stream_of(qkv_img))
+    bf16 = qkv_img.dtype == torch.bfloat16
+    if bf16:
+        if ws > MSA_MAX_WINDOW:
+            raise ValueError(f"{name}: a window of at most {MSA_MAX_WINDOW},"
+                             f" got {ws}")
+        check_smem(name, lib.sr_mma_msa_attention_smem(d, mask is not None),
+                   f"head dim {d}")
+    else:
+        check_smem(name, lib.sr_msa_attention_smem(ws, d),
+                   f"window {ws}, head dim {d}")
+    args = (qkv_img.data_ptr(), bias.data_ptr(),
+            None if mask is None else mask.data_ptr(),
+            0 if mask is None else mask.shape[0], out.data_ptr(), b, h_img,
+            w_img, c, heads, ws, scale, stream_of(qkv_img))
+    err = (lib.sr_mma_msa_attention(*args) if bf16
+           else lib.sr_msa_attention(code, *args))
     raise_on_error(name, err)
     fused_msa_attention.launches += 1
     return out

@@ -27,6 +27,15 @@ conv on the ESC slab, the per-sample dynamic depthwise conv and the CAB.
 times the chunk forwards of several paths in turn in one process, on one
 card (median of five each, after two warm-up forwards): an A/B of two
 routes.
+
+    python3 -m super_resolution_tpu_torch.tools.profile_forward --kernel \
+        fused_ocab_block fused_msa_attention
+
+times each named kernel wrapper on ``chip_smoke.py``'s bf16 inputs at its
+main path's chunk shape (the image-attention kernels at both of their
+shapes, with and without the shift mask): the CUDA-event median of 20 calls
+and, under the profiler, the mean device time of each kernel a call
+launches (a wrapper may launch several).
 """
 
 from __future__ import annotations
@@ -48,7 +57,9 @@ PORT_KERNELS = ("msa_block_kernel", "ocab_block_kernel",
                 "mma_window_attention_v3_kernel", "msa_flash_kernel",
                 "mma_flash_attention_kernel", "msa_qtile_kernel",
                 "mma_qtile_attention_kernel",
-                "msa_attention_kernel", "mma_psa_block_kernel",
+                "mma_msa_attention_kernel", "msa_attention_kernel",
+                "mma_ln_proj_kernel", "mma_proj_residual_kernel",
+                "mma_psa_block_kernel",
                 "psa_block_kernel",
                 "scc_block_kernel", "scc_reduce_kernel", "hab_block_kernel",
                 "hab_front_kernel", "hab_front_sum_kernel")
@@ -157,6 +168,58 @@ def ab(names) -> int:
     return 0
 
 
+def kernel_calls(name: str) -> dict:
+    """label -> call of the wrapper ``name`` on chip_smoke's bf16 inputs at
+    its main path's chunk shape."""
+    import torch
+
+    import chip_smoke
+
+    fn = chip_smoke.wrappers()[name]
+    image = {"fused_msa_attention": (chip_smoke.msa_attention_cases,
+                                     chip_smoke.MSA_SHAPES),
+             "fused_psa_block": (chip_smoke.psa_block_cases,
+                                 chip_smoke.PSA_SHAPES)}
+    if name not in image:
+        args, kw, _, _ = chip_smoke.kernel_cases(4, 160, torch.bfloat16,
+                                                 seed=164)[name]
+        return {name: lambda: fn(*args, **kw)}
+    cases_of, shapes = image[name]
+    calls = {}
+    for i, shape in enumerate(shapes):
+        for label, (_, args, kw, *_) in cases_of(torch.bfloat16, 7 + i,
+                                                  shape).items():
+            calls[f"{label} {shape}"] = (
+                lambda args=args, kw=kw: fn(*args, **kw))
+    return calls
+
+
+def kernels(names) -> int:
+    """CUDA-event ms of each wrapper call and the device time of each
+    kernel it launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import time_ms
+
+    if not _setup([]):
+        return 2
+    with torch.inference_mode():
+        for name in names:
+            for label, call in kernel_calls(name).items():
+                ms = time_ms(call, reps=20)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(10):
+                        call()
+                    torch.cuda.synchronize()
+                parts = [f"{classify(ev.key)} {device_us(ev) / ev.count:.1f}"
+                         for ev in prof.key_averages()
+                         if device_us(ev) > 0 and on_device(ev)]
+                print(f"{label}: {ms:.3f} ms (median of 20); a launch, us: "
+                      f"{'; '.join(parts)}", flush=True)
+    return 0
+
+
 def main(label: str) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -257,4 +320,6 @@ def hab_parts(net, b: int, hw: int) -> None:
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--ab":
         sys.exit(ab(sys.argv[2:]))
+    if len(sys.argv) > 1 and sys.argv[1] == "--kernel":
+        sys.exit(kernels(sys.argv[2:]))
     sys.exit(main(sys.argv[1] if len(sys.argv) > 1 else "fork"))

@@ -745,3 +745,107 @@ def test_ocab_and_psa_fma_entries_refuse_bf16(cuda):
                             w.data_ptr(), v.data_ptr(), kvw.data_ptr(),
                             pbias.data_ptr(), None, 0, q.data_ptr(), 1, 16,
                             16, 32, 2, 8, 0.25, stream_of(q)) != 0
+
+
+# (B, H, W, C, heads, ws) of fused_msa_attention beside MSA_SHAPES: C 105 in
+# heads of 35, which the tensor-core kernel copies element by element (C
+# odd); window 20, whose 400 tokens end in a ragged block of 16 query rows
+# and a ragged chunk of 16 keys, in heads of 35 (odd heads a value past a
+# 4-byte boundary)
+MSA_EDGE_SHAPES = [(1, 16, 16, 105, 3, 8), (1, 40, 40, 70, 2, 20)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", ["none", "shifted"])
+@pytest.mark.parametrize("shape", MSA_EDGE_SHAPES)
+def test_msa_attention_edges_match_plain_version(cuda, shape, masked, dtype):
+    test_msa_attention_matches_plain_version(cuda, shape, masked, dtype)
+
+
+def test_bf16_msa_attention_streams_its_keys(cuda):
+    """Window 24 at head dim 35: the float32 kernel cannot hold one head's
+    k and v, the bf16 one streams them."""
+    assert not cw.fused_msa_attention_supported(24, 35)
+    rng = np.random.default_rng(24)
+    bf16 = torch.bfloat16
+    qkv = _rand(rng, bf16, 1, 48, 48, 3 * 70)
+    bias = _rand(rng, torch.float32, 2, 576, 576)
+    mask = torch.from_numpy(shift_attn_mask(48, 48, 24, 12)).cuda()
+    got = cw.fused_msa_attention(qkv, bias, mask, heads=2, window_size=24)
+    torch.cuda.synchronize()
+    _assert_close(got, ca.msa_attention_reference(qkv, bias, mask, 2, 24),
+                  bf16)
+
+
+# (B, H, W, C, Cq, heads, ws, ow, residual_scale) of fused_ocab_block: the
+# flagship width (C 180, 6 heads of 30) on 4 x 4 windows; a border-heavy
+# 48 x 80 image (3 x 5 windows, every one but three reaching past the
+# image); a head group's slice (Cq = C / 2, residual_scale 0.5); C 18 in
+# heads of 9, which the projections and the attention copy element by
+# element (C % 4, d odd)
+OCAB_BLOCK_SHAPES = [(1, 64, 64, 180, 180, 6, 16, 24, 1.0),
+                     (2, 48, 80, 180, 180, 6, 16, 24, 1.0),
+                     (1, 48, 48, 180, 90, 3, 16, 24, 0.5),
+                     (2, 16, 24, 18, 18, 2, 8, 12, 1.0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", OCAB_BLOCK_SHAPES)
+def test_ocab_block_matches_plain_version(cuda, shape, dtype):
+    b, h, w, c, cq, heads, ws, ow, rs = shape
+    rng = np.random.default_rng(h + w + cq)
+    x = _rand(rng, dtype, b, h, w, c)
+    ops = (1.0 + _rand(rng, dtype, c, s=0.1), _rand(rng, dtype, c, s=0.1),
+           _rand(rng, dtype, c, cq, s=c ** -0.5), _rand(rng, dtype, cq, s=0.1),
+           _rand(rng, dtype, c, 2 * cq, s=c ** -0.5),
+           _rand(rng, dtype, 2 * cq, s=0.1),
+           _rand(rng, dtype, cq, c, s=cq ** -0.5), _rand(rng, dtype, c, s=0.1),
+           _bias(rng, heads, ws * ws, ow * ow))
+    fn = ca.fused_ocab_block
+    before = (fn.launches, ca.fused_ocab_attention.launches)
+    got = fn(x, *ops, heads=heads, window_size=ws, overlap_win=ow,
+             residual_scale=rs)
+    torch.cuda.synchronize()
+    assert (fn.launches, ca.fused_ocab_attention.launches) == (
+        before[0] + 1, before[1])
+    _assert_close(got, ca.ocab_block_reference(
+        x, *ops, heads, ws, ow, residual_scale=rs), dtype)
+
+
+def test_mma_msa_and_ocab_block_smem_agree_with_the_sources(cuda):
+    """The pure-Python shared-memory formulas of the two bf16 routes equal
+    their C entries."""
+    from super_resolution_tpu_torch.ops.cuda_build import load_library
+
+    lib = load_library()
+    for d in range(1, 49):
+        for masked in (False, True):
+            assert (cw.mma_msa_attention_smem(d, masked)
+                    == lib.sr_mma_msa_attention_smem(d, int(masked)))
+    for c, cq in ((180, 180), (180, 90), (60, 30), (18, 18), (240, 240)):
+        assert (ca.mma_ocab_block_smem(c, cq)
+                == lib.sr_mma_ocab_block_smem(c, cq))
+
+
+def test_msa_and_ocab_block_fma_refuse_bf16(cuda):
+    """bf16 reaches fused_msa_attention's and fused_ocab_block's FMA kernels
+    by no route: their entries refuse it."""
+    from super_resolution_tpu_torch.ops.cuda_build import (load_library,
+                                                           stream_of)
+
+    lib = load_library()
+    z = dict(dtype=torch.bfloat16, device="cuda")
+    qkv, out = torch.zeros((1, 16, 16, 96), **z), torch.zeros((1, 16, 16, 32),
+                                                              **z)
+    bias = torch.zeros((2, 64, 64), device="cuda")
+    assert lib.sr_msa_attention(1, qkv.data_ptr(), bias.data_ptr(), None, 0,
+                                out.data_ptr(), 1, 16, 16, 32, 2, 8, 0.25,
+                                stream_of(qkv)) != 0
+    w, v = torch.zeros((32, 32), **z), torch.zeros((32,), **z)
+    w2, v2 = torch.zeros((32, 64), **z), torch.zeros((64,), **z)
+    obias = torch.zeros((2, 64, 144), device="cuda")
+    assert lib.sr_ocab_block(
+        1, out.data_ptr(), v.data_ptr(), v.data_ptr(), w.data_ptr(),
+        v.data_ptr(), w2.data_ptr(), v2.data_ptr(), w.data_ptr(),
+        v.data_ptr(), obias.data_ptr(), out.data_ptr(), qkv.data_ptr(), 1,
+        16, 16, 32, 32, 2, 8, 12, 0.25, 1e-5, 1.0, stream_of(out)) != 0
