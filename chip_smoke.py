@@ -22,10 +22,13 @@ Phases, each of which raises on failure:
      exponentials on the special-function units (exp floor; for
      ``msa_qtile_attention`` and ``fused_psa_block`` also their two-pass
      designs', two exponentials a score). The four attention-only kernels,
-     ``fused_ocab_attention``, ``fused_psa_block``, ``fused_msa_attention``
-     and ``fused_ocab_block`` run bf16 on their tensor-core kernels and
-     float32 on their FMA kernels, so both are checked; the library time of
-     ``hab_front`` and ``fused_ocab_block`` is a composition of calls;
+     ``fused_ocab_attention``, ``fused_psa_block``, ``fused_msa_attention``,
+     ``fused_ocab_block`` and ``fused_msa_block(_shifted)`` run bf16 on
+     their tensor-core kernels and float32 on their FMA kernels, so both
+     are checked; the library time of ``hab_front``, ``fused_ocab_block``
+     and ``fused_msa_block(_shifted)`` is a composition of calls; rows 1
+     and 2 are also timed at SwinIR's window 8, with an explicit zero mask
+     and at a head group's slice;
   4. main paths: Predictor -> runner in tile mode -> network at the
      published width (bf16, seeded random weights) answers requests:
      classic HAT x4 (HATClassic), the fork's HAT x2 with the ESC-infused
@@ -294,7 +297,11 @@ SCC_RECT = ((2, 48, 40, 20, 2), (8, 4), (4, 4))
 SOFTMAX_OPS = 7
 # the kernels whose library time is a composition of calls: no one PyTorch
 # call computes their function
+_MSA_COMPOSITION = (" (composition: two linears, windows cut, attention, "
+                    "windows put back)")
 COMPOSITIONS = {
+    "fused_msa_block": _MSA_COMPOSITION,
+    "fused_msa_block_shifted": _MSA_COMPOSITION.replace(": ", ": roll, "),
     "hab_front": " (composition: LayerNorm, two convs and GELU)",
     "fused_ocab_block": " (composition: LayerNorm, two linears, windows cut, "
                         "attention, linear, add)",
@@ -395,7 +402,6 @@ def kernel_cases(b: int, hw: int, dtype, seed: int):
     bias_oca = table2[rpi_oca.cuda().reshape(-1)].reshape(n, nk, HEADS)
     bias_oca = bias_oca.permute(2, 0, 1).contiguous()
     msa = (w(C, 3 * C), t(3 * C, s=0.1), w(C, C), t(C, s=0.1), bias_sa)
-    zero = torch.zeros((1, n, n), device="cuda")
     mask = torch.from_numpy(shift_attn_mask(hw, hw, WS, SS)).cuda()
     msa_kw = dict(heads=HEADS, window_size=WS)
     ocab = (lns, lnb, w(C, C), t(C, s=0.1), w(C, 2 * C), t(2 * C, s=0.1),
@@ -447,13 +453,16 @@ def kernel_cases(b: int, hw: int, dtype, seed: int):
         return run
 
     return {
-        "fused_msa_block": ((x, *msa, zero), msa_kw,
+        "fused_msa_block": ((x, *msa, None), msa_kw,
                             lambda: ca.msa_block_reference(
-                                x, *msa, zero, HEADS, WS), None),
+                                x, *msa, None, HEADS, WS),
+                            lambda: msa_block_library(x, *msa, None, HEADS,
+                                                      WS, 0)),
         "fused_msa_block_shifted": (
             (x, *msa, mask), dict(msa_kw, shift=SS),
             lambda: ca.msa_block_shifted_reference(x, *msa, mask, HEADS, WS,
-                                                   SS), None),
+                                                   SS),
+            lambda: msa_block_library(x, *msa, mask, HEADS, WS, SS)),
         "mlp_block_sum3": ((x, a, cv, *tail), dict(conv_scale=0.01),
                            lambda: cf.mlp_block_sum3_reference(
                                x, a, cv, *tail, 0.01), None),
@@ -487,6 +496,40 @@ def kernel_cases(b: int, hw: int, dtype, seed: int):
             lambda: ca.ocab_attention_reference(q_img, kv_img, bias_oca,
                                                 HEADS, WS, OW), sdpa),
     }
+
+
+def msa_block_library(x, w_qkv, b_qkv, w_proj, b_proj, bias, mask,
+                      heads: int, ws: int, shift: int):
+    """The library's composition of ``fused_msa_block(_shifted)`` (no one
+    PyTorch call computes it): ``torch.roll`` where shifted, the qkv
+    ``F.linear``, the windows cut, ``F.scaled_dot_product_attention`` with
+    the RPB (+ the window's mask), the windows put back, the output
+    ``F.linear``."""
+    import torch
+    import torch.nn.functional as F
+
+    from super_resolution_tpu_torch.ops.windowing import (window_partition,
+                                                          window_reverse)
+
+    b, h, w, _ = x.shape
+    c_loc = w_qkv.shape[1] // 3
+    n, nw = ws * ws, (h // ws) * (w // ws)
+    wq_t, wp_t = w_qkv.t().contiguous(), w_proj.t().contiguous()
+    # (1 or nW, heads, N, N), broadcast over the images
+    m = (bias[None] if mask is None
+         else bias[None] + mask[:, None]).to(x.dtype)
+
+    def run():
+        xr = torch.roll(x, (-shift, -shift), (1, 2)) if shift else x
+        win = window_partition(F.linear(xr, wq_t, b_qkv), ws).reshape(
+            b, nw, n, 3, heads, c_loc // heads)
+        q, k, v = (win[:, :, :, i].transpose(2, 3).contiguous()
+                   for i in range(3))
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=m)
+        o = window_reverse(o.transpose(2, 3).reshape(-1, ws, ws, c_loc), ws,
+                           h, w)
+        return F.linear(o, wp_t, b_proj)
+    return run
 
 
 def front_library(x, gamma, beta, w1, b1, w2, b2):
@@ -529,12 +572,9 @@ def kernel_bound(name: str, b: int, hw: int, esize: int, shifted_mask: int):
     act = tok * C * esize
     mm = vec = 0.0
     if name.startswith("fused_msa_block"):
-        mm = (2 * tok * C * 3 * C + 2 * tok * C * C
-              + 4 * nwin * HEADS * n * n * d)
-        mask_rows = shifted_mask if name.endswith("shifted") else 1
-        byts = (2 * act + (4 * C * C + 4 * C) * esize
-                + (HEADS + mask_rows) * n * n * 4)
-    elif name == "fused_hab_block":
+        return msa_block_bound(b, hw, WS, esize, shifted_mask
+                               if name.endswith("shifted") else 0)
+    if name == "fused_hab_block":
         # fused_msa_block and mlp_block_sum3 together, less one write and
         # one read of the attention image
         mm = (2 * tok * C * 3 * C + 2 * tok * C * C
@@ -573,6 +613,108 @@ def kernel_bound(name: str, b: int, hw: int, esize: int, shifted_mask: int):
     t_bytes = byts / PEAK["hbm"]
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops > t_bytes else "bytes")
+
+
+def msa_block_bound(b: int, hw: int, ws: int, esize: int,
+                    mask_windows: int, c: int = C, heads: int = HEADS):
+    """(bound_ms, bound_by) of one ``fused_msa_block(_shifted)`` call on
+    (b, hw, hw, c) activations at window ws: x read and out written once,
+    the weights, the float32 RPB and ``mask_windows`` windows of float32
+    mask read once, over the HBM rate, against the two projections and the
+    attention's two products at the tensor cores' bf16 rate."""
+    tok = b * hw * hw
+    n = ws * ws
+    mm = (2 * tok * c * 3 * c + 2 * tok * c * c
+          + 4 * (tok // n) * heads * n * n * (c // heads))
+    byts = (2 * tok * c * esize + (4 * c * c + 4 * c) * esize
+            + (heads + mask_windows) * n * n * 4)
+    t_ops, t_bytes = mm / PEAK["bf16"], byts / PEAK["hbm"]
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def check_msa_block_kernels() -> None:
+    """Phase 3 for rows 1 and 2 beyond ``check_kernels`` (which checks and
+    times the unshifted block without a mask and the shifted one at the
+    flagship chunk, window 16), in bf16 on a chunk of four 160 x 160 tiles,
+    each case against its plain version within TOL_BF16: at the flagship
+    width an explicit (1, N, N) zero mask (timed) and a head group's slice
+    (c_loc = C / 2), shifted; at SwinIR's window 8 and the widths of
+    swinir (C 180, 6 heads), swinir_light (C 60, 6 heads of 10) and
+    swinir_real_l (C 240, 8 heads: the projections' K above their 192-row
+    slab) the unshifted block without a mask and the shifted one (both
+    timed beside plain, bound, exp floor and the library's composition)
+    and the head slice, shifted."""
+    import torch
+
+    from super_resolution_tpu_torch.ops import cuda_attention as ca
+    from super_resolution_tpu_torch.ops.attention import shift_attn_mask
+
+    b, hw, dtype = 4, 160, torch.bfloat16
+    # (label, mask: None, "zeros" or "shift", the head slice, timed)
+    window8 = (("no mask", None, False, True), ("shifted", "shift", False,
+                                                 True),
+               ("head slice, shifted", "shift", True, False))
+    for c, heads, ws, cases in (
+            (C, HEADS, WS, (("zero mask", "zeros", False, True),
+                            ("head slice, shifted", "shift", True, False))),
+            *((net["embed_dim"], net["num_heads"][0], net["window_size"],
+               window8) for net in (SWINIR, SWINIR_LIGHT, SWINIR_REAL_L))):
+        n, ss, nwin = ws * ws, ws // 2, (hw // ws) ** 2
+        t = _device_randn(dtype, ws + c)
+        x = t(b, hw, hw, c)
+        full = (t(c, 3 * c, s=c ** -0.5), t(3 * c, s=0.1),
+                t(c, c, s=c ** -0.5), t(c, s=0.1),
+                t(heads, n, n, s=0.5, dt=torch.float32))
+        # the first half of the heads: their q, k and v columns, their rows
+        # of the output projection
+        cols = torch.cat([torch.arange(i * c, i * c + c // 2)
+                          for i in range(3)]).cuda()
+        half = (full[0][:, cols].contiguous(), full[1][cols].contiguous(),
+                full[2][:c // 2].contiguous(), full[3],
+                full[4][:heads // 2].contiguous())
+        masks = {None: None, "zeros": torch.zeros((1, n, n), device="cuda"),
+                 "shift": torch.from_numpy(
+                     shift_attn_mask(hw, hw, ws, ss)).cuda()}
+        for label, mask_kind, sliced, timed in cases:
+            msa, mask = (half if sliced else full), masks[mask_kind]
+            sh = ss if mask_kind == "shift" else 0
+            hd = msa[4].shape[0]
+            fn = ca.fused_msa_block_shifted if sh else ca.fused_msa_block
+            kw = dict(heads=hd, window_size=ws, **(
+                dict(shift=sh) if sh else {}))
+
+            def plain(msa=msa, mask=mask, sh=sh, hd=hd):
+                return ca.msa_block_shifted_reference(
+                    x, *msa, mask, hd, ws, sh) if sh else (
+                    ca.msa_block_reference(x, *msa, mask, hd, ws))
+            got = fn(x, *msa, mask, **kw)
+            torch.cuda.synchronize()
+            err, ok = max_err_and_tol(got, plain(), TOL_BF16)
+            del got
+            line = (f"  {fn.__name__:24s} C {c} window {ws} {label:20s} "
+                    f"{tuple(x.shape)} bf16 max|kernel-plain| {err:.3e} "
+                    f"(rel tol {TOL_BF16:.1e})")
+            if timed:
+                ms = time_ms(lambda: fn(x, *msa, mask, **kw))
+                plain_ms = time_ms(plain, reps=5, warmup=1)
+                lib_ms = time_ms(msa_block_library(x, *msa, mask, hd, ws,
+                                                   sh))
+                bound_ms, by = msa_block_bound(
+                    b, hw, ws, 2, 0 if mask is None else mask.shape[0], c,
+                    heads)
+                floor = exp_floor_ms(b * nwin, heads, n, n)
+                line += (f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
+                         f"bound {bound_ms:.4f} ms ({by})  exp floor "
+                         f"{floor:.4f} ms  library {lib_ms:.3f} ms"
+                         + COMPOSITIONS[fn.__name__])
+            log(line)
+            if not ok:
+                raise AssertionError(f"{fn.__name__} ({label}, C {c}, window "
+                                     f"{ws}) disagrees with its plain "
+                                     f"version: {err}")
+        del x, full, half, masks
+        torch.cuda.empty_cache()
 
 
 def max_err_and_tol(got, ref, tol_rel: float):
@@ -1288,7 +1430,11 @@ def build_report(lib, ptxas: str) -> None:
         f"{cw.mma_msa_attention_smem(35, False)} / "
         f"{cw.mma_msa_attention_smem(35, True)} at ATD's head dim 35 "
         f"without / with a mask; fused_ocab_block's projections "
-        f"{ca.mma_ocab_block_smem(C, C)} at C {C}")
+        f"{ca.mma_ocab_block_smem(C, C)} at C {C}; fused_msa_block's "
+        f"projections {ca.mma_msa_block_smem(C, C)}, its attention "
+        f"{cw.mma_msa_attention_smem(C // HEADS, False)} / "
+        f"{cw.mma_msa_attention_smem(C // HEADS, True)} at head dim "
+        f"{C // HEADS}")
     bare = [names[fn] for fn, n in hmma.items() if "mma_" in names[fn]
             and n == 0]
     if bare or (hmma and not any("mma_" in names[fn] for fn in hmma)):
@@ -1333,6 +1479,7 @@ def main() -> int:
     timing.update(check_attention_kernels())
     timing.update(check_image_attention_kernels())
     timing.update(check_scc_kernel())
+    check_msa_block_kernels()
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
 
     by_path, first_outputs = {}, {}

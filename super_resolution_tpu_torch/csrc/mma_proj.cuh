@@ -1,20 +1,24 @@
 // Row-block projections on Hopper's tensor cores, bf16 operands and
 // float32 sums: a block of kProjWarps warps owns 16 rows each of an
 // activation (pixels of an NHWC image) and multiplies them by a weight laid
-// out (in, out), the products on mma.sync.m16n8k16. The parts of the
-// kernels that wrap an attention between two projections (ocab_block.cu:
-// mma_ln_proj_kernel, mma_proj_residual_kernel):
+// out (in, out), the products on mma.sync.m16n8k16, into rows of a
+// row-major matrix. The parts of the kernels that wrap an attention
+// between two projections (ocab_block.cu: mma_ln_proj_kernel,
+// mma_proj_residual_kernel; msa_block.cu: mma_proj_bias_kernel):
 //
 //   stage_rows   the block's rows of A, whole, into an A tile (K rounded
 //                up to 16, zero past K and past the last row);
 //   layer_norm_rows  a warp's 16 rows of the A tile normalised in place,
 //                statistics in float32 in two passes, the result rounded
 //                to bf16 (the LayerNorm before a projection);
-//   project      A tile times the weight: panels of kPanel output columns,
+//   project_rows A tile times the weight: panels of kPanel output columns,
 //                each summed over slabs of kSlab weight rows, a slab's
 //                copies in flight while the slab before is multiplied;
-//                epi(row, col, v0, v1) gets the float32 sums of columns
-//                col, col + 1 of a row.
+//                value(row, col, v0, v1, word) turns the float32 sums of
+//                columns col, col + 1 of a row into their bf16 pair, which
+//                goes through the weight stage the panel has just finished
+//                with; a warp writes its 16 rows' segments of the panel in
+//                pieces of up to 16 bytes (rows_out picks the piece).
 //
 // What bounds them: a projection of M rows by a (K, N) weight is 2 M K N
 // FLOP against 2 M (K + N) bytes of bf16 activations, K N / (K + N) FLOP a
@@ -28,8 +32,11 @@
 // first store. 8 warps with whole panels and 4 with slabs of 64 rows were
 // level at the OCAB's chunk on an H100, 4 with whole panels slower
 // (PERF.md section 6); all run far below the bytes' rate, most of their
-// time in the epilogue's scattered 4-byte stores and the serial LayerNorm
-// of a warp's rows.
+// time in the epilogue's stores and the serial LayerNorm of a warp's rows.
+// The stores are staged: a block's rows are contiguous pixels, so a warp's
+// segment of a panel is 16 runs of 128 bytes, written with 8-byte stores
+// (16 where a row is a multiple of 8 values) in whole sectors; scattered
+// 4-byte stores of the fragments' pairs were 6-7% slower a projection.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -110,6 +117,75 @@ __device__ __forceinline__ void layer_norm_rows(bf16* at, int k,
   __syncwarp();
 }
 
+// Where project_rows writes: rows row0 .. of a row-major (m x ld) bf16
+// matrix at base, in pieces of `piece` bytes (16, 8, 4 or 2: a divisor of
+// 2 ld, of 2 kPanel and of base's alignment).
+struct RowsOut {
+  bf16* base;
+  long long row0, m;
+  int piece;
+};
+
+// The RowsOut of the (m x n) matrix at base (row0 is the block's to set):
+// the largest piece that divides a row's bytes and base's alignment (a
+// panel's 2 kPanel bytes are a multiple of 16).
+inline RowsOut rows_out(void* base, long long m, int n) {
+  RowsOut o{static_cast<bf16*>(base), 0, m, 2};
+  const auto addr = reinterpret_cast<uintptr_t>(base);
+  for (int piece = 16; piece > 2; piece /= 2)
+    if ((2 * n) % piece == 0 && addr % piece == 0) {
+      o.piece = piece;
+      break;
+    }
+  return o;
+}
+
+// Row stride (bf16) of a warp's staged 16 x kPanel tile, padded so that the
+// lanes' 4-byte pairs of a fragment fall in distinct banks.
+constexpr int kRowsStride = kPanel + kProjPad;
+static_assert(kProjWarps * 16 * kRowsStride * 2 <= w_stage_bytes(),
+              "the staged tiles fit in a weight stage");
+
+// One piece of `bytes` bytes, shared -> global.
+__device__ __forceinline__ void copy_piece(void* dst, const void* src,
+                                           int bytes) {
+  switch (bytes) {
+    case 16:
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      break;
+    case 8:
+      *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+      break;
+    case 4:
+      *reinterpret_cast<uint32_t*>(dst) =
+          *reinterpret_cast<const uint32_t*>(src);
+      break;
+    default:
+      *reinterpret_cast<bf16*>(dst) = *reinterpret_cast<const bf16*>(src);
+  }
+}
+
+// The calling warp's staged tile (16 rows of kRowsStride) to rows r0 ..
+// r0 + 15 of its block, columns c0 .. c0 + nc - 1 of an ld-column matrix:
+// each row's segment is contiguous, and the lanes take its pieces in turn,
+// so a store instruction covers whole runs of a row.
+__device__ __forceinline__ void write_rows(const bf16* tile,
+                                           const RowsOut& dst, int r0,
+                                           int c0, int nc, int ld) {
+  const int lane = threadIdx.x & 31;
+  const int per_row = nc * 2 / dst.piece;
+  for (int e = lane; e < 16 * per_row; e += 32) {
+    const int i = e / per_row, q = e % per_row;
+    const long long row = dst.row0 + r0 + i;
+    if (row >= dst.m) continue;
+    copy_piece(reinterpret_cast<unsigned char*>(dst.base + row * ld + c0) +
+                   q * dst.piece,
+               reinterpret_cast<const unsigned char*>(tile + i * kRowsStride) +
+                   q * dst.piece,
+               dst.piece);
+  }
+}
+
 // acc += the warp's 16 rows of the A tile (columns a0 .. a0 + 16 ksteps)
 // times a staged weight slab.
 __device__ __forceinline__ void project_slab(const bf16* a, int ast, int a0,
@@ -135,7 +211,8 @@ __device__ __forceinline__ void project_slab(const bf16* a, int ast, int a0,
 
 // The A tile at (k columns, staged by stage_rows with its copies not yet
 // committed: the first step's commit takes them) times a (k, n) weight
-// whose row r, columns c .. c + 3 start at w_at(r, c): panels of kPanel
+// whose row r, columns c .. c + 3 start at w_at(r, c), into rows dst.row0 ..
+// of a row-major (dst.m x n) bf16 matrix: panels of kPanel
 // output columns, each summed over slabs of kSlab weight rows (one slab
 // where k <= kSlab), the next step's slab in flight while a step is
 // multiplied (stages: two weight stages). vec: 8-byte copies of four
@@ -145,13 +222,21 @@ __device__ __forceinline__ void project_slab(const bf16* a, int ast, int a0,
 // the barrier that ends its last step, the warp's pairs of output columns
 // c, c + 1 (c even, c < n) of its block rows r go out in two rounds:
 // fetch(r, c) returns a 32-bit word for each (a bf16 pair the store adds,
-// loaded for every pair before the first store), then store(r, c, v0, v1,
-// word) gets the float32 sums (v1 past n is 0).
-template <typename WAt, typename Pro, typename Fetch, typename Store>
-__device__ __forceinline__ void project(const bf16* at, int k, int n,
-                                        WAt w_at, bool vec,
-                                        unsigned char* stages, Pro prologue,
-                                        Fetch fetch, Store store) {
+// loaded for every pair before the first store), then value(r, c, v0, v1,
+// word) gets the float32 sums (v1 past n is 0) and returns their bf16 pair
+// (the second past n is not written), which the warp puts in its 16-row
+// tile of the weight stage the panel has just read and, after a warp
+// barrier, writes to dst (write_rows); a block barrier then frees the stage
+// for the copies of step t + 2. The last panel's stage is not freed: a
+// caller that projects again into the same stages first waits at a block
+// barrier.
+template <typename WAt, typename Pro, typename Fetch, typename Value>
+__device__ __forceinline__ void project_rows(const bf16* at, int k, int n,
+                                             WAt w_at, bool vec,
+                                             unsigned char* stages,
+                                             Pro prologue, Fetch fetch,
+                                             Value value,
+                                             const RowsOut& dst) {
   constexpr int WST = kPanel + kProjPad;
   const int ast = a_stride(k), kp = ast - kProjPad;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -222,13 +307,23 @@ __device__ __forceinline__ void project(const bf16* at, int k, int n,
         word[j][0] = fetch(r, c);
         word[j][1] = fetch(r + 8, c);
       }
+      // the warp's 16 rows of the panel, in the stage this step has read
+      bf16* tile = w_slab(t & 1) + warp * 16 * kRowsStride;
 #pragma unroll
       for (int j = 0; j < kPanel / 8; ++j) {
         const int c = p * kPanel + j * 8 + 2 * tig;
         if (c >= n) continue;
-        store(r, c, acc[j][0], acc[j][1], word[j][0]);
-        store(r + 8, c, acc[j][2], acc[j][3], word[j][1]);
+        uint32_t* t0 = reinterpret_cast<uint32_t*>(
+            tile + gid * kRowsStride + j * 8 + 2 * tig);
+        t0[0] = value(r, c, acc[j][0], acc[j][1], word[j][0]);
+        t0[8 * kRowsStride / 2] =
+            value(r + 8, c, acc[j][2], acc[j][3], word[j][1]);
       }
+      __syncwarp();
+      write_rows(tile, dst, warp * 16, p * kPanel,
+                 min(kPanel, n - p * kPanel), n);
+      // step t + 2 copies its slab into this stage
+      if (t + 2 < steps) __syncthreads();
     }
     p = np;
     s = ns;

@@ -13,7 +13,11 @@
 // super_resolution_tpu/ops/pallas_attention.py (pallas_call at :444, body
 // _msa_kernel :374-400). The image is the already rolled one for a shifted
 // layer, as there: ATD's AC-MSA reads the same qkv image unrolled, so the
-// roll stays with the caller.
+// roll stays with the caller. The tensor-core kernel also takes the shift
+// itself, for fused_msa_block_shifted's middle (msa_block.cu): a projection
+// works pixel by pixel, so that block projects the unrolled image, and
+// token i of a rolled window reads q, k and v ss rows and columns on,
+// cyclically, and writes its output at its own pixel, in rolled space.
 //
 // What bounds it on the H100: at ATD's chunk (four 160 x 160 tiles, 400
 // windows of N 256, 6 heads of d 35) the two products are 4 * 256 * 256 *
@@ -198,6 +202,7 @@ struct MsaArgs {
   const float* mask;
   bf16* out;
   int n_mask, H, W, C, heads, ws, d;
+  int ss;             // the shift at which q, k and v are read, or 0
   unsigned ws_magic;  // floor((2^32 - 1) / ws) + 1: i / ws = umulhi(i, it)
   float scale;
   bool words;     // C even, qkv 4-byte aligned: 4-byte words with the shift
@@ -213,8 +218,10 @@ __device__ __forceinline__ void cp_async4_part(void* dst, const void* src,
                "l"(src), "r"(bytes));
 }
 
-// The block: grid (windows, ceil(N / 64), heads).
-template <int DP, bool MASKED>
+// The block: grid (windows, ceil(N / 64), heads). SHIFTED: token i of a
+// window reads q, k and v at its pixel moved by ss rows and columns,
+// cyclically, and writes its output at its own pixel.
+template <int DP, bool MASKED, bool SHIFTED>
 __global__ void __launch_bounds__(mma::kThreads)
     mma_msa_attention_kernel(MsaArgs a) {
   constexpr int KC = kKC, BST = kBST, KST = DP + mma::kKvPad;
@@ -235,6 +242,11 @@ __global__ void __launch_bounds__(mma::kThreads)
   const long long first = srk::window_of(widx, a.H, a.W, ws).first;
   // the mask of this window: by its position in its image
   const int nw_img = (a.H / ws) * (a.W / ws);
+  // the first row of its image and its window's corner, for the shift
+  [[maybe_unused]] const long long img_row0 =
+      static_cast<long long>(widx / nw_img) * a.H;
+  [[maybe_unused]] const int wy0 = (widx % nw_img) / (a.W / ws) * ws;
+  [[maybe_unused]] const int wx0 = (widx % nw_img) % (a.W / ws) * ws;
   const float* mask_w =
       MASKED ? a.mask + static_cast<long long>(a.n_mask == 1 ? 0
                                                              : widx % nw_img) *
@@ -244,9 +256,22 @@ __global__ void __launch_bounds__(mma::kThreads)
     const int ky = __umulhi(static_cast<unsigned>(i), a.ws_magic);
     return first + static_cast<long long>(ky) * a.W + (i - ky * ws);
   };
+  // the pixel token i reads: its own, or with the shift the one ss rows
+  // and columns on, cyclically (y + ss < 2H: a compare, no division)
+  auto src_pixel = [&](int i) {
+    if constexpr (!SHIFTED) {
+      return pixel(i);
+    } else {
+      const int ky = __umulhi(static_cast<unsigned>(i), a.ws_magic);
+      int y = wy0 + ky + a.ss, x = wx0 + (i - ky * ws) + a.ss;
+      if (y >= a.H) y -= a.H;
+      if (x >= a.W) x -= a.W;
+      return (img_row0 + y) * a.W + x;
+    }
+  };
   // the first value of token i's part (0 q, 1 k, 2 v) of this head
   auto row = [&](int part, int i) {
-    return a.qkv + pixel(i) * 3 * C + part * C + hd;
+    return a.qkv + src_pixel(i) * 3 * C + part * C + hd;
   };
   auto bias_tile = [&](int st) {
     return reinterpret_cast<float*>(smem_raw + st * SB);
@@ -405,23 +430,29 @@ __global__ void __launch_bounds__(mma::kThreads)
   }
 }
 
-template <int DP, bool MASKED>
+template <int DP, bool MASKED, bool SHIFTED>
 cudaError_t launch_mma(const MsaArgs& a, int windows, cudaStream_t stream) {
   const int smem = mma_smem_bytes(DP, MASKED);
-  cudaError_t err = srk::set_smem(mma_msa_attention_kernel<DP, MASKED>, smem);
+  cudaError_t err = srk::set_smem(
+      mma_msa_attention_kernel<DP, MASKED, SHIFTED>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(windows, (a.ws * a.ws + mma::kQRows - 1) / mma::kQRows,
                   a.heads);
-  mma_msa_attention_kernel<DP, MASKED>
+  mma_msa_attention_kernel<DP, MASKED, SHIFTED>
       <<<grid, mma::kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+// The entry lets a shift through only with its mask and a head dim of at
+// most 32 (fused_msa_block's), so DP 48 has no shifted instance.
 template <int DP>
 cudaError_t launch_mma_padded(const MsaArgs& a, int windows,
                               cudaStream_t stream) {
-  return a.mask ? launch_mma<DP, true>(a, windows, stream)
-                : launch_mma<DP, false>(a, windows, stream);
+  if constexpr (DP <= 32) {
+    if (a.ss) return launch_mma<DP, true, true>(a, windows, stream);
+  }
+  return a.mask ? launch_mma<DP, true, false>(a, windows, stream)
+                : launch_mma<DP, false, false>(a, windows, stream);
 }
 
 }  // namespace tc
@@ -470,15 +501,21 @@ extern "C" int sr_mma_msa_attention_smem(int d, int masked) {
 
 // fused_msa_attention in bf16 on the tensor cores: operands as
 // sr_msa_attention's, qkv and out bf16; the shared memory is
-// sr_mma_msa_attention_smem's. Returns the cudaError_t of the launch.
+// sr_mma_msa_attention_smem's. ss: 0, or the shift 0 < ss < ws at which
+// token i of a window reads q, k and v (at its pixel ss rows and columns
+// on, cyclically), its output still written at its own pixel: the middle of
+// fused_msa_block_shifted (msa_block.cu), which passes its mask and a head
+// dim of at most 32. Returns the cudaError_t of the launch.
 extern "C" int sr_mma_msa_attention(const void* qkv, const void* bias,
                                     const void* mask, int n_mask, void* out,
                                     int B, int H, int W, int C, int heads,
-                                    int ws, float scale, void* stream) {
+                                    int ws, int ss, float scale,
+                                    void* stream) {
   const float* mf = static_cast<const float*>(mask);
   // ws_magic finds a token's row exactly for tokens below ws^2 while ws^3 <
   // 2^32
-  if (bad_shape(B, H, W, C, heads, ws, mf, n_mask) || ws > 1024)
+  if (bad_shape(B, H, W, C, heads, ws, mf, n_mask) || ws > 1024 ||
+      ss < 0 || ss >= ws || (ss && (mf == nullptr || C / heads > 32)))
     return cudaErrorInvalidValue;
   tc::MsaArgs a;
   a.qkv = static_cast<const __nv_bfloat16*>(qkv);
@@ -492,6 +529,7 @@ extern "C" int sr_mma_msa_attention(const void* qkv, const void* bias,
   a.heads = heads;
   a.ws = ws;
   a.d = C / heads;
+  a.ss = ss;
   a.ws_magic = 0xffffffffu / static_cast<unsigned>(ws) + 1u;
   a.scale = scale;
   // a pixel row is 3C values: even for C even, so every head's slice lies

@@ -26,9 +26,10 @@
 // tensor cores (mma.sync.m16n8k16, bf16 operands, float32 sums):
 //   mma_ln_proj_kernel        a block per 128 pixels (mma_proj.cuh): LN1
 //                             in float32 (two passes, the TPU's cast to
-//                             bf16), then xn [Wq | Wkv] + [bq | bkv],
-//                             rounded once, into the caller's q (B, H, W,
-//                             Cq) and kv (B, H, W, 2Cq) scratch images;
+//                             bf16), then xn Wq + bq and xn Wkv + bkv,
+//                             each rounded once, into the caller's q (B,
+//                             H, W, Cq) and kv (B, H, W, 2Cq) scratch
+//                             images;
 //   mma_ocab_attention_kernel the attention of fused_ocab_attention
 //                             (ocab_attention.cu, through its C entry) on
 //                             those images: a key outside the image reads
@@ -219,8 +220,8 @@ struct LnProjArgs {
   const bf16* bq;
   const bf16* wkv;
   const bf16* bkv;
-  bf16* q;   // (M, cq)
-  bf16* kv;  // (M, 2 cq)
+  mma::RowsOut q;   // (M, cq)
+  mma::RowsOut kv;  // (M, 2 cq)
   long long m;
   int C, cq;
   float eps;
@@ -228,44 +229,38 @@ struct LnProjArgs {
 };
 
 // q = round(LN1(x) Wq + bq), kv = round(LN1(x) Wkv + bkv) for
-// kProjRows pixels: one product with the output columns [q | kv].
+// kProjRows pixels: the A tile normalised once, then two products.
 __global__ void __launch_bounds__(mma::kProjThreads)
     mma_ln_proj_kernel(LnProjArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int C = a.C, cq = a.cq;
+  const int C = a.C;
   const long long row0 = static_cast<long long>(blockIdx.x) * mma::kProjRows;
   bf16* at = reinterpret_cast<bf16*>(smem_raw);
   unsigned char* stages = smem_raw + 2 * mma::kProjRows * mma::a_stride(C);
   mma::stage_rows(at, a.x, C, row0, a.m, C, a.vec_x);
-  // column c of [q | kv]: its weight, its bias, its output
-  auto w_at = [&](int r, int c) {
-    return c < cq ? a.wq + static_cast<long long>(r) * cq + c
-                  : a.wkv + static_cast<long long>(r) * 2 * cq + (c - cq);
+  const bf16 zero = __float2bfloat16(0.f);
+  // xn w + b of n output columns into out
+  auto product = [&](const bf16* w, const bf16* b, int n, mma::RowsOut out,
+                     auto prologue) {
+    out.row0 = row0;
+    mma::project_rows(
+        at, C, n,
+        [&](int r, int c) { return w + static_cast<long long>(r) * n + c; },
+        a.vec_w, stages, prologue,
+        [&](int, int c) {
+          return mma::pack(b[c], c + 1 < n ? b[c + 1] : zero);
+        },
+        [&](int, int, float v0, float v1, uint32_t b2) {
+          const float2 bb = mma::unpack(b2);
+          return mma::pack(v0 + bb.x, v1 + bb.y);
+        },
+        out);
   };
-  auto bias_of = [&](int c) { return c < cq ? a.bq[c] : a.bkv[c - cq]; };
-  auto out_at = [&](long long row, int c) {
-    return c < cq ? a.q + row * cq + c : a.kv + row * 2 * cq + (c - cq);
-  };
-  const int n = 3 * cq;
-  mma::project(
-      at, C, n, w_at, a.vec_w, stages,
-      [&] { mma::layer_norm_rows(at, C, a.lns, a.lnb, a.eps); },
-      [&](int, int c) {
-        return mma::pack(bias_of(c),
-                         c + 1 < n ? bias_of(c + 1) : __float2bfloat16(0.f));
-      },
-      [&](int r, int c, float v0, float v1, uint32_t bias2) {
-        const long long row = row0 + r;
-        if (row >= a.m) return;
-        const float2 bb = mma::unpack(bias2);
-        if (cq % 2 == 0) {  // c, c + 1 on one side, a 4-byte pair
-          *reinterpret_cast<__nv_bfloat162*>(out_at(row, c)) =
-              __floats2bfloat162_rn(v0 + bb.x, v1 + bb.y);
-          return;
-        }
-        *out_at(row, c) = __float2bfloat16(v0 + bb.x);
-        if (c + 1 < n) *out_at(row, c + 1) = __float2bfloat16(v1 + bb.y);
-      });
+  product(a.wq, a.bq, a.cq, a.q,
+          [&] { mma::layer_norm_rows(at, C, a.lns, a.lnb, a.eps); });
+  // the q product's last stage is read until here
+  __syncthreads();
+  product(a.wkv, a.bkv, 2 * a.cq, a.kv, [] {});
 }
 
 struct ProjResArgs {
@@ -273,7 +268,7 @@ struct ProjResArgs {
   const bf16* wproj;  // (cq, C)
   const bf16* bproj;
   const bf16* x;      // (M, C), the residual
-  bf16* out;          // (M, C)
+  mma::RowsOut out;   // (M, C)
   long long m;
   int C, cq;
   float rs;
@@ -289,8 +284,10 @@ __global__ void __launch_bounds__(mma::kProjThreads)
   bf16* at = reinterpret_cast<bf16*>(smem_raw);
   unsigned char* stages = smem_raw + 2 * mma::kProjRows * mma::a_stride(cq);
   mma::stage_rows(at, a.o, cq, row0, a.m, cq, a.vec_o);
+  mma::RowsOut out = a.out;
+  out.row0 = row0;
   const bf16 zero = __float2bfloat16(0.f);
-  mma::project(
+  mma::project_rows(
       at, cq, C,
       [&](int r, int c) { return a.wproj + static_cast<long long>(r) * C + c; },
       a.vec_w, stages, [] {},
@@ -300,27 +297,16 @@ __global__ void __launch_bounds__(mma::kProjThreads)
         const bf16* xr = a.x + row * C + c;
         return mma::pack(xr[0], c + 1 < C ? xr[1] : zero);
       },
-      [&](int r, int c, float v0, float v1, uint32_t x2) {
-        const long long row = row0 + r;
-        if (row >= a.m) return;
+      [&](int, int c, float v0, float v1, uint32_t x2) {
         const float2 res = mma::unpack(x2);
         const float o0 = v0 + __bfloat162float(a.bproj[c]) +
                          (a.rs == 1.f ? res.x : res.x * a.rs);
-        bf16* dst = a.out + row * C + c;
-        if (c + 1 >= C) {
-          dst[0] = __float2bfloat16(o0);
-          return;
-        }
+        if (c + 1 >= C) return mma::pack(o0, 0.f);
         const float o1 = v1 + __bfloat162float(a.bproj[c + 1]) +
                          (a.rs == 1.f ? res.y : res.y * a.rs);
-        if (C % 2 == 0) {  // a 4-byte pair
-          *reinterpret_cast<__nv_bfloat162*>(dst) =
-              __floats2bfloat162_rn(o0, o1);
-        } else {
-          dst[0] = __float2bfloat16(o0);
-          dst[1] = __float2bfloat16(o1);
-        }
-      });
+        return mma::pack(o0, o1);
+      },
+      out);
 }
 
 }  // namespace tc
@@ -403,8 +389,8 @@ extern "C" int sr_mma_ocab_block(const void* x, const void* lns,
   p.bq = b16(bq);
   p.wkv = b16(wkv);
   p.bkv = b16(bkv);
-  p.q = static_cast<bf16*>(q_scr);
-  p.kv = static_cast<bf16*>(kv_scr);
+  p.q = mma::rows_out(q_scr, m, cq);
+  p.kv = mma::rows_out(kv_scr, m, 2 * cq);
   p.m = m;
   p.C = C;
   p.cq = cq;
@@ -429,7 +415,7 @@ extern "C" int sr_mma_ocab_block(const void* x, const void* lns,
   r.wproj = b16(wproj);
   r.bproj = b16(bproj);
   r.x = b16(x);
-  r.out = static_cast<bf16*>(out);
+  r.out = mma::rows_out(out, m, C);
   r.m = m;
   r.C = C;
   r.cq = cq;

@@ -252,17 +252,13 @@ class WindowAttentionESC(KernelOperands):
 
     def _build_operands(self) -> dict:
         """The dense (heads, N, N) float32 bias (21 MB a head at window 48:
-        built once and kept), the projections as (in, out) matrices, and
-        the zero shift mask ``fused_msa_block`` asks for."""
+        built once and kept) and the projections as (in, out) matrices."""
         n = self.window_size ** 2
         bias = self.relative_position_bias[:, self.rpe_idx.reshape(-1)]
         return {"bias": bias.reshape(self.num_heads, n, n).float()
                 .contiguous(),
                 "w_qkv": self.to_qkv.weight.flatten(1).t().contiguous(),
-                "w_out": self.to_out.weight.flatten(1).t().contiguous(),
-                "zero_mask": bias.new_zeros((1, n, n), dtype=torch.float32)
-                if msa_block_supported(self.window_size,
-                                       self.dim // self.num_heads) else None}
+                "w_out": self.to_out.weight.flatten(1).t().contiguous()}
 
     def forward(self, x):
         _, h, w, c = x.shape
@@ -275,7 +271,7 @@ class WindowAttentionESC(KernelOperands):
         if route == "fused_msa_block":
             out = fused_msa_block(
                 x.contiguous(), ops["w_qkv"], self.to_qkv.bias, ops["w_out"],
-                self.to_out.bias, ops["bias"], ops["zero_mask"], heads=heads,
+                self.to_out.bias, ops["bias"], None, heads=heads,
                 window_size=ws, scale=d ** -0.5)
             return out[:, :h, :w, :]
         qkv = x @ ops["w_qkv"] + self.to_qkv.bias

@@ -143,12 +143,10 @@ class HABClassic(KernelOperands):
 
     def _build_operands(self) -> dict:
         at = self.attn
-        n = self.window_size ** 2
         return {
             "msa": (at.qkv.weight.t().contiguous(), at.qkv.bias,
                     at.proj.weight.t().contiguous(), at.proj.bias,
                     at.bias()),
-            "no_mask": torch.zeros((1, n, n), device=at.qkv.weight.device),
             "tail": mlp_operands(self.norm2, self.mlp.fc1, self.mlp.fc2),
         }
 
@@ -173,9 +171,8 @@ class HABClassic(KernelOperands):
                                    heads=self.num_heads, window_size=ws,
                                    scale=scale, conv_scale=self.conv_scale,
                                    eps=self.norm2.eps)
-        attn = fused_msa_block(xn, *ops["msa"], ops["no_mask"],
-                               heads=self.num_heads, window_size=ws,
-                               scale=scale)
+        attn = fused_msa_block(xn, *ops["msa"], None, heads=self.num_heads,
+                               window_size=ws, scale=scale)
         return mlp_block_sum3(x, attn, conv_x, *ops["tail"],
                               conv_scale=self.conv_scale)
 

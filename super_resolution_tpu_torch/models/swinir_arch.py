@@ -59,12 +59,10 @@ class SwinTransformerBlock(KernelOperands):
 
     def _build_operands(self) -> dict:
         at = self.attn
-        n = self.window_size ** 2
         return {
             "msa": (at.qkv.weight.t().contiguous(), at.qkv.bias,
                     at.proj.weight.t().contiguous(), at.proj.bias,
                     at.bias()),
-            "no_mask": torch.zeros((1, n, n), device=at.qkv.weight.device),
             "tail": mlp_operands(self.norm2, self.mlp.fc1, self.mlp.fc2),
         }
 
@@ -82,7 +80,7 @@ class SwinTransformerBlock(KernelOperands):
                                            **kw)
             attn = torch.roll(attn, (ss, ss), dims=(1, 2))
         else:
-            attn = fused_msa_block(xn, *ops["msa"], ops["no_mask"], **kw)
+            attn = fused_msa_block(xn, *ops["msa"], None, **kw)
         return mlp_block((x + attn).contiguous(), *ops["tail"],
                          eps=self.norm2.eps)
 

@@ -5,15 +5,21 @@ Ports super_resolution_tpu/ops/pallas_attention.py: ``fused_msa_block``,
 ``fused_msa_block_shifted`` (both launch ``csrc/msa_block.cu``),
 ``fused_ocab_block`` (``csrc/ocab_block.cu``) and ``fused_ocab_attention``
 (``csrc/ocab_attention.cu``) keep the JAX names and signatures, minus the
-Mosaic knobs (``window_block``, ``interpret``). ``fused_ocab_attention``
-takes bf16 on the tensor cores (``mma_ocab_attention_kernel``, the tile of
+Mosaic knobs (``window_block``, ``interpret``); ``fused_msa_block`` takes
+``mask=None`` for no mask. ``fused_ocab_attention`` takes bf16 on the
+tensor cores (``mma_ocab_attention_kernel``, the tile of
 ``csrc/mma_attention.cuh``) and float32 on its FMA kernel, the exact check
 of the algorithm on the card; ``fused_ocab_block`` likewise, its bf16 route
 three kernels behind one C entry (``mma_ln_proj_kernel``: LN1 and the q
 and kv projections into scratch images; the tensor-core attention of
 ``fused_ocab_attention``, launched by the C entry, so that wrapper's count
 does not move; ``mma_proj_residual_kernel``: the output projection and the
-residual). A bf16 CUDA tensor never reaches an FMA kernel.
+residual); ``fused_msa_block(_shifted)`` likewise, three launches behind
+``sr_mma_msa_block`` (``mma_proj_bias_kernel``: qkv of the unrolled image
+into a scratch image; ``fused_msa_attention``'s tensor-core attention, which
+reads q, k and v at the rolled pixels, so ``fused_msa_attention``'s count
+does not move; ``mma_proj_bias_kernel`` again: the output projection). A
+bf16 CUDA tensor never reaches an FMA kernel.
 Weights are in the JAX layout (in, out); head slices for tensor
 parallelism come in through the weight shapes (c_loc, c_out, Cq) and
 ``residual_scale``, as in JAX.
@@ -22,8 +28,8 @@ Numerics of the kernels against the plain versions (the ports of the JAX
 ``*_reference`` functions): both round qkv, the softmax probabilities and
 the head concat to the input dtype; the kernels scale the float32 scores,
 the plain versions scale q in the input dtype first. In float32 they agree
-to rounding. ``fused_ocab_attention`` and ``fused_ocab_block`` in bf16 run
-an online softmax over chunks of 64 keys: they round the unnormalised
+to rounding. In bf16 all four run an online softmax over chunks of 64 keys:
+they round the unnormalised
 p = exp(s - m) and divide the output by the float32 denominator, where the
 plain versions (and the TPU kernels) round the normalised p.
 """
@@ -55,22 +61,32 @@ OCAB_MAX_OVERLAP = 1024
 PROJ_ROWS, PROJ_SLAB, PROJ_PANEL, PROJ_PAD = 128, 192, 64, 8
 
 
+def mma_proj_smem(k: int) -> int:
+    """Bytes a block of a bf16 projection kernel (``csrc/mma_proj.cuh``)
+    takes for k input columns: the block's rows of the activation, whole (k
+    rounded up to 16, padded), and two stages of a weight slab."""
+    return (2 * PROJ_ROWS * ((k + 15) // 16 * 16 + PROJ_PAD)
+            + 2 * 2 * PROJ_SLAB * (PROJ_PANEL + PROJ_PAD))
+
+
 def mma_ocab_block_smem(c: int, cq: int) -> int:
     """Bytes a block of the larger of ``fused_ocab_block``'s two bf16
     projection kernels takes (its attention's are
-    ``cuda_window_attention.mma_attention_smem``'s): the block's rows of the
-    activation, whole (C or Cq columns rounded up to 16, padded), and two
-    stages of a weight slab."""
-    def proj(k):
-        return (2 * PROJ_ROWS * ((k + 15) // 16 * 16 + PROJ_PAD)
-                + 2 * 2 * PROJ_SLAB * (PROJ_PANEL + PROJ_PAD))
-    return max(proj(c), proj(cq))
+    ``cuda_window_attention.mma_attention_smem``'s)."""
+    return max(mma_proj_smem(c), mma_proj_smem(cq))
+
+
+def mma_msa_block_smem(c: int, c_loc: int) -> int:
+    """Bytes a block of the larger of ``fused_msa_block``'s two bf16
+    projection launches takes, on C and c_loc input columns (its
+    attention's are ``cuda_window_attention.mma_msa_attention_smem``'s)."""
+    return max(mma_proj_smem(c), mma_proj_smem(c_loc))
 
 
 def msa_attention_reference(qkv_img, bias, mask, heads: int,
                             window_size: int, scale: float | None = None):
     """(S)W-MSA middle on a (B, H, W, 3C) qkv image: window partition, head
-    split, attention with RPB (+ mask), window reverse."""
+    split, attention with RPB (+ mask; None for none), window reverse."""
     b, h_img, w_img, c3 = qkv_img.shape
     c = c3 // 3
     ws = window_size
@@ -81,7 +97,9 @@ def msa_attention_reference(qkv_img, bias, mask, heads: int,
     xw = window_partition(qkv_img, ws).reshape(-1, n, c3)
     bw = xw.shape[0]
     q, k, v = xw.reshape(bw, n, 3, heads, d).permute(2, 0, 3, 1, 4)
-    if mask.shape[0] != 1:
+    if mask is None:
+        out = attention_with_bias(q, k, v, bias[None], scale=scale)
+    elif mask.shape[0] != 1:
         nw = mask.shape[0]
         full_bias = bias[None, None] + mask[None, :, None]
         shape = (bw // nw, nw, heads, n, d)
@@ -98,7 +116,7 @@ def msa_attention_reference(qkv_img, bias, mask, heads: int,
 def msa_block_reference(x_img, w_qkv, b_qkv, w_proj, b_proj, bias, mask,
                         heads: int, window_size: int,
                         scale: float | None = None):
-    """Plain version of :func:`fused_msa_block`."""
+    """Plain version of :func:`fused_msa_block` (mask None for none)."""
     qkv_img = x_img @ w_qkv.to(x_img.dtype) + b_qkv.to(x_img.dtype)
     out = msa_attention_reference(qkv_img, bias, mask, heads, window_size,
                                   scale)
@@ -160,22 +178,26 @@ def msa_block_smem(window_size: int, head_dim: int) -> int:
 
 def msa_block_supported(window_size: int, head_dim: int) -> bool:
     """Whether ``fused_msa_block`` and ``fused_msa_block_shifted`` can run
-    this window and head dim on the card: a head dim of at most 32 and a
-    block within the card's shared memory. At head dim 16 that is window 8
-    to 24; ESC's 32 and ESC-XL's 48 are beyond it."""
+    this window and head dim on the card in both dtypes: a head dim of at
+    most 32 and a block of the float32 kernel within the card's shared
+    memory (the bf16 route's blocks do not depend on the window). At head
+    dim 16 that is window 8 to 24; ESC's 32 and ESC-XL's 48 are beyond
+    it."""
     return (head_dim <= 32
             and msa_block_smem(window_size, head_dim) <= MAX_DYNAMIC_SMEM)
 
 
 def _launch_msa(name, x_img, w_qkv, b_qkv, w_proj, b_proj, bias, mask,
                 heads, ws, shift, scale):
+    """bf16 goes to the tensor-core entry ``sr_mma_msa_block``, float32 to
+    the FMA entry ``sr_msa_block``."""
     b, h_img, w_img, c = x_img.shape
     c_loc = w_qkv.shape[1] // 3
     c_out = w_proj.shape[1]
     n = ws * ws
     code = check_operands(name, x_img, x_img=x_img, w_qkv=w_qkv,
                           b_qkv=b_qkv, w_proj=w_proj, b_proj=b_proj)
-    check_f32(name, x_img, bias=bias, mask=mask)
+    check_f32(name, x_img, bias=bias)
     for arg, t, shape in (("w_qkv", w_qkv, (c, 3 * c_loc)),
                           ("b_qkv", b_qkv, (3 * c_loc,)),
                           ("w_proj", w_proj, (c_loc, c_out)),
@@ -183,40 +205,62 @@ def _launch_msa(name, x_img, w_qkv, b_qkv, w_proj, b_proj, bias, mask,
                           ("bias", bias, (heads, n, n))):
         check_shape(name, arg, t, shape)
     n_win = (h_img // ws) * (w_img // ws)
-    if mask.shape[0] not in (1, n_win) or tuple(mask.shape[1:]) != (n, n):
-        raise ValueError(f"{name}: mask shape {tuple(mask.shape)}, expected "
-                         f"(1 or {n_win}, {n}, {n})")
+    if mask is not None:
+        check_f32(name, x_img, mask=mask)
+        if (mask.shape[0] not in (1, n_win)
+                or tuple(mask.shape[1:]) != (n, n)):
+            raise ValueError(f"{name}: mask shape {tuple(mask.shape)}, "
+                             f"expected (1 or {n_win}, {n}, {n})")
     if h_img % ws or w_img % ws or c_loc % heads or c_loc // heads > 32:
         raise ValueError(f"{name}: needs H, W multiples of {ws} and a head "
                          f"dim of at most 32, got {tuple(x_img.shape)}, "
                          f"{heads} heads of {c_loc}")
     lib = load_library()
-    check_smem(name, lib.sr_msa_block_smem(ws, c_loc // heads),
-               f"window {ws}, head dim {c_loc // heads}")
-    scratch = torch.empty((b, h_img, w_img, c_loc), dtype=x_img.dtype,
-                          device=x_img.device)
-    out = torch.empty((b, h_img, w_img, c_out), dtype=x_img.dtype,
-                      device=x_img.device)
-    err = lib.sr_msa_block(
-        code, x_img.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(),
-        w_proj.data_ptr(), b_proj.data_ptr(), bias.data_ptr(),
-        mask.data_ptr(), mask.shape[0], scratch.data_ptr(), out.data_ptr(),
-        b, h_img, w_img, c, c_loc, c_out, heads, ws, shift, scale,
-        stream_of(x_img))
+    d = c_loc // heads
+
+    def image(width):
+        return torch.empty((b, h_img, w_img, width), dtype=x_img.dtype,
+                           device=x_img.device)
+    out = image(c_out)
+    ops = tuple(t.data_ptr() for t in (x_img, w_qkv, b_qkv, w_proj, b_proj,
+                                       bias))
+    masks = ((None, 1) if mask is None
+             else (mask.data_ptr(), mask.shape[0]))
+    dims = (b, h_img, w_img, c, c_loc, c_out, heads, ws, shift, scale)
+    if x_img.dtype == torch.bfloat16:
+        check_smem(name, lib.sr_mma_msa_block_smem(c, c_loc),
+                   f"{c} and {c_loc} channels")
+        check_smem(name, lib.sr_mma_msa_attention_smem(d, mask is not None),
+                   f"head dim {d}")
+        # qkv and the head concat between the three launches, held until
+        # the launches are queued
+        scratch = (image(3 * c_loc), image(c_loc))
+        err = lib.sr_mma_msa_block(*ops, *masks,
+                                   *(t.data_ptr() for t in scratch),
+                                   out.data_ptr(), *dims, stream_of(x_img))
+    else:
+        check_smem(name, lib.sr_msa_block_smem(ws, d),
+                   f"window {ws}, head dim {d}")
+        scratch = image(c_loc)
+        err = lib.sr_msa_block(code, *ops, *masks, scratch.data_ptr(),
+                               out.data_ptr(), *dims, stream_of(x_img))
     raise_on_error(name, err)
     return out
 
 
-def fused_msa_block(x_img, w_qkv, b_qkv, w_proj, b_proj, bias, mask, *,
-                    heads: int, window_size: int,
+def fused_msa_block(x_img, w_qkv, b_qkv, w_proj, b_proj, bias, mask=None,
+                    *, heads: int, window_size: int,
                     scale: float | None = None):
     """(S)W-MSA block with its qkv and output projections.
 
     x_img: (B, H, W, C) normed image, H and W multiples of window_size.
     w_qkv (C, 3 c_loc); b_qkv (3 c_loc,); w_proj (c_loc, c_out);
     b_proj (c_out,); bias (heads, N, N) float32 RPB, N = ws^2;
-    mask (nW, N, N) float32 shift mask or (1, N, N) zeros.
-    Returns (B, H, W, c_out). Replaces
+    mask (nW, N, N) float32 shift mask, (1, N, N) for every window, or None
+    for none (the result of zeros, without their reads). Returns (B, H, W,
+    c_out). bf16: three launches on the tensor cores, with qkv and the head
+    concat in scratch images; float32: a block per window on the CUDA
+    cores. Head dims up to 32. Replaces
     super_resolution_tpu/ops/pallas_attention.py::fused_msa_block.
     """
     if scale is None:
@@ -235,10 +279,13 @@ def fused_msa_block_shifted(x_img, w_qkv, b_qkv, w_proj, b_proj, bias,
                             shift: int, scale: float | None = None):
     """:func:`fused_msa_block` on ``torch.roll(x_img, (-shift, -shift),
     (1, 2))``, with the roll folded into the kernel's window loader. The
-    output stays in rolled space; ``mask`` is the rolled-space shift mask.
-    Replaces
+    output stays in rolled space; ``mask`` is the rolled-space shift mask,
+    which a shifted block needs. Replaces
     super_resolution_tpu/ops/pallas_attention.py::fused_msa_block_shifted.
     """
+    if mask is None:
+        raise ValueError("fused_msa_block_shifted: a shifted block needs its "
+                         "shift mask")
     if scale is None:
         scale = (w_qkv.shape[1] // 3 // heads) ** -0.5
     if not use_kernel(x_img):

@@ -49,6 +49,8 @@ _SIGNATURES = {
     "sr_ocab_block_smem": [_I] * 3,
     "sr_mma_ocab_block": [_P] * 14 + [_I] * 8 + [_F] * 3 + [_P],
     "sr_mma_ocab_block_smem": [_I] * 2,
+    "sr_mma_msa_block": [_P] * 7 + [_I] + [_P] * 3 + [_I] * 9 + [_F] + [_P],
+    "sr_mma_msa_block_smem": [_I] * 2,
     "sr_fused_attention": [_I] + [_P] * 5 + [_I] * 5 + [_F] + [_P],
     "sr_fused_attention_v3": [_I] + [_P] * 5 + [_I] * 5 + [_F] + [_P],
     "sr_window_attention_smem": [_I] * 2,
@@ -64,7 +66,7 @@ _SIGNATURES = {
     "sr_msa_attention": [_I] + [_P] * 3 + [_I] + [_P] + [_I] * 6 + [_F]
     + [_P],
     "sr_msa_attention_smem": [_I] * 2,
-    "sr_mma_msa_attention": [_P] * 3 + [_I] + [_P] + [_I] * 6 + [_F] + [_P],
+    "sr_mma_msa_attention": [_P] * 3 + [_I] + [_P] + [_I] * 7 + [_F] + [_P],
     "sr_mma_msa_attention_smem": [_I] * 2,
     "sr_psa_block": [_I] + [_P] * 8 + [_I] + [_P] + [_I] * 6 + [_F] + [_P],
     "sr_psa_block_smem": [_I] * 3,

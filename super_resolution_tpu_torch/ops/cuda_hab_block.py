@@ -41,10 +41,8 @@ def hab_block_reference(lnx_img, x_img, conv_img, w_qkv, b_qkv, w_proj,
                         eps: float = 1e-5):
     """Plain version of :func:`fused_hab_block`: the W-MSA block, the 3-way
     sum in float32 rounded to the input dtype, then the MLP tail."""
-    n = window_size ** 2
-    mask = torch.zeros((1, n, n), dtype=torch.float32, device=lnx_img.device)
     attn = msa_block_reference(lnx_img, w_qkv, b_qkv, w_proj, b_proj, bias,
-                               mask, heads, window_size, scale)
+                               None, heads, window_size, scale)
     return mlp_block_sum3_reference(x_img, attn, conv_img, gamma, beta, w1,
                                     b1, w2, b2, conv_scale, eps)
 

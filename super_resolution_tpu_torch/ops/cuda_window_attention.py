@@ -196,10 +196,8 @@ def msa_qtile_reference(qkv_img, bias, heads: int, window_size: int,
                         scale: float | None = None):
     """Plain version of :func:`msa_qtile_attention` and
     :func:`msa_flash_attention`: the unshifted window MSA middle, which is
-    ``msa_attention_reference`` with a zero mask."""
-    n = window_size * window_size
-    mask = torch.zeros((1, n, n), dtype=torch.float32, device=qkv_img.device)
-    return msa_attention_reference(qkv_img, bias, mask, heads, window_size,
+    ``msa_attention_reference`` without a mask."""
+    return msa_attention_reference(qkv_img, bias, None, heads, window_size,
                                    scale)
 
 
@@ -398,8 +396,6 @@ def fused_msa_attention(qkv_img, bias, mask=None, *, heads: int,
     if scale is None:
         scale = (c // heads) ** -0.5
     if not use_kernel(qkv_img):
-        if mask is None:
-            mask = torch.zeros((1, n, n), dtype=torch.float32)
         return msa_attention_reference(qkv_img, bias, mask, heads, ws, scale)
     code = check_operands(name, qkv_img, qkv_img=qkv_img)
     check_f32(name, qkv_img, bias=bias)
@@ -432,9 +428,11 @@ def fused_msa_attention(qkv_img, bias, mask=None, *, heads: int,
     args = (qkv_img.data_ptr(), bias.data_ptr(),
             None if mask is None else mask.data_ptr(),
             0 if mask is None else mask.shape[0], out.data_ptr(), b, h_img,
-            w_img, c, heads, ws, scale, stream_of(qkv_img))
-    err = (lib.sr_mma_msa_attention(*args) if bf16
-           else lib.sr_msa_attention(code, *args))
+            w_img, c, heads, ws)
+    # the tensor-core entry takes a shift (fused_msa_block_shifted's); none
+    err = (lib.sr_mma_msa_attention(*args, 0, scale, stream_of(qkv_img))
+           if bf16 else lib.sr_msa_attention(code, *args, scale,
+                                             stream_of(qkv_img)))
     raise_on_error(name, err)
     fused_msa_attention.launches += 1
     return out

@@ -59,6 +59,7 @@ PORT_KERNELS = ("msa_block_kernel", "ocab_block_kernel",
                 "mma_qtile_attention_kernel",
                 "mma_msa_attention_kernel", "msa_attention_kernel",
                 "mma_ln_proj_kernel", "mma_proj_residual_kernel",
+                "mma_proj_bias_kernel",
                 "mma_psa_block_kernel",
                 "psa_block_kernel",
                 "scc_block_kernel", "scc_reduce_kernel", "hab_block_kernel",

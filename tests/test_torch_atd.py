@@ -204,6 +204,10 @@ def test_conv_ffn_and_token_norm_match_jax(rng):
 
 
 _D12, _D35, _WS4 = (24, 8, (2, 16, 24)), (70, 8, (1, 24, 16)), (24, 4, (1, 12, 12))
+# one window of 8: the shift mask is (1, N, N). The JAX Pallas kernel takes
+# that shape for "no mask" (pallas_attention.py:436, :442) and drops it; the
+# JAX reference adds it, as the port does, so the case runs on the XLA route
+_ONE = (24, 8, (2, 8, 8))
 
 
 @pytest.mark.parametrize("is_last,shift,cfg,attn", [
@@ -211,15 +215,16 @@ _D12, _D35, _WS4 = (24, 8, (2, 16, 24)), (70, 8, (1, 24, 16)), (24, 4, (1, 12, 1
       for shift in (0, 1) for attn in ("xla", "pallas")],
     *[(False, shift, _D35, attn) for shift in (0, 1)
       for attn in ("xla", "pallas")],
-    (False, 0, _WS4, "xla"), (False, 1, _WS4, "xla"), (True, 1, _WS4, "xla")],
+    (False, 0, _WS4, "xla"), (False, 1, _WS4, "xla"), (True, 1, _WS4, "xla"),
+    (False, 1, _ONE, "xla")],
     ids=lambda v: {_D12: "d12", _D35: "d35-padded-tail", _WS4: "window4",
-                   True: "last", False: "inner", 0: "unshifted",
-                   1: "shifted"}.get(v, v))
+                   _ONE: "one-window", True: "last", False: "inner",
+                   0: "unshifted", 1: "shifted"}.get(v, v))
 def test_layer_matches_jax(is_last, shift, cfg, attn, rng, monkeypatch):
     """``ATDTransformerLayer`` returns x and the refined dictionary: on the
     card's route (window 8; at dim 70 with groups of 256 against 384 pixels,
-    the padded tail) and on a CPU tensor's windowed plain path (window
-    4)."""
+    the padded tail; an image of one window, shifted, whose (1, N, N) mask
+    still acts) and on a CPU tensor's windowed plain path (window 4)."""
     monkeypatch.setenv("SR_TPU_ATTN", attn)
     dim, ws, shape = cfg
     kw = dict(LAYER, dim=dim, window_size=ws, shift_size=shift * ws // 2,

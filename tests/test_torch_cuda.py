@@ -751,8 +751,10 @@ def test_ocab_and_psa_fma_entries_refuse_bf16(cuda):
 # heads of 35, which the tensor-core kernel copies element by element (C
 # odd); window 20, whose 400 tokens end in a ragged block of 16 query rows
 # and a ragged chunk of 16 keys, in heads of 35 (odd heads a value past a
-# 4-byte boundary)
-MSA_EDGE_SHAPES = [(1, 16, 16, 105, 3, 8), (1, 40, 40, 70, 2, 20)]
+# 4-byte boundary); an image of one window, whose (1, N, N) shift mask is
+# read as the plain version (and the JAX reference) add it
+MSA_EDGE_SHAPES = [(1, 16, 16, 105, 3, 8), (1, 40, 40, 70, 2, 20),
+                   (2, 16, 16, 70, 2, 16)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -825,11 +827,13 @@ def test_mma_msa_and_ocab_block_smem_agree_with_the_sources(cuda):
     for c, cq in ((180, 180), (180, 90), (60, 30), (18, 18), (240, 240)):
         assert (ca.mma_ocab_block_smem(c, cq)
                 == lib.sr_mma_ocab_block_smem(c, cq))
+        assert (ca.mma_msa_block_smem(c, cq)
+                == lib.sr_mma_msa_block_smem(c, cq))
 
 
 def test_msa_and_ocab_block_fma_refuse_bf16(cuda):
-    """bf16 reaches fused_msa_attention's and fused_ocab_block's FMA kernels
-    by no route: their entries refuse it."""
+    """bf16 reaches fused_msa_attention's, fused_ocab_block's and
+    fused_msa_block's FMA kernels by no route: their entries refuse it."""
     from super_resolution_tpu_torch.ops.cuda_build import (load_library,
                                                            stream_of)
 
@@ -849,3 +853,67 @@ def test_msa_and_ocab_block_fma_refuse_bf16(cuda):
         v.data_ptr(), w2.data_ptr(), v2.data_ptr(), w.data_ptr(),
         v.data_ptr(), obias.data_ptr(), out.data_ptr(), qkv.data_ptr(), 1,
         16, 16, 32, 32, 2, 8, 12, 0.25, 1e-5, 1.0, stream_of(out)) != 0
+    # fused_msa_block's FMA entry; its tensor-core entry refuses a shifted
+    # call without its mask
+    wq, bq = torch.zeros((32, 96), **z), torch.zeros((96,), **z)
+    msa = (out.data_ptr(), wq.data_ptr(), bq.data_ptr(), w.data_ptr(),
+           v.data_ptr(), bias.data_ptr(), None, 1)
+    dims = (1, 16, 16, 32, 32, 32, 2, 8)
+    assert lib.sr_msa_block(1, *msa, qkv.data_ptr(), out.data_ptr(), *dims,
+                            0, 0.25, stream_of(out)) != 0
+    assert lib.sr_mma_msa_block(*msa, qkv.data_ptr(), out.data_ptr(),
+                                out.data_ptr(), *dims, 4, 0.25,
+                                stream_of(out)) != 0
+
+
+# (B, H, W, C, c_loc, heads, ws) of fused_msa_block(_shifted): the small
+# width of test_kernel_matches_plain_version; a head group's slice (c_loc =
+# C / 2); window 7 (N 49, no multiple of 4) in heads of 15, an odd head a
+# value past a 4-byte boundary; C 18 in heads of 9, whose rows the
+# projections copy element by element; SwinIR-light's width (C 60 in 6
+# heads of 10, padded to 16); SwinIR-L's (C 240 in 8 heads of 30: K above
+# the projections' 192-row slab, two slabs a panel) and its head group's
+# slice; the flagship chunk (four 160 x 160 tiles, C 180, 6 heads, window
+# 16), SwinIR's (window 8) and SwinIR-L's, full width
+MSA_BLOCK_SHAPES = [
+    (2, 24, 32, 60, 60, 2, 8), (2, 24, 32, 60, 30, 1, 8),
+    (2, 21, 28, 30, 30, 2, 7), (2, 16, 24, 18, 18, 2, 8),
+    (2, 16, 24, 60, 60, 6, 8), (2, 16, 16, 240, 240, 8, 8),
+    (2, 16, 16, 240, 120, 4, 8),
+    pytest.param((4, 160, 160, 180, 180, 6, 16), marks=pytest.mark.slow),
+    pytest.param((4, 160, 160, 180, 180, 6, 8), marks=pytest.mark.slow),
+    pytest.param((4, 160, 160, 240, 240, 8, 8), marks=pytest.mark.slow)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", ["none", "zeros", "shifted"])
+@pytest.mark.parametrize("shape", MSA_BLOCK_SHAPES)
+def test_msa_block_matches_plain_version(cuda, shape, masked, dtype):
+    """No mask, an explicit (1, N, N) zero mask and the shifted block with
+    its mask; in bf16 the call runs the tensor-core route, whose attention
+    launches do not count as fused_msa_attention's."""
+    b, h, w, c, c_loc, heads, ws = shape
+    n, ss = ws * ws, ws // 2
+    rng = np.random.default_rng(h + ws + c_loc)
+    x = _rand(rng, dtype, b, h, w, c)
+    msa = (_rand(rng, dtype, c, 3 * c_loc, s=c ** -0.5),
+           _rand(rng, dtype, 3 * c_loc, s=0.1),
+           _rand(rng, dtype, c_loc, c, s=c_loc ** -0.5),
+           _rand(rng, dtype, c, s=0.1), _bias(rng, heads, n, n))
+    kw = dict(heads=heads, window_size=ws)
+    if masked == "shifted":
+        fn, kw["shift"] = ca.fused_msa_block_shifted, ss
+        mask = torch.from_numpy(shift_attn_mask(h, w, ws, ss)).cuda()
+        plain = ca.msa_block_shifted_reference(x, *msa, mask, heads, ws, ss)
+    else:
+        fn = ca.fused_msa_block
+        mask = None if masked == "none" else torch.zeros((1, n, n),
+                                                         device="cuda")
+        plain = ca.msa_block_reference(x, *msa, mask, heads, ws)
+    before = (fn.launches, cw.fused_msa_attention.launches)
+    got = fn(x, *msa, mask, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches, cw.fused_msa_attention.launches) == (before[0] + 1,
+                                                              before[1])
+    _assert_close(got, plain, dtype)
+

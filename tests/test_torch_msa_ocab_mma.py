@@ -335,7 +335,7 @@ def test_msa_smem_formula_is_the_sources(d):
     launch = re.search(r"cudaError_t launch_mma\(.*?\n\}", MSA_TC,
                        re.S).group(0)
     assert "const int smem = mma_smem_bytes(DP, MASKED);" in launch
-    assert "mma_msa_attention_kernel<DP, MASKED>" in launch
+    assert "mma_msa_attention_kernel<DP, MASKED, SHIFTED>" in launch
 
 
 @pytest.mark.parametrize("c,cq", [(180, 180), (180, 90), (60, 30), (48, 48),
