@@ -28,7 +28,11 @@ Phases, each of which raises on failure:
      are checked; the library time of ``hab_front``, ``fused_ocab_block``
      and ``fused_msa_block(_shifted)`` is a composition of calls; rows 1
      and 2 are also timed at SwinIR's window 8, with an explicit zero mask
-     and at a head group's slice;
+     and at a head group's slice; ``mlp_block(_sum3(_shifted))`` run bf16
+     on their tensor-core kernel and float32 on their FMA kernel, their
+     library time is a composition of calls, and they are also timed at
+     SwinIR's widths (C / hidden 60 / 120, 240 / 480, 180 / 720) and
+     checked at a tensor-parallel worker's hidden slice;
   4. main paths: Predictor -> runner in tile mode -> network at the
      published width (bf16, seeded random weights) answers requests:
      classic HAT x4 (HATClassic), the fork's HAT x2 with the ESC-infused
@@ -299,12 +303,17 @@ SOFTMAX_OPS = 7
 # call computes their function
 _MSA_COMPOSITION = (" (composition: two linears, windows cut, attention, "
                     "windows put back)")
+_TAIL_COMPOSITION = " (composition: LayerNorm, linear, GELU, linear, add)"
 COMPOSITIONS = {
     "fused_msa_block": _MSA_COMPOSITION,
     "fused_msa_block_shifted": _MSA_COMPOSITION.replace(": ", ": roll, "),
     "hab_front": " (composition: LayerNorm, two convs and GELU)",
     "fused_ocab_block": " (composition: LayerNorm, two linears, windows cut, "
                         "attention, linear, add)",
+    "mlp_block": _TAIL_COMPOSITION,
+    "mlp_block_sum3": _TAIL_COMPOSITION.replace(": ", ": two adds, "),
+    "mlp_block_sum3_shifted": _TAIL_COMPOSITION.replace(": ",
+                                                        ": roll, two adds, "),
 }
 # a second entry point of gated_dconv_ffn.cu, off the main paths: checked
 # against its plain version, not listed among the kernels
@@ -465,11 +474,13 @@ def kernel_cases(b: int, hw: int, dtype, seed: int):
             lambda: msa_block_library(x, *msa, mask, HEADS, WS, SS)),
         "mlp_block_sum3": ((x, a, cv, *tail), dict(conv_scale=0.01),
                            lambda: cf.mlp_block_sum3_reference(
-                               x, a, cv, *tail, 0.01), None),
+                               x, a, cv, *tail, 0.01),
+                           lambda: mlp_tail_library(x, a, cv, tail, 0.01)),
         "mlp_block_sum3_shifted": (
             (x, a, cv, *tail), dict(conv_scale=0.01, shift=SS),
             lambda: cf.mlp_block_sum3_shifted_reference(x, a, cv, *tail,
-                                                        0.01, SS), None),
+                                                        0.01, SS),
+            lambda: mlp_tail_library(x, a, cv, tail, 0.01, SS)),
         "fused_hab_block": ((a, x, cv, *msa, *tail),
                             dict(msa_kw, conv_scale=0.01),
                             lambda: chb.hab_block_reference(
@@ -479,7 +490,8 @@ def kernel_cases(b: int, hw: int, dtype, seed: int):
                              lambda: ca.ocab_block_reference(
                                  x, *ocab, HEADS, WS, OW), ocab_library),
         "mlp_block": ((x, *tail), {},
-                      lambda: cf.mlp_block_reference(x, *tail), None),
+                      lambda: cf.mlp_block_reference(x, *tail),
+                      lambda: mlp_tail_library(x, None, None, tail)),
         "gated_dconv_ffn_block": (
             (x, lns, lnb, *ffn), {},
             lambda: cf.ffn_block_reference(x, lns, lnb, *ffn), None),
@@ -551,6 +563,29 @@ def front_library(x, gamma, beta, w1, b1, w2, b2):
     return run
 
 
+def mlp_tail_library(x, a, cv, tail, cs: float = 0.0, shift: int = 0,
+                     rs: float = 1.0):
+    """The library's composition of ``mlp_block`` (a None) and its sum3
+    forms (no one PyTorch call computes them): ``torch.roll`` where
+    shifted, the 3-way sum, ``F.layer_norm``, the fc1 ``F.linear``,
+    ``F.gelu``, the fc2 ``F.linear`` and the residual add."""
+    import torch
+    import torch.nn.functional as F
+
+    gamma, beta, w1, b1, w2, b2 = tail
+    w1_t, w2_t = w1.t().contiguous(), w2.t().contiguous()
+
+    def run():
+        s = x
+        if a is not None:
+            ar = torch.roll(a, (shift, shift), (1, 2)) if shift else a
+            s = x + ar + cv * cs
+        y = F.layer_norm(s, (s.shape[-1],), gamma, beta, 1e-5)
+        out = F.linear(F.gelu(F.linear(y, w1_t, b1)), w2_t, b2)
+        return out + (s if rs == 1.0 else s * rs)
+    return run
+
+
 def front_sums_rel_err(got, ref) -> float:
     """Largest error of ``hab_front``'s two sums (gap_cab, gap16) over the
     sum of the magnitudes each adds up."""
@@ -586,9 +621,7 @@ def kernel_bound(name: str, b: int, hw: int, esize: int, shifted_mask: int):
         mm = 2 * tok * C * 4 * C + 4 * nwin * HEADS * n * nk * d
         byts = 2 * act + (4 * C * C + 6 * C) * esize + HEADS * n * nk * 4
     elif name.startswith("mlp_block"):
-        mm = 4 * tok * C * HID
-        inputs = 3 if "sum3" in name else 1
-        byts = (inputs + 1) * act + (2 * C * HID + HID + 3 * C) * esize
+        return mlp_tail_bound(name, tok, C, HID, esize)
     elif name == "gated_dconv_ffn_block":
         mm = 2 * tok * C * 2 * HID + 2 * tok * HID * C
         vec = 2 * 9 * tok * 2 * HID
@@ -611,6 +644,19 @@ def kernel_bound(name: str, b: int, hw: int, esize: int, shifted_mask: int):
         raise KeyError(name)
     t_ops = max(mm / PEAK["bf16"], vec / PEAK["f32"])
     t_bytes = byts / PEAK["hbm"]
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def mlp_tail_bound(name: str, tok: int, c: int, hid: int, esize: int):
+    """(bound_ms, bound_by) of one ``mlp_block(_sum3(_shifted))`` call on
+    tok pixels of width c at hidden width hid: its inputs (one image, three
+    for the sum3 forms) read and out written once with the weights, over
+    the HBM rate, against the two products at the tensor cores' bf16
+    rate."""
+    inputs = 3 if "sum3" in name else 1
+    byts = ((inputs + 1) * tok * c + 2 * c * hid + hid + 3 * c) * esize
+    t_ops, t_bytes = 4 * tok * c * hid / PEAK["bf16"], byts / PEAK["hbm"]
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops > t_bytes else "bytes")
 
@@ -714,6 +760,67 @@ def check_msa_block_kernels() -> None:
                                      f"{ws}) disagrees with its plain "
                                      f"version: {err}")
         del x, full, half, masks
+        torch.cuda.empty_cache()
+
+
+def check_mlp_tail_kernels() -> None:
+    """Phase 3 for rows 3, 4 and 6 beyond ``check_kernels`` (which checks
+    and times them at the flagship width, C 180, hidden 360), in bf16 on a
+    chunk of four 160 x 160 tiles, each within TOL_BF16 of its plain
+    version: at the widths of swinir_light (C 60, hidden 120),
+    swinir_real_l (C 240, hidden 480) and the zoo's SwinIR with MLP ratio
+    4 (C 180, hidden 720), all three timed beside plain, bound and the
+    library's composition; and at a tensor-parallel worker's hidden slice
+    (C 180, hidden 90, a quarter of the residual), untimed."""
+    import torch
+
+    from super_resolution_tpu_torch.ops import cuda_ffn as cf
+
+    b, hw, dtype = 4, 160, torch.bfloat16
+    for c, hid, rs, timed in ((60, 120, 1.0, True), (240, 480, 1.0, True),
+                              (180, 720, 1.0, True), (180, 90, 0.25, False)):
+        t = _device_randn(dtype, c + hid)
+        x, a, cv = t(b, hw, hw, c), t(b, hw, hw, c), t(b, hw, hw, c)
+        tail = (1.0 + t(c, s=0.1), t(c, s=0.1), t(c, hid, s=c ** -0.5),
+                t(hid, s=0.1), t(hid, c, s=hid ** -0.5), t(c, s=0.1))
+        kw = dict(residual_scale=rs)
+        cases = (
+            (cf.mlp_block, (x, *tail), kw,
+             lambda: cf.mlp_block_reference(x, *tail, residual_scale=rs),
+             (None, None, 0.0, 0)),
+            (cf.mlp_block_sum3, (x, a, cv, *tail), dict(kw, conv_scale=0.01),
+             lambda: cf.mlp_block_sum3_reference(x, a, cv, *tail, 0.01,
+                                                 residual_scale=rs),
+             (a, cv, 0.01, 0)),
+            (cf.mlp_block_sum3_shifted, (x, a, cv, *tail),
+             dict(kw, conv_scale=0.01, shift=4),
+             lambda: cf.mlp_block_sum3_shifted_reference(
+                 x, a, cv, *tail, 0.01, 4, residual_scale=rs),
+             (a, cv, 0.01, 4)))
+        for fn, args, fkw, plain, lib_args in cases:
+            got = fn(*args, **fkw)
+            torch.cuda.synchronize()
+            err, ok = max_err_and_tol(got, plain(), TOL_BF16)
+            del got
+            line = (f"  {fn.__name__:24s} C {c} hidden {hid} rs {rs} "
+                    f"{tuple(x.shape)} bf16 max|kernel-plain| {err:.3e} "
+                    f"(rel tol {TOL_BF16:.1e})")
+            if timed:
+                ms = time_ms(lambda: fn(*args, **fkw))
+                plain_ms = time_ms(plain, reps=5, warmup=1)
+                lib_ms = time_ms(mlp_tail_library(x, *lib_args[:2], tail,
+                                                  *lib_args[2:], rs=rs))
+                bound_ms, by = mlp_tail_bound(fn.__name__, b * hw * hw, c,
+                                              hid, 2)
+                line += (f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
+                         f"bound {bound_ms:.4f} ms ({by})  library "
+                         f"{lib_ms:.3f} ms" + COMPOSITIONS[fn.__name__])
+            log(line)
+            if not ok:
+                raise AssertionError(f"{fn.__name__} (C {c}, hidden {hid}) "
+                                     f"disagrees with its plain version: "
+                                     f"{err}")
+        del x, a, cv, tail, cases
         torch.cuda.empty_cache()
 
 
@@ -1391,6 +1498,7 @@ def build_report(lib, ptxas: str) -> None:
     (``mma_*``) holds none."""
     from super_resolution_tpu_torch.ops import cuda_attention as ca
     from super_resolution_tpu_torch.ops import cuda_build
+    from super_resolution_tpu_torch.ops import cuda_ffn as cf
     from super_resolution_tpu_torch.ops import cuda_psa as cp
     from super_resolution_tpu_torch.ops import cuda_window_attention as cw
 
@@ -1434,7 +1542,9 @@ def build_report(lib, ptxas: str) -> None:
         f"projections {ca.mma_msa_block_smem(C, C)}, its attention "
         f"{cw.mma_msa_attention_smem(C // HEADS, False)} / "
         f"{cw.mma_msa_attention_smem(C // HEADS, True)} at head dim "
-        f"{C // HEADS}")
+        f"{C // HEADS}; the MLP tail's {cf.mma_mlp_tail_smem(60)} / "
+        f"{cf.mma_mlp_tail_smem(C)} / {cf.mma_mlp_tail_smem(240)} at C 60 / "
+        f"{C} / 240, any hidden width")
     bare = [names[fn] for fn, n in hmma.items() if "mma_" in names[fn]
             and n == 0]
     if bare or (hmma and not any("mma_" in names[fn] for fn in hmma)):
@@ -1480,6 +1590,7 @@ def main() -> int:
     timing.update(check_image_attention_kernels())
     timing.update(check_scc_kernel())
     check_msa_block_kernels()
+    check_mlp_tail_kernels()
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
 
     by_path, first_outputs = {}, {}

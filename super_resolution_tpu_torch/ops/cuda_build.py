@@ -36,6 +36,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of the C entry points (csrc/*.cu); each returns a cudaError_t
 _SIGNATURES = {
     "sr_mlp_tail": [_I] + [_P] * 10 + [_I] * 7 + [_F] * 3 + [_P],
+    "sr_mma_mlp_tail": [_P] * 10 + [_I] * 7 + [_F] * 3 + [_P],
+    "sr_mma_mlp_tail_smem": [_I],
     "sr_msa_block": [_I] + [_P] * 7 + [_I] + [_P] * 2 + [_I] * 9 + [_F]
     + [_P],
     "sr_ocab_block": [_I] + [_P] * 12 + [_I] * 8 + [_F] * 3 + [_P],

@@ -5,16 +5,19 @@ Ports super_resolution_tpu/ops/pallas_ffn.py: ``mlp_block``,
 ``mlp_block_sum3``, ``mlp_block_sum3_shifted``, ``gated_dconv_ffn`` and
 ``gated_dconv_ffn_block`` keep the JAX names and signatures, minus the
 Mosaic tiling knobs (``tile_rows``, ``interpret``). The first three launch
-the one kernel of ``csrc/mlp_tail.cu``, the gated pair the one of
-``csrc/gated_dconv_ffn.cu``. Weights are in the JAX layout: w1 (C, HID),
+the kernels of ``csrc/mlp_tail.cu``: bf16 the tensor-core kernel
+(``sr_mma_mlp_tail``, both products on ``mma.sync``), float32 the FMA
+kernel (``sr_mlp_tail``, whose entry refuses bf16); the gated pair the one
+of ``csrc/gated_dconv_ffn.cu``. Weights are in the JAX layout: w1 (C, HID),
 w2 (HID, C), wd (3, 3, 2M).
 
-Numerics of the kernel against the plain versions (the ports of the JAX
-``*_reference`` functions): the kernel keeps fc1's output and the 3-way sum
-in float32 and rounds only where the TPU kernel rounds (LN output before
-fc1, gelu output before fc2); the plain versions round the 3-way sum to the
-input dtype (pallas_ffn.py:640-641) and run fc1 in the input dtype. Both
-use exact erf GELU; the TPU kernel uses the A&S approximation of erf. In
+Numerics of the kernels against the plain versions (the ports of the JAX
+``*_reference`` functions): the kernels keep the 3-way sum in float32 and
+round only where the TPU kernel rounds (LN output before fc1, gelu output
+before fc2, the output once); the plain versions round the 3-way sum to the
+input dtype (pallas_ffn.py:640-641) and run fc1 in the input dtype. The
+plain versions and the float32 kernel use exact erf GELU; the bf16 kernel,
+like the TPU kernel, the A&S approximation of erf (error < 1.5e-7). In
 float32 all of these agree to rounding. The gated kernel keeps the
 depthwise conv's output in float32 up to the gate, as the TPU kernel does;
 its plain version rounds it to the input dtype, as the JAX reference does.
@@ -31,6 +34,28 @@ from super_resolution_tpu_torch.ops.cuda_build import (check_operands,
                                                        load_library,
                                                        raise_on_error,
                                                        stream_of, use_kernel)
+
+
+# the tensor-core tail (csrc/mlp_tail.cu, namespace tc): rows of a block,
+# hidden columns of a step, weight stages, the pad (bf16) after each row of
+# a tile, the staged output tile's row stride (csrc/mma_proj.cuh), and the
+# widest C its accumulators hold beside the ones column that adds b1
+TAIL_ROWS, TAIL_HID_PANEL, TAIL_STAGES, TAIL_PAD = 128, 32, 3, 8
+TAIL_OUT_STRIDE, TAIL_MAX_C = 64 + TAIL_PAD, 255
+
+
+def mma_mlp_tail_smem(c: int) -> int:
+    """Bytes a block of the bf16 tail (``tc::smem_bytes``) takes at width c,
+    whatever the hidden width: the block's rows of LN(x) and the ones
+    column (c + 1 rounded up to 64, padded) and ``TAIL_STAGES`` stages of a
+    step's W1 columns and W2 rows, at least the warps' staged output
+    tiles."""
+    width = (c + 64) // 64 * 64
+    stride = width + TAIL_PAD
+    stage = (2 * width * (TAIL_HID_PANEL + TAIL_PAD)
+             + 2 * TAIL_HID_PANEL * stride)
+    return 2 * TAIL_ROWS * stride + max(
+        TAIL_STAGES * stage, (TAIL_ROWS // 16) * 16 * TAIL_OUT_STRIDE * 2)
 
 
 def layer_norm_f32(x, gamma, beta, eps: float = 1e-5):
@@ -175,13 +200,21 @@ def _launch_tail(name, s, a, cv, gamma, beta, w1, b1, w2, b2, *, sum3: bool,
                           ("w1", w1, (c, hid)), ("b1", b1, (hid,)),
                           ("w2", w2, (hid, c)), ("b2", b2, (c,))):
         check_shape(name, arg, t, shape)
+    lib = load_library()
+    # bf16 runs on the tensor cores, float32 on the FMA kernel
+    mma = s.dtype == torch.bfloat16
+    if mma:
+        if c > TAIL_MAX_C:
+            raise ValueError(f"{name}: the bf16 kernel holds C up to "
+                             f"{TAIL_MAX_C} in its accumulators, got {c}")
+        check_smem(name, lib.sr_mma_mlp_tail_smem(c), f"C {c}")
     out = torch.empty_like(s)
-    err = load_library().sr_mlp_tail(
-        code, s.data_ptr(), a.data_ptr() if sum3 else None,
-        cv.data_ptr() if sum3 else None, gamma.data_ptr(), beta.data_ptr(),
-        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), b, h, w, c, hid, int(sum3), shift, conv_scale, eps,
-        residual_scale, stream_of(s))
+    ops = (s.data_ptr(), a.data_ptr() if sum3 else None,
+           cv.data_ptr() if sum3 else None, gamma.data_ptr(),
+           beta.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+           b2.data_ptr(), out.data_ptr(), b, h, w, c, hid, int(sum3), shift,
+           conv_scale, eps, residual_scale, stream_of(s))
+    err = lib.sr_mma_mlp_tail(*ops) if mma else lib.sr_mlp_tail(code, *ops)
     raise_on_error(name, err)
     return out
 

@@ -50,7 +50,7 @@ PROFILED_FORWARDS = 3
 # a tensor-core kernel's name holds its FMA partner's: it is matched first
 PORT_KERNELS = ("msa_block_kernel", "ocab_block_kernel",
                 "mma_ocab_attention_kernel", "ocab_attention_kernel",
-                "mlp_tail_kernel",
+                "mma_mlp_tail_kernel", "mlp_tail_kernel",
                 "gated_dconv_ffn_kernel", "ln_split_kernel",
                 "fused_attention_kernel", "fused_attention_v3_kernel",
                 "mma_window_attention_kernel",

@@ -917,3 +917,85 @@ def test_msa_block_matches_plain_version(cuda, shape, masked, dtype):
                                                               before[1])
     _assert_close(got, plain, dtype)
 
+
+
+# (B, H, W, C, hidden, hidden slice, residual_scale) of the MLP tails: the
+# width of SwinIR-light (60 / 120), a ragged pixel count (2 x 13 x 19, no
+# multiple of the 128 rows of a bf16 block) at SwinIR-L's width (240 /
+# 480: 30 n8 tiles of accumulators), the zoo's SwinIR (180 / 720), a
+# tensor-parallel worker's hidden slice of 90 (no multiple of 4: W1's rows
+# copied element by element) with its residual share, C 36 (no multiple of
+# 16), C 18 (W2's rows copied element by element) and C 27 (odd: channels
+# read one at a time); the full-width chunks of four 160 x 160 tiles
+MLP_TAIL_SHAPES = [
+    (2, 8, 16, 60, 120, None, 1.0), (2, 13, 19, 240, 480, None, 1.0),
+    (1, 16, 24, 180, 720, None, 1.0), (2, 13, 19, 180, 360, 90, 0.25),
+    (2, 8, 12, 36, 72, None, 0.5), (2, 8, 12, 18, 36, None, 1.0),
+    (2, 9, 11, 27, 54, None, 1.0),
+    pytest.param((4, 160, 160, 180, 360, None, 1.0), marks=pytest.mark.slow),
+    pytest.param((4, 160, 160, 60, 120, None, 1.0), marks=pytest.mark.slow),
+    pytest.param((4, 160, 160, 240, 480, None, 1.0), marks=pytest.mark.slow),
+    pytest.param((4, 160, 160, 180, 720, None, 1.0), marks=pytest.mark.slow)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["mlp_block", "mlp_block_sum3",
+                                  "mlp_block_sum3_shifted"])
+@pytest.mark.parametrize("shape", MLP_TAIL_SHAPES)
+def test_mlp_tail_matches_plain_version(cuda, shape, form, dtype):
+    """bf16 runs the tensor-core kernel, float32 the FMA kernel; each
+    launch counts once."""
+    b, h, w, c, hid, cut, rs = shape
+    rng = np.random.default_rng(h + c + hid)
+    x, a, cv = (_rand(rng, dtype, b, h, w, c) for _ in range(3))
+    w1, b1 = _rand(rng, dtype, c, hid, s=c ** -0.5), _rand(rng, dtype, hid,
+                                                           s=0.1)
+    w2 = _rand(rng, dtype, hid, c, s=hid ** -0.5)
+    if cut:
+        w1, b1, w2 = (w1[:, :cut].contiguous(), b1[:cut].contiguous(),
+                      w2[:cut].contiguous())
+    tail = (1.0 + _rand(rng, dtype, c, s=0.1), _rand(rng, dtype, c, s=0.1),
+            w1, b1, w2, _rand(rng, dtype, c, s=0.1))
+    fn = getattr(cf, form)
+    kw = dict(residual_scale=rs)
+    if form == "mlp_block":
+        args = (x, *tail)
+        plain = cf.mlp_block_reference(*args, residual_scale=rs)
+    elif form == "mlp_block_sum3":
+        args, kw["conv_scale"] = (x, a, cv, *tail), 0.01
+        plain = cf.mlp_block_sum3_reference(*args, 0.01, residual_scale=rs)
+    else:
+        args, kw["conv_scale"], kw["shift"] = (x, a, cv, *tail), 0.01, 3
+        plain = cf.mlp_block_sum3_shifted_reference(*args, 0.01, 3,
+                                                    residual_scale=rs)
+    before = fn.launches
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    _assert_close(got, plain, dtype)
+
+
+def test_mlp_tail_fma_refuses_bf16(cuda):
+    """bf16 reaches the MLP tail's FMA kernel by no route: its entry
+    refuses it; the tensor-core entry refuses a C past its accumulators'
+    255 (beside the ones column) and a sum3 call without its operands, and
+    its shared memory is the Python formula's."""
+    from super_resolution_tpu_torch.ops.cuda_build import (load_library,
+                                                           stream_of)
+
+    lib = load_library()
+    z = dict(dtype=torch.bfloat16, device="cuda")
+    for c in (36, 256):
+        x, v = torch.zeros((1, 4, 4, c), **z), torch.zeros((c,), **z)
+        w1, b1 = torch.zeros((c, 8), **z), torch.zeros((8,), **z)
+        w2 = torch.zeros((8, c), **z)
+        ops = (x.data_ptr(), x.data_ptr(), x.data_ptr(), v.data_ptr(),
+               v.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+               v.data_ptr(), x.data_ptr(), 1, 4, 4, c, 8, 1, 0, 0.01, 1e-5,
+               1.0, stream_of(x))
+        assert lib.sr_mlp_tail(1, *ops) != 0
+        assert (lib.sr_mma_mlp_tail(*ops) == 0) == (c == 36)
+        assert lib.sr_mma_mlp_tail(ops[0], None, None, *ops[3:]) != 0
+        torch.cuda.synchronize()
+    for c in range(1, 257):
+        assert cf.mma_mlp_tail_smem(c) == lib.sr_mma_mlp_tail_smem(c)
