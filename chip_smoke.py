@@ -33,6 +33,10 @@ Phases, each of which raises on failure:
      library time is a composition of calls, and they are also timed at
      SwinIR's widths (C / hidden 60 / 120, 240 / 480, 180 / 720) and
      checked at a tensor-parallel worker's hidden slice;
+     ``gated_dconv_ffn(_block)`` and ``fused_hab_block`` run bf16 on their
+     tensor-core kernels and float32 on their FMA kernels, their library
+     time is a composition of calls, and the gated FFN is also timed at
+     HAT-S's width (C / M 144 / 288) and as the bare entry at C_out 36;
   4. main paths: Predictor -> runner in tile mode -> network at the
      published width (bf16, seeded random weights) answers requests:
      classic HAT x4 (HATClassic), the fork's HAT x2 with the ESC-infused
@@ -314,6 +318,12 @@ COMPOSITIONS = {
     "mlp_block_sum3": _TAIL_COMPOSITION.replace(": ", ": two adds, "),
     "mlp_block_sum3_shifted": _TAIL_COMPOSITION.replace(": ",
                                                         ": roll, two adds, "),
+    "gated_dconv_ffn_block": " (composition: LayerNorm, linear, depthwise "
+                             "conv, gate, linear, add)",
+    "gated_dconv_ffn": " (composition: linear, depthwise conv, gate, "
+                       "linear)",
+    "fused_hab_block": " (composition: fused_msa_block's, then "
+                       "mlp_block_sum3's)",
 }
 # a second entry point of gated_dconv_ffn.cu, off the main paths: checked
 # against its plain version, not listed among the kernels
@@ -485,7 +495,8 @@ def kernel_cases(b: int, hw: int, dtype, seed: int):
                             dict(msa_kw, conv_scale=0.01),
                             lambda: chb.hab_block_reference(
                                 a, x, cv, *msa, *tail, HEADS, WS,
-                                conv_scale=0.01), None),
+                                conv_scale=0.01),
+                            lambda: hab_block_library(a, x, cv, msa, tail)),
         "fused_ocab_block": ((x, *ocab), oca_kw,
                              lambda: ca.ocab_block_reference(
                                  x, *ocab, HEADS, WS, OW), ocab_library),
@@ -494,9 +505,11 @@ def kernel_cases(b: int, hw: int, dtype, seed: int):
                       lambda: mlp_tail_library(x, None, None, tail)),
         "gated_dconv_ffn_block": (
             (x, lns, lnb, *ffn), {},
-            lambda: cf.ffn_block_reference(x, lns, lnb, *ffn), None),
+            lambda: cf.ffn_block_reference(x, lns, lnb, *ffn),
+            lambda: gated_ffn_library(x, lns, lnb, ffn)),
         "gated_dconv_ffn": ((x, *ffn), {},
-                            lambda: cf.ffn_reference(x, *ffn), None),
+                            lambda: cf.ffn_reference(x, *ffn),
+                            lambda: gated_ffn_library(x, None, None, ffn)),
         "ln_split": ((x, lns, lnb), dict(pdim=PDIM),
                      lambda: ch.ln_split_reference(x, lns, lnb, 1e-5, PDIM),
                      lambda: (lambda: F.layer_norm(x, (C,), lns, lnb, 1e-5))),
@@ -568,7 +581,8 @@ def mlp_tail_library(x, a, cv, tail, cs: float = 0.0, shift: int = 0,
     """The library's composition of ``mlp_block`` (a None) and its sum3
     forms (no one PyTorch call computes them): ``torch.roll`` where
     shifted, the 3-way sum, ``F.layer_norm``, the fc1 ``F.linear``,
-    ``F.gelu``, the fc2 ``F.linear`` and the residual add."""
+    ``F.gelu``, the fc2 ``F.linear`` and the residual add. ``a`` may be a
+    call that makes the attention input."""
     import torch
     import torch.nn.functional as F
 
@@ -578,11 +592,44 @@ def mlp_tail_library(x, a, cv, tail, cs: float = 0.0, shift: int = 0,
     def run():
         s = x
         if a is not None:
-            ar = torch.roll(a, (shift, shift), (1, 2)) if shift else a
+            ar = a() if callable(a) else a
+            ar = torch.roll(ar, (shift, shift), (1, 2)) if shift else ar
             s = x + ar + cv * cs
         y = F.layer_norm(s, (s.shape[-1],), gamma, beta, 1e-5)
         out = F.linear(F.gelu(F.linear(y, w1_t, b1)), w2_t, b2)
         return out + (s if rs == 1.0 else s * rs)
+    return run
+
+
+def hab_block_library(lnx, x, cv, msa, tail):
+    """The library's composition of ``fused_hab_block`` (no one PyTorch
+    call computes it): :func:`msa_block_library` unmasked and unshifted,
+    then :func:`mlp_tail_library` of its output in the 3-way sum."""
+    attn = msa_block_library(lnx, *msa, None, HEADS, WS, 0)
+    return mlp_tail_library(x, attn, cv, tail, 0.01)
+
+
+def gated_ffn_library(x, gamma, beta, ffn):
+    """The library's composition of ``gated_dconv_ffn_block`` (gamma
+    None: ``gated_dconv_ffn``; no one PyTorch call computes either):
+    ``F.layer_norm``, the fc1 ``F.linear``, the depthwise 3 x 3
+    ``F.conv2d`` (groups 2M) on the channels-last view, the gate
+    d[:M] * silu(d[M:]), the fc2 ``F.linear`` and the residual add."""
+    import torch.nn.functional as F
+
+    w1, b1, wd, bd, w2, b2 = ffn
+    m2 = w1.shape[1]
+    w1_t, w2_t = w1.t().contiguous(), w2.t().contiguous()
+    kd = wd.permute(2, 0, 1)[:, None].contiguous()
+
+    def run():
+        y = x if gamma is None else F.layer_norm(x, (x.shape[-1],), gamma,
+                                                 beta, 1e-5)
+        h = F.linear(y, w1_t, b1).permute(0, 3, 1, 2)
+        d = F.conv2d(h, kd, bd, padding=1, groups=m2).permute(0, 2, 3, 1)
+        out = F.linear(d[..., :m2 // 2] * F.silu(d[..., m2 // 2:]), w2_t,
+                       b2)
+        return out if gamma is None else out + x
     return run
 
 
@@ -623,9 +670,7 @@ def kernel_bound(name: str, b: int, hw: int, esize: int, shifted_mask: int):
     elif name.startswith("mlp_block"):
         return mlp_tail_bound(name, tok, C, HID, esize)
     elif name == "gated_dconv_ffn_block":
-        mm = 2 * tok * C * 2 * HID + 2 * tok * HID * C
-        vec = 2 * 9 * tok * 2 * HID
-        byts = 2 * act + (3 * C * HID + 22 * HID + 3 * C) * esize
+        return gated_ffn_bound(tok, C, HID, C, esize, True)
     elif name == "ln_split":
         vec = 8 * tok * C
         byts = 2 * act + tok * PDIM * esize + 2 * C * esize
@@ -642,6 +687,23 @@ def kernel_bound(name: str, b: int, hw: int, esize: int, shifted_mask: int):
         byts = 4 * act + HEADS * n * nk * 4
     else:
         raise KeyError(name)
+    t_ops = max(mm / PEAK["bf16"], vec / PEAK["f32"])
+    t_bytes = byts / PEAK["hbm"]
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def gated_ffn_bound(tok: int, c: int, m: int, c_out: int, esize: int,
+                    block: bool):
+    """(bound_ms, bound_by) of one gated FFN call on tok pixels, C c, M m,
+    C_out c_out: x read and out written once with the weights (the
+    block's LayerNorm parameters too), over the HBM rate, against fc1 and
+    fc2 at the tensor cores' bf16 rate and the depthwise 3 x 3 at the
+    float32 rate."""
+    mm = 2 * tok * c * 2 * m + 2 * tok * m * c_out
+    vec = 2 * 9 * tok * 2 * m
+    byts = (tok * (c + c_out) + 2 * c * m + m * c_out + 22 * m + c_out
+            + (2 * c if block else 0)) * esize
     t_ops = max(mm / PEAK["bf16"], vec / PEAK["f32"])
     t_bytes = byts / PEAK["hbm"]
     return (max(t_ops, t_bytes) * 1e3,
@@ -821,6 +883,57 @@ def check_mlp_tail_kernels() -> None:
                                      f"disagrees with its plain version: "
                                      f"{err}")
         del x, a, cv, tail, cases
+        torch.cuda.empty_cache()
+
+
+def check_gated_ffn_kernels() -> None:
+    """Phase 3 for row 7 beyond ``check_kernels`` (which checks and times
+    ``gated_dconv_ffn_block`` at the fork's width, C 180, M 360, and checks
+    the bare entry there), in bf16 on a chunk of four 160 x 160 tiles, each
+    within TOL_BF16 of its plain version and timed beside plain, bound and
+    the library's composition: ``gated_dconv_ffn_block`` at HAT-S's width
+    (C 144, M 288) and the bare ``gated_dconv_ffn`` at the fork's width
+    with C_out 36."""
+    import torch
+
+    from super_resolution_tpu_torch.ops import cuda_ffn as cf
+
+    b, hw, dtype = 4, 160, torch.bfloat16
+    for c, m, c_out, block in ((144, 288, 144, True), (C, HID, 36, False)):
+        t = _device_randn(dtype, c + m + c_out)
+        x = t(b, hw, hw, c)
+        ffn = (t(c, 2 * m, s=c ** -0.5), t(2 * m, s=0.5),
+               t(3, 3, 2 * m, s=1 / 3), t(2 * m, s=0.1),
+               t(m, c_out, s=m ** -0.5), t(c_out, s=0.1))
+        if block:
+            norm = (1.0 + t(c, s=0.1), t(c, s=0.1))
+            fn, ref, args = (cf.gated_dconv_ffn_block, cf.ffn_block_reference,
+                             (x, *norm, *ffn))
+            library = gated_ffn_library(x, *norm, ffn)
+        else:
+            fn, ref, args = cf.gated_dconv_ffn, cf.ffn_reference, (x, *ffn)
+            library = gated_ffn_library(x, None, None, ffn)
+
+        def plain(ref=ref, args=args):
+            return ref(*args)
+        got = fn(*args)
+        torch.cuda.synchronize()
+        err, ok = max_err_and_tol(got, plain(), TOL_BF16)
+        del got
+        ms = time_ms(lambda: fn(*args))
+        plain_ms = time_ms(plain, reps=5, warmup=1)
+        lib_ms = time_ms(library)
+        bound_ms, by = gated_ffn_bound(b * hw * hw, c, m, c_out, 2, block)
+        log(f"  {fn.__name__:24s} C {c} M {m} C_out {c_out} "
+            f"{tuple(x.shape)} bf16 max|kernel-plain| {err:.3e} (rel tol "
+            f"{TOL_BF16:.1e})  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
+            f"bound {bound_ms:.4f} ms ({by})  library {lib_ms:.3f} ms"
+            + COMPOSITIONS[fn.__name__])
+        if not ok:
+            raise AssertionError(f"{fn.__name__} (C {c}, M {m}, C_out "
+                                 f"{c_out}) disagrees with its plain "
+                                 f"version: {err}")
+        del x, ffn, args, library
         torch.cuda.empty_cache()
 
 
@@ -1499,6 +1612,7 @@ def build_report(lib, ptxas: str) -> None:
     from super_resolution_tpu_torch.ops import cuda_attention as ca
     from super_resolution_tpu_torch.ops import cuda_build
     from super_resolution_tpu_torch.ops import cuda_ffn as cf
+    from super_resolution_tpu_torch.ops import cuda_hab_block as chb
     from super_resolution_tpu_torch.ops import cuda_psa as cp
     from super_resolution_tpu_torch.ops import cuda_window_attention as cw
 
@@ -1544,7 +1658,11 @@ def build_report(lib, ptxas: str) -> None:
         f"{cw.mma_msa_attention_smem(C // HEADS, True)} at head dim "
         f"{C // HEADS}; the MLP tail's {cf.mma_mlp_tail_smem(60)} / "
         f"{cf.mma_mlp_tail_smem(C)} / {cf.mma_mlp_tail_smem(240)} at C 60 / "
-        f"{C} / 240, any hidden width")
+        f"{C} / 240, any hidden width; the gated FFN's "
+        f"{cf.mma_gated_ffn_smem(C, C)} / {cf.mma_gated_ffn_smem(144, 144)}"
+        f" / {cf.mma_gated_ffn_smem(C, 36)} at C {C} / 144 / C {C} to 36, "
+        f"any M; fused_hab_block's {chb.mma_hab_block_smem(C, HEADS)} at "
+        f"C {C} in {HEADS} heads")
     bare = [names[fn] for fn, n in hmma.items() if "mma_" in names[fn]
             and n == 0]
     if bare or (hmma and not any("mma_" in names[fn] for fn in hmma)):
@@ -1591,6 +1709,7 @@ def main() -> int:
     timing.update(check_scc_kernel())
     check_msa_block_kernels()
     check_mlp_tail_kernels()
+    check_gated_ffn_kernels()
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
 
     by_path, first_outputs = {}, {}

@@ -59,6 +59,18 @@
 // C 240. The hidden width sets only the number of steps. The registers
 // (the accumulators are 4 NT a lane) allow one block an SM.
 //
+// mma_hab_tail_kernel is the same kernel with fused_hab_block's output
+// projection in front (the third launch of sr_mma_hab_block, hab_block.cu;
+// the TPU kernel's _hab_block_kernel, pallas_attention.py:1651-1658): the
+// A tile first holds the block's rows of the bf16 head concat, the
+// accumulators start at s + cs * cv + bproj, and Wproj's rows come through
+// the stages' W2 rows, kHidPanel a step, as fc2's do; the concat times
+// Wproj then adds up in the C-wide float32 accumulators, which then hold
+// the 3-way sum x, float32 as in the TPU kernel; the projection's pipeline
+// is drained, and the prologue's statistics, LN2 into the A tile and the
+// MLP's steps follow as in mma_mlp_tail_kernel: one body (tail_rows), the
+// MLP's steps the same code. Same shared memory.
+//
 // In float32 it is mlp_tail_kernel below, the first version and the exact
 // check on the card; its entry refuses bf16. One block takes kRows pixels.
 // The float32 block input, its LayerNorm and gelu(fc1) (exact erff) stay
@@ -156,6 +168,11 @@ constexpr int kHidPanel = 32;  // hidden columns of a step
 constexpr int kStages = 3;     // weight stages: two steps' copies in flight
 constexpr int kW1Stride = kHidPanel + mma::kProjPad;  // bf16 a W1 stage row
 constexpr int kMaxWidth = 256;  // the widest row the accumulators hold
+// Wproj rows a step of mma_hab_tail_kernel's projection, at the start of a
+// stage (up to 64 fit at any width); 64 took 4% longer than 32
+// (tools/mlp_tail_variants.py, the flagship chunk, an H100)
+constexpr int kProjStep = 32;
+static_assert(kProjStep % kHidPanel == 0, "whole W2-sized pieces");
 
 // Columns of the A tile for C: C and the ones column that adds b1 in fc1,
 // rounded up to 64 and zero past them, so that every loop of a step has a
@@ -262,11 +279,45 @@ __device__ __forceinline__ float gelu(float h) {
   return 0.5f * h * (1.f + copysignf(e, z));
 }
 
+// s + cs * cv + bproj of the lane's rows in the accumulator layout of
+// read_x, float32, zero past C and for a dead row: where fused_hab_block's
+// output projection o Wproj then adds up, the 3-way sum x = s + (o Wproj
+// + bproj) + cs * cv in float32, added in another order than the TPU
+// kernel's.
+template <int NT, bool PAIRS>
+__device__ __forceinline__ void start_sum3(float (&acc)[NT][4],
+                                           const bf16* const (&row_s)[2],
+                                           const bf16* const (&row_c)[2],
+                                           const bf16* bproj,
+                                           const bool (&live)[2], int C,
+                                           int tig, float cs) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int c = 8 * j + 2 * tig;
+    const float2 bp = pair_at<false>(bproj + c, c < C, c + 1 < C);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool ok0 = live[h] && c < C, ok1 = live[h] && c + 1 < C;
+      const float2 vs = pair_at<PAIRS>(row_s[h] + c, ok0, ok1);
+      const float2 vc = pair_at<PAIRS>(row_c[h] + c, ok0, ok1);
+      acc[j][2 * h] = ok0 ? vs.x + vc.x * cs + bp.x : 0.f;
+      acc[j][2 * h + 1] = ok1 ? vs.y + vc.y * cs + bp.y : 0.f;
+    }
+  }
+}
+
 // out = round(rs * x + fc2(gelu(fc1(LN(x))))) for kBlockRows pixels, C up
-// to 8 NT: width(C) == 8 NT.
-template <int NT>
-__global__ void __launch_bounds__(kBlockThreads, 1)
-    mma_mlp_tail_kernel(TailArgs a) {
+// to 8 NT: width(C) == 8 NT. The body of both tensor-core kernels: HAB
+// (mma_hab_tail_kernel) starts the accumulators at start_sum3's and adds
+// the block's rows of the head concat a.a times wproj, kHidPanel rows a
+// step through the same stages (their pipeline drained before the MLP's
+// starts), which makes x (vec_o: the concat's rows in 8-byte copies);
+// without HAB (mma_mlp_tail_kernel) wproj, bproj and vec_o are not read
+// and x is read_x's. The MLP's steps are the same code in both.
+template <int NT, bool HAB>
+__device__ __forceinline__ void tail_rows(const TailArgs& a,
+                                          const bf16* wproj,
+                                          const bf16* bproj, bool vec_o) {
   constexpr int kW = 8 * NT, kAst = kW + mma::kProjPad;
   constexpr int kW1Bytes = 2 * kW * kW1Stride;
   constexpr int kStageBytes = kW1Bytes + 2 * kHidPanel * kAst;
@@ -279,6 +330,30 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   unsigned char* stages = smem_raw + 2 * kBlockRows * kAst;
   const int steps = (hid + kHidPanel - 1) / kHidPanel;
 
+  // kHidPanel rows of the (n x C) matrix src from row r0 into the W2 rows
+  // of a stage (d2), zero past n and past C
+  auto load_rows = [&](bf16* d2, const bf16* src0, int r0, int n) {
+    const bf16 zero = __float2bfloat16(0.f);
+    // a warp a row at a time, 8-byte pieces
+#pragma unroll
+    for (int i = 0; i < kHidPanel / kWarps; ++i) {
+      const int r = warp + i * kWarps;
+      const bf16* src = src0 + static_cast<long long>(r0 + r) * C;
+      const bool row_ok = r0 + r < n;
+      if (a.vec_w2) {
+#pragma unroll
+        for (int k = 0; k < (kW / 4 + 31) / 32; ++k) {
+          const int c = 4 * lane + 128 * k;
+          const bool ok = row_ok && c < C;
+          if (c < kW)
+            mma::cp_async8(d2 + r * kAst + c, ok ? src + c : src0, ok);
+        }
+      } else {
+        for (int c = lane; c < kW; c += 32)
+          d2[r * kAst + c] = row_ok && c < C ? src[c] : zero;
+      }
+    }
+  };
   // step p's W1 columns (b1 in row C) and W2 rows into stage st, zero
   // past them and past hid; one commit group a call, empty past the last
   // step
@@ -314,66 +389,134 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
                           : a.b1[h0 + c];
         }
       }
-      // W2: a warp a row at a time, 8-byte pieces
-#pragma unroll
-      for (int i = 0; i < kHidPanel / kWarps; ++i) {
-        const int r = warp + i * kWarps;
-        const bf16* src = a.w2 + static_cast<long long>(h0 + r) * C;
-        const bool row_ok = h0 + r < hid;
-        if (a.vec_w2) {
-#pragma unroll
-          for (int k = 0; k < (kW / 4 + 31) / 32; ++k) {
-            const int c = 4 * lane + 128 * k;
-            const bool ok = row_ok && c < C;
-            if (c < kW)
-              mma::cp_async8(d2 + r * kAst + c, ok ? src + c : a.w2, ok);
-          }
-        } else {
-          for (int c = lane; c < kW; c += 32)
-            d2[r * kAst + c] = row_ok && c < C ? src[c] : zero;
-        }
-      }
+      load_rows(d2, a.w2, h0, hid);
     }
     mma::cp_async_commit();
   };
+  float acc[NT][4];  // x in float32, then rs * x + b2 + fc2
+  if constexpr (HAB) {
+    // the block's rows of the head concat into the A tile, zero past C
+    // and past the last pixel; the first commit group takes them
+    const bf16 zero = __float2bfloat16(0.f);
+    if (vec_o) {
+      for (int e = tid; e < kBlockRows * (kW / 4); e += kBlockThreads) {
+        const int r = e / (kW / 4), c = (e % (kW / 4)) * 4;
+        const bool ok = row0 + r < a.m && c < C;
+        mma::cp_async8(at + r * kAst + c,
+                       ok ? a.a + (row0 + r) * C + c : a.a, ok);
+      }
+    } else {
+      for (int e = tid; e < kBlockRows * kW; e += kBlockThreads) {
+        const int r = e / kW, c = e % kW;
+        at[r * kAst + c] =
+            row0 + r < a.m && c < C ? a.a[(row0 + r) * C + c] : zero;
+      }
+    }
+    // the projection: the warp's 16 concat rows by Wproj's, kProjStep
+    // rows a step (at the start of a stage, kHidPanel rows a piece), into
+    // the C-wide accumulators
+    static_assert(2 * kProjStep * kAst <= kStageBytes,
+                  "a projection step fits a stage");
+    const int proj_steps = (C + kProjStep - 1) / kProjStep;
+    auto load_proj = [&](int t, int st) {
+      if (t < proj_steps) {
+        bf16* d = reinterpret_cast<bf16*>(stages + st * kStageBytes);
+#pragma unroll
+        for (int u = 0; u < kProjStep / kHidPanel; ++u)
+          load_rows(d + u * kHidPanel * kAst, wproj,
+                    t * kProjStep + u * kHidPanel, C);
+      }
+      mma::cp_async_commit();
+    };
+#pragma unroll
+    for (int t = 0; t < kStages - 1; ++t) load_proj(t, t);
+    // the shortcut's and conv's rows are read while the copies land
+    {
+      const bf16* row_s[2];
+      const bf16* row_c[2];
+      bool live[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long p = row0 + warp * 16 + gid + 8 * h;
+        live[h] = p < a.m;
+        row_s[h] = a.s + (live[h] ? p : 0) * C;
+        row_c[h] = a.cv + (live[h] ? p : 0) * C;
+      }
+      if (a.pairs)
+        start_sum3<NT, true>(acc, row_s, row_c, bproj, live, C, tig, a.cs);
+      else
+        start_sum3<NT, false>(acc, row_s, row_c, bproj, live, C, tig, a.cs);
+    }
+    const bf16* o_lane =
+        at + (warp * 16 + 8 * (mi & 1) + r8) * kAst + 8 * (mi >> 1);
+    const int p_off = (8 * (mi & 1) + r8) * kAst + 8 * (mi >> 1);
+    for (int t = 0; t < proj_steps; ++t) {
+      // step t's copies have landed; every warp is past step t - 1, whose
+      // stage the copies of step t + kStages - 1 take
+      mma::cp_async_wait<kStages - 2>();
+      __syncthreads();
+      load_proj(t + kStages - 1, (t + kStages - 1) % kStages);
+      const bf16* ps = reinterpret_cast<const bf16*>(
+                           stages + (t % kStages) * kStageBytes) +
+                       p_off;
+#pragma unroll
+      for (int q = 0; q < kProjStep / 16; ++q) {
+        uint32_t af[4];
+        mma::ldsm_x4(af, o_lane + t * kProjStep + q * 16);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t b[4];
+          mma::ldsm_x4_trans(b, ps + 16 * q * kAst + np * 16);
+          mma::mma_bf16(acc[2 * np], af, b[0], b[1]);
+          mma::mma_bf16(acc[2 * np + 1], af, b[2], b[3]);
+        }
+      }
+    }
+    // every stage is free for the MLP's steps, and the warp's own A rows
+    // take LN2(x) below
+    mma::cp_async_wait<0>();
+    __syncthreads();
+  }
   // the first steps' weights come while the prologue reads the rows
 #pragma unroll
   for (int p = 0; p < kStages - 1; ++p) load(p, p);
 
-  // prologue: rows gid, gid + 8 of the warp, channels 8j + 2 tig, + 1
-  const bf16* row_s[2];
-  const bf16* row_a[2];
-  const bf16* row_c[2];
-  bool live[2];
+  // prologue: x of the warp's rows (fused_hab_block's is in the
+  // accumulators already)
+  if constexpr (!HAB) {
+    const bf16* row_s[2];
+    const bf16* row_a[2];
+    const bf16* row_c[2];
+    bool live[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const long long p = row0 + warp * 16 + gid + 8 * h;
-    live[h] = p < a.m;
-    long long px = live[h] ? p : 0, pa = px;
-    if (a.ss && live[h]) {
-      const int x = static_cast<int>(p % a.W);
-      const long long t = p / a.W;
-      const int y = static_cast<int>(t % a.H);
-      const long long b = t / a.H;
-      const int ya = ((y - a.ss) % a.H + a.H) % a.H;
-      const int xa = ((x - a.ss) % a.W + a.W) % a.W;
-      pa = (b * a.H + ya) * a.W + xa;
+    for (int h = 0; h < 2; ++h) {
+      const long long p = row0 + warp * 16 + gid + 8 * h;
+      live[h] = p < a.m;
+      long long px = live[h] ? p : 0, pa = px;
+      if (a.ss && live[h]) {
+        const int x = static_cast<int>(p % a.W);
+        const long long t = p / a.W;
+        const int y = static_cast<int>(t % a.H);
+        const long long b = t / a.H;
+        const int ya = ((y - a.ss) % a.H + a.H) % a.H;
+        const int xa = ((x - a.ss) % a.W + a.W) % a.W;
+        pa = (b * a.H + ya) * a.W + xa;
+      }
+      row_s[h] = a.s + px * C;
+      row_a[h] = a.sum3 ? a.a + pa * C : a.s;
+      row_c[h] = a.sum3 ? a.cv + px * C : a.s;
     }
-    row_s[h] = a.s + px * C;
-    row_a[h] = a.sum3 ? a.a + pa * C : a.s;
-    row_c[h] = a.sum3 ? a.cv + px * C : a.s;
-  }
-  float acc[NT][4];  // x in float32, then rs * x + b2 + fc2
-  // one branch for the whole read: the loads of a form follow each other
-  if (a.sum3) {
-    if (a.pairs)
-      read_x<NT, true, true>(acc, row_s, row_a, row_c, live, C, tig, a.cs);
-    else
-      read_x<NT, true, false>(acc, row_s, row_a, row_c, live, C, tig, a.cs);
-  } else if (a.pairs) {
-    read_x<NT, false, true>(acc, row_s, row_a, row_c, live, C, tig, a.cs);
-  } else {
-    read_x<NT, false, false>(acc, row_s, row_a, row_c, live, C, tig, a.cs);
+    // one branch for the whole read: the loads of a form follow each other
+    if (a.sum3) {
+      if (a.pairs)
+        read_x<NT, true, true>(acc, row_s, row_a, row_c, live, C, tig, a.cs);
+      else
+        read_x<NT, true, false>(acc, row_s, row_a, row_c, live, C, tig, a.cs);
+    } else if (a.pairs) {
+      read_x<NT, false, true>(acc, row_s, row_a, row_c, live, C, tig, a.cs);
+    } else {
+      read_x<NT, false, false>(acc, row_s, row_a, row_c, live, C, tig, a.cs);
+    }
   }
   // LayerNorm statistics of the two rows over the float32 x, each row's
   // channels spread over its quad of lanes: mean, then centred squares
@@ -513,11 +656,41 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
 }
 
 template <int NT>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    mma_mlp_tail_kernel(TailArgs a) {
+  tail_rows<NT, false>(a, nullptr, nullptr, false);
+}
+
+// fused_hab_block's tail: the head concat (a.a) through the output
+// projection, the 3-way sum, then mma_mlp_tail_kernel's steps.
+struct HabTailArgs {
+  TailArgs t;  // sum3 with a the (m, C) head concat, ss 0, rs 1
+  const bf16* wproj;  // (C, C)
+  const bf16* bproj;
+  bool vec_o;  // 8-byte copies of the concat's rows
+};
+
+template <int NT>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    mma_hab_tail_kernel(HabTailArgs h) {
+  tail_rows<NT, true>(h.t, h.wproj, h.bproj, h.vec_o);
+}
+
+template <int NT>
 cudaError_t launch_nt(const TailArgs& a, int blocks, int smem,
                       cudaStream_t stream) {
   cudaError_t err = srk::set_smem(mma_mlp_tail_kernel<NT>, smem);
   if (err != cudaSuccess) return err;
   mma_mlp_tail_kernel<NT><<<blocks, kBlockThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int NT>
+cudaError_t launch_hab_nt(const HabTailArgs& h, int blocks, int smem,
+                          cudaStream_t stream) {
+  cudaError_t err = srk::set_smem(mma_hab_tail_kernel<NT>, smem);
+  if (err != cudaSuccess) return err;
+  mma_hab_tail_kernel<NT><<<blocks, kBlockThreads, smem, stream>>>(h);
   return cudaGetLastError();
 }
 
@@ -610,5 +783,71 @@ extern "C" int sr_mma_mlp_tail(const void* s, const void* a, const void* cv,
       return tc::launch_nt<24>(t, blocks, smem, st);
     default:
       return tc::launch_nt<32>(t, blocks, smem, st);
+  }
+}
+
+// fused_hab_block's tail in bf16 on the tensor cores (sr_mma_hab_block's
+// third launch, hab_block.cu): out = x + fc2(gelu(fc1(LN2(x)))), x = s +
+// (o Wproj + bproj) + cs * cv in float32, o the (B, H, W, C) head concat;
+// the other operands as sr_mma_mlp_tail's, all bf16; C up to
+// tc::kMaxWidth - 1; the shared memory is sr_mma_mlp_tail_smem's. Returns
+// the cudaError_t of the launch.
+extern "C" int sr_mma_hab_tail(const void* s, const void* o, const void* cv,
+                               const void* wproj, const void* bproj,
+                               const void* gamma, const void* beta,
+                               const void* w1, const void* b1, const void* w2,
+                               const void* b2, void* out, int B, int H,
+                               int W, int C, int hid, float cs, float eps,
+                               void* stream) {
+  using bf16 = __nv_bfloat16;
+  if (bad_shape(B, H, W, C, hid, 1, 0) || tc::width(C) > tc::kMaxWidth)
+    return cudaErrorInvalidValue;
+  auto b16 = [](const void* p) { return static_cast<const bf16*>(p); };
+  auto aligned = [](const void* p, unsigned bytes) {
+    return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+  };
+  const long long m = static_cast<long long>(B) * H * W;
+  tc::HabTailArgs h;
+  tc::TailArgs& t = h.t;
+  t.s = b16(s);
+  t.a = b16(o);
+  t.cv = b16(cv);
+  t.gamma = b16(gamma);
+  t.beta = b16(beta);
+  t.w1 = b16(w1);
+  t.b1 = b16(b1);
+  t.w2 = b16(w2);
+  t.b2 = b16(b2);
+  t.out = srk::mma::rows_out(out, m, C);
+  t.m = m;
+  t.H = H;
+  t.W = W;
+  t.C = C;
+  t.hid = hid;
+  t.sum3 = 1;
+  t.ss = 0;
+  t.cs = cs;
+  t.eps = eps;
+  t.rs = 1.f;
+  t.pairs = C % 2 == 0 && aligned(s, 4) && aligned(cv, 4);
+  t.vec_w1 = hid % 8 == 0 && aligned(w1, 16) && aligned(b1, 16);
+  // W2's and Wproj's rows in 8-byte pieces where C is a multiple of 4
+  t.vec_w2 = C % 4 == 0 && aligned(w2, 8) && aligned(wproj, 8);
+  h.wproj = b16(wproj);
+  h.bproj = b16(bproj);
+  h.vec_o = C % 4 == 0 && aligned(o, 8);
+  const int blocks =
+      static_cast<int>((m + tc::kBlockRows - 1) / tc::kBlockRows);
+  const int smem = tc::smem_bytes(C);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (tc::width(C)) {
+    case 64:
+      return tc::launch_hab_nt<8>(h, blocks, smem, st);
+    case 128:
+      return tc::launch_hab_nt<16>(h, blocks, smem, st);
+    case 192:
+      return tc::launch_hab_nt<24>(h, blocks, smem, st);
+    default:
+      return tc::launch_hab_nt<32>(h, blocks, smem, st);
   }
 }

@@ -221,6 +221,18 @@ cudaError_t project(const void* a, const void* w, const void* b, void* out,
 
 }  // namespace
 
+// round(a w + b) of m rows of a (m, k) bf16 matrix by a (k, n) weight into
+// out (m, n): one launch of mma_proj_bias_kernel on the stream, the qkv
+// projection of fused_hab_block's bf16 route (hab_block.cu). Returns the
+// cudaError_t of the launch.
+extern "C" int sr_mma_proj_bias(const void* a, const void* w, const void* b,
+                                void* out, long long m, int k, int n,
+                                void* stream) {
+  if (m < 1 || k < 1 || n < 1) return cudaErrorInvalidValue;
+  return tc::project(a, w, b, out, m, k, n,
+                     static_cast<cudaStream_t>(stream));
+}
+
 // fused_msa_attention's tensor-core entry (msa_attention.cu), the middle of
 // the bf16 block.
 extern "C" int sr_mma_msa_attention(const void* qkv, const void* bias,

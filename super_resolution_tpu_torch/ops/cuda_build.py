@@ -44,6 +44,8 @@ _SIGNATURES = {
     "sr_ln_split": [_I] + [_P] * 5 + [_I] * 3 + [_F] + [_P],
     "sr_gated_dconv_ffn": [_I] + [_P] * 10 + [_I] * 8 + [_F] + [_P],
     "sr_gated_dconv_ffn_smem": [_I] * 3,
+    "sr_mma_gated_dconv_ffn": [_P] * 10 + [_I] * 8 + [_F] + [_P],
+    "sr_mma_gated_dconv_ffn_smem": [_I] * 2,
     "sr_ocab_attention": [_I] + [_P] * 4 + [_I] * 7 + [_F] + [_P],
     "sr_ocab_attention_smem": [_I] * 4,
     "sr_mma_ocab_attention": [_P] * 4 + [_I] * 7 + [_F] + [_P],
@@ -79,6 +81,8 @@ _SIGNATURES = {
     "sr_scc_block_smem": [_I] * 6,
     "sr_hab_block": [_I] + [_P] * 16 + [_I] * 7 + [_F] * 3 + [_P],
     "sr_hab_block_smem": [_I] * 4,
+    "sr_mma_hab_block": [_P] * 17 + [_I] * 7 + [_F] * 3 + [_P],
+    "sr_mma_hab_block_smem": [_I] * 2,
     "sr_hab_front": [_I] + [_P] * 12 + [_I] * 6 + [_F] + [_P],
     "sr_hab_front_smem": [_I] * 3,
 }

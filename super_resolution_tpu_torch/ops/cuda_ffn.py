@@ -7,9 +7,10 @@ Ports super_resolution_tpu/ops/pallas_ffn.py: ``mlp_block``,
 Mosaic tiling knobs (``tile_rows``, ``interpret``). The first three launch
 the kernels of ``csrc/mlp_tail.cu``: bf16 the tensor-core kernel
 (``sr_mma_mlp_tail``, both products on ``mma.sync``), float32 the FMA
-kernel (``sr_mlp_tail``, whose entry refuses bf16); the gated pair the one
-of ``csrc/gated_dconv_ffn.cu``. Weights are in the JAX layout: w1 (C, HID),
-w2 (HID, C), wd (3, 3, 2M).
+kernel (``sr_mlp_tail``, whose entry refuses bf16); the gated pair those
+of ``csrc/gated_dconv_ffn.cu`` alike (``sr_mma_gated_dconv_ffn``, both
+products on ``mma.sync``; ``sr_gated_dconv_ffn``). Weights are in the JAX
+layout: w1 (C, HID), w2 (HID, C), wd (3, 3, 2M).
 
 Numerics of the kernels against the plain versions (the ports of the JAX
 ``*_reference`` functions): the kernels keep the 3-way sum in float32 and
@@ -18,9 +19,11 @@ before fc2, the output once); the plain versions round the 3-way sum to the
 input dtype (pallas_ffn.py:640-641) and run fc1 in the input dtype. The
 plain versions and the float32 kernel use exact erf GELU; the bf16 kernel,
 like the TPU kernel, the A&S approximation of erf (error < 1.5e-7). In
-float32 all of these agree to rounding. The gated kernel keeps the
+float32 all of these agree to rounding. The gated kernels keep the
 depthwise conv's output in float32 up to the gate, as the TPU kernel does;
-its plain version rounds it to the input dtype, as the JAX reference does.
+their plain version rounds it to the input dtype, as the JAX reference
+does. The bf16 gated kernel rounds where the TPU kernel rounds: LN(x), fc1
++ b1, the gated product, the output once.
 """
 
 from __future__ import annotations
@@ -42,6 +45,31 @@ from super_resolution_tpu_torch.ops.cuda_build import (check_operands,
 # widest C its accumulators hold beside the ones column that adds b1
 TAIL_ROWS, TAIL_HID_PANEL, TAIL_STAGES, TAIL_PAD = 128, 32, 3, 8
 TAIL_OUT_STRIDE, TAIL_MAX_C = 64 + TAIL_PAD, 255
+
+
+# the tensor-core gated FFN (csrc/gated_dconv_ffn.cu, namespace tc): the
+# interior tile of a block (rows, columns; a warp a row), the halo's rows
+# of the A tile (its 180 positions rounded up to 16), proj channels of a
+# panel, weight stages, and the widest C_out its accumulators hold
+FFN_TILE, FFN_POS_ROWS, FFN_PANEL, FFN_STAGES, FFN_MAX_OUT = (8, 16), 192, \
+    32, 2, 256
+
+
+def mma_gated_ffn_smem(c: int, c_out: int) -> int:
+    """Bytes a block of the bf16 gated FFN (``tc::smem_bytes``) takes at
+    C c and C_out c_out, whatever M: the halo's rows of LN(x) and the ones
+    column (c + 1 rounded up to 16, padded), the h tile of a panel's fc1
+    (its proj and gate columns, padded) and ``FFN_STAGES`` stages of a
+    panel's W1 columns, W2 rows (c_out rounded up to 64, padded) and
+    depthwise taps with bd, at least the warps' staged output tiles."""
+    cols = 2 * FFN_PANEL
+    k_width = (c + 16) // 16 * 16
+    stage = 2 * (k_width * (cols + TAIL_PAD)
+                 + FFN_PANEL * ((c_out + 63) // 64 * 64 + TAIL_PAD)
+                 + 10 * cols)
+    return (2 * FFN_POS_ROWS * (k_width + TAIL_PAD)
+            + 2 * FFN_POS_ROWS * (cols + TAIL_PAD)
+            + max(FFN_STAGES * stage, FFN_TILE[0] * 16 * TAIL_OUT_STRIDE * 2))
 
 
 def mma_mlp_tail_smem(c: int) -> int:
@@ -143,15 +171,26 @@ def _launch_ffn(name, x, gamma, beta, w1, b1, wd, bd, w2, b2, *, ln: bool,
                          f"most 65535 and, for the residual, C_out == C; got "
                          f"2M {m2}, C {c}, C_out {c_out}, B {b}")
     lib = load_library()
-    check_smem(name, lib.sr_gated_dconv_ffn_smem(code, c, c_out),
-               f"C {c}, C_out {c_out}")
+    # bf16 runs on the tensor cores, float32 on the FMA kernel
+    mma = x.dtype == torch.bfloat16
+    if mma:
+        if c_out > FFN_MAX_OUT:
+            raise ValueError(f"{name}: the bf16 kernel holds C_out up to "
+                             f"{FFN_MAX_OUT} in its accumulators, got "
+                             f"{c_out}")
+        check_smem(name, lib.sr_mma_gated_dconv_ffn_smem(c, c_out),
+                   f"C {c}, C_out {c_out}")
+    else:
+        check_smem(name, lib.sr_gated_dconv_ffn_smem(code, c, c_out),
+                   f"C {c}, C_out {c_out}")
     out = torch.empty((b, h, w, c_out), dtype=x.dtype, device=x.device)
-    err = lib.sr_gated_dconv_ffn(
-        code, x.data_ptr(), gamma.data_ptr() if ln else None,
-        beta.data_ptr() if ln else None, w1.data_ptr(), b1.data_ptr(),
-        wd.data_ptr(), bd.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), b, h, w, c, m2 // 2, c_out, int(ln), int(residual),
-        eps, stream_of(x))
+    ops = (x.data_ptr(), gamma.data_ptr() if ln else None,
+           beta.data_ptr() if ln else None, w1.data_ptr(), b1.data_ptr(),
+           wd.data_ptr(), bd.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+           out.data_ptr(), b, h, w, c, m2 // 2, c_out, int(ln),
+           int(residual), eps, stream_of(x))
+    err = (lib.sr_mma_gated_dconv_ffn(*ops) if mma
+           else lib.sr_gated_dconv_ffn(code, *ops))
     raise_on_error(name, err)
     return out
 

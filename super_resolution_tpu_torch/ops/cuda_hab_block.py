@@ -2,16 +2,23 @@
 the CUDA kernel wrapper and its plain PyTorch version.
 
 Ports ``fused_hab_block`` and ``hab_block_reference`` of
-super_resolution_tpu/ops/pallas_attention.py (the wrapper launches
-``csrc/hab_block.cu``, which runs the device code of ``msa_block.cu`` and
-``mlp_tail.cu`` in one block per window), with the JAX name and signature
-minus the Mosaic knob (``interpret``). Weights are in the JAX layout
-(in, out).
+super_resolution_tpu/ops/pallas_attention.py, with the JAX name and
+signature minus the Mosaic knob (``interpret``). Weights are in the JAX
+layout (in, out). The wrapper launches ``csrc/hab_block.cu``: bf16 through
+``sr_mma_hab_block``, three tensor-core launches (the qkv projection of
+``msa_block.cu``, the attention of ``msa_attention.cu``, and
+``mlp_tail.cu``'s ``mma_hab_tail_kernel``, which projects the head concat
+into its float32 accumulators before the MLP tail); float32 through
+``sr_hab_block``, the FMA kernel, one block per window, whose entry refuses
+bf16.
 
-Numerics of the kernel against the plain version: the kernel keeps the
+Numerics of the kernels against the plain version: the kernels keep the
 projected attention and the 3-way sum in float32 up to LN2, as the TPU
 kernel does; the plain version rounds the attention and then the sum to the
-input dtype, as the JAX reference does. In float32 they agree to rounding.
+input dtype, as the JAX reference does. The bf16 route rounds qkv, the
+unnormalised p (divided by the float32 denominator after P V; the TPU
+kernel rounds p normalised) and the head concat, uses the TPU kernel's A&S
+erf in GELU and rounds the output once. In float32 they agree to rounding.
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from super_resolution_tpu_torch.ops.cuda_attention import (
-    msa_block_reference, msa_block_smem)
+    mma_msa_block_smem, msa_block_reference, msa_block_smem)
 from super_resolution_tpu_torch.ops.cuda_build import (MAX_DYNAMIC_SMEM,
                                                        check_f32,
                                                        check_operands,
@@ -28,7 +35,11 @@ from super_resolution_tpu_torch.ops.cuda_build import (MAX_DYNAMIC_SMEM,
                                                        load_library,
                                                        raise_on_error,
                                                        stream_of, use_kernel)
-from super_resolution_tpu_torch.ops.cuda_ffn import mlp_block_sum3_reference
+from super_resolution_tpu_torch.ops.cuda_ffn import (TAIL_MAX_C,
+                                                     mlp_block_sum3_reference,
+                                                     mma_mlp_tail_smem)
+from super_resolution_tpu_torch.ops.cuda_window_attention import (
+    mma_msa_attention_smem)
 
 MAX_HEAD_DIM = 32
 _TAIL_ROWS = 32   # pixels the MLP half of csrc/hab_block.cu takes at a time
@@ -60,16 +71,32 @@ def hab_block_smem(window_size: int, dim: int, heads: int,
     return max(attn, tail) + 4 * n
 
 
+def mma_hab_block_smem(dim: int, heads: int) -> int:
+    """Bytes a block of the bf16 route's largest launch takes (the formula
+    of ``sr_mma_hab_block_smem``), whatever the window and the hidden
+    width: the qkv projection's (``mma_msa_block_smem``), the unmasked
+    attention's at the head dim (padded as row 12 pads it) and the tail's
+    (``mma_mlp_tail_smem``; the concat's projection runs through its
+    stages)."""
+    return max(mma_msa_block_smem(dim, dim),
+               mma_msa_attention_smem(dim // heads, False),
+               mma_mlp_tail_smem(dim))
+
+
 def hab_block_supported(window_size: int, dim: int, heads: int,
                         hidden: int) -> bool:
-    """Whether ``fused_hab_block`` runs this shape on the card: a head dim
-    of at most 32 and a block within the card's shared memory (at the
-    flagship's 180 channels in 6 heads and an MLP of 360: windows up to
-    23)."""
+    """Whether ``fused_hab_block`` runs this shape on the card in both
+    dtypes: a head dim of at most 32, a block of the float32 kernel within
+    the card's shared memory (at the flagship's 180 channels in 6 heads and
+    an MLP of 360: windows up to 23), and the bf16 route's layout: C up to
+    the tail's ``TAIL_MAX_C`` and each of its three launches within the
+    card's shared memory."""
     return (heads >= 1 and dim % heads == 0
             and dim // heads <= MAX_HEAD_DIM
             and hab_block_smem(window_size, dim, heads, hidden)
-            <= MAX_DYNAMIC_SMEM)
+            <= MAX_DYNAMIC_SMEM
+            and dim <= TAIL_MAX_C
+            and mma_hab_block_smem(dim, heads) <= MAX_DYNAMIC_SMEM)
 
 
 def fused_hab_block(lnx_img, x_img, conv_img, w_qkv, b_qkv, w_proj, b_proj,
@@ -86,8 +113,9 @@ def fused_hab_block(lnx_img, x_img, conv_img, w_qkv, b_qkv, w_proj, b_proj,
     x_img: the block input (shortcut); conv_img: the CAB's output
     (unscaled). w_qkv (C, 3C); w_proj (C, C); bias (heads, N, N) float32
     RPB, N = ws^2; gamma, beta: norm2; w1 (C, HID); w2 (HID, C). Returns
-    (B, H, W, C). The attention output never reaches device memory as an
-    image of its own. Replaces
+    (B, H, W, C). The projected attention never reaches device memory as
+    an image of its own (the bf16 route writes the head concat before the
+    projection). Replaces
     super_resolution_tpu/ops/pallas_attention.py::fused_hab_block.
     """
     c = lnx_img.shape[-1]
@@ -127,17 +155,35 @@ def fused_hab_block(lnx_img, x_img, conv_img, w_qkv, b_qkv, w_proj, b_proj,
                          f"dim of at most {MAX_HEAD_DIM}, got "
                          f"{tuple(lnx_img.shape)}, {heads} heads of {c}")
     lib = load_library()
-    check_smem(name, lib.sr_hab_block_smem(ws, c, heads, hid),
-               f"window {ws}, {c} channels in {heads} heads, hidden {hid}")
+    what = f"window {ws}, {c} channels in {heads} heads, hidden {hid}"
+    # bf16 runs on the tensor cores, float32 on the FMA kernel
+    mma = lnx_img.dtype == torch.bfloat16
+    if mma:
+        if c > TAIL_MAX_C:
+            raise ValueError(f"{name}: the bf16 tail holds C up to "
+                             f"{TAIL_MAX_C} in its accumulators, got {c}")
+        check_smem(name, lib.sr_mma_hab_block_smem(c, heads), what)
+    else:
+        check_smem(name, lib.sr_hab_block_smem(ws, c, heads, hid), what)
+    ops = (lnx_img.data_ptr(), x_img.data_ptr(), conv_img.data_ptr(),
+           w_qkv.data_ptr(), b_qkv.data_ptr(), w_proj.data_ptr(),
+           b_proj.data_ptr(), bias.data_ptr(), gamma.data_ptr(),
+           beta.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+           b2.data_ptr())
+    dims = (b, h_img, w_img, c, hid, heads, ws, scale, conv_scale, eps,
+            stream_of(lnx_img))
+    # the scratch images stay referenced until the launches return: a
+    # freed one would be handed to the next allocation
     scratch = torch.empty_like(lnx_img)
     out = torch.empty_like(lnx_img)
-    err = lib.sr_hab_block(
-        code, lnx_img.data_ptr(), x_img.data_ptr(), conv_img.data_ptr(),
-        w_qkv.data_ptr(), b_qkv.data_ptr(), w_proj.data_ptr(),
-        b_proj.data_ptr(), bias.data_ptr(), gamma.data_ptr(),
-        beta.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), scratch.data_ptr(), out.data_ptr(), b, h_img, w_img,
-        c, hid, heads, ws, scale, conv_scale, eps, stream_of(lnx_img))
+    if mma:
+        qkv = torch.empty((b, h_img, w_img, 3 * c), dtype=lnx_img.dtype,
+                          device=lnx_img.device)
+        err = lib.sr_mma_hab_block(*ops, qkv.data_ptr(), scratch.data_ptr(),
+                                   out.data_ptr(), *dims)
+    else:
+        err = lib.sr_hab_block(code, *ops, scratch.data_ptr(),
+                               out.data_ptr(), *dims)
     raise_on_error(name, err)
     fused_hab_block.launches += 1
     return out

@@ -1,5 +1,6 @@
-"""Time variants of the bf16 MLP tail kernel (``csrc/mlp_tail.cu``,
-``mma_mlp_tail_kernel``) on one card: where its time goes, without ncu.
+"""Time variants of the bf16 MLP tail kernels (``csrc/mlp_tail.cu``,
+``mma_mlp_tail_kernel`` and ``mma_hab_tail_kernel``) on one card: where
+their time goes, without ncu.
 
 A variant is the source with some text replaced: a constant changed, or a
 part of a step knocked out (``no_*``; their outputs are wrong by design).
@@ -7,11 +8,13 @@ All variants are compiled at once, each into a shared library of its own
 under the package's ``_build/``, and the C entry ``sr_mma_mlp_tail`` of each
 is timed with CUDA events (median of 20 calls) on seeded bf16 inputs of a
 chunk of four 160 x 160 tiles at the widths of the paths: the flagship's C
-180 / hidden 360 in all three forms, SwinIR-light's 60 / 120, SwinIR-L's
-240 / 480 and the zoo's SwinIR 180 / 720. The variants that compute the
-function are held against the plain version within ``chip_smoke.TOL_BF16``.
-Each line prints a variant's registers and spills (ptxas) at each
-accumulator width, then its times.
+180 / hidden 360 in all three forms and as fused_hab_block's tail
+(``sr_mma_hab_tail``, the head concat projected in front), SwinIR-light's
+60 / 120, SwinIR-L's 240 / 480 and the zoo's SwinIR 180 / 720. The
+variants that compute the function are held against the plain version
+within ``chip_smoke.TOL_BF16``. Each line prints a variant's registers and
+spills (ptxas) at each accumulator width of ``mma_mlp_tail_kernel``, then
+its times.
 
     python3 -m super_resolution_tpu_torch.tools.mlp_tail_variants
 """
@@ -45,62 +48,72 @@ VARIANTS = {
     "no_fc1": [(_FC1, "")],
     "no_fc2": [(_FC2, "")],
     "no_weight_copies": [("    if (p < steps) {", "    if (p < 0) {")],
+    "proj_step_64": [("constexpr int kProjStep = 32;",
+                      "constexpr int kProjStep = 64;")],
     "no_row_reads": [(_READ, "      float2 v = make_float2(0.f, 0.f);"),
                      ("if (SUM3) {\n        const float2 va",
                       "if (false) {\n        const float2 va")],
 }
-EXACT = ("kernel", "stages_4", "hid_panel_16", "gelu_erff")
+EXACT = ("kernel", "stages_4", "hid_panel_16", "gelu_erff", "proj_step_64")
 # (C, hidden, form) at the chunk of four 160 x 160 tiles
 CASES = [(180, 360, "mlp_block"), (180, 360, "sum3"), (180, 360, "shifted"),
+         (180, 360, "hab"),
          (60, 120, "mlp_block"), (60, 120, "sum3"), (240, 480, "mlp_block"),
          (240, 480, "sum3"), (180, 720, "mlp_block")]
 
 
-def sources() -> dict:
-    """name -> the variant's source text; raises where a text to replace
-    is not in the source."""
-    base = (CSRC_DIR / "mlp_tail.cu").read_text()
+def sources(source: str, variants: dict) -> dict:
+    """name -> the text of csrc/``source`` with each variant's replacements;
+    raises where a text to replace is not in the source."""
+    base = (CSRC_DIR / source).read_text()
     out = {}
-    for name, subs in VARIANTS.items():
+    for name, subs in variants.items():
         text = base
         for old, new in subs:
             if old not in text:
-                raise KeyError(f"{name}: {old!r} is not in mlp_tail.cu")
+                raise KeyError(f"{name}: {old!r} is not in {source}")
             text = text.replace(old, new)
         out[name] = text
     return out
 
 
-def build() -> dict:
-    """name -> (ctypes library, ptxas summary), compiled in parallel."""
+def build(source: str = "mlp_tail.cu", variants: dict = VARIANTS,
+          kernel: str = "mma_mlp_tail_kernel", entries: dict = None) -> dict:
+    """name -> (ctypes library, ptxas summary of ``kernel``'s instances),
+    each variant of csrc/``source`` compiled alone into a library of its
+    own, all in parallel; ``entries``: C entry -> argtypes."""
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if entries is None:
+        entries = {"sr_mma_mlp_tail": [P] * 10 + [I] * 7 + [F] * 3 + [P],
+                   "sr_mma_hab_tail": [P] * 12 + [I] * 5 + [F] * 2 + [P],
+                   "sr_mma_mlp_tail_smem": [I]}
+    root = BUILD_DIR / f"{source.split('.')[0]}_variants"
     procs = {}
-    for name, text in sources().items():
-        d = BUILD_DIR / "mlp_tail_variants" / name
+    for name, text in sources(source, variants).items():
+        d = root / name
         d.mkdir(parents=True, exist_ok=True)
-        (d / "mlp_tail.cu").write_text(text)
+        (d / source).write_text(text)
         procs[name] = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-I",
-             str(CSRC_DIR), "-o", str(d / "lib.so"), str(d / "mlp_tail.cu")],
+             str(CSRC_DIR), "-o", str(d / "lib.so"), str(d / source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name, proc in procs.items():
         lines = proc.communicate()[0].splitlines()
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n" + "\n".join(lines))
         usage = []
         for i, line in enumerate(lines):
-            m = re.search(r"mma_mlp_tail_kernelILi(\d+)E", line)
+            m = re.search(rf"{kernel}ILi(\d+)E", line)
             if m and "Compiling" in line:
                 near = " ".join(lines[i + 1:i + 6])
                 regs = re.search(r"Used (\d+) registers", near).group(1)
                 spill = re.search(r"(\d+) bytes spill stores", near).group(1)
                 usage.append(f"NT {m.group(1)}: {regs} registers, {spill} B "
                              f"spilled")
-        lib = ctypes.CDLL(str(BUILD_DIR / "mlp_tail_variants" / name /
-                              "lib.so"))
-        lib.sr_mma_mlp_tail.argtypes = [P] * 10 + [I] * 7 + [F] * 3 + [P]
-        lib.sr_mma_mlp_tail_smem.argtypes = [I]
+        lib = ctypes.CDLL(str(root / name / "lib.so"))
+        for entry, argtypes in entries.items():
+            getattr(lib, entry).argtypes = argtypes
         libs[name] = (lib, "; ".join(usage))
     return libs
 
@@ -128,9 +141,13 @@ def main() -> int:
         tail = (1.0 + t(c, s=0.1), t(c, s=0.1), t(c, hid, s=c ** -0.5),
                 t(hid, s=0.1), t(hid, c, s=hid ** -0.5), t(c, s=0.1))
         sum3, ss = int(form != "mlp_block"), 4 if form == "shifted" else 0
+        # the hab form: a is the head concat, projected by wp, bp
+        wp, bp = t(c, c, s=c ** -0.5), t(c, s=0.1)
+        attn = (a.float() @ wp.float() + bp.float()).to(dt)
         ref = (cf.mlp_block_reference(x, *tail) if not sum3 else
                cf.mlp_block_sum3_shifted_reference(x, a, cv, *tail, 0.01, 4)
-               if ss else cf.mlp_block_sum3_reference(x, a, cv, *tail, 0.01))
+               if ss else cf.mlp_block_sum3_reference(
+                   x, attn if form == "hab" else a, cv, *tail, 0.01))
         tol = chip_smoke.TOL_BF16 * max(1.0, ref.float().abs().max().item())
         out = torch.empty_like(x)
         line = f"C {c} hidden {hid} {form}:"
@@ -140,10 +157,17 @@ def main() -> int:
                 continue
 
             def run(lib=lib, name=name):
-                err = lib.sr_mma_mlp_tail(
-                    x.data_ptr(), a.data_ptr(), cv.data_ptr(),
-                    *(v.data_ptr() for v in tail), out.data_ptr(), b, hw,
-                    hw, c, hid, sum3, ss, 0.01, 1e-5, 1.0, stream)
+                if form == "hab":
+                    err = lib.sr_mma_hab_tail(
+                        x.data_ptr(), a.data_ptr(), cv.data_ptr(),
+                        wp.data_ptr(), bp.data_ptr(),
+                        *(v.data_ptr() for v in tail), out.data_ptr(), b,
+                        hw, hw, c, hid, 0.01, 1e-5, stream)
+                else:
+                    err = lib.sr_mma_mlp_tail(
+                        x.data_ptr(), a.data_ptr(), cv.data_ptr(),
+                        *(v.data_ptr() for v in tail), out.data_ptr(), b,
+                        hw, hw, c, hid, sum3, ss, 0.01, 1e-5, 1.0, stream)
                 if err:
                     raise RuntimeError(f"{name}: cudaError_t {err}")
             run()
@@ -155,7 +179,7 @@ def main() -> int:
             ms = chip_smoke.time_ms(run, reps=20, warmup=3)
             line += f" {name} {ms:.4f};"
         print(line, flush=True)
-        del x, a, cv, tail, ref, out
+        del x, a, cv, tail, ref, out, wp, bp, attn
     return 0
 
 

@@ -999,3 +999,196 @@ def test_mlp_tail_fma_refuses_bf16(cuda):
         torch.cuda.synchronize()
     for c in range(1, 257):
         assert cf.mma_mlp_tail_smem(c) == lib.sr_mma_mlp_tail_smem(c)
+
+
+# (B, H, W, C, M) of the gated FFN: the fork's width (180 / 360) on an
+# image no tile divides (13 x 19: interior tiles of 8 x 16 overhang both
+# edges), HAT-S's (144 / 288) on an image smaller than one tile (5 x 7),
+# SwinIR-light's 60 / 120 on whole tiles, M 100 (no multiple of 8: W1's
+# panel columns copied element by element, the last panel 4 channels
+# wide), C 18 (A tile rows copied element by element); the fork's
+# full-width chunk of four 160 x 160 tiles
+GATED_FFN_SHAPES = [
+    (2, 13, 19, 180, 360), (2, 5, 7, 144, 288), (1, 16, 32, 60, 120),
+    (2, 9, 20, 60, 100), (1, 11, 17, 18, 36),
+    pytest.param((4, 160, 160, 180, 360), marks=pytest.mark.slow)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("entry", ["gated_dconv_ffn_block",
+                                   "gated_dconv_ffn"])
+@pytest.mark.parametrize("shape", GATED_FFN_SHAPES)
+def test_gated_ffn_matches_plain_version(cuda, shape, entry, dtype):
+    """Both entries against their plain versions: the block with its
+    LayerNorm and residual (C_out = C), the bare FFN at C_out 36; bf16 runs
+    the tensor-core kernel, float32 the FMA kernel; each launch counts
+    once."""
+    b, h, w, c, m = shape
+    rng = np.random.default_rng(h + w + c + m)
+    c_out = c if entry == "gated_dconv_ffn_block" else 36
+    x = _rand(rng, dtype, b, h, w, c)
+    ffn = (_rand(rng, dtype, c, 2 * m, s=c ** -0.5),
+           _rand(rng, dtype, 2 * m, s=0.5),
+           _rand(rng, dtype, 3, 3, 2 * m, s=1 / 3),
+           _rand(rng, dtype, 2 * m, s=0.1),
+           _rand(rng, dtype, m, c_out, s=m ** -0.5),
+           _rand(rng, dtype, c_out, s=0.1))
+    fn = getattr(cf, entry)
+    if entry == "gated_dconv_ffn_block":
+        norm = (1.0 + _rand(rng, dtype, c, s=0.1), _rand(rng, dtype, c,
+                                                         s=0.1))
+        args, plain = (x, *norm, *ffn), cf.ffn_block_reference
+    else:
+        args, plain = (x, *ffn), cf.ffn_reference
+    before = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    _assert_close(got, plain(*args), dtype)
+
+
+# (B, H, W, C, heads, ws, hidden) of fused_hab_block beside HAB_SHAPES:
+# head dim 15 (C 60 in 4 heads, padded to 16) at a hidden width of 90 (no
+# multiple of 8: W1's rows copied element by element); C 18 in 2 heads
+# (the concat's and the shortcut's rows copied element by element); the
+# flagship chunk of four 160 x 160 tiles
+HAB_MMA_SHAPES = [
+    (2, 16, 24, 60, 4, 8, 90), (1, 12, 18, 18, 2, 6, 36),
+    pytest.param((4, 160, 160, 180, 6, 16, 360), marks=pytest.mark.slow)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", HAB_MMA_SHAPES)
+def test_hab_block_shapes_match_plain_version(cuda, shape, dtype):
+    """More shapes of test_hab_block_matches_plain_version: bf16 takes the
+    three tensor-core launches behind one count, whose attention does not
+    count as fused_msa_attention's."""
+    b, h, w, c, heads, ws, hid = shape
+    n = ws * ws
+    rng = np.random.default_rng(ws + c + hid)
+    args = (_rand(rng, dtype, b, h, w, c), _rand(rng, dtype, b, h, w, c),
+            _rand(rng, dtype, b, h, w, c),
+            _rand(rng, dtype, c, 3 * c, s=c ** -0.5),
+            _rand(rng, dtype, 3 * c, s=0.1),
+            _rand(rng, dtype, c, c, s=c ** -0.5), _rand(rng, dtype, c, s=0.1),
+            _rand(rng, torch.float32, heads, n, n, s=0.5),
+            1.0 + _rand(rng, dtype, c, s=0.1), _rand(rng, dtype, c, s=0.1),
+            _rand(rng, dtype, c, hid, s=c ** -0.5),
+            _rand(rng, dtype, hid, s=0.1),
+            _rand(rng, dtype, hid, c, s=hid ** -0.5),
+            _rand(rng, dtype, c, s=0.1))
+    assert chb.hab_block_supported(ws, c, heads, hid)
+    before = (chb.fused_hab_block.launches, cw.fused_msa_attention.launches)
+    got = chb.fused_hab_block(*args, heads=heads, window_size=ws,
+                              conv_scale=0.01)
+    torch.cuda.synchronize()
+    assert (chb.fused_hab_block.launches,
+            cw.fused_msa_attention.launches) == (before[0] + 1, before[1])
+    _assert_close(got, chb.hab_block_reference(*args, heads, ws,
+                                               conv_scale=0.01), dtype)
+
+
+def test_gated_ffn_and_hab_block_fma_refuse_bf16(cuda):
+    """bf16 reaches the FMA kernels of the gated FFN and of the whole HAB
+    by no route: their entries refuse it. The tensor-core entries refuse a
+    C_out past the accumulators (the gated FFN), a head dim past 32 and a
+    C past 255 (the HAB)."""
+    from super_resolution_tpu_torch.ops.cuda_build import (load_library,
+                                                           stream_of)
+
+    lib = load_library()
+    z = dict(dtype=torch.bfloat16, device="cuda")
+    c, m = 36, 72
+    x, v = torch.zeros((1, 8, 8, c), **z), torch.zeros((c,), **z)
+    w1, v2 = torch.zeros((c, 2 * m), **z), torch.zeros((2 * m,), **z)
+    wd, w2 = torch.zeros((3, 3, 2 * m), **z), torch.zeros((m, c), **z)
+    y, o = torch.zeros_like(x), torch.zeros_like(x)
+    ffn = (x.data_ptr(), v.data_ptr(), v.data_ptr(), w1.data_ptr(),
+           v2.data_ptr(), wd.data_ptr(), v2.data_ptr(), w2.data_ptr(),
+           v.data_ptr(), y.data_ptr(), 1, 8, 8, c, m)
+    s = stream_of(x)
+    assert lib.sr_gated_dconv_ffn(1, *ffn, c, 1, 1, 1e-5, s) != 0
+    assert lib.sr_mma_gated_dconv_ffn(*ffn, c, 1, 1, 1e-5, s) == 0
+    assert lib.sr_mma_gated_dconv_ffn(*ffn, 257, 0, 0, 1e-5, s) != 0
+    torch.cuda.synchronize()
+    wq, bq = torch.zeros((c, 3 * c), **z), torch.zeros((3 * c,), **z)
+    wp = torch.zeros((c, c), **z)
+    bias = torch.zeros((2, 64, 64), device="cuda")
+    qkv = torch.zeros((1, 8, 8, 3 * c), **z)
+    hab = (x.data_ptr(), x.data_ptr(), x.data_ptr(), wq.data_ptr(),
+           bq.data_ptr(), wp.data_ptr(), v.data_ptr(), bias.data_ptr(),
+           v.data_ptr(), v.data_ptr(), w1.data_ptr(), v2.data_ptr(),
+           w2.data_ptr(), v.data_ptr())
+    assert lib.sr_hab_block(1, *hab, o.data_ptr(), y.data_ptr(), 1, 8, 8, c,
+                            m, 2, 8, 0.25, 0.01, 1e-5, s) != 0
+    assert lib.sr_mma_hab_block(*hab, qkv.data_ptr(), o.data_ptr(),
+                                y.data_ptr(), 1, 8, 8, c, m, 2, 8, 0.25,
+                                0.01, 1e-5, s) == 0
+    # head dim 36 in one head
+    assert lib.sr_mma_hab_block(*hab, qkv.data_ptr(), o.data_ptr(),
+                                y.data_ptr(), 1, 8, 8, c, m, 1, 8, 0.25,
+                                0.01, 1e-5, s) != 0
+    torch.cuda.synchronize()
+
+
+def test_mma_gated_ffn_and_hab_block_smem_agree_with_the_sources(cuda):
+    """The pure-Python shared-memory formulas of the two bf16 routes equal
+    their C entries."""
+    from super_resolution_tpu_torch.ops.cuda_build import load_library
+
+    lib = load_library()
+    for c in (18, 36, 60, 144, 180, 191, 192, 240, 255):
+        for c_out in (c, 36, 256):
+            assert (cf.mma_gated_ffn_smem(c, c_out)
+                    == lib.sr_mma_gated_dconv_ffn_smem(c, c_out))
+    for c, heads in ((180, 6), (60, 2), (60, 4), (24, 2), (18, 2),
+                     (240, 8), (255, 15)):
+        assert (chb.mma_hab_block_smem(c, heads)
+                == lib.sr_mma_hab_block_smem(c, heads))
+
+
+def test_bf16_hab_block_and_gated_ffn_launch_tensor_core_kernels_only(cuda):
+    """Under the profiler, a bf16 call of fused_hab_block,
+    gated_dconv_ffn_block or gated_dconv_ffn launches the tensor-core
+    kernels named here and no other kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(5)
+    bf16 = torch.bfloat16
+    b, h, w, c, heads, ws, hid = 1, 16, 32, 60, 2, 8, 120
+    n = ws * ws
+    x = _rand(rng, bf16, b, h, w, c)
+    hab = (x, x, x, _rand(rng, bf16, c, 3 * c, s=c ** -0.5),
+           _rand(rng, bf16, 3 * c, s=0.1), _rand(rng, bf16, c, c, s=0.1),
+           _rand(rng, bf16, c, s=0.1),
+           _rand(rng, torch.float32, heads, n, n), 1.0 + _rand(rng, bf16, c),
+           _rand(rng, bf16, c), _rand(rng, bf16, c, hid, s=0.1),
+           _rand(rng, bf16, hid), _rand(rng, bf16, hid, c, s=0.1),
+           _rand(rng, bf16, c))
+    ffn = (_rand(rng, bf16, c, 2 * hid, s=0.1), _rand(rng, bf16, 2 * hid),
+           _rand(rng, bf16, 3, 3, 2 * hid), _rand(rng, bf16, 2 * hid),
+           _rand(rng, bf16, hid, c, s=0.1), _rand(rng, bf16, c))
+    calls = {
+        "fused_hab_block": (
+            lambda: chb.fused_hab_block(*hab, heads=heads, window_size=ws),
+            {"mma_proj_bias_kernel", "mma_msa_attention_kernel",
+             "mma_hab_tail_kernel"}),
+        "gated_dconv_ffn_block": (
+            lambda: cf.gated_dconv_ffn_block(x, hab[8], hab[9], *ffn),
+            {"mma_gated_dconv_ffn_kernel"}),
+        "gated_dconv_ffn": (lambda: cf.gated_dconv_ffn(x, *ffn),
+                            {"mma_gated_dconv_ffn_kernel"}),
+    }
+    for name, (call, kernels) in calls.items():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        seen = {e.name for e in prof.events()
+                if "cuda" in str(getattr(e, "device_type", "")).lower()
+                and "memset" not in e.name.lower()
+                and "memcpy" not in e.name.lower()}
+        assert seen, f"{name}: the profiler saw no kernel"
+        assert all(any(k in s for k in kernels) for s in seen), (name, seen)
+        assert all(any(k in s for s in seen) for k in kernels), (name, seen)
