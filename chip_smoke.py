@@ -37,6 +37,10 @@ Phases, each of which raises on failure:
      tensor-core kernels and float32 on their FMA kernels, their library
      time is a composition of calls, and the gated FFN is also timed at
      HAT-S's width (C / M 144 / 288) and as the bare entry at C_out 36;
+     ``hab_front`` and ``fused_scc_block`` run bf16 on their tensor-core
+     kernels and float32 on their FMA kernels, their library time is a
+     composition of calls, and ``hab_front`` is also timed at HAT-S's
+     width (C / MID 144 / 6) and checked on a ragged image;
   4. main paths: Predictor -> runner in tile mode -> network at the
      published width (bf16, seeded random weights) answers requests:
      classic HAT x4 (HATClassic), the fork's HAT x2 with the ESC-infused
@@ -324,6 +328,9 @@ COMPOSITIONS = {
                        "linear)",
     "fused_hab_block": " (composition: fused_msa_block's, then "
                        "mlp_block_sum3's)",
+    "fused_scc_block": " (composition: windows cut, einsum, baddbmm and bmm "
+                       "per head, the Gram's two bmm, linear, windows put "
+                       "back)",
 }
 # a second entry point of gated_dconv_ffn.cu, off the main paths: checked
 # against its plain version, not listed among the kernels
@@ -675,18 +682,27 @@ def kernel_bound(name: str, b: int, hw: int, esize: int, shifted_mask: int):
         vec = 8 * tok * C
         byts = 2 * act + tok * PDIM * esize + 2 * C * esize
     elif name == "hab_front":
-        # the two 3 x 3 convs as matrix products; LayerNorm, GELU and the
-        # two sums elementwise; x in, ln1 and cab_mid out, the weights and
-        # the float32 sums once
-        mm = 2 * 2 * tok * 9 * C * FRONT_MID
-        vec = 8 * tok * C + 8 * tok * FRONT_MID + tok * (C + PDIM)
-        byts = (3 * act + (18 * C * FRONT_MID + 3 * C + FRONT_MID) * esize
-                + 4 * b * (C + PDIM))
+        return front_bound(b, tok, C, FRONT_MID, esize)
     elif name == "fused_ocab_attention":
         mm = 4 * nwin * HEADS * n * nk * d
         byts = 4 * act + HEADS * n * nk * 4
     else:
         raise KeyError(name)
+    t_ops = max(mm / PEAK["bf16"], vec / PEAK["f32"])
+    t_bytes = byts / PEAK["hbm"]
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def front_bound(b: int, tok: int, c: int, mid: int, esize: int):
+    """(bound_ms, bound_by) of one ``hab_front`` call on b images of tok
+    pixels in all: the two 3 x 3 convs as matrix products; LayerNorm, GELU
+    and the two sums elementwise; x in, ln1 and cab_mid out, the weights
+    and the float32 sums once."""
+    mm = 2 * 2 * tok * 9 * c * mid
+    vec = 8 * tok * c + 8 * tok * mid + tok * (c + PDIM)
+    byts = (3 * tok * c * esize + (18 * c * mid + 3 * c + mid) * esize
+            + 4 * b * (c + PDIM))
     t_ops = max(mm / PEAK["bf16"], vec / PEAK["f32"])
     t_bytes = byts / PEAK["hbm"]
     return (max(t_ops, t_bytes) * 1e3,
@@ -934,6 +950,56 @@ def check_gated_ffn_kernels() -> None:
                                  f"{c_out}) disagrees with its plain "
                                  f"version: {err}")
         del x, ffn, args, library
+        torch.cuda.empty_cache()
+
+
+def check_front_kernels() -> None:
+    """Phase 3 for row 18 beyond ``check_kernels`` (which checks and times
+    ``hab_front`` at the fork's width, C / MID 180 / 60, on the flagship
+    chunk), in bf16: HAT-S's width (C / MID 144 / 6) on a chunk of four
+    160 x 160 tiles, timed beside plain, bound and the library's
+    composition, and the fork's width on a ragged 2 x 13 x 19 image. ln1
+    and cab_mid within TOL_BF16 of the plain version, the two sums within
+    TOL_BF16 of the magnitudes they add up."""
+    import torch
+
+    from super_resolution_tpu_torch.ops import cuda_hab as ch
+
+    dtype = torch.bfloat16
+    for b, h, w, c, mid, timed in ((4, 160, 160, 144, 6, True),
+                                   (2, 13, 19, C, FRONT_MID, False)):
+        t = _device_randn(dtype, c + mid + h)
+        x = t(b, h, w, c)
+        front = (1.0 + t(c, s=0.1), t(c, s=0.1),
+                 t(3, 3, c, mid, s=(9 * c) ** -0.5), t(mid, s=0.1),
+                 t(3, 3, mid, c, s=(9 * mid) ** -0.5), t(c, s=0.1))
+
+        def plain(x=x, front=front):
+            return ch.hab_front_reference(x, *front, 1e-5, PDIM)
+        got = ch.hab_front(x, *front, pdim=PDIM)
+        torch.cuda.synchronize()
+        ref = plain()
+        err, ok = max_err_and_tol(got[:2], ref[:2], TOL_BF16)
+        rel = front_sums_rel_err(got, ref)
+        ok = ok and rel <= TOL_BF16
+        del got, ref
+        line = (f"  hab_front C {c} MID {mid} {tuple(x.shape)} bf16 "
+                f"max|kernel-plain| {err:.3e} (rel tol {TOL_BF16:.1e}); sums "
+                f"rel err {rel:.2e}")
+        if timed:
+            ms = time_ms(lambda: ch.hab_front(x, *front, pdim=PDIM))
+            plain_ms = time_ms(plain, reps=5, warmup=1)
+            lib_ms = time_ms(front_library(x, *front))
+            bound_ms, by = front_bound(b, b * h * w, c, mid, 2)
+            line += (f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound "
+                     f"{bound_ms:.4f} ms ({by})  library {lib_ms:.3f} ms"
+                     + COMPOSITIONS["hab_front"])
+        log(line)
+        if not ok:
+            raise AssertionError(f"hab_front (C {c}, MID {mid}, "
+                                 f"{tuple(x.shape)}) disagrees with its "
+                                 f"plain version: {err}, sums {rel}")
+        del x, front
         torch.cuda.empty_cache()
 
 
@@ -1325,6 +1391,43 @@ def scc_inputs(dtype, seed: int, shape, win, base):
             t(heads, L, bl, s=0.5, dt=torch.float32))
 
 
+def scc_library(qv, sl_w, sl_b, w_proj, b_proj, bias, heads: int, win,
+                base):
+    """The library's composition of ``fused_scc_block`` (no one PyTorch
+    call computes it): the windows cut, the base projection as one
+    ``torch.einsum``, per head the correlation with its bias
+    (``torch.baddbmm``) and its product with vs (``torch.bmm``), the
+    channel Gram and its product with v (``torch.bmm``), the output
+    ``F.linear`` and the windows put back."""
+    import torch
+    import torch.nn.functional as F
+
+    from super_resolution_tpu_torch.ops import cuda_scc as cs
+
+    _, h, w, c = qv.shape
+    c2, L = c // 2, win[0] * win[1]
+    d = c2 // heads
+    P, _ = cs.scc_base_projection(*win, *base, sl_w, sl_b)
+    w_t = w_proj.t().contiguous()
+    bias_t = bias.to(qv.dtype)
+
+    def run():
+        x = cs.rect_win_partition(qv, *win)
+        q, v = x[..., :c2], x[..., c2:]
+        vs = torch.einsum("ml,blc->bmc", P, v) + sl_b
+        parts = []
+        for hh in range(heads):
+            qh, vh = q[..., hh * d:(hh + 1) * d], vs[..., hh * d:(hh + 1) * d]
+            corr = torch.baddbmm(bias_t[hh].expand(x.shape[0], -1, -1), qh,
+                                 vh.transpose(1, 2), alpha=1.0 / d)
+            parts.append(torch.bmm(corr, vh))
+        corr_c = torch.bmm(q.transpose(1, 2), v) / L
+        parts.append(torch.bmm(v, corr_c.transpose(1, 2)))
+        o = F.linear(torch.cat(parts, -1), w_t, b_proj)
+        return cs.rect_win_reverse(o, *win, h, w)
+    return run
+
+
 def scc_bound(shape, win, base, esize: int):
     """(bound_ms, bound_by) of one ``fused_scc_block`` call: the image read
     and written once, the float32 bias and the weights read once, over the
@@ -1390,13 +1493,15 @@ def check_scc_kernel() -> dict:
                          f"{TOL_SCC_BF16_L2:.0e}; bf16 plain {l2[1]:.2e})")
                 ms = time_ms(lambda: fn(*args, **kw))
                 plain_ms = time_ms(plain, reps=5, warmup=1)
+                lib_ms = time_ms(scc_library(*args, shape[4], win, base))
                 bound_ms, by = scc_bound(shape, win, base, 2)
                 if (shape, win, base) != SCC_RECT:
                     rows.append(dict(window=win[0], max_abs_err=err, ms=ms,
                                      plain_ms=plain_ms, bound_ms=bound_ms,
-                                     bound_by=by))
+                                     bound_by=by, library_ms=lib_ms))
                 line += (f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
-                         f"bound {bound_ms:.4f} ms ({by})  library none")
+                         f"bound {bound_ms:.4f} ms ({by})  library "
+                         f"{lib_ms:.3f} ms" + COMPOSITIONS["fused_scc_block"])
             del ref
             log(line)
             if not ok:
@@ -1406,10 +1511,10 @@ def check_scc_kernel() -> dict:
             del args
             torch.cuda.empty_cache()
     mean = {k: statistics.fmean(r[k] for r in rows)
-            for k in ("ms", "plain_ms", "bound_ms")}
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
     return {"fused_scc_block": dict(
         max_abs_err=max(r["max_abs_err"] for r in rows), **mean,
-        bound_by=rows[0]["bound_by"], library_ms=None,
+        bound_by=rows[0]["bound_by"],
         ms_by_window={r["window"]: r["ms"] for r in rows})}
 
 
@@ -1612,8 +1717,10 @@ def build_report(lib, ptxas: str) -> None:
     from super_resolution_tpu_torch.ops import cuda_attention as ca
     from super_resolution_tpu_torch.ops import cuda_build
     from super_resolution_tpu_torch.ops import cuda_ffn as cf
+    from super_resolution_tpu_torch.ops import cuda_hab as ch
     from super_resolution_tpu_torch.ops import cuda_hab_block as chb
     from super_resolution_tpu_torch.ops import cuda_psa as cp
+    from super_resolution_tpu_torch.ops import cuda_scc as cs
     from super_resolution_tpu_torch.ops import cuda_window_attention as cw
 
     usage, fn = {}, None
@@ -1644,6 +1751,9 @@ def build_report(lib, ptxas: str) -> None:
         parts = usage.get(fn, []) + ([f"{hmma[fn]} HMMA"] if fn in hmma
                                      else [])
         log(f"  {names[fn]}: {'; '.join(parts)}")
+    scc_smem = " / ".join(
+        str(cs.mma_scc_block_smem(w, w, min(w, 8), min(w, 8), SCC_SHAPE[3]))
+        for w in SCC_WINDOWS)
     log(f"  tensor-core attention: {cw.mma_attention_smem(16)} / "
         f"{cw.mma_attention_smem(32)} bytes of shared memory a block at "
         f"head dim 16 / 32; fused_psa_block's "
@@ -1662,7 +1772,11 @@ def build_report(lib, ptxas: str) -> None:
         f"{cf.mma_gated_ffn_smem(C, C)} / {cf.mma_gated_ffn_smem(144, 144)}"
         f" / {cf.mma_gated_ffn_smem(C, 36)} at C {C} / 144 / C {C} to 36, "
         f"any M; fused_hab_block's {chb.mma_hab_block_smem(C, HEADS)} at "
-        f"C {C} in {HEADS} heads")
+        f"C {C} in {HEADS} heads; hab_front's "
+        f"{ch.mma_hab_front_smem(C, FRONT_MID)} / "
+        f"{ch.mma_hab_front_smem(144, 6)} at C / MID {C} / {FRONT_MID} and "
+        f"144 / 6; fused_scc_block's {scc_smem} at HiT-SRF's windows "
+        f"{' / '.join(map(str, SCC_WINDOWS))}")
     bare = [names[fn] for fn, n in hmma.items() if "mma_" in names[fn]
             and n == 0]
     if bare or (hmma and not any("mma_" in names[fn] for fn in hmma)):
@@ -1710,6 +1824,7 @@ def main() -> int:
     check_msa_block_kernels()
     check_mlp_tail_kernels()
     check_gated_ffn_kernels()
+    check_front_kernels()
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
 
     by_path, first_outputs = {}, {}

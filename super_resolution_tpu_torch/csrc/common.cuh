@@ -66,11 +66,43 @@ __device__ __forceinline__ void warp_ln_stats(F at, int C, float eps,
   rstd = rsqrtf(warp_sum(sq) / C + eps);
 }
 
+// GELU with the TPU kernels' erf, Abramowitz and Stegun 7.1.26 (error
+// < 1.5e-7; pallas_ffn.py:298-306, pallas_hab.py:31-41), the reciprocal
+// and exponential on the special-function unit.
+__device__ __forceinline__ float gelu_as(float h) {
+  const float z = h * 0.70710678118654752f, az = fabsf(z);
+  const float t = __fdividef(1.f, 1.f + 0.3275911f * az);
+  const float poly =
+      t * (0.254829592f +
+           t * (-0.284496736f +
+                t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  const float e = 1.f - poly * __expf(-az * az);
+  return 0.5f * h * (1.f + copysignf(e, z));
+}
+
+// (e / n, e % n) of e = start + k * step for k = 0, 1, ..., advanced without a
+// division: in a block-strided loop over a runtime width, the index
+// arithmetic would otherwise cost more than the work (20 instructions a
+// division against a few FMAs or one copy).
+struct DivMod {
+  int q, r, dq, dr, n;
+  __device__ __forceinline__ DivMod(int start, int step, int n_)
+      : q(start / n_), r(start % n_), dq(step / n_), dr(step % n_), n(n_) {}
+  __device__ __forceinline__ void next() {
+    q += dq;
+    r += dr;
+    if (r >= n) {
+      r -= n;
+      ++q;
+    }
+  }
+};
+
 // Block-wide C[M, N] = A[M, K] @ B[K, N] with float32 accumulation.
 // a_at(m, k) and b_at(k, n) return operands as float; epi(m, n, acc) gets
 // each finished sum. Each thread owns TM x TN output tiles, strided over
-// the block. Plain FMA loops: head dim 30 and C = 180 fit no MMA shape,
-// and this first version aims to be right, not fast.
+// the block. Plain FMA loops, for the float32 kernels: they are the exact
+// check, not the fast route (bf16 runs its products on the tensor cores).
 template <int TM, int TN, typename FA, typename FB, typename FE>
 __device__ __forceinline__ void block_gemm(int M, int N, int K, FA a_at,
                                            FB b_at, FE epi) {

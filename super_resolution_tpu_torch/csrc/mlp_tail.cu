@@ -265,19 +265,8 @@ __device__ __forceinline__ void read_x(float (&acc)[NT][4],
   }
 }
 
-// GELU with the TPU kernel's erf, Abramowitz and Stegun 7.1.26 (error
-// < 1.5e-7; pallas_ffn.py:298-306), the reciprocal and exponential on the
-// special-function unit.
-__device__ __forceinline__ float gelu(float h) {
-  const float z = h * 0.70710678118654752f, az = fabsf(z);
-  const float t = __fdividef(1.f, 1.f + 0.3275911f * az);
-  const float poly =
-      t * (0.254829592f +
-           t * (-0.284496736f +
-                t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  const float e = 1.f - poly * __expf(-az * az);
-  return 0.5f * h * (1.f + copysignf(e, z));
-}
+// GELU with the TPU kernel's erf (common.cuh).
+using srk::gelu_as;
 
 // s + cs * cv + bproj of the lane's rows in the accumulator layout of
 // read_x, float32, zero past C and for a dead row: where fused_hab_block's
@@ -608,8 +597,8 @@ __device__ __forceinline__ void tail_rows(const TailArgs& a,
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const int i = 2 * q + u;
-        gf[q][2 * u] = mma::pack(gelu(hs[i][0]), gelu(hs[i][1]));
-        gf[q][2 * u + 1] = mma::pack(gelu(hs[i][2]), gelu(hs[i][3]));
+        gf[q][2 * u] = mma::pack(gelu_as(hs[i][0]), gelu_as(hs[i][1]));
+        gf[q][2 * u + 1] = mma::pack(gelu_as(hs[i][2]), gelu_as(hs[i][3]));
       }
     // the next step's fc1 (past the last step, on a stage whose result
     // goes unused)

@@ -79,12 +79,17 @@ _SIGNATURES = {
     "sr_scc_block": [_I] + [_P] * 8 + [_I] * 9 + [_P],
     "sr_scc_block_scratch": [_I] * 6,
     "sr_scc_block_smem": [_I] * 6,
+    "sr_mma_scc_block": [_P] * 8 + [_I] * 9 + [_P],
+    "sr_mma_scc_block_scratch": [_I] * 6,
+    "sr_mma_scc_block_smem": [_I] * 5,
     "sr_hab_block": [_I] + [_P] * 16 + [_I] * 7 + [_F] * 3 + [_P],
     "sr_hab_block_smem": [_I] * 4,
     "sr_mma_hab_block": [_P] * 17 + [_I] * 7 + [_F] * 3 + [_P],
     "sr_mma_hab_block_smem": [_I] * 2,
     "sr_hab_front": [_I] + [_P] * 12 + [_I] * 6 + [_F] + [_P],
     "sr_hab_front_smem": [_I] * 3,
+    "sr_mma_hab_front": [_P] * 12 + [_I] * 6 + [_F] + [_P],
+    "sr_mma_hab_front_smem": [_I] * 2,
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -7,12 +7,20 @@ Ports super_resolution_tpu/ops/pallas_hab.py: ``ln_split`` and
 ``csrc/hab_front.cu``. The TPU kernels' row-tile limits (H a multiple of
 the tile, or padded to one) do not carry over: any B, H and W go through.
 
+``hab_front`` sends bf16 to the tensor-core kernel (``sr_mma_hab_front``,
+both convs on ``mma.sync``) and float32 to the FMA kernel
+(``sr_hab_front``, whose entry refuses bf16).
+
 Numerics: ``ln_split``'s kernel and plain version take the statistics in
 float32 and round once, to the input dtype; they differ by the order of
-the sums. ``hab_front``'s round where the JAX reference casts: ln1 to the
-input dtype before conv1, conv1's output before the float32 GELU, the
-GELU's output before conv2, cab_mid before the sums; the kernel sums in
-float32 by 8 x 8 tiles, then the tiles in order.
+the sums. ``hab_front``'s plain version and float32 kernel round where the
+JAX reference casts: ln1 to the input dtype before conv1, conv1's output
+before the float32 GELU (exact erf), the GELU's output before conv2,
+cab_mid before the sums; the FMA kernel sums in float32 by 8 x 8 tiles,
+then the tiles in order. The bf16 kernel takes the TPU kernel's cast
+points: ln1 rounded, GELU (the A&S erf) on the unrounded conv1 + b1, t1
+rounded once, gap_cab summed from the float32 cab before its rounding, by
+8 x 16 tiles, then the tiles in order.
 """
 
 from __future__ import annotations
@@ -29,8 +37,16 @@ from super_resolution_tpu_torch.ops.cuda_build import (MAX_DYNAMIC_SMEM,
                                                        stream_of, use_kernel)
 from super_resolution_tpu_torch.ops.cuda_ffn import layer_norm_f32
 
-# output tile side and LayerNorm patch side of csrc/hab_front.cu
+# output tile side and LayerNorm patch side of csrc/hab_front.cu's FMA
+# kernel
 _TILE, _LN_SIDE = 8, 12
+# the tensor-core kernel (namespace tc): the interior tile of a block (rows,
+# columns), the halo's LayerNorm positions, conv1's m16 rows, the weight
+# stages and the pad (bf16) after each row; its limits: C up to
+# FRONT_MAX_C, MID up to FRONT_MAX_MID
+FRONT_TILE, FRONT_LN_POS, FRONT_T1_ROWS, FRONT_STAGES, FRONT_PAD = \
+    (8, 16), 240, 192, 2, 8
+FRONT_MAX_C, FRONT_MAX_MID = 256, 64
 
 
 def ln_split_reference(x, gamma, beta, eps: float = 1e-5, pdim: int = 16):
@@ -96,15 +112,36 @@ def hab_front_smem(c: int, mid: int, esize: int = 4) -> int:
     return 4 * ln + esize * (ln * c + (_TILE + 2) ** 2 * mid + c * mid)
 
 
-def hab_front_supported(c: int, mid: int, pdim: int,
-                        dtype=torch.float32) -> bool:
-    """Whether ``hab_front`` runs this shape on the card in ``dtype`` (by
-    default float32, the larger, so that both run): 0 <= pdim <= C and a
-    block within the card's shared memory (in float32: C up to about 250 at
-    MID = C / 3; the fork's 180 and 60 take 171 kB, 86 kB in bf16)."""
-    esize = torch.empty((), dtype=dtype).element_size()
-    return (0 <= pdim <= c and mid >= 1
-            and hab_front_smem(c, mid, esize) <= MAX_DYNAMIC_SMEM)
+def mma_hab_front_smem(c: int, mid: int) -> int:
+    """Bytes a block of the bf16 kernel (``tc::smem_bytes``) takes: the LN
+    tile of the halo's 240 positions (C rounded up to 16, padded), which
+    conv1's 192 rows of t1 (MID rounded up to 16, above 16 to 32, padded)
+    take over, and ``FRONT_STAGES`` stages of the larger of a conv1 tap's
+    slab and a conv2 tap's (C rounded up to 192 or 256, padded), at least
+    the conv2 warps' column sums."""
+    kc = (c + 15) // 16 * 16
+    km = 16 if mid <= 16 else (mid + 31) // 32 * 32
+    n2 = 192 if c <= 192 else 256
+    a = 2 * max(FRONT_LN_POS * (kc + FRONT_PAD),
+                FRONT_T1_ROWS * (km + FRONT_PAD))
+    stage = 2 * max(kc * (km + FRONT_PAD), km * (n2 + FRONT_PAD))
+    return a + max(FRONT_STAGES * stage, 4 * 4 * n2)
+
+
+def hab_front_supported(c: int, mid: int, pdim: int, dtype=None) -> bool:
+    """Whether ``hab_front`` runs this shape on the card in ``dtype`` (None:
+    in both types): 0 <= pdim <= C, and in float32 a block of the FMA
+    kernel within the card's shared memory (C up to about 250 at MID = C /
+    3; the fork's 180 and 60 take 171 kB), in bf16 C up to 256 and MID up
+    to 64 (the fork's 180 / 60 take 151 kB, HAT-S's 144 / 6 87 kB)."""
+    if not (0 <= pdim <= c and mid >= 1):
+        return False
+    f32 = hab_front_smem(c, mid, 4) <= MAX_DYNAMIC_SMEM
+    bf16 = (c <= FRONT_MAX_C and mid <= FRONT_MAX_MID
+            and mma_hab_front_smem(c, mid) <= MAX_DYNAMIC_SMEM)
+    if dtype is None:
+        return f32 and bf16
+    return bf16 if dtype == torch.bfloat16 else f32
 
 
 def hab_front(x, gamma, beta, w1, b1, w2, b2, *, eps: float = 1e-5,
@@ -119,7 +156,8 @@ def hab_front(x, gamma, beta, w1, b1, w2, b2, *, eps: float = 1e-5,
     x: (B, H, W, C); gamma, beta, b2 (C,); w1 (3, 3, C, MID), b1 (MID,);
     w2 (3, 3, MID, C): 3 x 3 convs with zero padding in the HWIO layout.
     Returns (ln1, cab_mid, gap_cab, gap16). On the card: one launch of the
-    kernel and one of its short reduction pass, counted once. Replaces
+    kernel (bf16 on the tensor cores, float32 on the FMA kernel) and one of
+    its short reduction pass, counted once. Replaces
     super_resolution_tpu/ops/pallas_hab.py::hab_front.
     """
     name = "hab_front"
@@ -139,19 +177,30 @@ def hab_front(x, gamma, beta, w1, b1, w2, b2, *, eps: float = 1e-5,
                           ("w2", w2, (3, 3, mid, c)), ("b2", b2, (c,))):
         check_shape(name, arg, t, shape)
     lib = load_library()
-    check_smem(name, lib.sr_hab_front_smem(code, c, mid),
-               f"{c} channels and a conv1 width of {mid} in {x.dtype}")
-    tiles = -(-h // _TILE) * -(-w // _TILE)
+    what = f"{c} channels and a conv1 width of {mid} in {x.dtype}"
+    # bf16 runs on the tensor cores, float32 on the FMA kernel
+    mma = x.dtype == torch.bfloat16
+    if mma:
+        if c > FRONT_MAX_C or mid > FRONT_MAX_MID:
+            raise ValueError(f"{name}: the bf16 kernel takes C up to "
+                             f"{FRONT_MAX_C} and MID up to {FRONT_MAX_MID}, "
+                             f"got {c} and {mid}")
+        check_smem(name, lib.sr_mma_hab_front_smem(c, mid), what)
+        tile = FRONT_TILE
+    else:
+        check_smem(name, lib.sr_hab_front_smem(code, c, mid), what)
+        tile = (_TILE, _TILE)
+    tiles = -(-h // tile[0]) * -(-w // tile[1])
     ln1, cab = torch.empty_like(x), torch.empty_like(x)
     partial = torch.empty(b * tiles * (c + pdim), dtype=torch.float32,
                           device=x.device)
     gap_cab = torch.empty((b, c), dtype=torch.float32, device=x.device)
     gap16 = torch.empty((b, pdim), dtype=torch.float32, device=x.device)
-    err = lib.sr_hab_front(
-        code, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ln1.data_ptr(),
-        cab.data_ptr(), partial.data_ptr(), gap_cab.data_ptr(),
-        gap16.data_ptr(), b, h, w, c, mid, pdim, eps, stream_of(x))
+    ops = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
+           b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ln1.data_ptr(),
+           cab.data_ptr(), partial.data_ptr(), gap_cab.data_ptr(),
+           gap16.data_ptr(), b, h, w, c, mid, pdim, eps, stream_of(x))
+    err = lib.sr_mma_hab_front(*ops) if mma else lib.sr_hab_front(code, *ops)
     raise_on_error(name, err)
     hab_front.launches += 1
     return ln1, cab, gap_cab, gap16

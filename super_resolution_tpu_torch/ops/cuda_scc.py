@@ -5,11 +5,14 @@ Ports ``fused_scc_block``, ``scc_block_reference`` and
 ``_scc_base_projection`` of super_resolution_tpu/ops/pallas_attention.py
 (the wrapper launches ``csrc/scc_block.cu``), with the JAX names and
 signatures minus the Mosaic knob (``interpret``). Weights are in the JAX
-layout (in, out).
+layout (in, out). bf16 runs the tensor-core kernels
+(``sr_mma_scc_block``: every product on ``mma.sync``, head dim 5 padded
+with the other heads' channels masked), float32 the FMA kernels
+(``sr_scc_block``, whose entry refuses bf16).
 
-Numerics of the kernel against the plain version: both round ``vs``, the
+Numerics of the kernels against the plain version: both round ``vs``, the
 correlation, ``x_spatial``, ``x_channel`` and the channel Gram to the input
-dtype; the kernel forms each of them in float32 and rounds once (as the TPU
+dtype; the kernels form each of them in float32 and round once (as the TPU
 kernel does), the plain version runs every product in the input dtype and
 rounds after each step (division by the head dim, the bias). In float32
 they agree to rounding.
@@ -31,6 +34,9 @@ from super_resolution_tpu_torch.ops.cuda_build import (MAX_DYNAMIC_SMEM,
 
 # limits and tile sizes of csrc/scc_block.cu, for the predicate below
 _ROWS, _CHUNK, _MAX_HALF, _MAX_HEAD_DIM = 32, 64, 64, 32
+# the tensor-core kernels (namespace tc): token rows of a block, the pad
+# (bf16) after each row of a tile
+SCC_ROWS, SCC_PAD = 128, 8
 
 
 def scc_base_projection(wh: int, ww: int, bh: int, bw: int, sl_w, sl_b):
@@ -114,6 +120,25 @@ def scc_block_smem(wh: int, ww: int, bh: int, bw: int, dim: int,
     return max(main, 4 * (_CHUNK * dim + _CHUNK + bl))
 
 
+def mma_scc_block_smem(wh: int, ww: int, bh: int, bw: int, dim: int) -> int:
+    """Bytes a block of the bf16 kernels takes, the larger of the two
+    (``tc::main_smem_bytes``, ``tc::reduce_smem_bytes``): each half (q, v)
+    padded to C2P = 32 or 64 channels; the main kernel's 128 rows of
+    [q | v], W_proj's 2 C2P rows, vs (base cells rounded up to 16) and the
+    channel Gram of each of its windows (a window of at most 128 tokens
+    takes ceil(L / 16) warps' 16 rows, as many windows as fit), a pixel and
+    a token a row; the reduction pass (windows of more than 128 tokens):
+    128 rows of [q | v], the float32 Gram, a pixel a row."""
+    L, bl, c2p = wh * ww, bh * bw, 32 if dim // 2 <= 32 else 64
+    qst, vst = 2 * c2p + SCC_PAD, c2p + SCC_PAD
+    wpb = 8 // ((L + 15) // 16) if L <= SCC_ROWS else 1
+    main = (2 * (SCC_ROWS * qst + 2 * c2p * qst
+                 + wpb * ((bl + 15) // 16 * 16) * vst + wpb * c2p * vst)
+            + 8 * SCC_ROWS)
+    red = 2 * SCC_ROWS * qst + 4 * c2p * c2p + 4 * SCC_ROWS
+    return max(main, red) if L > SCC_ROWS else main
+
+
 def _shape_ok(wh: int, ww: int, bh: int, bw: int, dim: int,
               heads: int) -> bool:
     return (min(wh, ww, bh, bw, heads) >= 1 and wh % bh == 0 and ww % bw == 0
@@ -124,14 +149,17 @@ def _shape_ok(wh: int, ww: int, bh: int, bw: int, dim: int,
 
 def scc_block_supported(wh: int, ww: int, bh: int, bw: int, dim: int,
                         heads: int) -> bool:
-    """Whether ``fused_scc_block`` runs this shape on the card: a window
-    that its base grid divides, q and v halves of at most 64 channels that
-    the heads divide into head dims of at most 32, and a block within the
-    card's shared memory (at HiT-SRF's 60 channels in 6 heads on an 8 x 8
-    base: every window size, 47 kB a block; a 32 x 32 base is beyond it)."""
+    """Whether ``fused_scc_block`` runs this shape on the card in both
+    types: a window that its base grid divides, q and v halves of at most
+    64 channels that the heads divide into head dims of at most 32, and a
+    block of each route within the card's shared memory (at HiT-SRF's 60
+    channels in 6 heads on an 8 x 8 base: every window size, 47 kB a block
+    in float32, at most 59 kB in bf16; a 32 x 32 base is beyond the FMA
+    kernel)."""
     return (_shape_ok(wh, ww, bh, bw, dim, heads)
             and scc_block_smem(wh, ww, bh, bw, dim, heads)
-            <= MAX_DYNAMIC_SMEM)
+            <= MAX_DYNAMIC_SMEM
+            and mma_scc_block_smem(wh, ww, bh, bw, dim) <= MAX_DYNAMIC_SMEM)
 
 
 def fused_scc_block(qv_img, sl_w, sl_b, w_proj, b_proj, bias, *, heads: int,
@@ -148,8 +176,10 @@ def fused_scc_block(qv_img, sl_w, sl_b, w_proj, b_proj, bias, *, heads: int,
     sl_w: (ratio,), ratio = wh ww / (bh bw); sl_b: (); w_proj (C, C);
     b_proj (C,); bias (heads, L, baseL) float32. Returns (B, H, W, C).
     One wrapper call is a reduction pass over the windows (skipped for
-    windows of at most 32 tokens) and one block per (window, 32 token
-    rows) with a thread per (row, head). Replaces
+    windows that one block of the main kernel holds whole) and the main
+    kernel: in bf16 on the tensor cores, 128 token rows a block, a warp's
+    16 rows in one window; in float32 on the FMA kernels, 32 token rows a
+    block, a thread per (row, head). Replaces
     super_resolution_tpu/ops/pallas_attention.py::fused_scc_block.
     """
     if not use_kernel(qv_img):
@@ -179,21 +209,28 @@ def fused_scc_block(qv_img, sl_w, sl_b, w_proj, b_proj, bias, *, heads: int,
                           ("bias", bias, (heads, L, bl))):
         check_shape(name, arg, t, shape)
     lib = load_library()
-    check_smem(name, lib.sr_scc_block_smem(wh, ww, bh, bw, c, heads),
-               f"window {(wh, ww)} on base {(bh, bw)}, {c} channels in "
-               f"{heads} heads")
+    what = (f"window {(wh, ww)} on base {(bh, bw)}, {c} channels in "
+            f"{heads} heads")
+    # bf16 runs on the tensor cores, float32 on the FMA kernels
+    mma = qv_img.dtype == torch.bfloat16
+    if mma:
+        check_smem(name, lib.sr_mma_scc_block_smem(wh, ww, bh, bw, c), what)
+        per_window = lib.sr_mma_scc_block_scratch(wh, ww, bh, bw, c, heads)
+    else:
+        check_smem(name, lib.sr_scc_block_smem(wh, ww, bh, bw, c, heads),
+                   what)
+        per_window = lib.sr_scc_block_scratch(wh, ww, bh, bw, c, heads)
     n_win = b * (h_img // wh) * (w_img // ww)
     # float32 scratch between the reduction pass and the main kernel; the
     # kernel source owns its size and layout
-    scratch = torch.empty(
-        max(1, n_win * lib.sr_scc_block_scratch(wh, ww, bh, bw, c, heads)),
-        dtype=torch.float32, device=qv_img.device)
+    scratch = torch.empty(max(1, n_win * per_window), dtype=torch.float32,
+                          device=qv_img.device)
     out = torch.empty_like(qv_img)
-    err = lib.sr_scc_block(
-        code, qv_img.data_ptr(), sl_w.data_ptr(), sl_b.data_ptr(),
-        w_proj.data_ptr(), b_proj.data_ptr(), bias.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), b, h_img, w_img, c, heads, wh,
-        ww, bh, bw, stream_of(qv_img))
+    ops = (qv_img.data_ptr(), sl_w.data_ptr(), sl_b.data_ptr(),
+           w_proj.data_ptr(), b_proj.data_ptr(), bias.data_ptr(),
+           scratch.data_ptr(), out.data_ptr(), b, h_img, w_img, c, heads, wh,
+           ww, bh, bw, stream_of(qv_img))
+    err = lib.sr_mma_scc_block(*ops) if mma else lib.sr_scc_block(code, *ops)
     raise_on_error(name, err)
     fused_scc_block.launches += 1
     return out

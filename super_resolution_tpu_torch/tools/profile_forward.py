@@ -63,8 +63,10 @@ PORT_KERNELS = ("msa_block_kernel", "ocab_block_kernel",
                 "mma_proj_bias_kernel",
                 "mma_psa_block_kernel",
                 "psa_block_kernel",
+                "mma_scc_block_kernel", "mma_scc_reduce_kernel",
                 "scc_block_kernel", "scc_reduce_kernel", "hab_block_kernel",
-                "hab_front_kernel", "hab_front_sum_kernel")
+                "mma_hab_front_kernel", "hab_front_kernel",
+                "hab_front_sum_kernel")
 
 
 def labels() -> list:

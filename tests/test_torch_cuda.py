@@ -1192,3 +1192,152 @@ def test_bf16_hab_block_and_gated_ffn_launch_tensor_core_kernels_only(cuda):
         assert seen, f"{name}: the profiler saw no kernel"
         assert all(any(k in s for k in kernels) for s in seen), (name, seen)
         assert all(any(k in s for s in seen) for k in kernels), (name, seen)
+
+
+# (B, H, W, C, MID, pdim) of hab_front beside the shapes of
+# test_torch_hab_front.py: HAT-S's width (144 / 6) on an image no tile
+# divides; the fork's on an image smaller than one 8 x 16 tile of the bf16
+# kernel; C 240 / MID 64 (conv2's halves of 128 columns, conv1's two column
+# groups); C 18 / MID 5 (rows and weights copied element by element); the
+# flagship chunk of four 160 x 160 tiles
+FRONT_MMA_SHAPES = [
+    (2, 13, 19, 144, 6, 16), (1, 5, 7, 180, 60, 16), (1, 11, 9, 240, 64, 16),
+    (2, 9, 10, 18, 5, 8),
+    pytest.param((4, 160, 160, 180, 60, 16), marks=pytest.mark.slow)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FRONT_MMA_SHAPES)
+def test_hab_front_shapes_match_plain_version(cuda, shape, dtype):
+    """bf16 runs the tensor-core kernel, float32 the FMA kernel; ln1 and
+    cab_mid within TOL of their plain versions, each sum within TOL of the
+    sum of the magnitudes it adds up; one launch counted."""
+    b, h, w, c, mid, pdim = shape
+    rng = np.random.default_rng(h * w + c + mid)
+    args = (_rand(rng, dtype, b, h, w, c), 1.0 + _rand(rng, dtype, c, s=0.1),
+            _rand(rng, dtype, c, s=0.1),
+            _rand(rng, dtype, 3, 3, c, mid, s=(9 * c) ** -0.5),
+            _rand(rng, dtype, mid, s=0.1),
+            _rand(rng, dtype, 3, 3, mid, c, s=(9 * mid) ** -0.5),
+            _rand(rng, dtype, c, s=0.1))
+    before = ch.hab_front.launches
+    got = ch.hab_front(*args, pdim=pdim)
+    torch.cuda.synchronize()
+    assert ch.hab_front.launches == before + 1
+    ref = ch.hab_front_reference(*args, pdim=pdim)
+    _assert_close(got[0], ref[0], dtype)
+    _assert_close(got[1], ref[1], dtype)
+    mass = (ref[1].float().abs().sum(dim=(1, 2)),
+            ref[0][..., :pdim].float().abs().sum(dim=(1, 2)))
+    for g, r, m in zip(got[2:], ref[2:], mass):
+        assert g.shape == r.shape and g.dtype == torch.float32
+        assert ((g - r).abs() / m.clamp_min(1.0)).max().item() <= TOL[dtype]
+
+
+def test_hab_front_and_scc_fma_refuse_bf16(cuda):
+    """bf16 reaches the FMA kernels of hab_front and fused_scc_block by no
+    route: their entries refuse it. The tensor-core entry of hab_front
+    refuses a C past 256 and a MID past 64."""
+    from super_resolution_tpu_torch.ops.cuda_build import (load_library,
+                                                           stream_of)
+
+    lib = load_library()
+    z = dict(dtype=torch.bfloat16, device="cuda")
+    c, mid = 36, 12
+    x, v = torch.zeros((1, 8, 16, c), **z), torch.zeros((c,), **z)
+    w1, b1 = torch.zeros((3, 3, c, mid), **z), torch.zeros((mid,), **z)
+    w2 = torch.zeros((3, 3, mid, c), **z)
+    ln1, cab = torch.zeros_like(x), torch.zeros_like(x)
+    f = dict(dtype=torch.float32, device="cuda")
+    partial, gap = torch.zeros(2 * (c + 8), **f), torch.zeros((1, c), **f)
+    gap16 = torch.zeros((1, 8), **f)
+    ops = (x.data_ptr(), v.data_ptr(), v.data_ptr(), w1.data_ptr(),
+           b1.data_ptr(), w2.data_ptr(), v.data_ptr(), ln1.data_ptr(),
+           cab.data_ptr(), partial.data_ptr(), gap.data_ptr(),
+           gap16.data_ptr(), 1, 8, 16)
+    s = stream_of(x)
+    assert lib.sr_hab_front(1, *ops, c, mid, 8, 1e-5, s) != 0
+    assert lib.sr_mma_hab_front(*ops, c, mid, 8, 1e-5, s) == 0
+    assert lib.sr_mma_hab_front(*ops, 257, mid, 8, 1e-5, s) != 0
+    assert lib.sr_mma_hab_front(*ops, c, 65, 8, 1e-5, s) != 0
+    torch.cuda.synchronize()
+    c, heads = 20, 2
+    qv, out = torch.zeros((1, 8, 8, c), **z), torch.zeros((1, 8, 8, c), **z)
+    wp, bp = torch.zeros((c, c), **z), torch.zeros((c,), **z)
+    slw, slb = torch.zeros((4,), **z), torch.zeros((), **z)
+    bias, scratch = torch.zeros((heads, 64, 16), **f), torch.zeros(1, **f)
+    scc = (qv.data_ptr(), slw.data_ptr(), slb.data_ptr(), wp.data_ptr(),
+           bp.data_ptr(), bias.data_ptr(), scratch.data_ptr(),
+           out.data_ptr(), 1, 8, 8, c, heads, 8, 8, 4, 4, s)
+    assert lib.sr_scc_block(1, *scc) != 0
+    assert lib.sr_mma_scc_block(*scc) == 0
+    torch.cuda.synchronize()
+
+
+def test_mma_hab_front_and_scc_smem_agree_with_the_sources(cuda):
+    """The pure-Python shared-memory and scratch formulas of the two bf16
+    routes equal their C entries."""
+    from super_resolution_tpu_torch.ops.cuda_build import load_library
+
+    lib = load_library()
+    for c in (16, 18, 36, 60, 96, 144, 180, 192, 193, 250, 256):
+        for mid in (1, 5, 6, 16, 17, 20, 32, 33, 60, 64):
+            assert (ch.mma_hab_front_smem(c, mid)
+                    == lib.sr_mma_hab_front_smem(c, mid))
+    for win, base in (((4, 4), (4, 4)), ((8, 8), (8, 8)), ((8, 4), (4, 4)),
+                      ((2, 2), (2, 2)), ((6, 6), (3, 3)), ((48, 48), (8, 8)),
+                      ((64, 64), (8, 8)), ((64, 64), (16, 16)),
+                      ((16, 16), (8, 8)), ((4, 3), (2, 3))):
+        for c in (60, 20, 12, 128, 80):
+            assert (cs.mma_scc_block_smem(*win, *base, c)
+                    == lib.sr_mma_scc_block_smem(*win, *base, c))
+    # vs (64 cells of 30 floats) and a 32 x 32 Gram a slice (1, 4, 8, 8
+    # slices) where a window has more than 128 tokens
+    assert [lib.sr_mma_scc_block_scratch(w, w, min(w, 8), min(w, 8), 60, 6)
+            for w in (4, 8, 16, 32, 48, 64)] == [
+                0, 0, 2944, 6016, 10112, 10112]
+
+
+def test_bf16_hab_front_and_scc_launch_tensor_core_kernels_only(cuda):
+    """Under the profiler, a bf16 call of hab_front or fused_scc_block
+    launches the tensor-core kernels named here (and hab_front's tile-order
+    sum) and no other kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(14)
+    bf16 = torch.bfloat16
+    c, mid = 180, 60
+    front = (_rand(rng, bf16, 1, 16, 32, c), 1.0 + _rand(rng, bf16, c),
+             _rand(rng, bf16, c), _rand(rng, bf16, 3, 3, c, mid, s=0.02),
+             _rand(rng, bf16, mid), _rand(rng, bf16, 3, 3, mid, c, s=0.05),
+             _rand(rng, bf16, c))
+
+    def scc(ws):
+        bl = min(ws, 8) ** 2
+        args = (_rand(rng, bf16, 1, 32, 32, 60),
+                _rand(rng, bf16, ws * ws // bl),
+                _rand(rng, bf16, 1)[0], _rand(rng, bf16, 60, 60, s=0.1),
+                _rand(rng, bf16, 60),
+                _rand(rng, torch.float32, 6, ws * ws, bl))
+        return lambda: cs.fused_scc_block(*args, heads=6, window_size=(ws, ws),
+                                          base=(min(ws, 8),) * 2)
+    calls = {
+        "hab_front": (lambda: ch.hab_front(*front),
+                      {"mma_hab_front_kernel", "hab_front_sum_kernel"}),
+        "fused_scc_block window 4": (scc(4), {"mma_scc_block_kernel"}),
+        "fused_scc_block window 16": (scc(16), {"mma_scc_reduce_kernel",
+                                                "mma_scc_block_kernel"}),
+    }
+    for name, (call, kernels) in calls.items():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        seen = {e.name for e in prof.events()
+                if "cuda" in str(getattr(e, "device_type", "")).lower()
+                and "memset" not in e.name.lower()
+                and "memcpy" not in e.name.lower()}
+        assert seen, f"{name}: the profiler saw no kernel"
+        assert all(any(k in s for k in kernels) for s in seen), (name, seen)
+        assert all(any(k in s for s in seen) for k in kernels), (name, seen)

@@ -184,12 +184,18 @@ def test_hat_with_front_route_from_network_g(monkeypatch, rng):
 
 
 def test_hab_front_supported_predicate():
-    """The predicate's shared memory: the fork's width fits in both types,
-    a width of 300 only in bf16; pdim stays within C."""
+    """The predicate: the fork's width and HAT-S's fit in both types (bf16
+    on the tensor-core kernel, float32 on the FMA kernel); a width of 300
+    in neither (beyond the FMA kernel's shared memory and the tensor-core
+    kernel's C of 256); pdim stays within C."""
     assert ch.hab_front_supported(180, 60, 16)
+    assert ch.hab_front_supported(144, 6, 16)
     assert ch.hab_front_smem(180, 60, 2) == 86016
     assert not ch.hab_front_supported(300, 100, 16)
-    assert ch.hab_front_supported(300, 100, 16, torch.bfloat16)
+    assert not ch.hab_front_supported(300, 100, 16, torch.bfloat16)
+    assert ch.hab_front_supported(250, 64, 16, torch.bfloat16)
+    assert not ch.hab_front_supported(180, 65, 16, torch.bfloat16)
+    assert ch.hab_front_supported(180, 65, 16, torch.float32)
     assert not ch.hab_front_supported(16, 5, 17)
 
 
