@@ -40,7 +40,10 @@ Phases, each of which raises on failure:
      ``hab_front`` and ``fused_scc_block`` run bf16 on their tensor-core
      kernels and float32 on their FMA kernels, their library time is a
      composition of calls, and ``hab_front`` is also timed at HAT-S's
-     width (C / MID 144 / 6) and checked on a ragged image;
+     width (C / MID 144 / 6) and checked on a ragged image; ``ln_split``
+     runs bf16 on its vector kernel and float32 on its first version, and
+     is also timed on two inputs in turn and through its C entry (the
+     kernel alone, without the wrapper's host work);
   4. main paths: Predictor -> runner in tile mode -> network at the
      published width (bf16, seeded random weights) answers requests:
      classic HAT x4 (HATClassic), the fork's HAT x2 with the ESC-infused
@@ -50,7 +53,8 @@ Phases, each of which raises on failure:
      SRFormer x4 and the shipped SRFormer-light x4, HiT-SRF x4,
      classic HAT x4 on its whole-block route (``fused_hab_block``), the
      fork's HAT x2 on its ``hab_front`` route, SwinIR-M x4 (classical),
-     lightweight SwinIR x4 and real-world SwinIR-L x4. The launch counts
+     lightweight SwinIR x4, real-world SwinIR-L x4, ESC-FP x4, ESC-Real x4
+     and ESC-RealM x2 with the DySample head. The launch counts
      are set to 0 before each path and read after it; the counts, the
      output shapes and values, and the PSNR against the port's float32
      path are checked; a route of another path's network is held against
@@ -102,6 +106,18 @@ ESC_XL = dict(type="ESC", dim=192, pdim=48, kernel_size=13, n_blocks=8,
               conv_blocks=5, window_size=48, num_heads=12,
               upscaling_factor=4, exp_ratio=1.25, attn_type="xla",
               use_ln=True)
+# ESC-FP x4 (options/esc/test/ESC_FP_X4.yml:44-45) and ESC-Real x4
+# (options/esc/test/ESC_Real_X4.yml:29-30), as published; ESC-RealM x2 at
+# ESC-Real's widths with the DySample head (the JAX package's defaults,
+# mid_dim 48, the unshuffle stem by 2): no option file names it
+ESC_FP = dict(type="ESCFP", dim=48, pdim=16, kernel_size=13, n_blocks=5,
+              conv_blocks=5, window_size=32, num_heads=3, upscaling_factor=4,
+              exp_ratio=1.25, attn_type="xla")
+ESC_REAL = dict(type="ESCReal", dim=64, pdim=16, kernel_size=13, n_blocks=10,
+                conv_blocks=5, window_size=32, num_heads=4,
+                upscaling_factor=4, exp_ratio=2, attn_type="xla")
+ESC_REAL_M = dict(ESC_REAL, type="ESCRealM", upscaling_factor=2,
+                  upsampler="dysample")
 # ATD x4 as published (scripts/bench_atd.py:28-31 of the JAX package builds
 # the same) and the shipped options/esc/test/ATDLight/ATD_light_DFLIP_X4.yml
 ATD = dict(type="ATD", upscale=4, in_chans=3, img_size=64, embed_dim=210,
@@ -205,6 +221,14 @@ PATHS = {
     "esc_xl_qtile": dict(net=dict(ESC_XL, attn_route="msa_qtile_attention"),
                          runs=[(TILE_XL, REQUESTS_XL[:1])], cpu_reference=0,
                          calls={"msa_qtile_attention": 8}),
+    # one attention launch a block: ESC-FP 5, ESC-Real 10; ESC-RealM x2's
+    # one request is a single 64 x 64 tile, 32 x 32 after the unshuffle
+    "esc_fp": dict(net=ESC_FP, runs=[(TILE, REQUESTS)], cpu_reference=1,
+                   calls={"fused_attention": 5}),
+    "esc_real": dict(net=ESC_REAL, runs=[(TILE, REQUESTS)], cpu_reference=1,
+                     calls={"fused_attention": 10}),
+    "esc_real_m": dict(net=ESC_REAL_M, runs=[(TILE, REQUESTS[:1])],
+                       cpu_reference=0, calls={"fused_attention": 10}),
     # one attention launch a layer: 6 x 6 (light: 4 x 6), half of them
     # shifted; every tile is a window multiple
     "atd": dict(net=ATD, runs=[(TILE, REQUESTS)], cpu_reference=1,
@@ -1047,6 +1071,9 @@ def check_kernels() -> dict:
                 sums = f"; sums rel err {rel:.2e}"
             else:
                 err, ok = max_err_and_tol(got, ref, tol_rel)
+            if name == "ln_split":
+                # x1 is ln1's first pdim channels, bit for bit
+                ok = ok and torch.equal(got[1], got[0][..., :PDIM])
             line = (f"  {name:24s} B{b} {hw}x{hw} {str(dtype)[6:]:8s} "
                     f"max|kernel-plain| {err:.3e} (rel tol {tol_rel:.1e})"
                     + sums)
@@ -1076,6 +1103,35 @@ def check_kernels() -> dict:
         del cases
         torch.cuda.empty_cache()
     return results
+
+
+def check_ln_split() -> dict:
+    """Row 8 at the fork's chunk shape in bf16, timed two ways
+    (``tools/ln_split_timing.py``): on one input again and again and on two
+    inputs in turn (reads from HBM), each through the wrapper (one call)
+    and through the C entry (20 launches: the kernel alone), beside
+    ``F.layer_norm`` and the bound. Returns the keys it adds to row 8's
+    entry of the kernels line."""
+    from super_resolution_tpu_torch.tools.ln_split_timing import timing
+
+    t = timing()
+    if (t["max_abs_err"] > TOL_BF16 * max(1.0, t["max_abs_plain"])
+            or not t["x1_bit_equal"]):
+        raise AssertionError(f"ln_split disagrees with its plain version: "
+                             f"{t}")
+    log(f"  ln_split {tuple(t['shape'])} bf16, one input / two in turn: "
+        f"wrapper {t['wrapper_ms']:.4f} / {t['wrapper_two_buffers_ms']:.4f} "
+        f"ms, kernel alone {t['entry_ms']:.4f} / "
+        f"{t['entry_two_buffers_ms']:.4f} ms, F.layer_norm "
+        f"{t['layer_norm_ms']:.4f} / {t['layer_norm_two_buffers_ms']:.4f} ms "
+        f"(20 in a row {t['layer_norm_loop_ms']:.4f} / "
+        f"{t['layer_norm_loop_two_buffers_ms']:.4f}); bound "
+        f"{t['bound_ms']:.4f} ms (bytes); float32 first version "
+        f"{t['float32_wrapper_ms']:.4f} ms")
+    return dict(ms_two_buffers=t["wrapper_two_buffers_ms"],
+                kernel_alone_ms=t["entry_ms"],
+                kernel_alone_two_buffers_ms=t["entry_two_buffers_ms"],
+                library_two_buffers_ms=t["layer_norm_two_buffers_ms"])
 
 
 def attention_cases(dtype, seed: int, window_shape, image_shape=None):
@@ -1535,11 +1591,12 @@ def n_forwards(h: int, w: int, ws: int, tile: dict) -> int:
 
 
 def net_scale(net: dict) -> int:
-    return net["upscaling_factor"] if net["type"] == "ESC" else net["upscale"]
+    """The ESC family's ``upscaling_factor``, the others' ``upscale``."""
+    return net.get("upscaling_factor", net.get("upscale"))
 
 
-# the runner of each network type; ESC, ATD, SRFormer and HiT-SRF run
-# under the one their option files name, ESRModel
+# the runner of each network type; the ESC family, ATD, SRFormer and HiT-SRF
+# run under the one their option files name, ESRModel
 RUNNERS = {"HATClassic": "HATModel", "HAT": "HATModel",
            "SwinIR": "SwinIRModel"}
 
@@ -1818,6 +1875,7 @@ def main() -> int:
         f"{TOL_F32} x max(1, max|plain|), bf16 {TOL_BF16} x max(1, max|plain|)"
         f"; bounds against {PEAK}")
     timing = check_kernels()
+    timing["ln_split"].update(check_ln_split())
     timing.update(check_attention_kernels())
     timing.update(check_image_attention_kernels())
     timing.update(check_scc_kernel())

@@ -12,7 +12,12 @@ The fork HAT's leaves need no rule of their own: the OIHW filters
 (``plk_filter``, ``esc_plk``) and the RPB tables keep name and shape, the
 ECA ``kernel`` (k, 1, 1) goes back to a Conv1d weight (1, 1, k), the
 SplitPointwise and depthwise ``kernel``s (HWIO) to OIHW, and the Dense
-``kernel``s of the dynamic-kernel head to 1x1 conv weights.
+``kernel``s of the dynamic-kernel head to 1x1 conv weights. Nor do ESC-FP's
+and ESC-Real's: ``lk_channel``, ``lk_spatial`` and ``plk_filter`` keep name
+and shape, a numeric child (``skip/0``, ``to_img/8``) keeps its index and a
+flattened one (``proj_1``, ``plk/proj_3``) becomes ``proj.1``, the
+depthwise 7x7 ``kernel`` goes back to OIHW and the Dense ``kernel``s of
+``plk/proj_*`` to 1x1 conv weights.
 """
 
 from __future__ import annotations

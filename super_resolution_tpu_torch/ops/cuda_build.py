@@ -42,6 +42,8 @@ _SIGNATURES = {
     + [_P],
     "sr_ocab_block": [_I] + [_P] * 12 + [_I] * 8 + [_F] * 3 + [_P],
     "sr_ln_split": [_I] + [_P] * 5 + [_I] * 3 + [_F] + [_P],
+    "sr_ln_split_vec": [_P] * 5 + [_I] * 3 + [_F] + [_P],
+    "sr_ln_split_vec_max_c": [],
     "sr_gated_dconv_ffn": [_I] + [_P] * 10 + [_I] * 8 + [_F] + [_P],
     "sr_gated_dconv_ffn_smem": [_I] * 3,
     "sr_mma_gated_dconv_ffn": [_P] * 10 + [_I] * 8 + [_F] + [_P],

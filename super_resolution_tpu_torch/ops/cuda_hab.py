@@ -7,6 +7,9 @@ Ports super_resolution_tpu/ops/pallas_hab.py: ``ln_split`` and
 ``csrc/hab_front.cu``. The TPU kernels' row-tile limits (H a multiple of
 the tile, or padded to one) do not carry over: any B, H and W go through.
 
+``ln_split`` sends bf16 to the vector kernel (``sr_ln_split_vec``: a row
+in registers, read once in 8-byte loads, a half-warp a token) and float32
+to the first version (``sr_ln_split``, whose entry refuses bf16).
 ``hab_front`` sends bf16 to the tensor-core kernel (``sr_mma_hab_front``,
 both convs on ``mma.sync``) and float32 to the FMA kernel
 (``sr_hab_front``, whose entry refuses bf16).
@@ -47,6 +50,9 @@ _TILE, _LN_SIDE = 8, 12
 FRONT_TILE, FRONT_LN_POS, FRONT_T1_ROWS, FRONT_STAGES, FRONT_PAD = \
     (8, 16), 240, 192, 2, 8
 FRONT_MAX_C, FRONT_MAX_MID = 256, 64
+# the widest row the bf16 ln_split kernel holds in registers: 16 lanes of
+# 32 channels (its ``sr_ln_split_vec_max_c``)
+LN_VEC_MAX_C = 512
 
 
 def ln_split_reference(x, gamma, beta, eps: float = 1e-5, pdim: int = 16):
@@ -61,8 +67,9 @@ def ln_split(x, gamma, beta, *, eps: float = 1e-5, pdim: int = 16):
         ln1 = LayerNorm(x)                  (..., C)
         x1  = ln1[..., :pdim], compact      (..., pdim)
 
-    x: (B, H, W, C) or any (..., C); gamma, beta (C,); 0 <= pdim <= C.
-    Replaces super_resolution_tpu/ops/pallas_hab.py::ln_split.
+    x: (B, H, W, C) or any (..., C); gamma, beta (C,); 0 <= pdim <= C; in
+    bf16 C up to ``LN_VEC_MAX_C``, any alignment. Replaces
+    super_resolution_tpu/ops/pallas_hab.py::ln_split.
     """
     c = x.shape[-1]
     if not 0 <= pdim <= c:
@@ -73,12 +80,20 @@ def ln_split(x, gamma, beta, *, eps: float = 1e-5, pdim: int = 16):
     code = check_operands(name, x, x=x, gamma=gamma, beta=beta)
     check_shape(name, "gamma", gamma, (c,))
     check_shape(name, "beta", beta, (c,))
+    if x.dtype == torch.bfloat16 and c > LN_VEC_MAX_C:
+        raise ValueError(f"{name}: the bf16 kernel takes C up to "
+                         f"{LN_VEC_MAX_C}, got {c}")
     ln1 = torch.empty_like(x)
     x1 = torch.empty((*x.shape[:-1], pdim), dtype=x.dtype, device=x.device)
-    err = load_library().sr_ln_split(
-        code, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        ln1.data_ptr(), x1.data_ptr(), x.numel() // c, c, pdim, eps,
-        stream_of(x))
+    n_tok = x.numel() // c if c else 0
+    if n_tok == 0:
+        return ln1, x1      # nothing to launch
+    lib = load_library()
+    ops = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ln1.data_ptr(),
+           x1.data_ptr(), n_tok, c, pdim, eps, stream_of(x))
+    # bf16 runs on the vector kernel, float32 on the first version
+    err = (lib.sr_ln_split_vec(*ops) if x.dtype == torch.bfloat16
+           else lib.sr_ln_split(code, *ops))
     raise_on_error(name, err)
     ln_split.launches += 1
     return ln1, x1

@@ -7,8 +7,8 @@ whole image or tiles, crop) and is written as ``<stem>_<model>.png``.
         --scale 4 --weights esc_x4.pth --input ./lq_folder --output ./results
 
 Without ``--weights`` the network runs on its seeded initial weights. The
-zoo names every model of the JAX script; those whose architecture the port
-does not hold yet raise ``NotImplementedError``.
+zoo names every model of the JAX script; one whose architecture the port
+does not hold raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,13 +27,20 @@ def _esc(n_blocks: int):
                       "upscaling_factor": s, "exp_ratio": 1.25}
 
 
-# model zoo: name -> network options for a scale, or the name of an
-# architecture that is not ported yet
+# model zoo: name -> network options for a scale
 MODEL_ZOO = {
     "ESC": _esc(5),
     "ESC-light": _esc(3),
-    "ESC-FP": "ESCFP",
-    "ESC-Real": "ESCReal",
+    "ESC-FP": lambda s: {"type": "ESCFP", "dim": 48, "pdim": 16,
+                         "kernel_size": 13, "n_blocks": 5, "conv_blocks": 5,
+                         "window_size": 32, "num_heads": 3,
+                         "upscaling_factor": s, "exp_ratio": 1.25},
+    # x4 whatever the scale asked: its nearest + conv head is x4
+    "ESC-Real": lambda s: {"type": "ESCReal", "dim": 64, "pdim": 16,
+                           "kernel_size": 13, "n_blocks": 10,
+                           "conv_blocks": 5, "window_size": 32,
+                           "num_heads": 4, "upscaling_factor": 4,
+                           "exp_ratio": 2.0},
     "HAT": lambda s: {"type": "HAT", "img_size": 64, "embed_dim": 180,
                       "depths": [6] * 6, "num_heads": [6] * 6,
                       "window_size": 16, "mlp_ratio": 2, "upscale": s,
@@ -53,11 +60,14 @@ MODEL_ZOO = {
 
 
 def network_options(model: str, scale: int) -> dict:
-    entry = MODEL_ZOO[model]
-    if isinstance(entry, str):
-        raise NotImplementedError(f"model {model!r}: architecture {entry} "
-                                  f"is not ported yet")
-    return entry(scale)
+    from super_resolution_tpu_torch import models  # noqa: F401 registry
+    from super_resolution_tpu_torch.utils.registry import ARCH_REGISTRY
+
+    opts = MODEL_ZOO[model](scale)
+    if opts["type"] not in ARCH_REGISTRY:
+        raise NotImplementedError(f"model {model!r}: architecture "
+                                  f"{opts['type']} is not ported yet")
+    return opts
 
 
 def run(model: str, scale: int, input_dir: str, output_dir: str,
@@ -70,9 +80,13 @@ def run(model: str, scale: int, input_dir: str, output_dir: str,
                                                       imwrite, tensor2img)
     from super_resolution_tpu_torch.utils.options import process_options
 
+    net = network_options(model, scale)
+    # the runner crops to the network's own factor (ESC-Real is x4 at any
+    # scale asked)
+    scale = net.get("upscaling_factor", net.get("upscale", scale))
     opt = {"name": f"inference_{model}", "model_type": "HATModel",
            "scale": scale, "num_gpu": 1, "manual_seed": 0,
-           "network_g": network_options(model, scale),
+           "network_g": net,
            "datasets": {},
            "path": {"pretrain_network_g": weights,
                     "param_key_g": "params_ema", "strict_load_g": True},

@@ -52,7 +52,8 @@ PORT_KERNELS = ("msa_block_kernel", "ocab_block_kernel",
                 "mma_ocab_attention_kernel", "ocab_attention_kernel",
                 "mma_mlp_tail_kernel", "mlp_tail_kernel",
                 "mma_hab_tail_kernel", "mma_gated_dconv_ffn_kernel",
-                "gated_dconv_ffn_kernel", "ln_split_kernel",
+                "gated_dconv_ffn_kernel", "ln_split_vec_kernel",
+                "ln_split_kernel",
                 "fused_attention_kernel", "fused_attention_v3_kernel",
                 "mma_window_attention_kernel",
                 "mma_window_attention_v3_kernel", "msa_flash_kernel",

@@ -1341,3 +1341,84 @@ def test_bf16_hab_front_and_scc_launch_tensor_core_kernels_only(cuda):
         assert seen, f"{name}: the profiler saw no kernel"
         assert all(any(k in s for k in kernels) for s in seen), (name, seen)
         assert all(any(k in s for s in seen) for k in kernels), (name, seen)
+
+
+LN_SHAPES = [(180, 16), (144, 16), (60, 16), (45, 7), (182, 16), (180, 0),
+             (180, 180), (512, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_tok", [0, 1, 7, 130])
+@pytest.mark.parametrize("c, pdim", LN_SHAPES,
+                         ids=[f"C{c}-pdim{p}" for c, p in LN_SHAPES])
+def test_ln_split_matches_plain_version(cuda, c, pdim, n_tok, dtype):
+    """Row 8 at token counts that fill no group of the bf16 kernel (0, 1,
+    7, 13 x 10), with C at 4-, 2- and 1-channel vectors and pdim at both
+    ends, on x at its own allocation, one token on and one channel on (8-
+    and 2-byte aligned). x1 is ln1's first pdim channels bit for bit."""
+    rng = np.random.default_rng(c + n_tok)
+    buf = _rand(rng, dtype, (n_tok + 1) * c + 1, s=2.0) + 0.5
+    g, b = 1.0 + _rand(rng, dtype, c, s=0.1), _rand(rng, dtype, c, s=0.1)
+    for x in (buf[:n_tok * c].view(n_tok, c),
+              buf[c:(n_tok + 1) * c].view(n_tok, c),
+              buf[1:n_tok * c + 1].view(n_tok, c)):
+        before = ch.ln_split.launches
+        ln1, x1 = ch.ln_split(x, g, b, eps=1e-5, pdim=pdim)
+        torch.cuda.synchronize()
+        assert ch.ln_split.launches == before + (n_tok > 0)
+        ref = ch.ln_split_reference(x, g, b, 1e-5, pdim)
+        for got, want in zip((ln1, x1), ref):
+            assert got.shape == want.shape and got.dtype == want.dtype
+            if got.numel():
+                _assert_close(got, want, dtype)
+        assert torch.equal(x1, ln1[:, :pdim])
+
+
+def test_ln_split_entries_refuse_what_they_do_not_take(cuda):
+    """bf16 reaches the first version by no route: its entry refuses it.
+    The bf16 entry refuses a C past LN_VEC_MAX_C (its own limit) and a
+    pdim past C; the wrapper names the C."""
+    from super_resolution_tpu_torch.ops.cuda_build import (load_library,
+                                                           stream_of)
+
+    lib = load_library()
+    assert lib.sr_ln_split_vec_max_c() == ch.LN_VEC_MAX_C
+    z = dict(dtype=torch.bfloat16, device="cuda")
+    c = ch.LN_VEC_MAX_C + 1
+    x, v = torch.zeros((4, c), **z), torch.ones((c,), **z)
+    ln1, x1 = torch.zeros_like(x), torch.zeros((4, 16), **z)
+    ops = (x.data_ptr(), v.data_ptr(), v.data_ptr(), ln1.data_ptr(),
+           x1.data_ptr(), 4)
+    s = stream_of(x)
+    assert lib.sr_ln_split(1, *ops, 36, 16, 1e-5, s) != 0
+    assert lib.sr_ln_split_vec(*ops, 36, 16, 1e-5, s) == 0
+    assert lib.sr_ln_split_vec(*ops, c, 16, 1e-5, s) != 0
+    assert lib.sr_ln_split_vec(*ops, 36, 37, 1e-5, s) != 0
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match=str(c)):
+        ch.ln_split(x, v, v, pdim=16)
+
+
+def test_bf16_ln_split_launches_the_vector_kernel_only(cuda):
+    """Under the profiler a bf16 call launches ``ln_split_vec_kernel`` and
+    a float32 call the first version, ``ln_split_kernel``, and nothing
+    else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(15)
+    for dtype, kernel in ((torch.bfloat16, "ln_split_vec_kernel"),
+                          (torch.float32, "ln_split_kernel")):
+        x = _rand(rng, dtype, 2, 16, 24, 180)
+        g, b = 1.0 + _rand(rng, dtype, 180, s=0.1), _rand(rng, dtype, 180)
+        ch.ln_split(x, g, b)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ch.ln_split(x, g, b)
+            torch.cuda.synchronize()
+        seen = {e.name for e in prof.events()
+                if "cuda" in str(getattr(e, "device_type", "")).lower()
+                and "memset" not in e.name.lower()
+                and "memcpy" not in e.name.lower()}
+        assert seen and all(kernel in s for s in seen), (dtype, seen)
+        if dtype == torch.float32:
+            assert not any("ln_split_vec" in s for s in seen), seen

@@ -526,7 +526,7 @@ def test_predictor_bf16_esc(rng):
 def test_inference_tool_on_a_folder(tmp_path, rng, monkeypatch):
     """tools/inference.py: two images in, two upscaled PNGs out, on the
     CPU with the zoo's ESC cut to a small width, whole image and tiled
-    alike; the zoo names what is not ported yet."""
+    alike; an entry whose architecture is not ported raises."""
     import cv2
 
     from super_resolution_tpu_torch.tools import inference
@@ -552,8 +552,11 @@ def test_inference_tool_on_a_folder(tmp_path, rng, monkeypatch):
     assert inference.network_options("ESC-light", 4)["n_blocks"] == 3
     assert inference.network_options("HAT", 2)["type"] == "HAT"
     assert inference.network_options("SwinIR", 4)["type"] == "SwinIR"
-    for name in ("ESC-FP", "ESC-Real"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            inference.network_options(name, 4)
+    assert inference.network_options("ESC-FP", 2)["type"] == "ESCFP"
+    assert inference.network_options("ESC-Real", 2)["upscaling_factor"] == 4
+    monkeypatch.setitem(inference.MODEL_ZOO, "HATX",
+                        lambda s: dict(type="HATX", upscale=s))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        inference.network_options("HATX", 4)
     args = inference.build_parser().parse_args(["--input", str(src)])
     assert args.device == "cuda" and args.model == "ESC" and args.tile == 0

@@ -227,7 +227,18 @@ def test_port_imports_no_jax(tmp_path):
         "            dict(type='HATClassic', embed_dim=12, depths=[2],\n"
         "                 num_heads=[2], window_size=4, squeeze_factor=4,\n"
         "                 mlp_ratio=2, upscale=2,\n"
-        "                 hab_route='fused_hab_block')):\n"
+        "                 hab_route='fused_hab_block'),\n"
+        "            dict(type='ESCFP', dim=16, pdim=8, kernel_size=5,\n"
+        "                 n_blocks=1, conv_blocks=1, window_size=4,\n"
+        "                 num_heads=2, upscaling_factor=2),\n"
+        "            dict(type='ESCReal', dim=16, pdim=8, kernel_size=5,\n"
+        "                 n_blocks=1, conv_blocks=1, window_size=4,\n"
+        "                 num_heads=2, upscaling_factor=2,\n"
+        "                 use_dysample=True),\n"
+        "            dict(type='ESCRealM', dim=16, pdim=8, kernel_size=5,\n"
+        "                 n_blocks=1, conv_blocks=1, window_size=4,\n"
+        "                 num_heads=2, upscaling_factor=2, mid_dim=8,\n"
+        "                 upsampler='dysample')):\n"
         "    opt['network_g'] = net\n"
         "    out = Predictor(opt, device='cpu').predict_array(\n"
         "        np.zeros((10, 13, 3), np.float32))\n"
