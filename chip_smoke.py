@@ -43,7 +43,10 @@ Phases, each of which raises on failure:
      width (C / MID 144 / 6) and checked on a ragged image; ``ln_split``
      runs bf16 on its vector kernel and float32 on its first version, and
      is also timed on two inputs in turn and through its C entry (the
-     kernel alone, without the wrapper's host work);
+     kernel alone, without the wrapper's host work); and the kernels of
+     phase 5 at the shapes a whole image gives them (rows 5 to 9 on
+     (1, 64, 96, 180) and (1, 80, 80, 180), ``fused_attention`` on ESC's
+     six windows of 64 x 96), in both dtypes;
   4. main paths: Predictor -> runner in tile mode -> network at the
      published width (bf16, seeded random weights) answers requests:
      classic HAT x4 (HATClassic), the fork's HAT x2 with the ESC-infused
@@ -58,7 +61,20 @@ Phases, each of which raises on failure:
      are set to 0 before each path and read after it; the counts, the
      output shapes and values, and the PSNR against the port's float32
      path are checked; a route of another path's network is held against
-     that path's output.
+     that path's output;
+  5. evaluation paths: the port's test pipeline (test.py) on the disk
+     backend, on a synthetic Set5 (Set5's GT sizes, the LR by the MATLAB
+     bicubic) with the option files unedited but for their data roots,
+     weights (the widened seeded weights in a .pth under params_ema) and
+     results root: options/test/HAT_SRx4.yml (whole images) in float32
+     through the CLI's entry and in bf16, options/esc/test/ESC_DIV2K_X4.yml
+     (its Set5 set) in float32 and bf16, and options/test/
+     HAT_tile_example.yml (one 300 x 400 image, tiled) in bf16. Checked:
+     the launches an image or chunk forward, the PNGs and their sizes,
+     finite metrics, PSNR of bf16 against float32 on the card, and the
+     float32 PSNR / SSIM of the smallest image against the port's run on
+     the host CPU; each path's seconds an image, split into inference and
+     the host's tensor2img, PNG and metrics.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Exits non-zero, printing neither, when there
@@ -76,6 +92,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -414,9 +431,10 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def kernel_cases(b: int, hw: int, dtype, seed: int):
-    """Inputs of the wrappers at the flagship widths: name -> (args, kwargs,
-    plain version, the one PyTorch call for the same function or None)."""
+def kernel_cases(b: int, hw, dtype, seed: int):
+    """Inputs of the wrappers at the flagship widths on (b, h, w) images, hw
+    an int (square) or (h, w): name -> (args, kwargs, plain version, the one
+    PyTorch call for the same function or None)."""
     import torch
     import torch.nn.functional as F
 
@@ -430,6 +448,7 @@ def kernel_cases(b: int, hw: int, dtype, seed: int):
     from super_resolution_tpu_torch.ops.windowing import (
         extract_overlap_windows, window_partition, window_reverse)
 
+    h, w_ = (hw, hw) if isinstance(hw, int) else hw
     rng = np.random.default_rng(seed)
 
     def t(*shape, s=1.0, dt=dtype):
@@ -440,7 +459,7 @@ def kernel_cases(b: int, hw: int, dtype, seed: int):
         return t(fan_in, *shape, s=fan_in ** -0.5)
 
     n, nk = WS * WS, OW * OW
-    x, a, cv = t(b, hw, hw, C), t(b, hw, hw, C), t(b, hw, hw, C)
+    x, a, cv = t(b, h, w_, C), t(b, h, w_, C), t(b, h, w_, C)
     lns, lnb = (1.0 + t(C, s=0.1)), t(C, s=0.1)
     tail = (lns, lnb, w(C, HID), t(HID, s=0.1), w(HID, C), t(C, s=0.1))
     rpi_sa = torch.from_numpy(relative_position_index_sa(WS)).long().cuda()
@@ -452,14 +471,14 @@ def kernel_cases(b: int, hw: int, dtype, seed: int):
     bias_oca = table2[rpi_oca.cuda().reshape(-1)].reshape(n, nk, HEADS)
     bias_oca = bias_oca.permute(2, 0, 1).contiguous()
     msa = (w(C, 3 * C), t(3 * C, s=0.1), w(C, C), t(C, s=0.1), bias_sa)
-    mask = torch.from_numpy(shift_attn_mask(hw, hw, WS, SS)).cuda()
+    mask = torch.from_numpy(shift_attn_mask(h, w_, WS, SS)).cuda()
     msa_kw = dict(heads=HEADS, window_size=WS)
     ocab = (lns, lnb, w(C, C), t(C, s=0.1), w(C, 2 * C), t(2 * C, s=0.1),
             w(C, C), t(C, s=0.1), bias_oca)
     # the gated FFN: fc1 (C, 2M) with M = HID, depthwise taps of a 3 x 3 mean
     ffn = (w(C, 2 * HID), t(2 * HID, s=0.5), t(3, 3, 2 * HID, s=1 / 3),
            t(2 * HID, s=0.1), w(HID, C), t(C, s=0.1))
-    q_img, kv_img = t(b, hw, hw, C), t(b, hw, hw, 2 * C)
+    q_img, kv_img = t(b, h, w_, C), t(b, h, w_, 2 * C)
     oca_kw = dict(msa_kw, overlap_win=OW)
     # the CAB's two 3 x 3 convs (HWIO) of the fork's HAB front
     front = (lns, lnb, t(3, 3, C, FRONT_MID, s=(9 * C) ** -0.5),
@@ -498,7 +517,7 @@ def kernel_cases(b: int, hw: int, dtype, seed: int):
                                   F.linear(xn, wkv_t, bkv))
             o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m)
             o = window_reverse(o.transpose(1, 2).reshape(-1, WS, WS, C), WS,
-                               hw, hw)
+                               h, w_)
             return F.linear(o, wp_t, bp) + x
         return run
 
@@ -1612,31 +1631,33 @@ def path_options(label: str, bf16: bool = True) -> dict:
                 val=dict(inference_dtype="bf16") if bf16 else {})
 
 
-def make_predictor(label: str, device: str, bf16: bool, state=None):
-    """A Predictor of one main path. With no ``state`` the seeded weights
-    are widened where the seeded scheme leaves a branch silent: the
-    zero-initialised dynamic-kernel heads of the ESC conv attention get
+def widen(net) -> None:
+    """Widen seeded weights where the seeded scheme leaves a branch silent:
+    the zero-initialised dynamic-kernel heads of the ESC conv attention get
     small random weights and the RPB tables a wider spread, so the dynamic
-    conv and the bias act. With ``state`` it takes those weights."""
+    conv and the bias act."""
     import torch
 
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if "dwc_proj.3" in name:
+                p.copy_(torch.empty(p.shape).normal_(std=0.02, generator=gen))
+            elif name.endswith(("relative_position_bias_table",
+                                "relative_position_bias")):
+                p.copy_(torch.empty(p.shape).normal_(std=0.2, generator=gen))
+
+
+def make_predictor(label: str, device: str, bf16: bool, state=None):
+    """A Predictor of one main path. With no ``state`` its seeded weights
+    are widened (:func:`widen`); with ``state`` it takes those weights."""
     from super_resolution_tpu_torch.predict import Predictor
 
     pred = Predictor(path_options(label, bf16), device=device)
-    net = pred.model.net_g
     if state is None:
-        gen = torch.Generator().manual_seed(1)
-        with torch.no_grad():
-            for name, p in net.named_parameters():
-                if "dwc_proj.3" in name:
-                    p.copy_(torch.empty(p.shape).normal_(
-                        std=0.02, generator=gen))
-                elif name.endswith(("relative_position_bias_table",
-                                    "relative_position_bias")):
-                    p.copy_(torch.empty(p.shape).normal_(
-                        std=0.2, generator=gen))
+        widen(pred.model.net_g)
     else:
-        net.load_state_dict(state, strict=True)
+        pred.model.net_g.load_state_dict(state, strict=True)
     pred.model._eval_net = None
     return pred
 
@@ -1748,6 +1769,319 @@ def main_path(label: str, first_outputs: dict) -> dict:
             raise AssertionError(f"request {h}x{w}: PSNR {min(checks):.2f} "
                                  f"dB < {PSNR_MIN_DB}")
     del gpu32, cpu
+    torch.cuda.empty_cache()
+    return counts
+
+
+# phase 5: the evaluation paths of test.py on the disk backend. A synthetic
+# Set5: its names and GT sizes (H x W), the LR made with the MATLAB bicubic
+# at 1 / 4; and one 300 x 400 LR image for the tiled option file
+SET5 = {"baby": (512, 512), "bird": (288, 288), "butterfly": (256, 256),
+        "head": (280, 280), "woman": (228, 344)}
+TILE_LR = (300, 400)
+# kernel launches a forward of the option files' HAT x4 (6 RHAGs of 6 HABs
+# and an OCAB; ocab_esc_enable is off, so the OCAB is fused_ocab_block) and
+# of ESC x4 (5 blocks)
+_EVAL_HAT = {"ln_split": 36, "gated_dconv_ffn_block": 36,
+             "fused_ocab_block": 6, "mlp_block": 6}
+# label -> option file, dtype, launches a forward; each runs the option file
+# unedited but for its data roots, weights and results root
+EVAL_PATHS = {
+    "eval_hat_f32": dict(yml="options/test/HAT_SRx4.yml", bf16=False,
+                         calls=_EVAL_HAT),
+    "eval_hat_bf16": dict(yml="options/test/HAT_SRx4.yml", bf16=True,
+                          calls=_EVAL_HAT),
+    "eval_esc_f32": dict(yml="options/esc/test/ESC_DIV2K_X4.yml",
+                         bf16=False, calls={"fused_attention": 5}),
+    "eval_esc_bf16": dict(yml="options/esc/test/ESC_DIV2K_X4.yml",
+                          bf16=True, calls={"fused_attention": 5}),
+    "eval_tile": dict(yml="options/test/HAT_tile_example.yml", bf16=True,
+                      calls=_EVAL_HAT),
+}
+# the whole-image shapes of the kernels on those paths: Set5's 57 x 86 and
+# 70 x 70 LR images padded to the HAT's window 16, and ESC's six windows of
+# 32 x 32 on the first
+EVAL_IMAGES = [(64, 96), (80, 80)]
+EVAL_HAT_ROWS = ["ln_split", "gated_dconv_ffn_block", "fused_ocab_block",
+                 "fused_ocab_attention", "mlp_block"]
+EVAL_ESC_WINDOWS = (6, 4, 1024, 1024, 16)
+
+
+def check_whole_image_kernels() -> None:
+    """Phase 3 at the whole-image shapes of phase 5 (one image, H != W):
+    the HAT's rows on (1, 64, 96, 180) and (1, 80, 80, 180) and ESC's
+    window attention on six windows, in float32 and bf16, each against its
+    plain version and timed."""
+    import torch
+
+    fns = wrappers()
+    for dtype in (torch.float32, torch.bfloat16):
+        tol_rel = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        cases = [(f"1x{h}x{w}", name, case)
+                 for h, w in EVAL_IMAGES
+                 for name, case in kernel_cases(1, (h, w), dtype,
+                                                seed=h + w).items()
+                 if name in EVAL_HAT_ROWS]
+        cases.append((str(EVAL_ESC_WINDOWS), "fused_attention",
+                      attention_cases(dtype, 5, EVAL_ESC_WINDOWS)[
+                          "fused_attention"]))
+        for shape, name, (args, kw, plain, _) in cases:
+            got = fns[name](*args, **kw)
+            torch.cuda.synchronize()
+            err, ok = max_err_and_tol(got, plain(), tol_rel)
+            ms = time_ms(lambda: fns[name](*args, **kw))
+            log(f"  {name:24s} {shape:22s} {str(dtype)[6:]:8s} "
+                f"max|kernel-plain| {err:.3e} (rel tol {tol_rel:.1e})  "
+                f"kernel {ms:.3f} ms")
+            if not ok:
+                raise AssertionError(f"{name} at {shape} disagrees with its "
+                                     f"plain version: {err}")
+        del cases
+        torch.cuda.empty_cache()
+
+
+def write_eval_sets(root: str) -> dict:
+    """Synthetic images under root as the option files expect them: Set5's
+    GT (seeded smooth content and noise, uint8), its LR by the port's
+    MATLAB bicubic at 1 / 4 rounded to uint8, once named as the GT
+    (HAT_SRx4.yml) and once '<name>x4' (ESC_DIV2K_X4.yml's filename_tmpl),
+    the smallest pair alone, and one large LR image."""
+    from super_resolution_tpu_torch.utils.img import imwrite
+    from super_resolution_tpu_torch.utils.matlab import imresize
+
+    dirs = {k: os.path.join(root, k) for k in
+            ("gt", "lq", "lq_x4", "small_gt", "small_lq", "large")}
+    rng = np.random.default_rng(0)
+
+    def image(h, w):
+        yy, xx = np.mgrid[0:h, 0:w] / 64.0
+        base = 0.5 + 0.35 * np.sin(yy[..., None] * rng.uniform(0.5, 2)
+                                   + xx[..., None] * rng.uniform(0.5, 2)
+                                   + np.arange(3))
+        img = np.clip(base + rng.normal(0, 0.04, (h, w, 3)), 0, 1)
+        return (img * 255).round().astype(np.uint8)
+
+    smallest = min(SET5, key=lambda n: SET5[n][0] * SET5[n][1])
+    for name, (h, w) in SET5.items():
+        gt = image(h, w)
+        lq = imresize(gt.astype(np.float32) / 255.0, 0.25)
+        lq = (np.clip(lq, 0, 1) * 255).round().astype(np.uint8)
+        imwrite(gt, os.path.join(dirs["gt"], f"{name}.png"))
+        imwrite(lq, os.path.join(dirs["lq"], f"{name}.png"))
+        imwrite(lq, os.path.join(dirs["lq_x4"], f"{name}x4.png"))
+        if name == smallest:
+            imwrite(gt, os.path.join(dirs["small_gt"], f"{name}.png"))
+            imwrite(lq, os.path.join(dirs["small_lq"], f"{name}.png"))
+    imwrite(image(*TILE_LR), os.path.join(dirs["large"], "large.png"))
+    return dict(dirs, smallest=smallest)
+
+
+def eval_weights(yml: str, path: str) -> None:
+    """The option file's network with the runner's seeded weights (its
+    ``manual_seed``), widened as the main paths' (:func:`widen`), saved as
+    {"params_ema": state}: the file's param_key_g and strict_load_g act."""
+    import torch
+
+    from super_resolution_tpu_torch.models import build_network
+    from super_resolution_tpu_torch.models.arch_util import init_weights
+    from super_resolution_tpu_torch.utils.options import yaml_load
+
+    opt = yaml_load(yml)
+    net = build_network(opt["network_g"])
+    init_weights(net, torch.Generator().manual_seed(opt["manual_seed"]))
+    widen(net)
+    torch.save({"params_ema": net.state_dict()}, path)
+
+
+class EvalClock:
+    """While a path runs, wraps the runners' inference and per-image tail:
+    for each image the inference seconds (to a synchronised card), the
+    host seconds of tensor2img, the PNG and the metrics, and the output on
+    the host (copied outside both clocks)."""
+
+    def __enter__(self):
+        import torch
+
+        from super_resolution_tpu_torch.runtime import sr_model as m
+
+        self.infer, self.host, self.outputs = [], [], []
+        run = m.HATModel._run_inference
+        post = m.SRModel._validation_postprocess
+        self._undo = [(m.HATModel, "_run_inference", run),
+                      (m.SRModel, "_validation_postprocess", post)]
+
+        def timed_run(model):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(model)
+            torch.cuda.synchronize()
+            self.infer.append(time.perf_counter() - t0)
+            self.outputs.append(model.output[0].float().cpu().numpy())
+
+        def timed_post(model, *args, **kw):
+            t0 = time.perf_counter()
+            post(model, *args, **kw)
+            self.host.append(time.perf_counter() - t0)
+
+        m.HATModel._run_inference = timed_run
+        m.SRModel._validation_postprocess = timed_post
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self._undo:
+            setattr(cls, name, fn)
+
+
+def image_metrics(png: str, gt: str, metrics: dict) -> dict:
+    """The option file's metrics of one saved PNG against its GT, as the
+    runner computes them (both uint8 BGR)."""
+    from super_resolution_tpu_torch.metrics import calculate_metric
+    from super_resolution_tpu_torch.utils.img import imread
+
+    sr, ref = imread(png), imread(gt)
+    ref = ref[:sr.shape[0], :sr.shape[1]]
+    return {m: calculate_metric({"img": sr, "img2": ref}, o)
+            for m, o in metrics.items()}
+
+
+def check_against_cpu(yml: str, sets: dict, pth: str, vis: str,
+                      root: str) -> None:
+    """The float32 metrics of the smallest image on the card against the
+    port's own test pipeline on the host CPU (plain versions of every
+    kernel), on the same weights: within 0.01 dB and 1e-4."""
+    from super_resolution_tpu_torch.runtime.test_pipeline import \
+        test_from_yaml
+    from super_resolution_tpu_torch.utils.options import yaml_load
+
+    opt = yaml_load(yml)
+    name = sets["smallest"]
+    data = dict(opt["datasets"]["test_1"], dataroot_gt=sets["small_gt"],
+                dataroot_lq=sets["small_lq"])
+    t0 = time.perf_counter()
+    cpu = test_from_yaml(yml, os.path.join(root, "cpu"), device="cpu",
+                         datasets={"test_1": data},
+                         path=dict(opt["path"], pretrain_network_g=pth))
+    cpu = cpu[data["name"]]
+    card = image_metrics(os.path.join(vis, f"{name}_{opt['name']}.png"),
+                         os.path.join(sets["gt"], f"{name}.png"),
+                         opt["val"]["metrics"])
+    log(f"  {name}, float32: card {card}, host CPU {cpu} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if (abs(card["psnr"] - cpu["psnr"]) > 0.01
+            or abs(card["ssim"] - cpu["ssim"]) > 1e-4):
+        raise AssertionError(f"{name}: card {card} against CPU {cpu}")
+
+
+def eval_path(label: str, sets: dict, root: str, card: str,
+              f32_outputs: dict) -> dict:
+    """Phase 5, one path: the port's test pipeline on an unedited option
+    file, its data roots, weights and results root overridden, run twice
+    (the second run finds the card's per-shape state warm; each builds its
+    own runner). Each run's launches, outputs, PNGs and metrics are
+    checked. Returns the launch counts of the second run; keeps the
+    float32 paths' outputs in ``f32_outputs`` for the bf16 path of the
+    same file."""
+    import torch
+
+    from super_resolution_tpu_torch.runtime.test_pipeline import (
+        test_from_yaml, test_pipeline)
+    from super_resolution_tpu_torch.utils.img import imread
+    from super_resolution_tpu_torch.utils.options import yaml_load
+
+    spec = EVAL_PATHS[label]
+    yml, calls = spec["yml"], spec["calls"]
+    opt = yaml_load(yml)
+    data = dict(opt["datasets"]["test_1"])
+    pth = os.path.join(root, os.path.basename(yml) + ".pth")
+    if not os.path.exists(pth):
+        eval_weights(yml, pth)
+    tiled = "tile" in opt
+    if tiled:
+        data["dataroot_lq"] = sets["large"]
+    else:
+        data["dataroot_gt"] = sets["gt"]
+        data["dataroot_lq"] = sets["lq_x4" if "filename_tmpl" in data
+                                   else "lq"]
+    scale = opt["scale"]
+    if tiled:
+        fwd = n_forwards(*TILE_LR, opt["network_g"]["window_size"],
+                         opt["tile"])
+        shapes = [(scale * TILE_LR[0], scale * TILE_LR[1], 3)]
+    else:
+        # the GT sizes are multiples of 4: the SR is GT-sized
+        fwd, shapes = len(SET5), [(*SET5[k], 3) for k in sorted(SET5)]
+    fns = {name: fn for name, fn in wrappers().items() if name in KERNELS}
+
+    def run(out_root):
+        if label == "eval_hat_f32":
+            # the file as it is, through the CLI's entry
+            return test_pipeline(out_root, argv=[
+                "-opt", yml, "--force_yml",
+                f"datasets:test_1:dataroot_gt={data['dataroot_gt']}",
+                f"datasets:test_1:dataroot_lq={data['dataroot_lq']}",
+                f"path:pretrain_network_g={pth}"])
+        extra = dict(inference_dtype="bf16") if spec["bf16"] else {}
+        return test_from_yaml(
+            yml, out_root, device="cuda", datasets={"test_1": data},
+            path=dict(opt["path"], pretrain_network_g=pth), **extra)
+
+    for attempt in ("first", "second"):
+        out_root = os.path.join(root, label, attempt)
+        for fn in fns.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with EvalClock() as clock:
+            results = run(out_root)
+        wall = time.perf_counter() - t0
+        counts = {name: fn.launches for name, fn in fns.items()}
+        for name, count in counts.items():
+            if count != calls.get(name, 0) * fwd:
+                raise AssertionError(f"{label}: {name}: {count} launches, "
+                                     f"expected {calls.get(name, 0)} x "
+                                     f"{fwd} forwards")
+        for out, shape in zip(clock.outputs, shapes, strict=True):
+            if out.shape != shape or not np.isfinite(out).all():
+                raise AssertionError(
+                    f"{label}: output {out.shape}, expected {shape}, "
+                    f"finite {np.isfinite(out).all()}")
+        for value in results[data["name"]].values():
+            if not np.isfinite(value):
+                raise AssertionError(f"{label}: metric {value}")
+        vis = os.path.join(out_root, "results", opt["name"],
+                           "visualization", data["name"])
+        pngs = sorted(os.listdir(vis)) if opt["val"].get("save_img") else []
+        if opt["val"].get("save_img") and len(pngs) != len(shapes):
+            raise AssertionError(f"{label}: {len(pngs)} PNGs for "
+                                 f"{len(shapes)} images")
+        for png, shape in zip(pngs, shapes):
+            got = imread(os.path.join(vis, png)).shape
+            if got != shape:
+                raise AssertionError(f"{label}: {png} is {got}, not "
+                                     f"{shape}")
+        n = len(shapes)
+        infer, host = sum(clock.infer) / n, sum(clock.host) / n
+        log(f"[eval:{label}] {card}: {attempt} run, {n} images, "
+            f"{wall / n:.3f} s an image wall = inference {infer:.3f} + host "
+            f"tensor2img, PNG and metrics {host:.3f} + set-up and reading "
+            f"{wall / n - infer - host:.3f}; per image inference "
+            f"{[round(t, 4) for t in clock.infer]}, host "
+            f"{[round(t, 4) for t in clock.host]}")
+    log(f"  launches a run ({fwd} forwards): "
+        f"{ {k: v for k, v in counts.items() if v} }; {len(pngs)} PNGs; "
+        f"results {results}")
+    base = label.rsplit("_", 1)[0]
+    if label.endswith("_f32"):
+        f32_outputs[base] = clock.outputs
+    elif base in f32_outputs:
+        worst = min(psnr(a, b) for a, b in zip(clock.outputs,
+                                               f32_outputs.pop(base)))
+        log(f"  PSNR bf16 vs float32 on the card, worst image {worst:.2f} dB")
+        if worst < PSNR_MIN_DB:
+            raise AssertionError(f"{label}: PSNR {worst:.2f} dB < "
+                                 f"{PSNR_MIN_DB}")
+    if label == "eval_hat_f32":
+        check_against_cpu(yml, sets, pth, vis, root)
+    del clock
     torch.cuda.empty_cache()
     return counts
 
@@ -1883,6 +2217,7 @@ def main() -> int:
     check_mlp_tail_kernels()
     check_gated_ffn_kernels()
     check_front_kernels()
+    check_whole_image_kernels()
     log(f"[kernels] done in {time.perf_counter() - t0:.1f} s")
 
     by_path, first_outputs = {}, {}
@@ -1893,6 +2228,17 @@ def main() -> int:
             f"published width, bf16")
         by_path[label] = main_path(label, first_outputs)
         log(f"[main:{label}] done in {time.perf_counter() - t0:.1f} s")
+
+    with tempfile.TemporaryDirectory() as root:
+        sets = write_eval_sets(root)
+        f32_outputs = {}
+        for label, spec in EVAL_PATHS.items():
+            t0 = time.perf_counter()
+            log(f"[eval:{label}] test pipeline -> {spec['yml']} "
+                f"({'bf16' if spec['bf16'] else 'float32'}), the file's "
+                f"data roots, weights and results root overridden")
+            by_path[label] = eval_path(label, sets, root, card, f32_outputs)
+            log(f"[eval:{label}] done in {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():

@@ -16,7 +16,9 @@ Layout (NHWC activations throughout, as in the JAX package):
 - ``models/``: the classic HAT, the fork's HAT and ESC under their
   checkpoints' names.
 - ``convert/``: the bridge from JAX/flax parameters to a state_dict.
-- ``runtime/``: the tiled-inference engine and the runners.
+- ``runtime/``: the tiled-inference engine, the runners (inference and
+  validation) and the test pipeline.
+- ``data/``, ``metrics/``: the evaluation datasets and loader, PSNR / SSIM.
 - ``tools/``: folder inference, and a profile of one forward.
-- ``predict.py``: the serving entry point.
+- ``predict.py``: the serving entry point; ``test.py``: the test CLI.
 """

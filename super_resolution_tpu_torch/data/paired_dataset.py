@@ -1,0 +1,127 @@
+"""Paired LQ/GT and single-LQ datasets on the disk backend, for evaluation
+(port of the folder half of super_resolution_tpu/data/paired_dataset.py;
+ref: basicsr/data/paired_image_dataset.py:10-106,
+single_image_dataset.py:10-40).
+
+Datasets are plain indexable objects returning float32 RGB HWC [0, 1]
+numpy arrays. What is not ported raises ``NotImplementedError`` rather than
+being read another way: another ``io_backend`` than ``disk`` (LMDB), a
+paired ``meta_info_file`` and the training phase (ROADMAP.md queue 1)."""
+
+from __future__ import annotations
+
+import re
+from os import path as osp
+
+import numpy as np
+
+from super_resolution_tpu_torch.utils.img import img2tensor, imread
+from super_resolution_tpu_torch.utils.misc import scandir
+from super_resolution_tpu_torch.utils.registry import DATASET_REGISTRY
+
+
+def paired_paths_from_folders(lq_folder: str, gt_folder: str,
+                              filename_tmpl: str = "{}"):
+    """Match LQ/GT files by stem (ref: data_util.py::paired_paths_from_folder).
+    An LQ stem matches its GT stem as it is or with a trailing 'x<scale>'
+    taken off; ``filename_tmpl`` is accepted, as in the JAX package, and the
+    'x<scale>' rule covers the templates the option files name."""
+    lq_names = sorted(scandir(lq_folder))
+    gt_names = sorted(scandir(gt_folder))
+    if len(lq_names) != len(gt_names):
+        raise ValueError(f"Folders have mismatched sizes: {len(lq_names)} LQ "
+                         f"vs {len(gt_names)} GT")
+    paths = []
+    gt_by_stem = {osp.splitext(osp.basename(p))[0]: p for p in gt_names}
+    for lq_name in lq_names:
+        stem = osp.splitext(osp.basename(lq_name))[0]
+        gt_stem = stem
+        if stem not in gt_by_stem:
+            m = re.match(r"(.*?)x\d+$", stem)
+            if m and m.group(1) in gt_by_stem:
+                gt_stem = m.group(1)
+        if gt_stem not in gt_by_stem:
+            raise FileNotFoundError(f"No GT match for LQ {lq_name}")
+        paths.append({"lq_path": osp.join(lq_folder, lq_name),
+                      "gt_path": osp.join(gt_folder, gt_by_stem[gt_stem])})
+    return paths
+
+
+def _check_supported(opt: dict, paired: bool) -> None:
+    backend = (opt.get("io_backend") or {}).get("type", "disk")
+    if backend != "disk":
+        raise NotImplementedError(
+            f"{opt.get('name')}: io_backend '{backend}' is not ported; only "
+            f"'disk' is (ROADMAP.md queue 1, item 2)")
+    if paired and opt.get("meta_info_file"):
+        raise NotImplementedError(
+            f"{opt.get('name')}: a paired meta_info_file is not ported "
+            f"(ROADMAP.md queue 1, item 2)")
+    if opt.get("phase") == "train":
+        raise NotImplementedError(
+            f"{opt.get('name')}: phase 'train' is not ported; the datasets "
+            f"serve val and test (ROADMAP.md queue 1, training)")
+
+
+def _normalize(opt: dict, *imgs):
+    if opt.get("mean") is None:
+        return imgs
+    mean = np.asarray(opt["mean"], dtype=np.float32)
+    std = np.asarray(opt.get("std", [1, 1, 1]), dtype=np.float32)
+    return tuple((img - mean) / std for img in imgs)
+
+
+@DATASET_REGISTRY.register()
+class PairedImageDataset:
+    """LQ/GT pairs from two folders; the GT is cropped to LQ x scale (ref:
+    paired_image_dataset.py:79-94), then ``mean`` / ``std`` applied."""
+
+    def __init__(self, opt: dict):
+        _check_supported(opt, paired=True)
+        self.opt = opt
+        self.gt_folder = opt["dataroot_gt"]
+        self.lq_folder = opt["dataroot_lq"]
+        self.filename_tmpl = opt.get("filename_tmpl", "{}")
+        self.paths = paired_paths_from_folders(
+            self.lq_folder, self.gt_folder, self.filename_tmpl)
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, index: int) -> dict:
+        scale = self.opt["scale"]
+        p = self.paths[index]
+        img_gt = img2tensor(imread(p["gt_path"], float32=True))
+        img_lq = img2tensor(imread(p["lq_path"], float32=True))
+        h, w = img_lq.shape[0], img_lq.shape[1]
+        img_gt = img_gt[0:h * scale, 0:w * scale, :]
+        img_gt, img_lq = _normalize(self.opt, img_gt, img_lq)
+        return {"lq": img_lq, "gt": img_gt,
+                "lq_path": p["lq_path"], "gt_path": p["gt_path"]}
+
+
+@DATASET_REGISTRY.register()
+class SingleImageDataset:
+    """LQ-only dataset: every file of a folder, or the names a
+    ``meta_info_file`` lists (ref: single_image_dataset.py:10-40)."""
+
+    def __init__(self, opt: dict):
+        _check_supported(opt, paired=False)
+        self.opt = opt
+        self.lq_folder = opt["dataroot_lq"]
+        if opt.get("meta_info_file"):
+            with open(opt["meta_info_file"], "r") as f:
+                self.paths = [osp.join(self.lq_folder,
+                                       line.strip().split(" ")[0])
+                              for line in f if line.strip()]
+        else:
+            self.paths = sorted(scandir(self.lq_folder, full_path=True))
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, index: int) -> dict:
+        lq_path = self.paths[index]
+        img_lq, = _normalize(self.opt,
+                             img2tensor(imread(lq_path, float32=True)))
+        return {"lq": img_lq, "lq_path": lq_path}

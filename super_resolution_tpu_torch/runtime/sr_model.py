@@ -1,22 +1,33 @@
-"""SR runners for inference (port of the inference part of
-super_resolution_tpu/runtime/sr_model.py).
+"""SR runners for inference and validation (port of the inference and
+validation parts of super_resolution_tpu/runtime/sr_model.py).
 
 A runner builds its network from the YAML options, initialises it from
 ``manual_seed`` with a ``torch.Generator``, loads a checkpoint when the
 options name one, and keeps an evaluation copy cast to the inference dtype.
 The device is explicit: a runner made for ``cuda`` fails where there is no
 card, it does not move to the CPU.
+
+Validation runs one image at a time: inference, ``tensor2img``, the PNG
+under ``visualization/<set>/`` and the metrics on the MATLAB protocol, then
+the set's means and the best-metric record. Across processes
+(``dist_validation``) and bucketed across images (``val: {bucketed_eval:
+true}``) it is not ported, and asking for either raises.
 """
 
 from __future__ import annotations
 
+from os import path as osp
+
 import numpy as np
 import torch
 
+from super_resolution_tpu_torch.metrics import calculate_metric
 from super_resolution_tpu_torch.models import build_network
 from super_resolution_tpu_torch.models.arch_util import init_weights
 from super_resolution_tpu_torch.ops.windowing import pad_to_multiple
 from super_resolution_tpu_torch.runtime.tile import tile_forward
+from super_resolution_tpu_torch.utils.img import imwrite, tensor2img
+from super_resolution_tpu_torch.utils.logger import get_root_logger
 from super_resolution_tpu_torch.utils.precision import (cast_floating,
                                                         resolve_dtype,
                                                         wrap_apply)
@@ -54,12 +65,15 @@ def load_state_dict(net: torch.nn.Module, state: dict, strict: bool = True):
 
 @MODEL_REGISTRY.register()
 class SRModel:
-    """Single-network SR runner (inference)."""
+    """Single-network SR runner (inference and validation)."""
 
     def __init__(self, opt: dict, device="cuda"):
         self.opt = opt
         self.scale = opt.get("scale", 1)
         self.device = torch.device(device)
+        self.logger = get_root_logger()
+        self.metric_results: dict = {}
+        self.best_metric_results: dict = {}
         net = build_network(opt["network_g"])
         gen = torch.Generator().manual_seed(int(opt.get("manual_seed") or 0))
         init_weights(net, gen)
@@ -76,6 +90,8 @@ class SRModel:
                      strict: bool = True) -> None:
         """Load a reference .pth: {param_key: state_dict} with 'params' /
         'params_ema' fallbacks and DDP 'module.' prefixes stripped."""
+        self.logger.info(f"Loading {type(self.net_g).__name__} from "
+                         f"{load_path} (param_key={param_key})")
         ckpt = torch.load(load_path, map_location="cpu", weights_only=True)
         if isinstance(ckpt, dict) and param_key not in ckpt and "params" in ckpt:
             param_key = "params"
@@ -123,6 +139,106 @@ class SRModel:
     def test(self) -> None:
         self.output = self._apply_fn()(self.lq)
 
+    def _run_inference(self) -> None:
+        """Hook for subclasses (padding / tiling)."""
+        self.test()
+
+    # ------------------------------------------------------------ validation
+    def get_current_visuals(self) -> dict:
+        def host(t):
+            return t.detach().float().cpu().numpy()
+
+        out = {"lq": host(self.lq), "result": host(self.output)}
+        if hasattr(self, "gt"):
+            out["gt"] = host(self.gt)
+        return out
+
+    def validation(self, dataloader, current_iter, save_img: bool = False):
+        import torch.distributed as dist
+
+        if (dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() > 1):
+            raise NotImplementedError(
+                "validation across processes (dist_validation) is not "
+                "ported (ROADMAP.md queue 1, parallelism)")
+        self.nondist_validation(dataloader, current_iter, save_img)
+
+    def _initialize_best_metric_results(self, dataset_name: str):
+        if dataset_name in self.best_metric_results:
+            return
+        record = {}
+        for metric, content in self.opt["val"]["metrics"].items():
+            better = content.get("better", "higher")
+            init_val = float("-inf") if better == "higher" else float("inf")
+            record[metric] = dict(better=better, val=init_val, iter=-1)
+        self.best_metric_results[dataset_name] = record
+
+    def _update_best_metric_result(self, dataset_name, metric, val,
+                                   current_iter):
+        rec = self.best_metric_results[dataset_name][metric]
+        if ((rec["better"] == "higher" and val >= rec["val"])
+                or (rec["better"] == "lower" and val <= rec["val"])):
+            rec["val"] = val
+            rec["iter"] = current_iter
+
+    def _validation_postprocess(self, val_data, dataset_name, current_iter,
+                                save_img):
+        """The per-image tail of validation: tensor2img, the PNG where
+        ``save_img``, the metrics (ref: sr_model.py:184-249). Expects
+        self.output (and self.gt) set for this image."""
+        img_name = osp.splitext(osp.basename(val_data["lq_path"][0]))[0]
+        visuals = self.get_current_visuals()
+        sr_img = tensor2img(visuals["result"])
+        metric_data = {"img": sr_img}
+        if "gt" in visuals:
+            metric_data["img2"] = tensor2img(visuals["gt"])
+
+        if save_img:
+            suffix = self.opt["val"].get("suffix") or self.opt["name"]
+            imwrite(sr_img, osp.join(self.opt["path"]["visualization"],
+                                     dataset_name,
+                                     f"{img_name}_{suffix}.png"))
+
+        if self.opt.get("val", {}).get("metrics") is not None:
+            for name, opt_ in self.opt["val"]["metrics"].items():
+                self.metric_results[name] += calculate_metric(metric_data,
+                                                              opt_)
+
+    def _finalize_validation(self, dataset_name, n_images, current_iter):
+        for metric in self.metric_results:
+            self.metric_results[metric] /= n_images
+            self._update_best_metric_result(dataset_name, metric,
+                                            self.metric_results[metric],
+                                            current_iter)
+        self._log_validation_metric_values(current_iter, dataset_name)
+
+    def nondist_validation(self, dataloader, current_iter, save_img):
+        dataset_name = dataloader.dataset.opt["name"]
+        with_metrics = self.opt.get("val", {}).get("metrics") is not None
+        if with_metrics:
+            self.metric_results = {m: 0 for m in self.opt["val"]["metrics"]}
+            self._initialize_best_metric_results(dataset_name)
+
+        idx = -1
+        for idx, val_data in enumerate(dataloader):
+            self.feed_data(val_data)
+            self._run_inference()
+            self._validation_postprocess(val_data, dataset_name, current_iter,
+                                         save_img)
+
+        if with_metrics and idx >= 0:
+            self._finalize_validation(dataset_name, idx + 1, current_iter)
+
+    def _log_validation_metric_values(self, current_iter, dataset_name):
+        log_str = f"Validation {dataset_name}\n"
+        for metric, value in self.metric_results.items():
+            log_str += f"\t # {metric}: {value:.4f}"
+            if dataset_name in self.best_metric_results:
+                rec = self.best_metric_results[dataset_name][metric]
+                log_str += f"\tBest: {rec['val']:.4f} @ {rec['iter']} iter"
+            log_str += "\n"
+        self.logger.info(log_str)
+
 
 @MODEL_REGISTRY.register()
 class HATModel(SRModel):
@@ -144,6 +260,17 @@ class HATModel(SRModel):
         else:
             out = fwd(img)
         self.output = out[:, :h * self.scale, :w * self.scale, :]
+
+    def nondist_validation(self, dataloader, current_iter, save_img):
+        """Per-image validation. The JAX runner's bucketed evaluation across
+        images (``val: {bucketed_eval: true}`` with ``tile:``) is not ported
+        and raises."""
+        if (self.opt.get("val") or {}).get("bucketed_eval") \
+                and "tile" in self.opt:
+            raise NotImplementedError(
+                "val: {bucketed_eval: true} with tile: is not ported "
+                "(runtime/batched_eval.py, ROADMAP.md queue 1 item 3)")
+        super().nondist_validation(dataloader, current_iter, save_img)
 
 
 @MODEL_REGISTRY.register()

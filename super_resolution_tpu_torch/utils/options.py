@@ -1,12 +1,15 @@
 """YAML experiment options, schema-compatible with the JAX package and the
-reference's ``options/*.yml`` (port of the inference subset of
-super_resolution_tpu/utils/options.py)."""
+reference's ``options/*.yml`` (port of the inference and test half of
+super_resolution_tpu/utils/options.py). Dotted ``--force_yml`` overrides
+patch the tree through a safe setter, never ``eval``."""
 
 from __future__ import annotations
 
+import argparse
 import os
 import random
 from os import path as osp
+from typing import Any
 
 import yaml
 
@@ -21,13 +24,71 @@ def yaml_load(f: str) -> dict:
     return yaml.safe_load(f)
 
 
-def process_options(opt: dict, root_path: str,
-                    is_train: bool = False) -> dict:
-    """Post-process a loaded option dict for inference: process info, the
-    seed, scale propagation into datasets, user paths expanded and the
-    results paths derived. Training options are not ported yet."""
+def dict2str(opt: dict, indent_level: int = 1) -> str:
+    """Pretty-print an option tree (logging banner)."""
+    msg = "\n"
+    for k, v in opt.items():
+        if isinstance(v, dict):
+            msg += " " * (indent_level * 2) + k + ":["
+            msg += dict2str(v, indent_level + 1)
+            msg += " " * (indent_level * 2) + "]\n"
+        else:
+            msg += " " * (indent_level * 2) + k + ": " + str(v) + "\n"
+    return msg
+
+
+def _coerce_value(value: str) -> Any:
+    """Interpret a CLI override string (ref semantics, minus eval)."""
+    if value == "~" or value.lower() == "none":
+        return None
+    if value.lower() == "true":
+        return True
+    if value.lower() == "false":
+        return False
+    if value.startswith("!!float"):
+        return float(value.replace("!!float", ""))
+    if value.lstrip("-").isdigit():
+        return int(value)
+    try:
+        return float(value)
+    except ValueError:
+        pass
+    if value.startswith("["):
+        return yaml.safe_load(value)
+    return value
+
+
+def set_by_path(opt: dict, dotted: str, value: Any) -> None:
+    """Set opt['a']['b']['c'] from 'a:b:c'; the key must exist."""
+    keys = [k.strip() for k in dotted.split(":")]
+    node = opt
+    for k in keys[:-1]:
+        node = node[k]
+    if keys[-1] not in node:
+        raise KeyError(f"force_yml cannot create new key: {dotted}")
+    node[keys[-1]] = value
+
+
+def apply_force_yml(opt: dict, entries) -> None:
+    for entry in entries or []:
+        keys, value = entry.split("=", 1)
+        set_by_path(opt, keys.strip(), _coerce_value(value.strip()))
+
+
+def process_options(opt: dict, root_path: str, is_train: bool = False,
+                    force_yml=None, auto_resume: bool = False,
+                    debug: bool = False) -> dict:
+    """Post-process a loaded option dict for inference and test: process
+    info, the seed, ``--force_yml``, ``num_gpu: auto``, scale propagation
+    into datasets, user paths expanded and the results paths derived.
+    Training options are not ported yet.
+
+    ``num_gpu: auto`` records ``torch.cuda.device_count()``; it chooses no
+    device (the caller's ``device`` does)."""
     if is_train:
-        raise NotImplementedError("training options are not ported yet")
+        raise NotImplementedError("training options are not ported yet "
+                                  "(ROADMAP.md queue 1)")
+    import torch
     import torch.distributed as dist
 
     on = dist.is_available() and dist.is_initialized()
@@ -36,7 +97,15 @@ def process_options(opt: dict, root_path: str,
     opt["world_size"] = dist.get_world_size() if on else 1
     if opt.get("manual_seed") is None:
         opt["manual_seed"] = random.randint(1, 10000)
+
+    apply_force_yml(opt, force_yml)
+
+    opt["auto_resume"] = auto_resume
     opt["is_train"] = False
+    if debug and not opt["name"].startswith("debug"):
+        opt["name"] = "debug_" + opt["name"]
+    if opt.get("num_gpu") == "auto":
+        opt["num_gpu"] = torch.cuda.device_count()
 
     for phase, dataset in (opt.get("datasets") or {}).items():
         dataset["phase"] = phase.split("_")[0]
@@ -60,3 +129,28 @@ def process_options(opt: dict, root_path: str,
     opt["path"]["log"] = results_root
     opt["path"]["visualization"] = osp.join(results_root, "visualization")
     return opt
+
+
+def parse_options(root_path: str, is_train: bool = False, argv=None):
+    """CLI entry: ``-opt`` YAML plus the JAX CLI's flags and ``--device``
+    (default ``cuda``). ``--launcher`` takes ``none`` only: the port runs
+    one process."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-opt", type=str, required=True,
+                        help="Path to option YAML file.")
+    parser.add_argument("--launcher", choices=["none"], default="none",
+                        help="job launcher (one process only)")
+    parser.add_argument("--auto_resume", action="store_true")
+    parser.add_argument("--debug", action="store_true")
+    parser.add_argument("--force_yml", nargs="+", default=None,
+                        help="Force to update yml. Example: "
+                             "val:save_img=false")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to run on: cuda (default) or "
+                             "cpu")
+    args = parser.parse_args(argv)
+
+    opt = process_options(yaml_load(args.opt), root_path, is_train=is_train,
+                          force_yml=args.force_yml,
+                          auto_resume=args.auto_resume, debug=args.debug)
+    return opt, args

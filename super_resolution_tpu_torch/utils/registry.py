@@ -42,3 +42,5 @@ class Registry:
 
 ARCH_REGISTRY = Registry("arch")
 MODEL_REGISTRY = Registry("model")
+DATASET_REGISTRY = Registry("dataset")
+METRIC_REGISTRY = Registry("metric")
