@@ -74,7 +74,29 @@ Phases, each of which raises on failure:
      finite metrics, PSNR of bf16 against float32 on the card, and the
      float32 PSNR / SSIM of the smallest image against the port's run on
      the host CPU; each path's seconds an image, split into inference and
-     the host's tensor2img, PNG and metrics.
+     the host's tensor2img, PNG and metrics;
+  6. training: (a) the four kernels of a train step (ln_split,
+     gated_dconv_ffn_block, fused_ocab_block, mlp_block) through their
+     autograd entries (kernel forward, autograd through the plain version
+     backward) at the training shape (4, 64, 64, 180), float32 and bf16:
+     forward and every input's gradient against the plain version, forward
+     + backward times; (b) the port's train pipeline (train.py) on
+     options/train/train_HAT_SRx4_from_scratch.yml in float32 at a batch of
+     4 (the file's 32 does not fit: batch 4 peaks near 11 GiB, about 2.7 GiB
+     a sample of saved activations) and (c) on
+     options/train/train_HAT_SRx4_amp_remat.yml (bf16, per-RHAG remat) at
+     its own batch 32, each file unedited but for its data roots (32
+     synthetic DF2K-sub pairs, GT 480 x 480, LR by the MATLAB bicubic; the
+     two images of the synthetic Set5 whose LR sides are multiples of the
+     window, since the files' SRModel does not pad), total_iter 6, val_freq 3,
+     save_checkpoint_freq 3 and print_freq 1. Checked: finite losses, the
+     first step's loss against a float32 forward on the same batch,
+     weights and drop-path draws (on the host CPU for (b), on the card for
+     (c)), net_g_3 and net_g_6 strict-loadable, a run resumed from net_g_3
+     against the uninterrupted one, the launches a step (rows 7, 8 once, in
+     the one block at drop-path rate 0; rows 5, 6 six times; twice as many
+     under remat) and an eval image; seconds a step, images a second and
+     peak memory.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Exits non-zero, printing neither, when there
@@ -2086,6 +2108,345 @@ def eval_path(label: str, sets: dict, root: str, card: str,
     return counts
 
 
+# ---------------------------------------------------------------- phase 6
+# the kernels a train step runs, with the entries that give them a backward
+# (kernel forward, autograd through the plain version backward)
+TRAIN_ROWS = {"ln_split": ("cuda_hab", "ln_split_ad", "ln_split_reference"),
+              "gated_dconv_ffn_block": ("cuda_ffn", "gated_dconv_ffn_block_ad",
+                                        "ffn_block_reference"),
+              "fused_ocab_block": ("cuda_attention", "fused_ocab_block_ad",
+                                   "ocab_block_reference"),
+              "mlp_block": ("cuda_ffn", "mlp_block_ad",
+                            "mlp_block_reference")}
+# a train step's training shape: LQ patches of 64 x 64 (gt_size 256, x4)
+TRAIN_SHAPE = (4, 64)
+# synthetic DF2K-sub pairs: GT 480 x 480 crops as DF2K_HR_sub holds them,
+# enough for one batch of 32
+TRAIN_PAIRS, TRAIN_GT = 32, 480
+# label -> option file, the batch it runs at, whether remat and bf16 act
+TRAIN_PATHS = {
+    "train_f32": dict(yml="options/train/train_HAT_SRx4_from_scratch.yml",
+                      batch=4),
+    "train_amp_remat": dict(yml="options/train/train_HAT_SRx4_amp_remat.yml",
+                            batch=None),
+}
+TRAIN_ITERS, TRAIN_EVERY = 6, 3
+
+
+def check_train_functions() -> None:
+    """Phase 6 (a): the four kernels of a train step through their
+    autograd entries at the training shape (4, 64, 64, 180), float32 (TF32
+    off) and bf16: the forward against the plain version, every input's
+    gradient against autograd through the plain version (a random
+    cotangent), one launch a forward, and forward + backward times of the
+    entry and of the plain version under autograd."""
+    import importlib
+
+    import torch
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tol_rel = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        cases = kernel_cases(*TRAIN_SHAPE, dtype, seed=64)
+        for name, (mod, ad_name, plain_name) in TRAIN_ROWS.items():
+            module = importlib.import_module(
+                f"super_resolution_tpu_torch.ops.{mod}")
+            ad, plain = getattr(module, ad_name), getattr(module, plain_name)
+            wrapper = getattr(module, name)
+            args, kw, _, _ = cases[name]
+            leaves = [a.detach().clone().requires_grad_() for a in args]
+            wrapper.launches = 0
+            out = ad(*leaves, **kw)
+            launches = wrapper.launches
+            outs = out if isinstance(out, tuple) else (out,)
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            cts = [torch.randn(o.shape, generator=gen, device="cuda",
+                               dtype=o.dtype) for o in outs]
+            grads = torch.autograd.grad(outs, leaves, cts)
+            ref_leaves = [a.detach().clone().requires_grad_() for a in args]
+            ref = plain(*ref_leaves, **kw)
+            refs = ref if isinstance(ref, tuple) else (ref,)
+            ref_grads = torch.autograd.grad(refs, ref_leaves, cts)
+            torch.cuda.synchronize()
+            err, ok = max_err_and_tol(tuple(o.detach() for o in outs),
+                                      tuple(r.detach() for r in refs),
+                                      tol_rel)
+            gerr, gok = max_err_and_tol(tuple(grads), tuple(ref_grads),
+                                        tol_rel)
+            if not (ok and gok and launches == 1):
+                raise AssertionError(
+                    f"{ad_name} {dtype}: forward err {err}, gradient err "
+                    f"{gerr}, {launches} launches")
+
+            def step(fn, xs):
+                o = fn(*xs, **kw)
+                return torch.autograd.grad(
+                    o if isinstance(o, tuple) else (o,), xs, cts)
+            ms = time_ms(lambda: step(ad, leaves))
+            plain_ms = time_ms(lambda: step(plain, ref_leaves))
+            log(f"  {ad_name:26s} B{TRAIN_SHAPE[0]} {TRAIN_SHAPE[1]}x"
+                f"{TRAIN_SHAPE[1]} {str(dtype)[6:]:8s} forward "
+                f"max|entry-plain| {err:.3e}, gradients {gerr:.3e} (rel tol "
+                f"{tol_rel:.1e}), {launches} launch a forward; forward + "
+                f"backward {ms:.3f} ms, plain under autograd "
+                f"{plain_ms:.3f} ms")
+            del out, outs, grads, ref, refs, ref_grads, leaves, ref_leaves
+        del cases
+        torch.cuda.empty_cache()
+
+
+def write_train_pairs(root: str, sets: dict) -> dict:
+    """TRAIN_PAIRS synthetic pairs as DF2K-sub holds them: GT crops of
+    TRAIN_GT x TRAIN_GT (seeded smooth content and noise, uint8) and their
+    LR by the port's MATLAB bicubic at 1 / 4, same names. And the
+    validation set: the pairs of phase 5's Set5 whose LR sides are window
+    multiples (the training files name SRModel, which does not pad, and the
+    HAT's windows need them, in the JAX package too)."""
+    from super_resolution_tpu_torch.utils.img import imwrite
+    from super_resolution_tpu_torch.utils.matlab import imresize
+
+    dirs = {k: os.path.join(root, k) for k in ("train_gt", "train_lq",
+                                               "val_gt", "val_lq")}
+    for name, (h, w) in SET5.items():
+        if h % (4 * WS) == 0 and w % (4 * WS) == 0:
+            for src, dst in (("gt", "val_gt"), ("lq", "val_lq")):
+                os.makedirs(dirs[dst], exist_ok=True)
+                shutil.copy(os.path.join(sets[src], f"{name}.png"),
+                            dirs[dst])
+    rng = np.random.default_rng(2)
+    yy, xx = np.mgrid[0:TRAIN_GT, 0:TRAIN_GT] / 48.0
+    for i in range(TRAIN_PAIRS):
+        base = 0.5 + 0.35 * np.sin(yy[..., None] * rng.uniform(0.5, 2)
+                                   + xx[..., None] * rng.uniform(0.5, 2)
+                                   + np.arange(3))
+        gt = np.clip(base + rng.normal(0, 0.04, base.shape), 0, 1)
+        gt = (gt * 255).round().astype(np.uint8)
+        lq = imresize(gt.astype(np.float32) / 255.0, 0.25)
+        imwrite(gt, os.path.join(dirs["train_gt"], f"{i:04d}_s001.png"))
+        imwrite((np.clip(lq, 0, 1) * 255).round().astype(np.uint8),
+                os.path.join(dirs["train_lq"], f"{i:04d}_s001.png"))
+    return dirs
+
+
+class TrainClock:
+    """While a training run goes, wraps the runner: each step's seconds (to
+    a synchronised card), loss and kernel launches, the first batch and the
+    weights before the first update, and each validation's launches,
+    images and PSNR."""
+
+    def __init__(self, fns: dict):
+        self.fns = fns
+
+    def _counts(self) -> dict:
+        return {name: fn.launches for name, fn in self.fns.items()}
+
+    def __enter__(self):
+        import torch
+
+        from super_resolution_tpu_torch.runtime import sr_model as m
+
+        self.steps, self.losses, self.step_counts = [], [], []
+        self.val_counts, self.val_images, self.psnr = [], [], []
+        self.first_batch = self.first_state = None
+        self.tb = None
+        step, val = m.SRModel.optimize_parameters, m.SRModel.validation
+        self._undo = [(m.SRModel, "optimize_parameters", step),
+                      (m.SRModel, "validation", val)]
+
+        def timed_step(model, batch, current_iter):
+            if self.first_batch is None:
+                self.first_batch = batch
+                self.first_state = {k: v.detach().cpu().clone() for k, v in
+                                    model.net_g.state_dict().items()}
+            before = self._counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(model, batch, current_iter)
+            torch.cuda.synchronize()
+            self.steps.append(time.perf_counter() - t0)
+            self.losses.append(model.get_current_log()["l_pix"])
+            self.step_counts.append({k: v - before[k] for k, v in
+                                     self._counts().items()})
+
+        def counted_val(model, loader, current_iter, save_img=False,
+                        tb_logger=None):
+            before = self._counts()
+            self.tb = tb_logger
+            val(model, loader, current_iter, save_img, tb_logger)
+            self.val_counts.append({k: v - before[k] for k, v in
+                                    self._counts().items()})
+            self.val_images.append(len(loader))
+            self.psnr.append(model.metric_results["psnr"])
+
+        m.SRModel.optimize_parameters = timed_step
+        m.SRModel.validation = counted_val
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self._undo:
+            setattr(cls, name, fn)
+
+
+def first_step_loss(net_opt: dict, state: dict, batch: dict, seed: int,
+                    device: str) -> float:
+    """The L1 loss of the first step's forward (training mode, the same
+    drop-path draws: the runner's generator is a CPU one seeded with
+    manual_seed + 1) in float32 on ``device``."""
+    import torch
+
+    from super_resolution_tpu_torch.models import build_network
+
+    net = build_network(net_opt)
+    net.load_state_dict(state, strict=True)
+    net = net.to(device).train()
+    lq = torch.from_numpy(batch["lq"]).to(device)
+    gt = torch.from_numpy(batch["gt"]).to(device)
+    with torch.no_grad():
+        sr = net(lq, generator=torch.Generator().manual_seed(seed + 1))
+        return float((sr - gt).abs().mean())
+
+
+def train_path(label: str, sets: dict, root: str, card: str) -> dict:
+    """Phase 6 (b), (c): ``train.py``'s pipeline on an unedited training
+    option file, but for its data roots, total_iter, val_freq,
+    save_checkpoint_freq, print_freq and (float32) a smaller batch, through
+    the CLI's entry: TRAIN_ITERS steps with validation on Set5 and a
+    checkpoint every TRAIN_EVERY; then a run resumed from net_g_3 to the
+    end, held against the uninterrupted one. Checked: finite losses, the
+    first step's loss against the float32 forward on the host CPU (float32
+    file) or on the card (bf16 file), the checkpoints strict-loadable, the
+    launches a step and an eval image. Returns the uninterrupted run's
+    launch counts."""
+    import torch
+
+    from super_resolution_tpu_torch.runtime import build_model
+    from super_resolution_tpu_torch.runtime.train_pipeline import \
+        train_pipeline
+    from super_resolution_tpu_torch.utils.options import yaml_load
+
+    spec = TRAIN_PATHS[label]
+    yml = spec["yml"]
+    opt = yaml_load(yml)
+    net = opt["network_g"]
+    amp = bool(opt["train"].get("use_amp"))
+    remat = bool(net.get("use_checkpoint"))
+    batch = spec["batch"] or opt["datasets"]["train"]["batch_size_per_gpu"]
+    force = [f"datasets:train:dataroot_gt={sets['train_gt']}",
+             f"datasets:train:dataroot_lq={sets['train_lq']}",
+             f"datasets:val:dataroot_gt={sets['val_gt']}",
+             f"datasets:val:dataroot_lq={sets['val_lq']}",
+             f"train:total_iter={TRAIN_ITERS}",
+             f"val:val_freq={TRAIN_EVERY}",
+             f"logger:save_checkpoint_freq={TRAIN_EVERY}",
+             "logger:print_freq=1",
+             f"datasets:train:batch_size_per_gpu={batch}"]
+    fns = {name: fn for name, fn in wrappers().items() if name in KERNELS}
+    runs = {}
+    for run in ("whole", "resumed"):
+        run_root = os.path.join(root, label, run)
+        argv = ["-opt", yml, "--device", "cuda", "--force_yml", *force]
+        if run == "resumed":
+            ckpt = os.path.join(root, label, "whole", "experiments",
+                                opt["name"], "models", f"net_g_{TRAIN_EVERY}")
+            argv += [f"path:resume_state={ckpt}"]
+        for fn in fns.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with TrainClock(fns) as clock:
+            model, last = train_pipeline(run_root, argv=argv)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        runs[run] = dict(clock=clock, model=model, wall=wall, peak=peak,
+                         counts={n: fn.launches for n, fn in fns.items()})
+        if last != TRAIN_ITERS or not np.isfinite(clock.losses).all():
+            raise AssertionError(f"{label} {run}: last iteration {last}, "
+                                 f"losses {clock.losses}")
+        steps = clock.steps
+        later = statistics.median(steps[1:]) if len(steps) > 1 else steps[0]
+        log(f"[train:{label}] {card}: {run} run, batch {batch}, "
+            f"{len(steps)} steps: first {steps[0]:.3f} s, then "
+            f"{later:.3f} s a step (median), {batch / later:.2f} images a "
+            f"second; peak memory {peak:.2f} GiB; wall {wall:.1f} s; "
+            f"losses {[round(v, 6) for v in clock.losses]}; PSNR "
+            f"{[round(float(v), 4) for v in clock.psnr]}; tensorboard "
+            f"{'a SummaryWriter' if clock.tb is not None else 'missing'}")
+    whole, resumed = runs["whole"], runs["resumed"]
+
+    # the launches a step and an eval image
+    per_step = {name: 2 if remat else 1 for name in ("ln_split",
+                                                      "gated_dconv_ffn_block")}
+    per_step.update({name: 12 if remat else 6 for name in (
+        "fused_ocab_block", "mlp_block")})
+    per_image = dict(_EVAL_HAT)
+    for counts in whole["clock"].step_counts:
+        got = {k: v for k, v in counts.items() if v}
+        if got != per_step:
+            raise AssertionError(f"{label}: a step launched {got}, expected "
+                                 f"{per_step}")
+    for counts, n in zip(whole["clock"].val_counts,
+                         whole["clock"].val_images):
+        got = {k: v / n for k, v in counts.items() if v}
+        if got != per_image:
+            raise AssertionError(f"{label}: an eval image launched {got}, "
+                                 f"expected {per_image}")
+    log(f"  launches a step {per_step}; an eval image {per_image}; the run "
+        f"{ {k: v for k, v in whole['counts'].items() if v} }")
+
+    # the first step's loss against a float32 forward on the same batch,
+    # weights and drop-path draws
+    clock = whole["clock"]
+    t0 = time.perf_counter()
+    if amp:
+        ref = first_step_loss(net, clock.first_state, clock.first_batch,
+                              opt["manual_seed"], "cuda")
+        rtol, where = 2e-2, "float32 on the card"
+    else:
+        ref = first_step_loss(net, clock.first_state, clock.first_batch,
+                              opt["manual_seed"], "cpu")
+        rtol, where = 1e-4, "float32 on the host CPU"
+    log(f"  first step's loss {clock.losses[0]:.6f} against {ref:.6f}, "
+        f"{where} ({time.perf_counter() - t0:.1f} s)")
+    if abs(clock.losses[0] - ref) > rtol * abs(ref):
+        raise AssertionError(f"{label}: first loss {clock.losses[0]} vs "
+                             f"{ref}")
+
+    # the checkpoints load strict into a runner of the file's options
+    models = whole["model"].opt["path"]["models"]
+    names = sorted(os.listdir(models))
+    if names != [f"net_g_{TRAIN_EVERY}", f"net_g_{TRAIN_ITERS}"]:
+        raise AssertionError(f"{label}: checkpoints {names}")
+    for name in names:
+        runner = build_model(dict(whole["model"].opt, path=dict(
+            whole["model"].opt["path"],
+            pretrain_network_g=os.path.join(models, name))), "cuda")
+        del runner
+    final = whole["model"].net_g.state_dict()
+
+    # resumed from net_g_3: the same losses and weights as the whole run,
+    # within the card's run-to-run spread (its convolutions' backward sums
+    # in no fixed order)
+    lr = opt["train"]["optim_g"]["lr"]
+    tail = whole["clock"].losses[TRAIN_EVERY:]
+    diffs = torch.cat([(resumed["model"].net_g.state_dict()[k].float()
+                        - v.float()).abs().flatten() for k, v in
+                       final.items() if v.is_floating_point()])
+    mean_diff = float(diffs.mean())
+    log(f"  resumed from net_g_{TRAIN_EVERY}: losses "
+        f"{[round(v, 6) for v in resumed['clock'].losses]} against "
+        f"{[round(v, 6) for v in tail]}; weights mean |diff| "
+        f"{mean_diff:.3e}, max {float(diffs.max()):.3e} (lr {lr})")
+    loss_rtol = 2e-2 if amp else 1e-3
+    if (len(resumed["clock"].losses) != len(tail) or not np.allclose(
+            resumed["clock"].losses, tail, rtol=loss_rtol)
+            or mean_diff > lr / 100):
+        raise AssertionError(f"{label}: the resumed run left the whole "
+                             f"one")
+    counts = whole["counts"]
+    del runs, whole, resumed, clock
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _short_names(mangled) -> dict:
     """Mangled kernel name -> ``name<template arguments>`` (c++filt, where
     the toolkit's host compiler brought it)."""
@@ -2239,6 +2600,23 @@ def main() -> int:
                 f"data roots, weights and results root overridden")
             by_path[label] = eval_path(label, sets, root, card, f32_outputs)
             log(f"[eval:{label}] done in {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        log("[train] the four kernels of a train step through their "
+            "autograd entries (kernel forward, plain backward)")
+        check_train_functions()
+        sets.update(write_train_pairs(root, sets))
+        log(f"[train] done in {time.perf_counter() - t0:.1f} s; "
+            f"{TRAIN_PAIRS} synthetic pairs written")
+        for label, spec in TRAIN_PATHS.items():
+            t0 = time.perf_counter()
+            batch = (f"batch {spec['batch']}" if spec["batch"]
+                     else "the file's batch")
+            log(f"[train:{label}] train pipeline -> {spec['yml']}, {batch}, "
+                f"the file's data roots and the iterations of its checks "
+                f"overridden")
+            by_path[label] = train_path(label, sets, root, card)
+            log(f"[train:{label}] done in {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():

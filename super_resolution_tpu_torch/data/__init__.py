@@ -1,13 +1,21 @@
-"""Dataset factory and the evaluation loader (port of the val / test half
-of super_resolution_tpu/data/__init__.py; ref: basicsr/data/__init__.py).
+"""Dataset factory and loaders (port of super_resolution_tpu/data/
+__init__.py; ref: basicsr/data/__init__.py:25-94, data_sampler.py:8-50,
+prefetch_dataloader.py:7-36).
 
-The loader is a plain sequential batch-1 iterator, not a
-``torch.utils.data.DataLoader`` with workers, so that the order and the
-arrays are the JAX package's exactly. The training loader is not ported."""
+The loaders are plain iterators, not ``torch.utils.data.DataLoader``s with
+workers, so that the order, the crops and the arrays are the JAX package's
+exactly. The train loader walks an epoch-seeded permutation with
+``EnlargedSampler``'s modulo wrap, reseeds the dataset's crops every epoch
+and loads ahead on one background thread; val and test loaders are
+sequential and batch 1. Training runs in one process: a device mesh
+raises."""
 
 from __future__ import annotations
 
+import queue
+import threading
 from copy import deepcopy
+from typing import Iterator
 
 import numpy as np
 
@@ -18,6 +26,112 @@ from super_resolution_tpu_torch.utils.registry import DATASET_REGISTRY
 def build_dataset(dataset_opt: dict):
     dataset_opt = deepcopy(dataset_opt)
     return DATASET_REGISTRY.get(dataset_opt["type"])(dataset_opt)
+
+
+class EnlargedSampler:
+    """Epoch-seeded permutation over len * ratio indices, wrapped modulo the
+    dataset's length (ref: data_sampler.py:31-44, one process: rank 0 of
+    1)."""
+
+    def __init__(self, num_samples: int, ratio: float = 1):
+        self.num_samples = num_samples
+        self.total_size = int(np.ceil(num_samples * ratio))
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def indices(self) -> np.ndarray:
+        g = np.random.default_rng(self.epoch)
+        return g.permutation(self.total_size) % self.num_samples
+
+
+class PrefetchIterator:
+    """Runs a generator on a background thread, a few items ahead (ref:
+    prefetch_dataloader.py:7-36). An exception in the generator is raised
+    in the consumer; :meth:`close` ends the thread where the consumer stops
+    early."""
+
+    _END = object()
+
+    def __init__(self, gen: Iterator, num_prefetch: int = 2):
+        self._queue: queue.Queue = queue.Queue(num_prefetch)
+        self._gen = gen
+        self._error = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        try:
+            for item in self._gen:
+                self._queue.put(item)
+                if self._stop.is_set():
+                    break
+        except Exception as exc:  # handed to the consumer in __next__
+            self._error = exc
+        finally:
+            self._queue.put(self._END)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._queue.get()
+        if item is self._END:
+            self._thread.join()
+            if self._error is not None:
+                raise self._error
+            raise StopIteration
+        return item
+
+    def close(self) -> None:
+        """Stops the worker after the item it is making and drops what it
+        made, so that neither the thread nor its batches outlive the
+        consumer."""
+        self._stop.set()
+        while self._thread.is_alive():
+            try:
+                self._queue.get(timeout=0.05)
+            except queue.Empty:
+                pass
+        self._thread.join()
+        with self._queue.mutex:
+            self._queue.queue.clear()
+
+
+class TrainLoader:
+    """Batches of ``batch_size`` in EnlargedSampler order; an epoch yields
+    ``len(self)`` of them."""
+
+    def __init__(self, dataset, batch_size: int, ratio: float = 1,
+                 seed: int = 0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.sampler = EnlargedSampler(len(dataset), ratio)
+        self.seed = seed
+
+    def __len__(self):
+        return self.sampler.total_size // self.batch_size
+
+    def epoch_iter(self, epoch: int, start: int = 0):
+        """The batches of one epoch from batch ``start`` on. The batches
+        before ``start`` are still loaded, so that the dataset's crops and
+        flips from there on are those of an epoch read whole (a run resumed
+        in the middle of an epoch goes on where it stopped)."""
+        self.sampler.set_epoch(self.seed + epoch)
+        if hasattr(self.dataset, "seed"):
+            self.dataset.seed(self.seed + epoch * 7919)
+
+        def gen():
+            idx = self.sampler.indices()
+            for b in range(len(idx) // self.batch_size):
+                items = [self.dataset[int(i)] for i in
+                         idx[b * self.batch_size:(b + 1) * self.batch_size]]
+                if b >= start:
+                    yield _collate(items)
+
+        return PrefetchIterator(gen())
 
 
 class EvalLoader:
@@ -45,10 +159,15 @@ def _collate(items: list) -> dict:
     return out
 
 
-def build_dataloader(dataset, dataset_opt: dict):
-    """The loader of a val or test set."""
+def build_dataloader(dataset, dataset_opt: dict, seed: int = 0, mesh=None):
+    """The loader of a dataset: for phase ``train`` a :class:`TrainLoader` of
+    ``batch_size_per_gpu`` on this one process, seeded with ``seed``; for a
+    val or test set an :class:`EvalLoader`."""
+    if mesh is not None:
+        raise NotImplementedError("training across devices (a mesh) is not "
+                                  "ported (ROADMAP.md queue 1, parallelism)")
     if dataset_opt["phase"] == "train":
-        raise NotImplementedError(
-            f"{dataset_opt.get('name')}: the training loader is not ported "
-            f"(ROADMAP.md queue 1, training)")
+        return TrainLoader(
+            dataset, batch_size=dataset_opt["batch_size_per_gpu"],
+            ratio=dataset_opt.get("dataset_enlarge_ratio", 1), seed=seed)
     return EvalLoader(dataset)

@@ -1,20 +1,27 @@
-"""Paired LQ/GT and single-LQ datasets on the disk backend, for evaluation
-(port of the folder half of super_resolution_tpu/data/paired_dataset.py;
-ref: basicsr/data/paired_image_dataset.py:10-106,
+"""Paired LQ/GT and single-LQ datasets on the disk backend (port of the
+folder half of super_resolution_tpu/data/paired_dataset.py; ref:
+basicsr/data/paired_image_dataset.py:10-106,
 single_image_dataset.py:10-40).
 
 Datasets are plain indexable objects returning float32 RGB HWC [0, 1]
-numpy arrays. What is not ported raises ``NotImplementedError`` rather than
-being read another way: another ``io_backend`` than ``disk`` (LMDB), a
-paired ``meta_info_file`` and the training phase (ROADMAP.md queue 1)."""
+numpy arrays. In phase ``train`` a pair is cropped at random to
+``gt_size`` and flipped and transposed (``use_hflip``, ``use_rot``), with
+the draws from the dataset's own ``random.Random``, which the train loader
+reseeds every epoch (:meth:`PairedImageDataset.seed`). What is not ported
+raises ``NotImplementedError`` rather than being read another way: another
+``io_backend`` than ``disk`` (LMDB) and a paired ``meta_info_file``
+(ROADMAP.md queue 1)."""
 
 from __future__ import annotations
 
+import random
 import re
 from os import path as osp
 
 import numpy as np
 
+from super_resolution_tpu_torch.data.transforms import (augment,
+                                                        paired_random_crop)
 from super_resolution_tpu_torch.utils.img import img2tensor, imread
 from super_resolution_tpu_torch.utils.misc import scandir
 from super_resolution_tpu_torch.utils.registry import DATASET_REGISTRY
@@ -52,15 +59,11 @@ def _check_supported(opt: dict, paired: bool) -> None:
     if backend != "disk":
         raise NotImplementedError(
             f"{opt.get('name')}: io_backend '{backend}' is not ported; only "
-            f"'disk' is (ROADMAP.md queue 1, item 2)")
+            f"'disk' is (ROADMAP.md queue 1, item 3)")
     if paired and opt.get("meta_info_file"):
         raise NotImplementedError(
             f"{opt.get('name')}: a paired meta_info_file is not ported "
-            f"(ROADMAP.md queue 1, item 2)")
-    if opt.get("phase") == "train":
-        raise NotImplementedError(
-            f"{opt.get('name')}: phase 'train' is not ported; the datasets "
-            f"serve val and test (ROADMAP.md queue 1, training)")
+            f"(ROADMAP.md queue 1, item 3)")
 
 
 def _normalize(opt: dict, *imgs):
@@ -73,8 +76,9 @@ def _normalize(opt: dict, *imgs):
 
 @DATASET_REGISTRY.register()
 class PairedImageDataset:
-    """LQ/GT pairs from two folders; the GT is cropped to LQ x scale (ref:
-    paired_image_dataset.py:79-94), then ``mean`` / ``std`` applied."""
+    """LQ/GT pairs from two folders (ref: paired_image_dataset.py:79-94). In
+    phase ``train`` a random crop of ``gt_size`` and the flips, else the GT
+    cropped to LQ x scale; then ``mean`` / ``std`` applied."""
 
     def __init__(self, opt: dict):
         _check_supported(opt, paired=True)
@@ -84,6 +88,11 @@ class PairedImageDataset:
         self.filename_tmpl = opt.get("filename_tmpl", "{}")
         self.paths = paired_paths_from_folders(
             self.lq_folder, self.gt_folder, self.filename_tmpl)
+        self._rng = None
+
+    def seed(self, seed: int) -> None:
+        """Reseed the crops and flips (the train loader, every epoch)."""
+        self._rng = random.Random(seed)
 
     def __len__(self):
         return len(self.paths)
@@ -93,8 +102,16 @@ class PairedImageDataset:
         p = self.paths[index]
         img_gt = img2tensor(imread(p["gt_path"], float32=True))
         img_lq = img2tensor(imread(p["lq_path"], float32=True))
-        h, w = img_lq.shape[0], img_lq.shape[1]
-        img_gt = img_gt[0:h * scale, 0:w * scale, :]
+        if self.opt.get("phase") == "train":
+            img_gt, img_lq = paired_random_crop(
+                img_gt, img_lq, self.opt["gt_size"], scale, rng=self._rng)
+            img_gt, img_lq = augment([img_gt, img_lq],
+                                     self.opt.get("use_hflip", True),
+                                     self.opt.get("use_rot", True),
+                                     rng=self._rng)
+        else:
+            h, w = img_lq.shape[0], img_lq.shape[1]
+            img_gt = img_gt[0:h * scale, 0:w * scale, :]
         img_gt, img_lq = _normalize(self.opt, img_gt, img_lq)
         return {"lq": img_lq, "gt": img_gt,
                 "lq_path": p["lq_path"], "gt_path": p["gt_path"]}

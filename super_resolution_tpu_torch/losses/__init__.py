@@ -1,0 +1,17 @@
+"""Loss factory (port of super_resolution_tpu/losses/__init__.py; ref:
+basicsr/losses/__init__.py:19-31). The GAN and perceptual losses are not
+ported."""
+
+from copy import deepcopy
+
+from super_resolution_tpu_torch.losses import basic  # noqa: F401 registry
+from super_resolution_tpu_torch.losses.basic import (  # noqa: F401
+    CharbonnierLoss, L1Loss, MSELoss, WeightedTVLoss, charbonnier_loss,
+    l1_loss, mse_loss)
+from super_resolution_tpu_torch.utils.registry import LOSS_REGISTRY
+
+
+def build_loss(opt: dict):
+    """The loss named by ``opt['type']``, the other keys its arguments."""
+    opt = deepcopy(opt)
+    return LOSS_REGISTRY.get(opt.pop("type"))(**opt)

@@ -42,6 +42,17 @@ def conv_nhwc(conv: nn.Conv2d, x):
     return y.permute(0, 2, 3, 1)
 
 
+def drop_path(x, rate: float, u):
+    """Stochastic depth over the batch (ref: hat_arch.py:46-54; JAX
+    ``arch_util.drop_path``): x / keep * floor(keep + u), keep = 1 - rate, u
+    the (B,) uniform draws in [0, 1) the caller made."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.floor(keep + u.to(x.device, torch.float32))
+    return x / keep * mask.to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
+
+
 def layer_norm(norm: nn.LayerNorm, x):
     """``norm`` with float32 statistics, in x's dtype."""
     return layer_norm_f32(x, norm.weight, norm.bias, norm.eps)
@@ -302,7 +313,15 @@ class SRShell(nn.Module):
     def reconstruct(self, feat):
         return self.recon(feat)
 
-    def forward(self, x):
+    def run_layers(self, body, generator: torch.Generator | None = None):
+        """The stack of residual groups (``generator``: the drop path's,
+        where a network has one)."""
+        for layer in self.layers:
+            body = layer(body)
+        return body
+
+    def forward(self, x, generator: torch.Generator | None = None):
+        """``generator`` goes to :meth:`run_layers`."""
         h, w = x.shape[1], x.shape[2]
         if self.pad_mode is not None:
             ws = self.window_size
@@ -313,9 +332,7 @@ class SRShell(nn.Module):
         x = (MeanShift.normalize(x, self.img_range) if self.in_chans == 3
              else x * self.img_range)
         feat = conv_nhwc(self.conv_first, x).contiguous()
-        body = self.patch_embed(feat)
-        for layer in self.layers:
-            body = layer(body)
+        body = self.run_layers(self.patch_embed(feat), generator)
         body = layer_norm(self.norm, body)
         if self.conv_after_body is not None:
             body = apply_residual_conv(self.conv_after_body, body)

@@ -7,8 +7,7 @@ keys and values taken from an ESC feature image.
 Module and parameter names follow the fork's torch checkpoints
 (``layers.0.residual_group.blocks.1.esc_attn.core.plk.dwc_proj.1.weight``,
 ...), so a state_dict under those names loads with ``strict=True``.
-Activations are NHWC throughout. The module is for inference: drop path is
-the identity and there is no rematerialisation.
+Activations are NHWC throughout.
 
 Kernels per RHAG: each HAB calls ``ln_split`` (front LayerNorm plus the ESC
 slab) and ``gated_dconv_ffn_block`` (the whole FFN residual); the OCAB
@@ -19,19 +18,35 @@ CAB's two convs and both global pools in one kernel) in place of
 ``ln_split`` and the CAB's cuDNN convs. Each wrapper runs its plain
 PyTorch version for a CPU tensor and launches its CUDA kernel for a CUDA
 tensor.
+
+Training (JAX ``hat_arch.py:164-211``, ``:552-583``): block i of the
+network has the drop-path rate linspace(0, drop_path_rate, blocks)[i]. In
+training mode a HAB whose rate is above 0 runs the unfused modules, with
+drop path on its attention and FFN branches; every other HAB, and every
+HAB in eval mode, runs the kernels. The kernels of the default route
+(``ln_split``, ``gated_dconv_ffn_block``, ``fused_ocab_block``,
+``mlp_block``) are called through their ``*_ad`` entries, whose backward
+is autograd through the plain version; the other routes have no backward
+on the card. The drop-path draws of a forward are made at once, before the
+first RHAG, from the generator the caller passes to ``forward``; with
+``use_checkpoint`` each RHAG runs under ``torch.utils.checkpoint``, and its
+recompute reuses those draws.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from super_resolution_tpu_torch.models.arch_util import (LN_EPS, HATShell,
                                                          KernelOperands,
                                                          conv_nhwc,
+                                                         drop_path,
                                                          gather_bias,
                                                          gelu_exact,
                                                          index_buffer,
@@ -42,10 +57,10 @@ from super_resolution_tpu_torch.models.esc_arch import (ConvAttnWrapper,
 from super_resolution_tpu_torch.ops.attention import \
     relative_position_index_oca
 from super_resolution_tpu_torch.ops.cuda_attention import (
-    fused_ocab_attention, fused_ocab_block)
-from super_resolution_tpu_torch.ops.cuda_ffn import (gated_dconv_ffn_block,
-                                                     mlp_block)
-from super_resolution_tpu_torch.ops.cuda_hab import hab_front, ln_split
+    fused_ocab_attention, fused_ocab_block_ad)
+from super_resolution_tpu_torch.ops.cuda_ffn import (
+    ffn_reference, gated_dconv_ffn_block_ad, mlp_block_ad)
+from super_resolution_tpu_torch.ops.cuda_hab import hab_front, ln_split_ad
 from super_resolution_tpu_torch.utils.registry import ARCH_REGISTRY
 
 FRONT_ROUTES = ("ln_split", "hab_front")
@@ -84,8 +99,9 @@ class CAB(nn.Module):
 
 
 class GatedDconvFFN(nn.Module):
-    """The parameters of fc1 -> depthwise 3x3 -> SiLU-gated GLU -> fc2; the
-    computation is the fused kernel's (``gated_dconv_ffn_block``)."""
+    """fc1 -> depthwise 3x3 -> SiLU-gated GLU -> fc2. The HAB runs it through
+    the fused kernel (``gated_dconv_ffn_block``, from :meth:`operands`);
+    ``forward`` is the unfused route of a HAB with drop path."""
 
     def __init__(self, dim: int, mlp_ratio: float = 2.0):
         super().__init__()
@@ -94,6 +110,16 @@ class GatedDconvFFN(nn.Module):
         self.dw = nn.Conv2d(2 * hidden, 2 * hidden, 3, 1, 1,
                             groups=2 * hidden)
         self.fc2 = nn.Linear(hidden, dim)
+
+    def operands(self) -> tuple:
+        """w1 (C, 2M), b1, wd (3, 3, 2M), bd, w2 (M, C), b2."""
+        return (self.fc1.weight.t().contiguous(), self.fc1.bias,
+                self.dw.weight[:, 0].permute(1, 2, 0).contiguous(),
+                self.dw.bias, self.fc2.weight.t().contiguous(),
+                self.fc2.bias)
+
+    def forward(self, x):
+        return ffn_reference(x, *self.operands())
 
 
 class ESCConvAttn(nn.Module):
@@ -122,13 +148,16 @@ class HAB(KernelOperands):
     ``front_route`` picks the kernels of the first residual: ``ln_split``
     (the LayerNorm kernel, then the CAB's convs in cuDNN) or ``hab_front``
     (one kernel up to the two global pools, whose sums feed the ECA gate
-    and the dynamic-kernel head; it needs dim > esc_pdim)."""
+    and the dynamic-kernel head; it needs dim > esc_pdim). In training mode
+    with ``drop_path_rate`` above 0 the block runs the unfused modules
+    instead (:meth:`takes_draws`)."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int = 7,
                  shift_size: int = 0, compress_ratio: int = 3,
                  squeeze_factor: int = 30, conv_scale: float = 0.01,
                  mlp_ratio: float = 4.0, esc_pdim: int = 16,
-                 esc_kernel: int = 13, front_route: str = "ln_split"):
+                 esc_kernel: int = 13, front_route: str = "ln_split",
+                 drop_path_rate: float = 0.0):
         super().__init__()
         if front_route not in FRONT_ROUTES:
             raise ValueError(f"front_route {front_route!r}: one of "
@@ -139,6 +168,7 @@ class HAB(KernelOperands):
         self.front_route = front_route
         self.conv_scale = conv_scale
         self.esc_pdim = esc_pdim
+        self.drop_path_rate = drop_path_rate
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.esc_attn = ESCConvAttn(dim, esc_pdim, esc_kernel)
         self.conv_block = CAB(dim, compress_ratio)
@@ -146,12 +176,9 @@ class HAB(KernelOperands):
         self.mlp = GatedDconvFFN(dim, mlp_ratio)
 
     def _build_operands(self) -> dict:
-        mp, cab = self.mlp, self.conv_block.cab
+        cab = self.conv_block.cab
         return {"ffn": (self.norm2.weight, self.norm2.bias,
-                        mp.fc1.weight.t().contiguous(), mp.fc1.bias,
-                        mp.dw.weight[:, 0].permute(1, 2, 0).contiguous(),
-                        mp.dw.bias, mp.fc2.weight.t().contiguous(),
-                        mp.fc2.bias),
+                        *self.mlp.operands()),
                 # the CAB's convs as HWIO filters
                 "front": (self.norm1.weight, self.norm1.bias,
                           cab[0].weight.permute(2, 3, 1, 0).contiguous(),
@@ -159,19 +186,41 @@ class HAB(KernelOperands):
                           cab[2].weight.permute(2, 3, 1, 0).contiguous(),
                           cab[2].bias)}
 
-    def forward(self, x):
-        ops = self.kernel_operands()
+    def takes_draws(self) -> bool:
+        """Whether the block runs its unfused, drop-path route: in training
+        mode at a rate above 0 (JAX ``HAB.__call__``'s route choice)."""
+        return self.training and self.drop_path_rate > 0
+
+    def forward(self, x, draws=None):
+        """``draws``: (2, B) uniform draws of the attention and FFN branches'
+        drop path, given where :meth:`takes_draws`."""
         x = x.contiguous()
+        if self.takes_draws():
+            return self._unfused(x, draws)
+        ops = self.kernel_operands()
         if self.front_route == "hab_front":
             x = self._hab_front(x, ops)
         else:
-            ln1, x1 = ln_split(x, self.norm1.weight, self.norm1.bias,
-                               eps=self.norm1.eps, pdim=self.esc_pdim)
+            ln1, x1 = ln_split_ad(x, self.norm1.weight, self.norm1.bias,
+                                  eps=self.norm1.eps, pdim=self.esc_pdim)
             conv_x = self.conv_block(ln1)
             attn_x = self.esc_attn(ln1, x1)
             x = x + attn_x + self.conv_scale * conv_x
-        return gated_dconv_ffn_block(x.contiguous(), *ops["ffn"],
-                                     eps=self.norm2.eps)
+        return gated_dconv_ffn_block_ad(x.contiguous(), *ops["ffn"],
+                                        eps=self.norm2.eps)
+
+    def _unfused(self, x, draws):
+        """The modules one by one, drop path on both branches (JAX
+        ``HAB.__call__``'s last route)."""
+        rate = self.drop_path_rate
+        u_attn, u_ffn = draws
+        ln1 = layer_norm(self.norm1, x)
+        conv_x = self.conv_block(ln1)
+        attn_x = self.esc_attn(ln1, ln1[..., :self.esc_pdim].contiguous())
+        attn_x = drop_path(attn_x, rate, u_attn)
+        x = x + attn_x + conv_x * self.conv_scale
+        mlp_x = drop_path(self.mlp(layer_norm(self.norm2, x)), rate, u_ffn)
+        return x + mlp_x
 
     def _hab_front(self, x, ops):
         """The first residual from ``hab_front``'s outputs: the ECA gate
@@ -257,13 +306,14 @@ class OCAB(KernelOperands):
                                        ops["bias"], **kw)
             x = F.linear(out, self.proj.weight, self.proj.bias) + x
         else:
-            x = fused_ocab_block(x, *ops["block"], ops["bias"], **kw,
-                                 ln_eps=self.norm1.eps)
-        return mlp_block(x.contiguous(), *ops["tail"], eps=self.norm2.eps)
+            x = fused_ocab_block_ad(x, *ops["block"], ops["bias"], **kw,
+                                    ln_eps=self.norm1.eps)
+        return mlp_block_ad(x.contiguous(), *ops["tail"], eps=self.norm2.eps)
 
 
 class AttenBlocks(nn.Module):
-    """depth x HAB followed by one OCAB."""
+    """depth x HAB followed by one OCAB; block i has drop-path rate
+    ``drop_path_rates[i]`` (0 where the list is empty)."""
 
     def __init__(self, dim: int, depth: int, num_heads: int,
                  window_size: int, compress_ratio: int, squeeze_factor: int,
@@ -271,21 +321,30 @@ class AttenBlocks(nn.Module):
                  mlp_ratio: float = 4.0, esc_pdim: int = 16,
                  esc_kernel: int = 13, ocab_esc_enable: bool = False,
                  ocab_esc_pdim: int = 16, ocab_esc_kernel: int = 13,
-                 front_route: str = "ln_split"):
+                 front_route: str = "ln_split",
+                 drop_path_rates: Sequence[float] = ()):
         super().__init__()
+        rates = list(drop_path_rates) or [0.0] * depth
         self.blocks = nn.ModuleList([
             HAB(dim, num_heads, window_size,
                 0 if i % 2 == 0 else window_size // 2, compress_ratio,
                 squeeze_factor, conv_scale, mlp_ratio, esc_pdim, esc_kernel,
-                front_route)
+                front_route, rates[i])
             for i in range(depth)])
         self.overlap_attn = OCAB(dim, window_size, overlap_ratio, num_heads,
                                  mlp_ratio, ocab_esc_enable, ocab_esc_pdim,
                                  ocab_esc_kernel)
 
-    def forward(self, x):
+    def forward(self, x, draws=None):
+        """``draws``: (n, 2, B), one (2, B) for each block that takes draws,
+        in order."""
+        n = 0
         for blk in self.blocks:
-            x = blk(x)
+            if blk.takes_draws():
+                x = blk(x, draws[n])
+                n += 1
+            else:
+                x = blk(x)
         return self.overlap_attn(x)
 
 
@@ -308,8 +367,8 @@ class RHAG(nn.Module):
         else:
             raise ValueError(f"Unknown resi_connection: {resi_connection}")
 
-    def forward(self, x):
-        y = self.residual_group(x)
+    def forward(self, x, draws=None):
+        y = self.residual_group(x, draws)
         if self.conv is not None:
             y = conv_nhwc(self.conv, y)
         return y + x
@@ -318,8 +377,9 @@ class RHAG(nn.Module):
 @ARCH_REGISTRY.register()
 class HAT(HATShell):
     """Hybrid Attention Transformer, the fork's variant: NHWC RGB in [0, 1]
-    -> NHWC upscaled RGB. ``drop_path_rate`` and ``use_checkpoint`` are
-    training options of the YAML files and change nothing at inference.
+    -> NHWC upscaled RGB. ``drop_path_rate`` and ``use_checkpoint`` act in
+    training mode only (the module docstring); ``forward(x, generator=g)``
+    draws the drop path from ``g`` (torch's default generator where None).
 
     ``front_route`` (``ln_split`` or ``hab_front``) picks the kernels of
     every HAB's first residual (:class:`HAB`); the default is ``ln_split``.
@@ -342,14 +402,39 @@ class HAT(HATShell):
                  ocab_esc_pdim: int = 16, ocab_esc_kernel: int = 13,
                  use_checkpoint: bool = False, stream_tail_rows: int = 0,
                  front_route: str = "ln_split"):
+        dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
+        starts = np.cumsum([0, *depths]).tolist()
         layers = [
             RHAG(embed_dim, depth, num_heads[i], window_size, compress_ratio,
                  squeeze_factor, conv_scale, overlap_ratio, mlp_ratio,
                  resi_connection, esc_pdim=esc_pdim, esc_kernel=esc_kernel,
                  ocab_esc_enable=ocab_esc_enable,
                  ocab_esc_pdim=ocab_esc_pdim,
-                 ocab_esc_kernel=ocab_esc_kernel, front_route=front_route)
+                 ocab_esc_kernel=ocab_esc_kernel, front_route=front_route,
+                 drop_path_rates=dpr[starts[i]:starts[i] + depth])
             for i, depth in enumerate(depths)]
         super().__init__(layers, in_chans, embed_dim, window_size,
                          overlap_ratio, patch_norm, upscale, img_range,
                          upsampler, resi_connection, stream_tail_rows)
+        self.use_checkpoint = use_checkpoint
+
+    def run_layers(self, body, generator: torch.Generator | None = None):
+        """The RHAGs. The drop-path draws of every block that takes them are
+        made here, once, on the generator's device (the CPU by default),
+        outside any checkpointed region, so a recompute sees the same."""
+        counts = [sum(b.takes_draws() for b in layer.residual_group.blocks)
+                  for layer in self.layers]
+        draws = None
+        if sum(counts):
+            device = generator.device if generator is not None else "cpu"
+            draws = torch.rand((sum(counts), 2, body.shape[0]),
+                               generator=generator, device=device)
+            draws = draws.to(body.device).split(counts)
+        remat = self.use_checkpoint and torch.is_grad_enabled()
+        for i, layer in enumerate(self.layers):
+            d = draws[i] if draws is not None else None
+            if remat:
+                body = checkpoint(layer, body, d, use_reentrant=False)
+            else:
+                body = layer(body, d)
+        return body

@@ -46,7 +46,8 @@ from super_resolution_tpu_torch.ops.cuda_build import (MAX_DYNAMIC_SMEM,
                                                        check_smem,
                                                        load_library,
                                                        raise_on_error,
-                                                       stream_of, use_kernel)
+                                                       stream_of, use_kernel,
+                                                       with_plain_backward)
 from super_resolution_tpu_torch.ops.cuda_ffn import layer_norm_f32
 from super_resolution_tpu_torch.ops.windowing import (extract_overlap_windows,
                                                       window_partition,
@@ -435,6 +436,23 @@ def fused_ocab_attention(q_img, kv_img, bias, *, heads: int,
     raise_on_error(name, err)
     fused_ocab_attention.launches += 1
     return out
+
+
+def fused_ocab_block_ad(x_img, ln_scale, ln_bias, w_q, b_q, w_kv, b_kv,
+                        w_proj, b_proj, bias, *, heads: int, window_size: int,
+                        overlap_win: int, scale: float | None = None,
+                        ln_eps: float = 1e-5):
+    """:func:`fused_ocab_block` with a gradient (the RPB ``bias`` included):
+    the kernel forward, autograd through :func:`ocab_block_reference`
+    backward. Replaces
+    super_resolution_tpu/ops/pallas_attention.py::fused_ocab_block_ad."""
+    if scale is None:
+        scale = (w_q.shape[1] // heads) ** -0.5
+    return with_plain_backward(
+        fused_ocab_block, ocab_block_reference,
+        (x_img, ln_scale, ln_bias, w_q, b_q, w_kv, b_kv, w_proj, b_proj, bias),
+        heads=heads, window_size=window_size, overlap_win=overlap_win,
+        scale=scale, ln_eps=ln_eps)
 
 
 # kernel launches of each wrapper; the plain path does not count

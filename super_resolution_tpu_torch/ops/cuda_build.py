@@ -9,7 +9,11 @@ rebuilt and a stale library is never loaded.
 
 Every wrapper dispatches on its input's device through :func:`use_kernel`:
 a CPU tensor runs the plain PyTorch version, a CUDA tensor launches the
-kernel or raises. Nothing falls back from one to the other.
+kernel or raises. Nothing falls back from one to the other. A kernel has no
+backward of its own: a wrapper called for a gradient raises
+(:func:`check_operands`), and the ``*_ad`` entries of the kernels that
+training runs go through :func:`with_plain_backward` instead, whose
+backward is autograd through the plain version (the JAX ``*_ad`` design).
 """
 
 from __future__ import annotations
@@ -184,7 +188,8 @@ def use_kernel(x: torch.Tensor) -> bool:
 def check_operands(name: str, ref: torch.Tensor, **tensors) -> int:
     """Check that every operand lies on ref's device, has ref's dtype
     (float32 or bfloat16) and is contiguous, and that no gradient is asked
-    for (the kernels have no backward yet). Returns the dtype code."""
+    for (a kernel has no backward; :func:`with_plain_backward` gives one).
+    Returns the dtype code."""
     if ref.dtype not in DTYPE_CODES:
         raise TypeError(f"{name}: dtype {ref.dtype} not supported "
                         f"(float32 or bfloat16)")
@@ -232,3 +237,42 @@ def raise_on_error(name: str, err: int) -> None:
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError_t "
                            f"{err}")
+
+
+class _PlainBackward(torch.autograd.Function):
+    """Forward: the kernel's wrapper (grad mode is off inside, so it
+    launches). Backward: the plain version is run again on the saved
+    inputs and differentiated, as JAX's custom_vjp ``*_ad`` functions do;
+    only the inputs are saved."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *args):
+        ctx.plain = plain
+        ctx.save_for_backward(*args)
+        return kernel(*args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            inputs = [a.detach().requires_grad_(n)
+                      for a, n in zip(ctx.saved_tensors, need)]
+            outs = ctx.plain(*inputs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        wrt = [t for t, n in zip(inputs, need) if n]
+        got = iter(torch.autograd.grad(outs, wrt, grads, allow_unused=True))
+        return (None, None, *(next(got) if n else None for n in need))
+
+
+def with_plain_backward(kernel, plain, args: tuple, **kw):
+    """``kernel(*args, **kw)`` (``args`` tensors only) with a gradient. On
+    CUDA tensors that ask for one, the kernel runs forward inside an
+    autograd Function whose backward is autograd through ``plain``;
+    otherwise (a no-grad forward, or a CPU tensor, whose plain version is
+    differentiable already) the wrapper is called as it is, with nothing
+    built first."""
+    if (torch.is_grad_enabled() and use_kernel(args[0])
+            and any(a.requires_grad for a in args)):
+        return _PlainBackward.apply(functools.partial(kernel, **kw),
+                                    functools.partial(plain, **kw), *args)
+    return kernel(*args, **kw)

@@ -36,7 +36,8 @@ from super_resolution_tpu_torch.ops.cuda_build import (check_operands,
                                                        check_smem,
                                                        load_library,
                                                        raise_on_error,
-                                                       stream_of, use_kernel)
+                                                       stream_of, use_kernel,
+                                                       with_plain_backward)
 
 
 # the tensor-core tail (csrc/mlp_tail.cu, namespace tc): rows of a block,
@@ -316,6 +317,24 @@ def mlp_block_sum3_shifted(shortcut, attn_rolled, conv_x, gamma, beta, w1,
                        residual_scale=residual_scale)
     mlp_block_sum3_shifted.launches += 1
     return out
+
+
+def gated_dconv_ffn_block_ad(x, gamma, beta, w1, b1, wd, bd, w2, b2, *,
+                             eps: float = 1e-5):
+    """:func:`gated_dconv_ffn_block` with a gradient: the kernel forward,
+    autograd through :func:`ffn_block_reference` backward. Replaces
+    super_resolution_tpu/ops/pallas_ffn.py::gated_dconv_ffn_block_ad."""
+    return with_plain_backward(
+        gated_dconv_ffn_block, ffn_block_reference,
+        (x, gamma, beta, w1, b1, wd, bd, w2, b2), eps=eps)
+
+
+def mlp_block_ad(x, gamma, beta, w1, b1, w2, b2, *, eps: float = 1e-5):
+    """:func:`mlp_block` with a gradient: the kernel forward, autograd
+    through :func:`mlp_block_reference` backward. Replaces
+    super_resolution_tpu/ops/pallas_ffn.py::mlp_block_ad."""
+    return with_plain_backward(mlp_block, mlp_block_reference,
+                               (x, gamma, beta, w1, b1, w2, b2), eps=eps)
 
 
 # kernel launches of each wrapper; the plain path does not count

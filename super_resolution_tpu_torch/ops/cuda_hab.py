@@ -37,7 +37,8 @@ from super_resolution_tpu_torch.ops.cuda_build import (MAX_DYNAMIC_SMEM,
                                                        check_smem,
                                                        load_library,
                                                        raise_on_error,
-                                                       stream_of, use_kernel)
+                                                       stream_of, use_kernel,
+                                                       with_plain_backward)
 from super_resolution_tpu_torch.ops.cuda_ffn import layer_norm_f32
 
 # output tile side and LayerNorm patch side of csrc/hab_front.cu's FMA
@@ -219,6 +220,14 @@ def hab_front(x, gamma, beta, w1, b1, w2, b2, *, eps: float = 1e-5,
     raise_on_error(name, err)
     hab_front.launches += 1
     return ln1, cab, gap_cab, gap16
+
+
+def ln_split_ad(x, gamma, beta, *, eps: float = 1e-5, pdim: int = 16):
+    """:func:`ln_split` with a gradient: the kernel forward, autograd
+    through :func:`ln_split_reference` backward. Replaces
+    super_resolution_tpu/ops/pallas_hab.py::ln_split_ad."""
+    return with_plain_backward(ln_split, ln_split_reference, (x, gamma, beta),
+                               eps=eps, pdim=pdim)
 
 
 # kernel launches of each wrapper; the plain path does not count

@@ -1,11 +1,18 @@
-"""SR runners for inference and validation (port of the inference and
-validation parts of super_resolution_tpu/runtime/sr_model.py).
+"""SR runners: inference, validation and training on one device (port of
+super_resolution_tpu/runtime/sr_model.py).
 
 A runner builds its network from the YAML options, initialises it from
 ``manual_seed`` with a ``torch.Generator``, loads a checkpoint when the
-options name one, and keeps an evaluation copy cast to the inference dtype.
-The device is explicit: a runner made for ``cuda`` fails where there is no
-card, it does not move to the CPU.
+options name one, and keeps an evaluation copy cast to the inference dtype
+(of the EMA network where training keeps one). The device is explicit: a
+runner made for ``cuda`` fails where there is no card, it does not move to
+the CPU.
+
+Training (``setup_training``, ``optimize_parameters``, ``save``,
+``resume_training``) runs the step of ``runtime/train_loop.py`` on this
+one device; a device mesh raises. The drop path draws from a CPU
+``torch.Generator`` seeded with ``manual_seed`` + 1, whose state the
+checkpoints keep, so a resumed run draws what the uninterrupted run would.
 
 Validation runs one image at a time: inference, ``tensor2img``, the PNG
 under ``visualization/<set>/`` and the metrics on the MATLAB protocol, then
@@ -25,7 +32,10 @@ from super_resolution_tpu_torch.metrics import calculate_metric
 from super_resolution_tpu_torch.models import build_network
 from super_resolution_tpu_torch.models.arch_util import init_weights
 from super_resolution_tpu_torch.ops.windowing import pad_to_multiple
+from super_resolution_tpu_torch.runtime import checkpoint
 from super_resolution_tpu_torch.runtime.tile import tile_forward
+from super_resolution_tpu_torch.runtime.train_loop import (init_train_state,
+                                                           make_sr_train_step)
 from super_resolution_tpu_torch.utils.img import imwrite, tensor2img
 from super_resolution_tpu_torch.utils.logger import get_root_logger
 from super_resolution_tpu_torch.utils.precision import (cast_floating,
@@ -70,6 +80,7 @@ class SRModel:
     def __init__(self, opt: dict, device="cuda"):
         self.opt = opt
         self.scale = opt.get("scale", 1)
+        self.is_train = opt.get("is_train", False)
         self.device = torch.device(device)
         self.logger = get_root_logger()
         self.metric_results: dict = {}
@@ -79,6 +90,7 @@ class SRModel:
         init_weights(net, gen)
         self.net_g = net.to(self.device).eval()
         self._eval_net = None
+        self.state = None
         load_path = opt["path"].get("pretrain_network_g")
         if load_path:
             self.load_network(load_path,
@@ -88,19 +100,12 @@ class SRModel:
 
     def load_network(self, load_path: str, param_key: str = "params",
                      strict: bool = True) -> None:
-        """Load a reference .pth: {param_key: state_dict} with 'params' /
+        """Load a reference .pth, or a training checkpoint of the port (its
+        directory or its file): {param_key: state_dict} with 'params' /
         'params_ema' fallbacks and DDP 'module.' prefixes stripped."""
         self.logger.info(f"Loading {type(self.net_g).__name__} from "
                          f"{load_path} (param_key={param_key})")
-        ckpt = torch.load(load_path, map_location="cpu", weights_only=True)
-        if isinstance(ckpt, dict) and param_key not in ckpt and "params" in ckpt:
-            param_key = "params"
-        if isinstance(ckpt, dict) and param_key in ckpt:
-            state = ckpt[param_key]
-        elif isinstance(ckpt, dict) and "params_ema" in ckpt:
-            state = ckpt["params_ema"]
-        else:
-            state = ckpt
+        state = checkpoint.load_params(load_path, param_key)
         state = {(k[7:] if k.startswith("module.") else k): v
                  for k, v in state.items()}
         load_state_dict(self.net_g, state, strict)
@@ -114,11 +119,16 @@ class SRModel:
         return resolve_dtype(name)
 
     def eval_net(self) -> torch.nn.Module:
-        """The network cast to the inference dtype (cached)."""
+        """The EMA network where training keeps one, else the network, cast
+        to the inference dtype (cached until the next update; ref:
+        hat_model.py:30-37)."""
         if self._eval_net is None:
+            net = self.net_g
+            if self.state is not None and self.state.ema is not None:
+                net = self.state.ema
             dt = self.inference_dtype()
-            self._eval_net = (self.net_g if dt is None
-                              else cast_floating(self.net_g, dt).eval())
+            self._eval_net = (net if dt is None
+                              else cast_floating(net, dt).eval())
         return self._eval_net
 
     def _apply_fn(self):
@@ -143,6 +153,70 @@ class SRModel:
         """Hook for subclasses (padding / tiling)."""
         self.test()
 
+    # -------------------------------------------------------------- training
+    def setup_training(self, mesh=None) -> None:
+        """The optimizer, EMA and train step of ``opt['train']``
+        (runtime/train_loop.py), on this runner's one device."""
+        if mesh is not None:
+            raise NotImplementedError("training across devices (a mesh) is "
+                                      "not ported (ROADMAP.md queue 1, "
+                                      "parallelism)")
+        train_opt = self.opt["train"]
+        self.state = init_train_state(self.net_g, train_opt)
+        self._train_step = make_sr_train_step(train_opt)
+        self._drop_path_gen = torch.Generator().manual_seed(
+            int(self.opt.get("manual_seed") or 0) + 1)
+        self._eval_net = None
+        self.log_dict = {}
+
+    def optimize_parameters(self, batch: dict, current_iter: int) -> None:
+        """One update on ``batch`` ({'lq', 'gt'}, numpy or tensors); the
+        network is back in eval mode afterwards."""
+        data = {"lq": self._to_device(batch["lq"]),
+                "gt": self._to_device(batch["gt"])}
+        self.log_dict = self._train_step(self.state, data,
+                                         self._drop_path_gen)
+        self.net_g.eval()
+        self._eval_net = None
+
+    def current_lrs(self, current_iter: int) -> list:
+        """The schedule at ``current_iter`` (the update count after
+        ``current_iter`` updates), as the JAX runner reports it."""
+        return [float(self.state.schedule(current_iter))]
+
+    def get_current_log(self) -> dict:
+        return {k: float(v) for k, v in self.log_dict.items()}
+
+    def save(self, epoch: int, current_iter: int) -> None:
+        """Checkpoint ``path.models/net_g_{current_iter}``
+        (runtime/checkpoint.py): the weights, the EMA weights, the
+        optimizer, the drop-path generator, epoch and iteration."""
+        tree = {"params": self.net_g.state_dict(), "epoch": epoch,
+                "iter": current_iter}
+        if self.state is not None:
+            if self.state.ema is not None:
+                tree["params_ema"] = self.state.ema.state_dict()
+            tree["opt_state"] = self.state.optimizer.state_dict()
+            tree["rng_state"] = self._drop_path_gen.get_state()
+        checkpoint.save_params(osp.join(self.opt["path"]["models"],
+                                        f"net_g_{current_iter}"), tree)
+
+    def resume_training(self, resume_path: str):
+        """Load a checkpoint of :meth:`save` into the train state (after
+        :meth:`setup_training`). Returns (epoch, iteration)."""
+        tree = checkpoint.load_tree(resume_path)
+        load_state_dict(self.net_g, tree["params"])
+        if self.state.ema is not None:
+            load_state_dict(self.state.ema, tree.get("params_ema",
+                                                     tree["params"]))
+        if "opt_state" in tree:
+            self.state.optimizer.load_state_dict(tree["opt_state"])
+        if "rng_state" in tree:
+            self._drop_path_gen.set_state(tree["rng_state"])
+        self.state.step = int(tree["iter"])
+        self._eval_net = None
+        return int(tree["epoch"]), int(tree["iter"])
+
     # ------------------------------------------------------------ validation
     def get_current_visuals(self) -> dict:
         def host(t):
@@ -153,7 +227,8 @@ class SRModel:
             out["gt"] = host(self.gt)
         return out
 
-    def validation(self, dataloader, current_iter, save_img: bool = False):
+    def validation(self, dataloader, current_iter, save_img: bool = False,
+                   tb_logger=None):
         import torch.distributed as dist
 
         if (dist.is_available() and dist.is_initialized()
@@ -161,7 +236,8 @@ class SRModel:
             raise NotImplementedError(
                 "validation across processes (dist_validation) is not "
                 "ported (ROADMAP.md queue 1, parallelism)")
-        self.nondist_validation(dataloader, current_iter, save_img)
+        self.nondist_validation(dataloader, current_iter, save_img,
+                                tb_logger)
 
     def _initialize_best_metric_results(self, dataset_name: str):
         if dataset_name in self.best_metric_results:
@@ -194,25 +270,34 @@ class SRModel:
             metric_data["img2"] = tensor2img(visuals["gt"])
 
         if save_img:
-            suffix = self.opt["val"].get("suffix") or self.opt["name"]
-            imwrite(sr_img, osp.join(self.opt["path"]["visualization"],
+            if self.opt.get("is_train"):
+                save_path = osp.join(self.opt["path"]["visualization"],
+                                     img_name,
+                                     f"{img_name}_{current_iter}.png")
+            else:
+                suffix = self.opt["val"].get("suffix") or self.opt["name"]
+                save_path = osp.join(self.opt["path"]["visualization"],
                                      dataset_name,
-                                     f"{img_name}_{suffix}.png"))
+                                     f"{img_name}_{suffix}.png")
+            imwrite(sr_img, save_path)
 
         if self.opt.get("val", {}).get("metrics") is not None:
             for name, opt_ in self.opt["val"]["metrics"].items():
                 self.metric_results[name] += calculate_metric(metric_data,
                                                               opt_)
 
-    def _finalize_validation(self, dataset_name, n_images, current_iter):
+    def _finalize_validation(self, dataset_name, n_images, current_iter,
+                             tb_logger=None):
         for metric in self.metric_results:
             self.metric_results[metric] /= n_images
             self._update_best_metric_result(dataset_name, metric,
                                             self.metric_results[metric],
                                             current_iter)
-        self._log_validation_metric_values(current_iter, dataset_name)
+        self._log_validation_metric_values(current_iter, dataset_name,
+                                           tb_logger)
 
-    def nondist_validation(self, dataloader, current_iter, save_img):
+    def nondist_validation(self, dataloader, current_iter, save_img,
+                           tb_logger=None):
         dataset_name = dataloader.dataset.opt["name"]
         with_metrics = self.opt.get("val", {}).get("metrics") is not None
         if with_metrics:
@@ -227,9 +312,11 @@ class SRModel:
                                          save_img)
 
         if with_metrics and idx >= 0:
-            self._finalize_validation(dataset_name, idx + 1, current_iter)
+            self._finalize_validation(dataset_name, idx + 1, current_iter,
+                                      tb_logger)
 
-    def _log_validation_metric_values(self, current_iter, dataset_name):
+    def _log_validation_metric_values(self, current_iter, dataset_name,
+                                      tb_logger=None):
         log_str = f"Validation {dataset_name}\n"
         for metric, value in self.metric_results.items():
             log_str += f"\t # {metric}: {value:.4f}"
@@ -238,6 +325,10 @@ class SRModel:
                 log_str += f"\tBest: {rec['val']:.4f} @ {rec['iter']} iter"
             log_str += "\n"
         self.logger.info(log_str)
+        if tb_logger is not None:
+            for metric, value in self.metric_results.items():
+                tb_logger.add_scalar(f"metrics/{dataset_name}/{metric}",
+                                     value, current_iter)
 
 
 @MODEL_REGISTRY.register()
@@ -261,7 +352,8 @@ class HATModel(SRModel):
             out = fwd(img)
         self.output = out[:, :h * self.scale, :w * self.scale, :]
 
-    def nondist_validation(self, dataloader, current_iter, save_img):
+    def nondist_validation(self, dataloader, current_iter, save_img,
+                           tb_logger=None):
         """Per-image validation. The JAX runner's bucketed evaluation across
         images (``val: {bucketed_eval: true}`` with ``tile:``) is not ported
         and raises."""
@@ -269,8 +361,9 @@ class HATModel(SRModel):
                 and "tile" in self.opt:
             raise NotImplementedError(
                 "val: {bucketed_eval: true} with tile: is not ported "
-                "(runtime/batched_eval.py, ROADMAP.md queue 1 item 3)")
-        super().nondist_validation(dataloader, current_iter, save_img)
+                "(runtime/batched_eval.py, ROADMAP.md queue 1 item 4)")
+        super().nondist_validation(dataloader, current_iter, save_img,
+                                   tb_logger)
 
 
 @MODEL_REGISTRY.register()
@@ -278,6 +371,10 @@ class ESRModel(HATModel):
     """The runner the ESC option files name. Its training strategy (AMP,
     clipped gradients, momentum resets, self-distillation) is not ported;
     at inference it is a :class:`HATModel`."""
+
+    def setup_training(self, mesh=None) -> None:
+        raise NotImplementedError("ESRModel's training strategy is not "
+                                  "ported (ROADMAP.md queue 1, training)")
 
 
 @MODEL_REGISTRY.register()

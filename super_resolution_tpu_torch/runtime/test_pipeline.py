@@ -29,7 +29,7 @@ def run_test(opt: dict, device="cuda") -> dict:
     if (opt.get("logger") or {}).get("profile"):
         raise NotImplementedError("logger.profile: the evaluation profiler "
                                   "is not ported (ROADMAP.md queue 1, "
-                                  "item 2)")
+                                  "item 3)")
     set_random_seed(opt["manual_seed"] + opt["rank"])
     make_exp_dirs(opt)
     log_file = osp.join(opt["path"]["log"], f"test_{opt['name']}.log")

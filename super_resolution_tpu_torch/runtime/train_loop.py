@@ -1,0 +1,147 @@
+"""The training core: optimizer, train state with EMA, and the SR train step
+(port of super_resolution_tpu/runtime/train_loop.py; ref:
+basicsr/models/base_model.py optimizer :103-120, EMA :75-82, schedulers
+:122-133, sr_model.py ``optimize_parameters`` :92-119).
+
+The JAX package's state is a pure pytree updated by a jitted function; here
+:class:`TrainState` holds the network, a ``torch.optim`` optimizer and an
+EMA copy of the network, and the step updates them in place. What it keeps
+of the JAX step's arithmetic:
+
+- the learning rate of an update is the schedule at the number of updates
+  made before it (optax's count), set on every parameter group before
+  ``step()``;
+- ``Adam`` with a nonzero ``weight_decay`` is decoupled decay, as
+  ``optax.adamw`` (``torch.optim.AdamW``), not ``torch.optim.Adam``'s L2;
+- ``grad_clip_norm`` scales every gradient by max_norm / norm where the
+  global norm reaches max_norm (``optax.clip_by_global_norm``);
+- a parameter that got no gradient gets a zero one, so that every moment
+  and step count moves as optax's do;
+- EMA: e = e * decay + p * (1 - decay) after each update;
+- ``use_amp``: the forward runs on bf16 casts of the float32 parameters and
+  a bf16 input, the output and the loss in float32.
+"""
+
+from __future__ import annotations
+
+import copy
+from contextlib import nullcontext
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from super_resolution_tpu_torch.losses import build_loss
+from super_resolution_tpu_torch.runtime.schedulers import build_schedule
+from super_resolution_tpu_torch.utils.precision import cast_parameters
+
+
+@dataclass
+class TrainState:
+    """``step``: updates made."""
+
+    net: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    schedule: Callable[[int], float]
+    ema: torch.nn.Module | None = None
+    step: int = 0
+
+
+def build_optimizer(train_opt: dict, params):
+    """The optimizer of the ``optim_g`` block (Adam, AdamW or SGD) over
+    ``params``, one group, and the schedule of :func:`build_schedule`."""
+    opt = dict(train_opt["optim_g"])
+    opt_type = opt.pop("type")
+    schedule = build_schedule(train_opt)
+    betas = tuple(opt.pop("betas", (0.9, 0.999)))
+    weight_decay = opt.pop("weight_decay", 0.0)
+
+    lr = schedule(0)
+    if opt_type == "Adam" and not weight_decay:
+        optimizer = torch.optim.Adam(params, lr=lr, betas=betas,
+                                     eps=1e-8)
+    elif opt_type in ("Adam", "AdamW"):
+        optimizer = torch.optim.AdamW(params, lr=lr, betas=betas,
+                                      eps=1e-8, weight_decay=weight_decay)
+    elif opt_type == "SGD":
+        optimizer = torch.optim.SGD(params, lr=lr,
+                                    momentum=opt.pop("momentum", 0.0))
+    else:
+        raise NotImplementedError(f"optimizer {opt_type}")
+    return optimizer, schedule
+
+
+def build_pixel_criterion(train_opt: dict):
+    if train_opt.get("pixel_opt"):
+        return build_loss(train_opt["pixel_opt"])
+    return None
+
+
+def init_train_state(net: torch.nn.Module, train_opt: dict) -> TrainState:
+    """The state of a run that starts: the optimizer over ``net``'s
+    parameters and, where ``ema_decay`` > 0, an EMA copy of ``net`` (eval
+    mode, no gradients)."""
+    optimizer, schedule = build_optimizer(train_opt, net.parameters())
+    ema = None
+    if train_opt.get("ema_decay", 0) > 0:
+        ema = copy.deepcopy(net).eval().requires_grad_(False)
+    return TrainState(net=net, optimizer=optimizer, schedule=schedule,
+                      ema=ema)
+
+
+def _clip_by_global_norm(params, max_norm: float) -> None:
+    grads = [p.grad for p in params]
+    norm = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm),
+                        max_norm / norm)
+    torch._foreach_mul_(grads, scale.to(grads[0].dtype))
+
+
+def make_sr_train_step(train_opt: dict):
+    """The single-network SR step: f(state, batch, generator) -> logs, which
+    updates ``state`` in place. batch: {'lq': (B, h, w, 3), 'gt': (B, H, W,
+    3)} float32 tensors on the network's device; ``generator`` goes to the
+    network's forward, which draws the drop path from it where it has one
+    (``models.arch_util.SRShell``). logs: {'l_pix': the loss, a 0-d tensor
+    on the device}."""
+    cri_pix = build_pixel_criterion(train_opt)
+    if cri_pix is None:
+        raise ValueError("train.pixel_opt is required for the SR step")
+    ema_decay = train_opt.get("ema_decay", 0)
+    use_amp = bool(train_opt.get("use_amp", False))
+    clip = train_opt.get("grad_clip_norm")
+
+    def train_step(state: TrainState, batch: dict, generator=None) -> dict:
+        net = state.net
+        net.train()
+        state.optimizer.zero_grad(set_to_none=False)
+        lq = batch["lq"]
+        with (cast_parameters(net, torch.bfloat16) if use_amp
+              else nullcontext()):
+            if use_amp:
+                lq = lq.to(torch.bfloat16)
+            sr = net(lq, generator=generator).float()
+            l_pix = cri_pix(sr, batch["gt"])
+            # inside the context: a checkpointed region recomputes here
+            l_pix.backward()
+        params = [p for g in state.optimizer.param_groups for p in g["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if clip:
+            _clip_by_global_norm(params, clip)
+        lr = state.schedule(state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.step()
+        if state.ema is not None:
+            with torch.no_grad():
+                ema = list(state.ema.parameters())
+                torch._foreach_mul_(ema, ema_decay)
+                torch._foreach_add_(ema, list(net.parameters()),
+                                    alpha=1 - ema_decay)
+        state.step += 1
+        return {"l_pix": l_pix.detach()}
+
+    return train_step

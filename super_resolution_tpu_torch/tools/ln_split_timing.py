@@ -8,7 +8,10 @@ reads come from HBM).
 Each way is timed through the wrapper (one call between two CUDA events:
 the wrapper's host work, about 20 us, counts where the kernel is shorter)
 and through the kernel's C entry, 20 launches between the events on
-outputs allocated beforehand (the kernel alone). Beside them:
+outputs allocated beforehand (the kernel alone); also one call of the
+entry the fork's HAB calls (``ln_split_ad`` where the tree has it, else
+``ln_split``) in inference mode, as an evaluation forward runs it. Beside
+them:
 ``F.layer_norm`` (the one PyTorch call for most of the function, timed
 the same two ways), the float32 first version through the wrapper, and the
 bound (bytes over the HBM rate). Prints the card's name and power limit
@@ -103,6 +106,12 @@ def timing(shape=SHAPE, pdim: int = PDIM, seed: int = 8) -> dict:
     def wrapper(i):
         ch.ln_split(xs[i], g, b, eps=1e-5, pdim=pdim)
 
+    hab_entry = getattr(ch, "ln_split_ad", ch.ln_split)
+
+    def hab_call():
+        with torch.inference_mode():
+            hab_entry(xs[0], g, b, eps=1e-5, pdim=pdim)
+
     def layer_norm(i):
         F.layer_norm(xs[i], (c,), g, b, 1e-5)
 
@@ -126,6 +135,7 @@ def timing(shape=SHAPE, pdim: int = PDIM, seed: int = 8) -> dict:
         x1_bit_equal=bool(torch.equal(got[1], got[0][..., :pdim])),
         wrapper_ms=median_event_ms(lambda: wrapper(0)),
         wrapper_two_buffers_ms=median_event_ms(pair(wrapper), per=2),
+        hab_entry=hab_entry.__name__, hab_entry_ms=median_event_ms(hab_call),
         entry_ms=median_event_ms(loop(1), per=LAUNCHES),
         entry_two_buffers_ms=median_event_ms(loop(2), per=LAUNCHES),
         layer_norm_ms=median_event_ms(lambda: layer_norm(0)),

@@ -36,12 +36,14 @@ def mkdir_and_rename(path: str) -> None:
 
 
 def make_exp_dirs(opt: dict) -> None:
-    """Create the results directories (rank 0 only): the results root is
-    archived if it exists, the other paths are created."""
+    """Create the run's directories (rank 0 only): the experiments root of
+    a training run or the results root of a test run is archived if it
+    exists, the other paths are created."""
     if opt.get("rank", 0) != 0:
         return
     path_opt = dict(opt["path"])
-    mkdir_and_rename(path_opt.pop("results_root"))
+    mkdir_and_rename(path_opt.pop("experiments_root" if opt.get("is_train")
+                                  else "results_root"))
     for key, path in path_opt.items():
         if ("strict_load" in key or "pretrain_network" in key
                 or "resume" in key or "param_key" in key):

@@ -1,7 +1,7 @@
 """YAML experiment options, schema-compatible with the JAX package and the
-reference's ``options/*.yml`` (port of the inference and test half of
-super_resolution_tpu/utils/options.py). Dotted ``--force_yml`` overrides
-patch the tree through a safe setter, never ``eval``."""
+reference's ``options/*.yml`` (port of super_resolution_tpu/utils/
+options.py). Dotted ``--force_yml`` overrides patch the tree through a safe
+setter, never ``eval``."""
 
 from __future__ import annotations
 
@@ -78,16 +78,15 @@ def apply_force_yml(opt: dict, entries) -> None:
 def process_options(opt: dict, root_path: str, is_train: bool = False,
                     force_yml=None, auto_resume: bool = False,
                     debug: bool = False) -> dict:
-    """Post-process a loaded option dict for inference and test: process
-    info, the seed, ``--force_yml``, ``num_gpu: auto``, scale propagation
-    into datasets, user paths expanded and the results paths derived.
-    Training options are not ported yet.
+    """Post-process a loaded option dict: process info, the seed,
+    ``--force_yml``, ``num_gpu: auto``, scale propagation into datasets,
+    user paths expanded and the run's paths derived: for training
+    ``experiments_root/<name>`` with ``models``, ``training_states``,
+    ``log`` and ``visualization`` (a ``debug`` name validates and saves
+    every 8 iterations and logs every one), else ``results_root/<name>``.
 
     ``num_gpu: auto`` records ``torch.cuda.device_count()``; it chooses no
     device (the caller's ``device`` does)."""
-    if is_train:
-        raise NotImplementedError("training options are not ported yet "
-                                  "(ROADMAP.md queue 1)")
     import torch
     import torch.distributed as dist
 
@@ -101,7 +100,7 @@ def process_options(opt: dict, root_path: str, is_train: bool = False,
     apply_force_yml(opt, force_yml)
 
     opt["auto_resume"] = auto_resume
-    opt["is_train"] = False
+    opt["is_train"] = is_train
     if debug and not opt["name"].startswith("debug"):
         opt["name"] = "debug_" + opt["name"]
     if opt.get("num_gpu") == "auto":
@@ -120,6 +119,26 @@ def process_options(opt: dict, root_path: str, is_train: bool = False,
         if val is not None and ("resume_state" in key
                                 or "pretrain_network" in key):
             opt["path"][key] = osp.expanduser(val)
+
+    if is_train:
+        experiments_root = opt["path"].get("experiments_root")
+        if experiments_root is None:
+            experiments_root = osp.join(root_path, "experiments")
+        experiments_root = osp.join(experiments_root, opt["name"])
+        opt["path"]["experiments_root"] = experiments_root
+        opt["path"]["models"] = osp.join(experiments_root, "models")
+        opt["path"]["training_states"] = osp.join(experiments_root,
+                                                  "training_states")
+        opt["path"]["log"] = experiments_root
+        opt["path"]["visualization"] = osp.join(experiments_root,
+                                                "visualization")
+        if "debug" in opt["name"]:
+            if "val" in opt:
+                opt["val"]["val_freq"] = 8
+            opt.setdefault("logger", {})
+            opt["logger"]["print_freq"] = 1
+            opt["logger"]["save_checkpoint_freq"] = 8
+        return opt
 
     results_root = opt["path"].get("results_root")
     if results_root is None:
@@ -154,3 +173,21 @@ def parse_options(root_path: str, is_train: bool = False, argv=None):
                           force_yml=args.force_yml,
                           auto_resume=args.auto_resume, debug=args.debug)
     return opt, args
+
+
+def copy_opt_file(opt_file: str, experiments_root: str) -> None:
+    """Copy the option file of a run into its experiment directory, under a
+    header with the time and the command line."""
+    import sys
+    import time
+    from shutil import copyfile
+
+    os.makedirs(experiments_root, exist_ok=True)
+    filename = osp.join(experiments_root, osp.basename(opt_file))
+    copyfile(opt_file, filename)
+    with open(filename, "r+") as f:
+        lines = f.readlines()
+        lines.insert(0, f"# GENERATE TIME: {time.asctime()}\n# CMD:\n# "
+                        f"{' '.join(sys.argv)}\n\n")
+        f.seek(0)
+        f.writelines(lines)

@@ -6,10 +6,15 @@ super_resolution_tpu/utils/precision.py).
   kernels);
 - LayerNorm statistics stay float32 (``layer_norm_f32``, the kernels);
 - the network output is cast back to float32.
+
+For training with ``use_amp``, :func:`cast_parameters` runs a module on
+low-precision copies of its float32 parameters, so that the gradients reach
+the float32 masters.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 
 import torch
@@ -51,3 +56,27 @@ def wrap_apply(apply_fn, dtype):
         return apply_fn(x.to(dtype)).float()
 
     return fwd
+
+
+@contextlib.contextmanager
+def cast_parameters(module: torch.nn.Module, dtype):
+    """While the context is open, every floating parameter of ``module``
+    reads as its cast to ``dtype`` (a differentiable copy, so a gradient
+    flows back to the float32 parameter); ``parameters()`` and the
+    state_dict still give the parameters themselves. Keep the backward
+    inside the context where the forward rematerialises (a checkpointed
+    region runs again in the backward and must see the same casts). The
+    JAX train step casts its parameter tree the same way under
+    ``use_amp``."""
+    patched = []
+    try:
+        for mod in module.modules():
+            for name, p in mod._parameters.items():
+                if p is not None and p.is_floating_point():
+                    # an instance attribute shadows the registered parameter
+                    mod.__dict__[name] = p.to(dtype)
+                    patched.append((mod, name))
+        yield module
+    finally:
+        for mod, name in patched:
+            del mod.__dict__[name]

@@ -44,3 +44,4 @@ ARCH_REGISTRY = Registry("arch")
 MODEL_REGISTRY = Registry("model")
 DATASET_REGISTRY = Registry("dataset")
 METRIC_REGISTRY = Registry("metric")
+LOSS_REGISTRY = Registry("loss")

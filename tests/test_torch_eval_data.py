@@ -2,8 +2,8 @@
 single-image datasets on one folder (paths, order, arrays), the sequential
 loader, the test half of the options (``--force_yml``, ``num_gpu: auto``,
 the CLI flags) and the log banner. What the port does not read raises
-``NotImplementedError``: another io_backend, a paired meta_info_file, the
-training phase. No entry point picks the CPU by itself."""
+``NotImplementedError``: another io_backend, a paired meta_info_file, a
+train loader across devices. No entry point picks the CPU by itself."""
 
 import os
 
@@ -103,14 +103,15 @@ def test_unported_inputs_raise(folders, case):
     elif case == "meta_info":
         opt["meta_info_file"] = folders["meta"]
     else:
-        opt.update(phase="train", gt_size=16)
+        # the train phase is ported; training across devices is not
+        opt.update(phase="train", gt_size=16, batch_size_per_gpu=2)
+        with pytest.raises(NotImplementedError, match="mesh"):
+            build_dataloader(build_dataset(opt), opt, mesh=object())
+        return
     match = {"lmdb": "lmdb", "single_lmdb": "lmdb",
-             "meta_info": "meta_info_file", "train": "train"}[case]
+             "meta_info": "meta_info_file"}[case]
     with pytest.raises(NotImplementedError, match=match):
         build_dataset(opt)
-    if case == "train":
-        with pytest.raises(NotImplementedError, match="training loader"):
-            build_dataloader(None, opt)
 
 
 FORCE = ["val:save_img=false", "network_g:embed_dim=60",

@@ -130,8 +130,8 @@ def test_hab_front_route_kernel_calls_and_guard(rng, monkeypatch):
     and ln_split never; the route needs dim > esc_pdim, as the JAX guard
     does; an unknown route is refused."""
     calls = {}
-    for name in ("ln_split", "hab_front", "gated_dconv_ffn_block",
-                 "fused_ocab_attention", "mlp_block"):
+    for name in ("ln_split_ad", "hab_front", "gated_dconv_ffn_block_ad",
+                 "fused_ocab_attention", "mlp_block_ad"):
         fn = getattr(that, name)
 
         def counted(*a, _fn=fn, _name=name, **kw):
@@ -141,8 +141,8 @@ def test_hab_front_route_kernel_calls_and_guard(rng, monkeypatch):
     model = that.HAT(**SMALL, front_route="hab_front").eval()
     with torch.no_grad():
         model(torch.from_numpy(rng.random((1, 16, 16, 3), dtype=np.float32)))
-    assert calls == {"hab_front": 4, "gated_dconv_ffn_block": 4,
-                     "fused_ocab_attention": 2, "mlp_block": 2}
+    assert calls == {"hab_front": 4, "gated_dconv_ffn_block_ad": 4,
+                     "fused_ocab_attention": 2, "mlp_block_ad": 2}
     with pytest.raises(ValueError, match="dim > esc_pdim"):
         that.HAB(8, 2, esc_pdim=8, front_route="hab_front")
     with pytest.raises(ValueError, match="front_route"):
