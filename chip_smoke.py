@@ -96,7 +96,28 @@ Phases, each of which raises on failure:
      against the uninterrupted one, the launches a step (rows 7, 8 once, in
      the one block at drop-path rate 0; rows 5, 6 six times; twice as many
      under remat) and an eval image; seconds a step, images a second and
-     peak memory.
+     peak memory;
+  7. ESC-family training: (a) the four autograd entries ESC training and
+     the fork's HAT x2 add (fused_attention at ESC x4's step, q (64, 4,
+     1024, 16); fused_msa_block at window 16 on (16, 64, 64, 64);
+     msa_flash_attention at ESC-XL's window 48 on qkv (2, 96, 96, 576);
+     fused_ocab_attention at the fork's HAT x2 step, (8, 64, 64, 180)),
+     float32 and bf16, as phase 6 (a), with the peak memory of each
+     forward + backward; (b) the train pipeline on
+     options/esc/train/ESC_DIV2K_X4.yml as shipped (ESRModel, float32,
+     batch 16, gt 256; its five validation sets all on the synthetic
+     Set5's window-multiple pairs), on the same file with the ESC
+     strategy's options added (top-level use_amp, gradient_clip 1.0,
+     reset_momentum_iter 2, MESA from iteration 4), on ESC_DFLIP_X4.yml
+     (DownsampleImageDataset on the GT folder), on ESC_FP_X4.yml, on
+     options/train/train_HAT_SRx2_from_scratch.yml at batch 8 (cut from
+     32: float32 without remat takes ~2.7 GiB a sample) with x2 LR of the
+     same GT, and on train_HAT_SRx2_ImageNet_from_scratch.yml
+     (ImageNetPairedDataset over a synthetic meta_info_file) at its batch
+     4; checked as phase 6 (b), and the EMA of the resumed run, the
+     momentum resets (2, 4, 6; 4, 6 resumed) and MESA's loss (0 before
+     iteration 4) in both runs, the row 10 launches a step (5, 10 with
+     MESA) and row 9's (6).
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Exits non-zero, printing neither, when there
@@ -2123,73 +2144,98 @@ TRAIN_SHAPE = (4, 64)
 # synthetic DF2K-sub pairs: GT 480 x 480 crops as DF2K_HR_sub holds them,
 # enough for one batch of 32
 TRAIN_PAIRS, TRAIN_GT = 32, 480
-# label -> option file, the batch it runs at, whether remat and bf16 act
+# the launches a step of the flagship HAT x4 files: rows 7, 8 once (the one
+# HAB at drop-path rate 0), rows 5, 6 once an RHAG; twice under remat
+_HAT_STEP = {"ln_split": 1, "gated_dconv_ffn_block": 1,
+             "fused_ocab_block": 6, "mlp_block": 6}
+_TRAIN_ROOTS = {"datasets:train:dataroot_gt": "train_gt",
+                "datasets:train:dataroot_lq": "train_lq",
+                "datasets:val:dataroot_gt": "val_gt",
+                "datasets:val:dataroot_lq": "val_lq"}
+# label -> option file, the batch it runs at (None: the file's), the data
+# roots it is given, the launches a step and an eval image
 TRAIN_PATHS = {
     "train_f32": dict(yml="options/train/train_HAT_SRx4_from_scratch.yml",
-                      batch=4),
+                      batch=4, roots=_TRAIN_ROOTS, per_step=_HAT_STEP,
+                      per_image=_EVAL_HAT),
     "train_amp_remat": dict(yml="options/train/train_HAT_SRx4_amp_remat.yml",
-                            batch=None),
+                            batch=None, roots=_TRAIN_ROOTS,
+                            per_step={k: 2 * v for k, v in _HAT_STEP.items()},
+                            per_image=_EVAL_HAT),
 }
 TRAIN_ITERS, TRAIN_EVERY = 6, 3
+
+
+def check_autograd_entry(wrapper, ad, plain, args, kw, dtype,
+                         what: str) -> None:
+    """One autograd entry on the card: the forward against the plain
+    version, every input's gradient against autograd through the plain
+    version (a random cotangent), one launch a forward; forward + backward
+    times of the entry and of the plain version under autograd."""
+    import torch
+
+    tol_rel = TOL_F32 if dtype == torch.float32 else TOL_BF16
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    wrapper.launches = 0
+    out = ad(*leaves, **kw)
+    launches = wrapper.launches
+    outs = out if isinstance(out, tuple) else (out,)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cts = [torch.randn(o.shape, generator=gen, device="cuda",
+                       dtype=o.dtype) for o in outs]
+    grads = torch.autograd.grad(outs, leaves, cts)
+    ref_leaves = [a.detach().clone().requires_grad_() for a in args]
+    ref = plain(*ref_leaves, **kw)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    ref_grads = torch.autograd.grad(refs, ref_leaves, cts)
+    torch.cuda.synchronize()
+    err, ok = max_err_and_tol(tuple(o.detach() for o in outs),
+                              tuple(r.detach() for r in refs), tol_rel)
+    gerr, gok = max_err_and_tol(tuple(grads), tuple(ref_grads), tol_rel)
+    name = getattr(ad, "__name__", str(ad))
+    if not (ok and gok and launches == 1):
+        raise AssertionError(f"{name} {dtype}: forward err {err}, gradient "
+                             f"err {gerr}, {launches} launches")
+    del out, outs, grads, ref, refs, ref_grads
+
+    def step(fn, xs):
+        o = fn(*xs, **kw)
+        return torch.autograd.grad(o if isinstance(o, tuple) else (o,), xs,
+                                   cts)
+    ms = time_ms(lambda: step(ad, leaves), reps=5)
+    plain_ms = time_ms(lambda: step(plain, ref_leaves), reps=5)
+    peak = 0.0
+    for fn, xs in ((ad, leaves), (plain, ref_leaves)):
+        torch.cuda.reset_peak_memory_stats()
+        step(fn, xs)
+        torch.cuda.synchronize()
+        peak = max(peak, torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f"  {name:26s} {what} {str(dtype)[6:]:8s} forward "
+        f"max|entry-plain| {err:.3e}, gradients {gerr:.3e} (rel tol "
+        f"{tol_rel:.1e}), {launches} launch a forward; forward + backward "
+        f"{ms:.3f} ms, plain under autograd {plain_ms:.3f} ms; peak memory "
+        f"{peak:.2f} GiB")
+    torch.cuda.empty_cache()
 
 
 def check_train_functions() -> None:
     """Phase 6 (a): the four kernels of a train step through their
     autograd entries at the training shape (4, 64, 64, 180), float32 (TF32
-    off) and bf16: the forward against the plain version, every input's
-    gradient against autograd through the plain version (a random
-    cotangent), one launch a forward, and forward + backward times of the
-    entry and of the plain version under autograd."""
+    off) and bf16 (:func:`check_autograd_entry`)."""
     import importlib
 
     import torch
 
     for dtype in (torch.float32, torch.bfloat16):
-        tol_rel = TOL_F32 if dtype == torch.float32 else TOL_BF16
         cases = kernel_cases(*TRAIN_SHAPE, dtype, seed=64)
         for name, (mod, ad_name, plain_name) in TRAIN_ROWS.items():
             module = importlib.import_module(
                 f"super_resolution_tpu_torch.ops.{mod}")
-            ad, plain = getattr(module, ad_name), getattr(module, plain_name)
-            wrapper = getattr(module, name)
             args, kw, _, _ = cases[name]
-            leaves = [a.detach().clone().requires_grad_() for a in args]
-            wrapper.launches = 0
-            out = ad(*leaves, **kw)
-            launches = wrapper.launches
-            outs = out if isinstance(out, tuple) else (out,)
-            gen = torch.Generator(device="cuda").manual_seed(1)
-            cts = [torch.randn(o.shape, generator=gen, device="cuda",
-                               dtype=o.dtype) for o in outs]
-            grads = torch.autograd.grad(outs, leaves, cts)
-            ref_leaves = [a.detach().clone().requires_grad_() for a in args]
-            ref = plain(*ref_leaves, **kw)
-            refs = ref if isinstance(ref, tuple) else (ref,)
-            ref_grads = torch.autograd.grad(refs, ref_leaves, cts)
-            torch.cuda.synchronize()
-            err, ok = max_err_and_tol(tuple(o.detach() for o in outs),
-                                      tuple(r.detach() for r in refs),
-                                      tol_rel)
-            gerr, gok = max_err_and_tol(tuple(grads), tuple(ref_grads),
-                                        tol_rel)
-            if not (ok and gok and launches == 1):
-                raise AssertionError(
-                    f"{ad_name} {dtype}: forward err {err}, gradient err "
-                    f"{gerr}, {launches} launches")
-
-            def step(fn, xs):
-                o = fn(*xs, **kw)
-                return torch.autograd.grad(
-                    o if isinstance(o, tuple) else (o,), xs, cts)
-            ms = time_ms(lambda: step(ad, leaves))
-            plain_ms = time_ms(lambda: step(plain, ref_leaves))
-            log(f"  {ad_name:26s} B{TRAIN_SHAPE[0]} {TRAIN_SHAPE[1]}x"
-                f"{TRAIN_SHAPE[1]} {str(dtype)[6:]:8s} forward "
-                f"max|entry-plain| {err:.3e}, gradients {gerr:.3e} (rel tol "
-                f"{tol_rel:.1e}), {launches} launch a forward; forward + "
-                f"backward {ms:.3f} ms, plain under autograd "
-                f"{plain_ms:.3f} ms")
-            del out, outs, grads, ref, refs, ref_grads, leaves, ref_leaves
+            check_autograd_entry(
+                getattr(module, name), getattr(module, ad_name),
+                getattr(module, plain_name), args, kw, dtype,
+                f"B{TRAIN_SHAPE[0]} {TRAIN_SHAPE[1]}x{TRAIN_SHAPE[1]}")
         del cases
         torch.cuda.empty_cache()
 
@@ -2197,41 +2243,60 @@ def check_train_functions() -> None:
 def write_train_pairs(root: str, sets: dict) -> dict:
     """TRAIN_PAIRS synthetic pairs as DF2K-sub holds them: GT crops of
     TRAIN_GT x TRAIN_GT (seeded smooth content and noise, uint8) and their
-    LR by the port's MATLAB bicubic at 1 / 4, same names. And the
-    validation set: the pairs of phase 5's Set5 whose LR sides are window
-    multiples (the training files name SRModel, which does not pad, and the
-    HAT's windows need them, in the JAX package too)."""
-    from super_resolution_tpu_torch.utils.img import imwrite
+    LR by the port's MATLAB bicubic at 1 / 4 and at 1 / 2, same names, and
+    a meta_info_file listing the GT. And the validation sets: the pairs of
+    phase 5's Set5 whose LR sides are window multiples (the HAT x4 files
+    name SRModel, which does not pad, and the HAT's windows need them, in
+    the JAX package too), and at x2 its images whose x2 LR sides are
+    window multiples, up to 288 x 288."""
+    from super_resolution_tpu_torch.utils.img import (img2tensor, imread,
+                                                      imwrite)
     from super_resolution_tpu_torch.utils.matlab import imresize
 
-    dirs = {k: os.path.join(root, k) for k in ("train_gt", "train_lq",
-                                               "val_gt", "val_lq")}
+    dirs = {k: os.path.join(root, k) for k in (
+        "train_gt", "train_lq", "train_lq2", "val_gt", "val_lq", "val2_gt",
+        "val2_lq")}
+    dirs["train_meta"] = os.path.join(root, "train_meta.txt")
     for name, (h, w) in SET5.items():
         if h % (4 * WS) == 0 and w % (4 * WS) == 0:
             for src, dst in (("gt", "val_gt"), ("lq", "val_lq")):
                 os.makedirs(dirs[dst], exist_ok=True)
                 shutil.copy(os.path.join(sets[src], f"{name}.png"),
                             dirs[dst])
+        if h % (2 * WS) == 0 and w % (2 * WS) == 0 and h * w <= 288 ** 2:
+            os.makedirs(dirs["val2_lq"], exist_ok=True)
+            os.makedirs(dirs["val2_gt"], exist_ok=True)
+            shutil.copy(os.path.join(sets["gt"], f"{name}.png"),
+                        dirs["val2_gt"])
+            gt = imread(os.path.join(sets["gt"], f"{name}.png"),
+                        float32=True)
+            lq = imresize(img2tensor(gt), 0.5)
+            imwrite((np.clip(lq, 0, 1) * 255).round().astype(np.uint8),
+                    os.path.join(dirs["val2_lq"], f"{name}.png"))
     rng = np.random.default_rng(2)
     yy, xx = np.mgrid[0:TRAIN_GT, 0:TRAIN_GT] / 48.0
-    for i in range(TRAIN_PAIRS):
-        base = 0.5 + 0.35 * np.sin(yy[..., None] * rng.uniform(0.5, 2)
-                                   + xx[..., None] * rng.uniform(0.5, 2)
-                                   + np.arange(3))
-        gt = np.clip(base + rng.normal(0, 0.04, base.shape), 0, 1)
-        gt = (gt * 255).round().astype(np.uint8)
-        lq = imresize(gt.astype(np.float32) / 255.0, 0.25)
-        imwrite(gt, os.path.join(dirs["train_gt"], f"{i:04d}_s001.png"))
-        imwrite((np.clip(lq, 0, 1) * 255).round().astype(np.uint8),
-                os.path.join(dirs["train_lq"], f"{i:04d}_s001.png"))
+    with open(dirs["train_meta"], "w") as meta:
+        for i in range(TRAIN_PAIRS):
+            base = 0.5 + 0.35 * np.sin(yy[..., None] * rng.uniform(0.5, 2)
+                                       + xx[..., None] * rng.uniform(0.5, 2)
+                                       + np.arange(3))
+            gt = np.clip(base + rng.normal(0, 0.04, base.shape), 0, 1)
+            gt = (gt * 255).round().astype(np.uint8)
+            name = f"{i:04d}_s001.png"
+            imwrite(gt, os.path.join(dirs["train_gt"], name))
+            for key, s in (("train_lq", 0.25), ("train_lq2", 0.5)):
+                lq = imresize(gt.astype(np.float32) / 255.0, s)
+                imwrite((np.clip(lq, 0, 1) * 255).round().astype(np.uint8),
+                        os.path.join(dirs[key], name))
+            meta.write(f"{name} ({TRAIN_GT},{TRAIN_GT},3)\n")
     return dirs
 
 
 class TrainClock:
-    """While a training run goes, wraps the runner: each step's seconds (to
-    a synchronised card), loss and kernel launches, the first batch and the
-    weights before the first update, and each validation's launches,
-    images and PSNR."""
+    """While a training run goes, wraps the runners: each step's seconds (to
+    a synchronised card), logs, kernel launches and momentum resets, the
+    first batch and the weights before the first update, and each
+    validation's launches, images and PSNR."""
 
     def __init__(self, fns: dict):
         self.fns = fns
@@ -2242,30 +2307,41 @@ class TrainClock:
     def __enter__(self):
         import torch
 
+        from super_resolution_tpu_torch.runtime import esr_model as e
         from super_resolution_tpu_torch.runtime import sr_model as m
 
-        self.steps, self.losses, self.step_counts = [], [], []
+        self.steps, self.logs, self.step_counts = [], [], []
         self.val_counts, self.val_images, self.psnr = [], [], []
-        self.first_batch = self.first_state = None
+        self.resets, self.first_batch, self.first_state = [], None, None
         self.tb = None
-        step, val = m.SRModel.optimize_parameters, m.SRModel.validation
-        self._undo = [(m.SRModel, "optimize_parameters", step),
-                      (m.SRModel, "validation", val)]
+        val, reset = m.SRModel.validation, e.reset_momentum
+        self._undo = [(m.SRModel, "validation", val),
+                      (e, "reset_momentum", reset)]
+        self._iter = 0
 
-        def timed_step(model, batch, current_iter):
-            if self.first_batch is None:
-                self.first_batch = batch
-                self.first_state = {k: v.detach().cpu().clone() for k, v in
-                                    model.net_g.state_dict().items()}
-            before = self._counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step(model, batch, current_iter)
-            torch.cuda.synchronize()
-            self.steps.append(time.perf_counter() - t0)
-            self.losses.append(model.get_current_log()["l_pix"])
-            self.step_counts.append({k: v - before[k] for k, v in
-                                     self._counts().items()})
+        def timed(step):
+            def timed_step(model, batch, current_iter):
+                if self.first_batch is None:
+                    self.first_batch = batch
+                    self.first_state = {
+                        k: v.detach().cpu().clone() for k, v in
+                        model.net_g.state_dict().items()}
+                before = self._counts()
+                self._iter = current_iter
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(model, batch, current_iter)
+                torch.cuda.synchronize()
+                self.steps.append(time.perf_counter() - t0)
+                self.logs.append(model.get_current_log())
+                self.step_counts.append({k: v - before[k] for k, v in
+                                         self._counts().items()})
+            return timed_step
+
+        for cls in (m.SRModel, e.ESRModel):
+            step = cls.__dict__["optimize_parameters"]
+            self._undo.append((cls, "optimize_parameters", step))
+            cls.optimize_parameters = timed(step)
 
         def counted_val(model, loader, current_iter, save_img=False,
                         tb_logger=None):
@@ -2277,68 +2353,101 @@ class TrainClock:
             self.val_images.append(len(loader))
             self.psnr.append(model.metric_results["psnr"])
 
-        m.SRModel.optimize_parameters = timed_step
+        def logged_reset(optimizer):
+            self.resets.append(self._iter)
+            reset(optimizer)
+
         m.SRModel.validation = counted_val
+        e.reset_momentum = logged_reset
         return self
 
+    @property
+    def losses(self) -> list:
+        return [lg["l_pix"] for lg in self.logs]
+
     def __exit__(self, *exc):
-        for cls, name, fn in self._undo:
-            setattr(cls, name, fn)
+        for owner, name, fn in self._undo:
+            setattr(owner, name, fn)
 
 
-def first_step_loss(net_opt: dict, state: dict, batch: dict, seed: int,
-                    device: str) -> float:
-    """The L1 loss of the first step's forward (training mode, the same
-    drop-path draws: the runner's generator is a CPU one seeded with
-    manual_seed + 1) in float32 on ``device``."""
+def first_step_loss(net_opt: dict, state: dict, batch: dict, device: str,
+                    seed: int | None = None) -> float:
+    """The L1 loss of the first step's forward in float32 on ``device``:
+    with ``seed``, in training mode with the same drop-path draws (the
+    SRModel runner's generator is a CPU one seeded with manual_seed + 1);
+    without, deterministic, as ESRModel's step runs."""
     import torch
 
     from super_resolution_tpu_torch.models import build_network
 
     net = build_network(net_opt)
     net.load_state_dict(state, strict=True)
-    net = net.to(device).train()
+    net = net.to(device).train(seed is not None)
     lq = torch.from_numpy(batch["lq"]).to(device)
     gt = torch.from_numpy(batch["gt"]).to(device)
     with torch.no_grad():
-        sr = net(lq, generator=torch.Generator().manual_seed(seed + 1))
+        if seed is None:
+            sr = net(lq)
+        else:
+            sr = net(lq, generator=torch.Generator().manual_seed(seed + 1))
         return float((sr - gt).abs().mean())
 
 
-def train_path(label: str, sets: dict, root: str, card: str) -> dict:
-    """Phase 6 (b), (c): ``train.py``'s pipeline on an unedited training
-    option file, but for its data roots, total_iter, val_freq,
-    save_checkpoint_freq, print_freq and (float32) a smaller batch, through
-    the CLI's entry: TRAIN_ITERS steps with validation on Set5 and a
-    checkpoint every TRAIN_EVERY; then a run resumed from net_g_3 to the
-    end, held against the uninterrupted one. Checked: finite losses, the
-    first step's loss against the float32 forward on the host CPU (float32
-    file) or on the card (bf16 file), the checkpoints strict-loadable, the
-    launches a step and an eval image. Returns the uninterrupted run's
-    launch counts."""
+def _state_diff(a: dict, b: dict):
     import torch
+
+    return torch.cat([(a[k].float() - v.float()).abs().flatten()
+                      for k, v in b.items() if v.is_floating_point()])
+
+
+def train_path(label: str, spec: dict, sets: dict, root: str,
+               card: str) -> dict:
+    """Phases 6 (b), (c) and 7 (b): ``train.py``'s pipeline on an unedited
+    training option file, but for its data roots, total_iter, val_freq,
+    save_checkpoint_freq, print_freq, a pretrained network where it names
+    one and, where ``spec`` says so, a smaller batch, through the CLI's
+    entry: TRAIN_ITERS steps with validation and a checkpoint every
+    TRAIN_EVERY; then a run resumed from net_g_3 to the end, held against
+    the uninterrupted one. Options ``spec['added']`` names are added to the
+    loaded file (a copy under ``root``) and logged. Checked: finite losses,
+    the first step's loss against the float32 forward on the host CPU
+    (float32) or on the card (bf16), the checkpoints strict-loadable, the
+    launches a step and an eval image, the momentum resets and the start of
+    MESA where the strategy has them. Returns the uninterrupted run's launch
+    counts."""
+    import torch
+    import yaml
 
     from super_resolution_tpu_torch.runtime import build_model
     from super_resolution_tpu_torch.runtime.train_pipeline import \
         train_pipeline
     from super_resolution_tpu_torch.utils.options import yaml_load
 
-    spec = TRAIN_PATHS[label]
     yml = spec["yml"]
     opt = yaml_load(yml)
+    added = spec.get("added") or {}
+    if added:
+        for key, value in added.items():
+            node = opt
+            *parents, last = key.split(":")
+            for k in parents:
+                node = node[k]
+            node[last] = value
+        yml = os.path.join(root, f"{label}.yml")
+        with open(yml, "w") as f:
+            yaml.safe_dump(opt, f)
+        log(f"  added to {spec['yml']}: {added}")
     net = opt["network_g"]
-    amp = bool(opt["train"].get("use_amp"))
-    remat = bool(net.get("use_checkpoint"))
+    esr = opt["model_type"] == "ESRModel"
+    amp = bool(opt.get("use_amp") if esr else opt["train"].get("use_amp"))
     batch = spec["batch"] or opt["datasets"]["train"]["batch_size_per_gpu"]
-    force = [f"datasets:train:dataroot_gt={sets['train_gt']}",
-             f"datasets:train:dataroot_lq={sets['train_lq']}",
-             f"datasets:val:dataroot_gt={sets['val_gt']}",
-             f"datasets:val:dataroot_lq={sets['val_lq']}",
-             f"train:total_iter={TRAIN_ITERS}",
-             f"val:val_freq={TRAIN_EVERY}",
-             f"logger:save_checkpoint_freq={TRAIN_EVERY}",
-             "logger:print_freq=1",
-             f"datasets:train:batch_size_per_gpu={batch}"]
+    force = [f"{key}={sets[name]}" for key, name in spec["roots"].items()]
+    force += [f"train:total_iter={TRAIN_ITERS}", f"val:val_freq={TRAIN_EVERY}",
+              f"logger:save_checkpoint_freq={TRAIN_EVERY}",
+              "logger:print_freq=1",
+              f"datasets:train:batch_size_per_gpu={batch}"]
+    if opt["path"].get("pretrain_network_g"):
+        force.append("path:pretrain_network_g=~")
     fns = {name: fn for name, fn in wrappers().items() if name in KERNELS}
     runs = {}
     for run in ("whole", "resumed"):
@@ -2363,47 +2472,63 @@ def train_path(label: str, sets: dict, root: str, card: str) -> dict:
                                  f"losses {clock.losses}")
         steps = clock.steps
         later = statistics.median(steps[1:]) if len(steps) > 1 else steps[0]
+        extra = (f"; l_mesa {[round(lg['l_mesa'], 6) for lg in clock.logs]}"
+                 f"; momentum resets at {clock.resets}"
+                 if "mesa_opt" in opt["train"] else "")
         log(f"[train:{label}] {card}: {run} run, batch {batch}, "
             f"{len(steps)} steps: first {steps[0]:.3f} s, then "
             f"{later:.3f} s a step (median), {batch / later:.2f} images a "
             f"second; peak memory {peak:.2f} GiB; wall {wall:.1f} s; "
-            f"losses {[round(v, 6) for v in clock.losses]}; PSNR "
+            f"losses {[round(v, 6) for v in clock.losses]}{extra}; PSNR "
             f"{[round(float(v), 4) for v in clock.psnr]}; tensorboard "
             f"{'a SummaryWriter' if clock.tb is not None else 'missing'}")
     whole, resumed = runs["whole"], runs["resumed"]
 
     # the launches a step and an eval image
-    per_step = {name: 2 if remat else 1 for name in ("ln_split",
-                                                      "gated_dconv_ffn_block")}
-    per_step.update({name: 12 if remat else 6 for name in (
-        "fused_ocab_block", "mlp_block")})
-    per_image = dict(_EVAL_HAT)
-    for counts in whole["clock"].step_counts:
+    per_step, per_image = spec["per_step"], spec["per_image"]
+    mesa_from = spec.get("mesa_from")
+    for it, counts in enumerate(whole["clock"].step_counts, start=1):
         got = {k: v for k, v in counts.items() if v}
-        if got != per_step:
-            raise AssertionError(f"{label}: a step launched {got}, expected "
-                                 f"{per_step}")
+        want = (per_step if mesa_from is None or it < mesa_from
+                else {k: 2 * v for k, v in per_step.items()})
+        if got != want:
+            raise AssertionError(f"{label}: step {it} launched {got}, "
+                                 f"expected {want}")
     for counts, n in zip(whole["clock"].val_counts,
                          whole["clock"].val_images):
         got = {k: v / n for k, v in counts.items() if v}
         if got != per_image:
             raise AssertionError(f"{label}: an eval image launched {got}, "
                                  f"expected {per_image}")
-    log(f"  launches a step {per_step}; an eval image {per_image}; the run "
+    log(f"  launches a step {per_step}"
+        f"{'' if mesa_from is None else f', twice from MESA at {mesa_from}'}"
+        f"; an eval image {per_image}; the run "
         f"{ {k: v for k, v in whole['counts'].items() if v} }")
+
+    # the strategy's events: resets every reset_momentum_iter, MESA's loss
+    # 0 before its start and above 0 from it, in both runs
+    every = opt["train"].get("reset_momentum_iter")
+    if every or mesa_from is not None:
+        for run, first in (("whole", 1), ("resumed", TRAIN_EVERY + 1)):
+            clock = runs[run]["clock"]
+            iters = range(first, TRAIN_ITERS + 1)
+            want = [i for i in iters if every and i % every == 0]
+            mesa = [lg["l_mesa"] > 0 for lg in clock.logs]
+            if (clock.resets != want
+                    or mesa != [i >= mesa_from for i in iters]):
+                raise AssertionError(f"{label} {run}: resets "
+                                     f"{clock.resets}, MESA on {mesa}")
 
     # the first step's loss against a float32 forward on the same batch,
     # weights and drop-path draws
     clock = whole["clock"]
     t0 = time.perf_counter()
-    if amp:
-        ref = first_step_loss(net, clock.first_state, clock.first_batch,
-                              opt["manual_seed"], "cuda")
-        rtol, where = 2e-2, "float32 on the card"
-    else:
-        ref = first_step_loss(net, clock.first_state, clock.first_batch,
-                              opt["manual_seed"], "cpu")
-        rtol, where = 1e-4, "float32 on the host CPU"
+    seed = None if esr else opt["manual_seed"]
+    device = "cuda" if amp else "cpu"
+    ref = first_step_loss(net, clock.first_state, clock.first_batch, device,
+                          seed)
+    rtol, where = ((2e-2, "float32 on the card") if amp
+                   else (1e-4, "float32 on the host CPU"))
     log(f"  first step's loss {clock.losses[0]:.6f} against {ref:.6f}, "
         f"{where} ({time.perf_counter() - t0:.1f} s)")
     if abs(clock.losses[0] - ref) > rtol * abs(ref):
@@ -2420,31 +2545,178 @@ def train_path(label: str, sets: dict, root: str, card: str) -> dict:
             whole["model"].opt["path"],
             pretrain_network_g=os.path.join(models, name))), "cuda")
         del runner
-    final = whole["model"].net_g.state_dict()
 
-    # resumed from net_g_3: the same losses and weights as the whole run,
-    # within the card's run-to-run spread (its convolutions' backward sums
-    # in no fixed order)
+    # resumed from net_g_3: the same losses, weights and EMA as the whole
+    # run, within the card's run-to-run spread (its convolutions' backward
+    # sums in no fixed order)
     lr = opt["train"]["optim_g"]["lr"]
     tail = whole["clock"].losses[TRAIN_EVERY:]
-    diffs = torch.cat([(resumed["model"].net_g.state_dict()[k].float()
-                        - v.float()).abs().flatten() for k, v in
-                       final.items() if v.is_floating_point()])
-    mean_diff = float(diffs.mean())
+    diffs = _state_diff(resumed["model"].net_g.state_dict(),
+                        whole["model"].net_g.state_dict())
+    ema_diffs = _state_diff(resumed["model"].state.ema.state_dict(),
+                            whole["model"].state.ema.state_dict())
+    mean_diff, ema_diff = float(diffs.mean()), float(ema_diffs.mean())
     log(f"  resumed from net_g_{TRAIN_EVERY}: losses "
         f"{[round(v, 6) for v in resumed['clock'].losses]} against "
         f"{[round(v, 6) for v in tail]}; weights mean |diff| "
-        f"{mean_diff:.3e}, max {float(diffs.max()):.3e} (lr {lr})")
+        f"{mean_diff:.3e}, max {float(diffs.max()):.3e}, EMA mean |diff| "
+        f"{ema_diff:.3e} (lr {lr})")
     loss_rtol = 2e-2 if amp else 1e-3
     if (len(resumed["clock"].losses) != len(tail) or not np.allclose(
             resumed["clock"].losses, tail, rtol=loss_rtol)
-            or mean_diff > lr / 100):
+            or mean_diff > lr / 100 or ema_diff > lr / 100):
         raise AssertionError(f"{label}: the resumed run left the whole "
                              f"one")
     counts = whole["counts"]
     del runs, whole, resumed, clock
     torch.cuda.empty_cache()
     return counts
+
+
+def run_train_path(label: str, spec: dict, sets: dict, root: str,
+                   card: str) -> dict:
+    """:func:`train_path` with its banner and time."""
+    t0 = time.perf_counter()
+    batch = (f"batch {spec['batch']}" if spec["batch"]
+             else "the file's batch")
+    log(f"[train:{label}] train pipeline -> {spec['yml']}, {batch}, the "
+        f"file's data roots and the iterations of its checks overridden")
+    counts = train_path(label, spec, sets, root, card)
+    log(f"[train:{label}] done in {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+# ---------------------------------------------------------------- phase 7
+# ESC x4's train step (options/esc/train/ESC_DIV2K_X4.yml: batch 16, gt 256,
+# LQ 64 x 64, so 2 x 2 windows of 32 an image) and the fork's HAT x2
+# (train_HAT_SRx2_from_scratch.yml at batch 8, gt 128, LQ 64 x 64)
+ESC_STEP = dict(b=16, lq=64, dim=64, heads=4)
+ESC_XL_STEP_B = 2
+FORK_STEP_B = 8
+# the launches a step: ESC x4 and ESC-FP x4 have 5 blocks, each one
+# fused_attention (twice under MESA: the EMA network's forward); the fork's
+# HAT x2 runs fused_ocab_attention in each of its 6 OCABs, with rows 6 to 8
+# as the x4 files; the ImageNet file's HAT x2 has fused_ocab_block there
+_ESC_STEP = {"fused_attention": 5}
+_ESC_IMAGE = {"fused_attention": 5}
+_FORK2_STEP = {"ln_split": 1, "gated_dconv_ffn_block": 1,
+               "fused_ocab_attention": 6, "mlp_block": 6}
+_FORK2_IMAGE = {"ln_split": 36, "gated_dconv_ffn_block": 36,
+                "fused_ocab_attention": 6, "mlp_block": 6}
+_ESC_ROOTS = {"datasets:train:dataroot_gt": "train_gt",
+              "datasets:train:dataroot_lq": "train_lq"}
+for _i in range(1, 6):
+    _ESC_ROOTS[f"datasets:val_{_i}:dataroot_gt"] = "val_gt"
+    _ESC_ROOTS[f"datasets:val_{_i}:dataroot_lq"] = "val_lq"
+_X2_VAL = {"datasets:val:dataroot_gt": "val2_gt",
+           "datasets:val:dataroot_lq": "val2_lq"}
+# the ESC strategy's options that no shipped file sets, added to
+# ESC_DIV2K_X4.yml for esc_train_amp: MESA from int(0.67 * 6) = 4, a reset
+# every 2 iterations, so that the resumed half holds both
+ESC_STRATEGY = {"use_amp": True, "train:gradient_clip": 1.0,
+                "train:reset_momentum_iter": 2,
+                "train:mesa_opt": {"type": "L1Loss", "loss_weight": 1.0,
+                                   "reduction": "mean", "start_ratio": 0.67}}
+ESC_TRAIN_PATHS = {
+    "esc_train_f32": dict(yml="options/esc/train/ESC_DIV2K_X4.yml",
+                          batch=None, roots=_ESC_ROOTS, per_step=_ESC_STEP,
+                          per_image=_ESC_IMAGE),
+    "esc_train_amp": dict(yml="options/esc/train/ESC_DIV2K_X4.yml",
+                          batch=None, roots=_ESC_ROOTS, added=ESC_STRATEGY,
+                          per_step=_ESC_STEP, per_image=_ESC_IMAGE,
+                          mesa_from=4),
+    "esc_dflip": dict(yml="options/esc/train/ESC_DFLIP_X4.yml", batch=None,
+                      roots={k: v for k, v in _ESC_ROOTS.items()
+                             if k != "datasets:train:dataroot_lq"},
+                      per_step=_ESC_STEP, per_image=_ESC_IMAGE),
+    "esc_fp_train": dict(yml="options/esc/train/ESC_FP_X4.yml", batch=None,
+                         roots=_ESC_ROOTS, per_step=_ESC_STEP,
+                         per_image=_ESC_IMAGE),
+    # the file's batch of 32 does not fit in float32 without remat (about
+    # 2.7 GiB of saved activations a sample)
+    "fork_x2_train": dict(yml="options/train/train_HAT_SRx2_from_scratch.yml",
+                          batch=FORK_STEP_B, roots={
+                              "datasets:train:dataroot_gt": "train_gt",
+                              "datasets:train:dataroot_lq": "train_lq2",
+                              **_X2_VAL},
+                          per_step=_FORK2_STEP, per_image=_FORK2_IMAGE),
+    "imagenet_train": dict(
+        yml="options/train/train_HAT_SRx2_ImageNet_from_scratch.yml",
+        batch=None, roots={"datasets:train:dataroot_gt": "train_gt",
+                           "datasets:train:meta_info_file": "train_meta",
+                           **_X2_VAL},
+        per_step=_HAT_STEP, per_image=_EVAL_HAT),
+}
+
+
+def esc_train_cases(dtype, seed: int) -> dict:
+    """The operands of the four entries this phase adds, at a train step's
+    shapes: name -> (ops module, entry, plain version, args, kwargs, shape
+    note). Row 10 at ESC x4's step (q (64, 4, 1024, 16)); row 1 at window 16
+    on the same images (ESC's route at windows up to 24: head dim 16, no
+    mask); row 17 at ESC-XL's window 48 (dim 192, 12 heads, LQ 64 x 64
+    padded to 96 x 96, batch ESC_XL_STEP_B: its plain backward holds
+    (B, 4, 12, 2304, 2304) float32 scores); row 9 at the fork's HAT x2 step
+    (B FORK_STEP_B, 64 x 64, C 180)."""
+    import torch
+
+    from super_resolution_tpu_torch.ops import cuda_attention as ca
+    from super_resolution_tpu_torch.ops import cuda_window_attention as cw
+    from super_resolution_tpu_torch.ops.attention import attention_with_bias
+
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, s=1.0, dt=dtype):
+        a = rng.standard_normal(shape).astype(np.float32) * s
+        return torch.from_numpy(a).to("cuda", dt)
+
+    b, lq, c, heads = (ESC_STEP[k] for k in ("b", "lq", "dim", "heads"))
+    d = c // heads
+    n10 = 32 * 32
+    bw = b * (lq // 32) ** 2
+    xl_c, xl_heads = ESC_XL["dim"], ESC_XL["num_heads"]
+    fork_args, fork_kw, _, _ = kernel_cases(FORK_STEP_B, lq, dtype,
+                                            seed)["fused_ocab_attention"]
+    return {
+        "fused_attention": (
+            cw, "fused_attention_ad", attention_with_bias,
+            (t(bw, heads, n10, d), t(bw, heads, n10, d), t(bw, heads, n10, d),
+             t(heads, n10, n10, s=0.5, dt=torch.float32)),
+            dict(scale=d ** -0.5), f"q {(bw, heads, n10, d)}"),
+        "fused_msa_block": (
+            ca, "fused_msa_block_ad",
+            lambda *a, **k: ca.msa_block_reference(*a, None, **k),
+            (t(b, lq, lq, c), t(c, 3 * c, s=c ** -0.5), t(3 * c, s=0.1),
+             t(c, c, s=c ** -0.5), t(c, s=0.1),
+             t(heads, 256, 256, s=0.5, dt=torch.float32)),
+            dict(heads=heads, window_size=16, scale=d ** -0.5),
+            f"x {(b, lq, lq, c)} window 16"),
+        "msa_flash_attention": (
+            cw, "msa_flash_attention_ad", cw.msa_qtile_reference,
+            (t(ESC_XL_STEP_B, 96, 96, 3 * xl_c, s=0.5),
+             t(xl_heads, 2304, 2304, s=0.5, dt=torch.float32)),
+            dict(heads=xl_heads, window_size=48,
+                 scale=(xl_c // xl_heads) ** -0.5),
+            f"qkv {(ESC_XL_STEP_B, 96, 96, 3 * xl_c)} window 48"),
+        "fused_ocab_attention": (
+            ca, "fused_ocab_attention_ad", ca.ocab_attention_reference,
+            fork_args, fork_kw, f"q {tuple(fork_args[0].shape)}"),
+    }
+
+
+def check_esc_train_functions() -> None:
+    """Phase 7 (a): the four autograd entries ESC training and the fork's
+    HAT x2 add (rows 10, 1, 17, 9), at a train step's shapes, float32 (TF32
+    off) and bf16 (:func:`check_autograd_entry`)."""
+    import torch
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (mod, ad_name, plain, args, kw, what) in \
+                esc_train_cases(dtype, seed=70).items():
+            check_autograd_entry(getattr(mod, name), getattr(mod, ad_name),
+                                 plain, args, kw, dtype, what)
+            del args
+        torch.cuda.empty_cache()
 
 
 def _short_names(mangled) -> dict:
@@ -2609,14 +2881,16 @@ def main() -> int:
         log(f"[train] done in {time.perf_counter() - t0:.1f} s; "
             f"{TRAIN_PAIRS} synthetic pairs written")
         for label, spec in TRAIN_PATHS.items():
-            t0 = time.perf_counter()
-            batch = (f"batch {spec['batch']}" if spec["batch"]
-                     else "the file's batch")
-            log(f"[train:{label}] train pipeline -> {spec['yml']}, {batch}, "
-                f"the file's data roots and the iterations of its checks "
-                f"overridden")
-            by_path[label] = train_path(label, sets, root, card)
-            log(f"[train:{label}] done in {time.perf_counter() - t0:.1f} s")
+            by_path[label] = run_train_path(label, spec, sets, root, card)
+
+        t7 = time.perf_counter()
+        log("[esc_train] the four autograd entries ESC training and the "
+            "fork's HAT x2 add (kernel forward, plain backward)")
+        check_esc_train_functions()
+        log(f"[esc_train] entries done in {time.perf_counter() - t7:.1f} s")
+        for label, spec in ESC_TRAIN_PATHS.items():
+            by_path[label] = run_train_path(label, spec, sets, root, card)
+        log(f"[esc_train] phase 7 done in {time.perf_counter() - t7:.1f} s")
 
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():

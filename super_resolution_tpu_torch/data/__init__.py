@@ -19,7 +19,8 @@ from typing import Iterator
 
 import numpy as np
 
-from super_resolution_tpu_torch.data import paired_dataset  # noqa: F401
+from super_resolution_tpu_torch.data import (  # noqa: F401 registry
+    onthefly_datasets, paired_dataset)
 from super_resolution_tpu_torch.utils.registry import DATASET_REGISTRY
 
 

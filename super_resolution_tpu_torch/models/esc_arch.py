@@ -7,14 +7,18 @@ the ESC network (``ConvFFN``, ``WindowAttentionESC``, ``Block``, ``ESC``).
 Module and parameter names follow the torch checkpoints
 (``blocks.0.attn.to_qkv``, ``blocks.0.pconvs.0.plk.dwc_proj.1``,
 ``blocks.0.lns.0``, ``plk_filter``, ``attn.relative_position_bias``), so
-their tensors load as they are. The module is for inference.
+their tensors load as they are.
 
 The window attention has one route per shape (:func:`esc_attention_route`):
 the ``fused_msa_block`` kernel with the 1x1 projections inside where one
 head of a window fits its shared memory, else a plain qkv matmul and
 ``fused_attention`` on cut windows, else ``msa_flash_attention`` on the qkv
 image. Each wrapper runs its plain PyTorch version for a CPU tensor and
-launches its CUDA kernel for a CUDA tensor.
+launches its CUDA kernel for a CUDA tensor. The three are called through
+their ``*_ad`` entries, so that the network trains: on the card the kernel
+runs forward and the backward is autograd through the plain version. The
+forced A/B routes (``fused_attention_v3``, ``msa_qtile_attention``) have
+no backward on the card and raise under a gradient.
 """
 
 from __future__ import annotations
@@ -32,11 +36,12 @@ from super_resolution_tpu_torch.models.arch_util import (KernelOperands,
 from super_resolution_tpu_torch.ops.conv import (conv2d_nhwc,
                                                  dynamic_depthwise_conv3x3)
 from super_resolution_tpu_torch.ops.cuda_attention import (
-    fused_msa_block, msa_block_supported)
+    fused_msa_block_ad, msa_block_supported)
 from super_resolution_tpu_torch.ops.cuda_window_attention import (
-    fused_attention, fused_attention_supported, fused_attention_v3,
-    fused_attention_v3_supported, msa_flash_attention, msa_flash_supported,
-    msa_qtile_attention, msa_qtile_supported, window_attention_fused)
+    fused_attention_ad, fused_attention_supported, fused_attention_v3,
+    fused_attention_v3_supported, msa_flash_attention_ad,
+    msa_flash_supported, msa_qtile_attention, msa_qtile_supported,
+    window_attention_fused)
 from super_resolution_tpu_torch.ops.pixelshuffle import pixel_shuffle
 from super_resolution_tpu_torch.ops.windowing import (pad_to_multiple,
                                                       window_partition,
@@ -269,15 +274,15 @@ class WindowAttentionESC(KernelOperands):
         ops = self.kernel_operands()
         route = self.attn_route or esc_attention_route(ws, d, x.dtype)
         if route == "fused_msa_block":
-            out = fused_msa_block(
+            out = fused_msa_block_ad(
                 x.contiguous(), ops["w_qkv"], self.to_qkv.bias, ops["w_out"],
-                self.to_out.bias, ops["bias"], None, heads=heads,
-                window_size=ws, scale=d ** -0.5)
+                self.to_out.bias, ops["bias"], heads=heads, window_size=ws,
+                scale=d ** -0.5)
             return out[:, :h, :w, :]
         qkv = x @ ops["w_qkv"] + self.to_qkv.bias
         if route == "msa_flash_attention":
-            out = msa_flash_attention(qkv, ops["bias"], heads=heads,
-                                      window_size=ws, scale=d ** -0.5)
+            out = msa_flash_attention_ad(qkv, ops["bias"], heads=heads,
+                                         window_size=ws, scale=d ** -0.5)
         elif route == "msa_qtile_attention":
             out = msa_qtile_attention(qkv, ops["bias"], heads=heads,
                                       window_size=ws, scale=d ** -0.5)
@@ -287,7 +292,7 @@ class WindowAttentionESC(KernelOperands):
                 wins.permute(2, 0, 1, 3), heads, ops["bias"],
                 attention=(fused_attention_v3
                            if route == "fused_attention_v3"
-                           else fused_attention))
+                           else fused_attention_ad))
             out = window_reverse(out.reshape(-1, ws, ws, c), ws, hp, wp)
         return out[:, :h, :w, :] @ ops["w_out"] + self.to_out.bias
 

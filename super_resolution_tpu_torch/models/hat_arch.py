@@ -24,10 +24,10 @@ network has the drop-path rate linspace(0, drop_path_rate, blocks)[i]. In
 training mode a HAB whose rate is above 0 runs the unfused modules, with
 drop path on its attention and FFN branches; every other HAB, and every
 HAB in eval mode, runs the kernels. The kernels of the default route
-(``ln_split``, ``gated_dconv_ffn_block``, ``fused_ocab_block``,
-``mlp_block``) are called through their ``*_ad`` entries, whose backward
-is autograd through the plain version; the other routes have no backward
-on the card. The drop-path draws of a forward are made at once, before the
+(``ln_split``, ``gated_dconv_ffn_block``, ``fused_ocab_block`` or, with
+``esc_enable``, ``fused_ocab_attention``, and ``mlp_block``) are called
+through their ``*_ad`` entries, whose backward is autograd through the
+plain version; the ``hab_front`` route has no backward on the card. The drop-path draws of a forward are made at once, before the
 first RHAG, from the generator the caller passes to ``forward``; with
 ``use_checkpoint`` each RHAG runs under ``torch.utils.checkpoint``, and its
 recompute reuses those draws.
@@ -57,7 +57,7 @@ from super_resolution_tpu_torch.models.esc_arch import (ConvAttnWrapper,
 from super_resolution_tpu_torch.ops.attention import \
     relative_position_index_oca
 from super_resolution_tpu_torch.ops.cuda_attention import (
-    fused_ocab_attention, fused_ocab_block_ad)
+    fused_ocab_attention_ad, fused_ocab_block_ad)
 from super_resolution_tpu_torch.ops.cuda_ffn import (
     ffn_reference, gated_dconv_ffn_block_ad, mlp_block_ad)
 from super_resolution_tpu_torch.ops.cuda_hab import hab_front, ln_split_ad
@@ -302,8 +302,8 @@ class OCAB(KernelOperands):
             y = self.esc_core(xn, self.esc_plk)
             q = F.linear(xn, self.q_proj.weight, self.q_proj.bias)
             kv = F.linear(y, self.kv_proj.weight, self.kv_proj.bias)
-            out = fused_ocab_attention(q.contiguous(), kv.contiguous(),
-                                       ops["bias"], **kw)
+            out = fused_ocab_attention_ad(q.contiguous(), kv.contiguous(),
+                                          ops["bias"], **kw)
             x = F.linear(out, self.proj.weight, self.proj.bias) + x
         else:
             x = fused_ocab_block_ad(x, *ops["block"], ops["bias"], **kw,

@@ -455,6 +455,37 @@ def fused_ocab_block_ad(x_img, ln_scale, ln_bias, w_q, b_q, w_kv, b_kv,
         scale=scale, ln_eps=ln_eps)
 
 
+def fused_msa_block_ad(x_img, w_qkv, b_qkv, w_proj, b_proj, bias, *,
+                       heads: int, window_size: int,
+                       scale: float | None = None):
+    """The unmasked :func:`fused_msa_block` with a gradient (the RPB
+    ``bias`` included): the kernel forward, autograd through
+    :func:`msa_block_reference` backward. Replaces
+    super_resolution_tpu/ops/pallas_attention.py::fused_msa_block_ad, whose
+    only caller in training, ESC's window attention, passes no mask."""
+    if scale is None:
+        scale = (w_qkv.shape[1] // 3 // heads) ** -0.5
+    return with_plain_backward(
+        fused_msa_block, msa_block_reference,
+        (x_img, w_qkv, b_qkv, w_proj, b_proj, bias), mask=None, heads=heads,
+        window_size=window_size, scale=scale)
+
+
+def fused_ocab_attention_ad(q_img, kv_img, bias, *, heads: int,
+                            window_size: int, overlap_win: int,
+                            scale: float | None = None):
+    """:func:`fused_ocab_attention` with a gradient (the RPB ``bias``
+    included): the kernel forward, autograd through
+    :func:`ocab_attention_reference` backward. Replaces
+    super_resolution_tpu/ops/pallas_attention.py::fused_ocab_attention_ad."""
+    if scale is None:
+        scale = (q_img.shape[-1] // heads) ** -0.5
+    return with_plain_backward(
+        fused_ocab_attention, ocab_attention_reference, (q_img, kv_img, bias),
+        heads=heads, window_size=window_size, overlap_win=overlap_win,
+        scale=scale)
+
+
 # kernel launches of each wrapper; the plain path does not count
 fused_msa_block.launches = 0
 fused_msa_block_shifted.launches = 0

@@ -60,7 +60,8 @@ from super_resolution_tpu_torch.ops.cuda_build import (MAX_DYNAMIC_SMEM,
                                                        check_smem,
                                                        load_library,
                                                        raise_on_error,
-                                                       stream_of, use_kernel)
+                                                       stream_of, use_kernel,
+                                                       with_plain_backward)
 
 MAX_HEAD_DIM = 32
 MSA_ATTENTION_MAX_HEAD_DIM = 48
@@ -273,12 +274,23 @@ def fused_attention_v3(q, k, v, bias, *, scale: float | None = None):
     return out
 
 
+def fused_attention_ad(q, k, v, bias, *, scale: float | None = None):
+    """:func:`fused_attention` with a gradient (the RPB ``bias`` included):
+    the kernel forward, autograd through ``attention_with_bias`` backward.
+    Replaces super_resolution_tpu/ops/pallas_attention.py::fused_attention_ad.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return with_plain_backward(fused_attention, attention_with_bias,
+                               (q, k, v, bias), scale=scale)
+
+
 def window_attention_fused(qkv_windows, num_heads: int, bias,
                            scale: float | None = None, *,
                            attention=fused_attention):
     """Drop-in for ``ops.attention.window_msa``: qkv (3, BW, N, C) ->
-    (BW, N, C) through ``attention`` (:func:`fused_attention` or
-    :func:`fused_attention_v3`)."""
+    (BW, N, C) through ``attention`` (:func:`fused_attention`, its
+    :func:`fused_attention_ad` or :func:`fused_attention_v3`)."""
     _, bw, n, c = qkv_windows.shape
     d = c // num_heads
     qkv = qkv_windows.reshape(3, bw, n, num_heads, d).permute(0, 1, 3, 2, 4)
@@ -366,6 +378,19 @@ def msa_flash_attention(qkv_img, bias, *, heads: int, window_size: int,
                         qkv_img, bias, heads, window_size, scale)
     msa_flash_attention.launches += 1
     return out
+
+
+def msa_flash_attention_ad(qkv_img, bias, *, heads: int, window_size: int,
+                           scale: float | None = None):
+    """:func:`msa_flash_attention` with a gradient (the RPB ``bias``
+    included): the kernel forward, autograd through
+    :func:`msa_qtile_reference` backward. Replaces
+    super_resolution_tpu/ops/pallas_attention.py::msa_flash_attention_ad."""
+    if scale is None:
+        scale = (qkv_img.shape[-1] // 3 // heads) ** -0.5
+    return with_plain_backward(msa_flash_attention, msa_qtile_reference,
+                               (qkv_img, bias), heads=heads,
+                               window_size=window_size, scale=scale)
 
 
 def fused_msa_attention(qkv_img, bias, mask=None, *, heads: int,

@@ -2,7 +2,8 @@
 
 from copy import deepcopy
 
-from super_resolution_tpu_torch.runtime import sr_model  # noqa: F401 registry
+from super_resolution_tpu_torch.runtime import (  # noqa: F401 registry
+    esr_model, sr_model)
 from super_resolution_tpu_torch.utils.registry import MODEL_REGISTRY
 
 

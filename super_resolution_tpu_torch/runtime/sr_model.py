@@ -10,7 +10,8 @@ the CPU.
 
 Training (``setup_training``, ``optimize_parameters``, ``save``,
 ``resume_training``) runs the step of ``runtime/train_loop.py`` on this
-one device; a device mesh raises. The drop path draws from a CPU
+one device; a device mesh raises. ``ESRModel`` (``runtime/esr_model.py``)
+runs the ESC strategy's step instead. The drop path draws from a CPU
 ``torch.Generator`` seeded with ``manual_seed`` + 1, whose state the
 checkpoints keep, so a resumed run draws what the uninterrupted run would.
 
@@ -91,6 +92,7 @@ class SRModel:
         self.net_g = net.to(self.device).eval()
         self._eval_net = None
         self.state = None
+        self._drop_path_gen = None
         load_path = opt["path"].get("pretrain_network_g")
         if load_path:
             self.load_network(load_path,
@@ -190,13 +192,15 @@ class SRModel:
     def save(self, epoch: int, current_iter: int) -> None:
         """Checkpoint ``path.models/net_g_{current_iter}``
         (runtime/checkpoint.py): the weights, the EMA weights, the
-        optimizer, the drop-path generator, epoch and iteration."""
+        optimizer, the drop-path generator where the runner keeps one,
+        epoch and iteration."""
         tree = {"params": self.net_g.state_dict(), "epoch": epoch,
                 "iter": current_iter}
         if self.state is not None:
             if self.state.ema is not None:
                 tree["params_ema"] = self.state.ema.state_dict()
             tree["opt_state"] = self.state.optimizer.state_dict()
+        if self._drop_path_gen is not None:
             tree["rng_state"] = self._drop_path_gen.get_state()
         checkpoint.save_params(osp.join(self.opt["path"]["models"],
                                         f"net_g_{current_iter}"), tree)
@@ -211,7 +215,7 @@ class SRModel:
                                                      tree["params"]))
         if "opt_state" in tree:
             self.state.optimizer.load_state_dict(tree["opt_state"])
-        if "rng_state" in tree:
+        if "rng_state" in tree and self._drop_path_gen is not None:
             self._drop_path_gen.set_state(tree["rng_state"])
         self.state.step = int(tree["iter"])
         self._eval_net = None
@@ -364,17 +368,6 @@ class HATModel(SRModel):
                 "(runtime/batched_eval.py, ROADMAP.md queue 1 item 4)")
         super().nondist_validation(dataloader, current_iter, save_img,
                                    tb_logger)
-
-
-@MODEL_REGISTRY.register()
-class ESRModel(HATModel):
-    """The runner the ESC option files name. Its training strategy (AMP,
-    clipped gradients, momentum resets, self-distillation) is not ported;
-    at inference it is a :class:`HATModel`."""
-
-    def setup_training(self, mesh=None) -> None:
-        raise NotImplementedError("ESRModel's training strategy is not "
-                                  "ported (ROADMAP.md queue 1, training)")
 
 
 @MODEL_REGISTRY.register()

@@ -89,13 +89,44 @@ def init_train_state(net: torch.nn.Module, train_opt: dict) -> TrainState:
                       ema=ema)
 
 
-def _clip_by_global_norm(params, max_norm: float) -> None:
-    grads = [p.grad for p in params]
-    norm = torch.linalg.vector_norm(
+def filled_grads(state: TrainState) -> list:
+    """The gradient of every parameter the optimizer updates, a zero one
+    given to each that got none (so that every moment and step count moves
+    as optax's do)."""
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    return [p.grad for p in params]
+
+
+def global_norm(grads: list) -> torch.Tensor:
+    """The float32 norm of all gradients together (``optax.global_norm``)."""
+    return torch.linalg.vector_norm(
         torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+
+
+def _clip_by_global_norm(grads: list, max_norm: float) -> None:
+    norm = global_norm(grads)
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
     torch._foreach_mul_(grads, scale.to(grads[0].dtype))
+
+
+def apply_update(state: TrainState, ema_decay: float) -> None:
+    """The optimizer's update at the learning rate schedule(updates made),
+    then the EMA: e = e * decay + p * (1 - decay); one more update made."""
+    lr = state.schedule(state.step)
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+    state.optimizer.step()
+    if state.ema is not None:
+        with torch.no_grad():
+            ema = list(state.ema.parameters())
+            torch._foreach_mul_(ema, ema_decay)
+            torch._foreach_add_(ema, list(state.net.parameters()),
+                                alpha=1 - ema_decay)
+    state.step += 1
 
 
 def make_sr_train_step(train_opt: dict):
@@ -125,23 +156,10 @@ def make_sr_train_step(train_opt: dict):
             l_pix = cri_pix(sr, batch["gt"])
             # inside the context: a checkpointed region recomputes here
             l_pix.backward()
-        params = [p for g in state.optimizer.param_groups for p in g["params"]]
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        grads = filled_grads(state)
         if clip:
-            _clip_by_global_norm(params, clip)
-        lr = state.schedule(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.optimizer.step()
-        if state.ema is not None:
-            with torch.no_grad():
-                ema = list(state.ema.parameters())
-                torch._foreach_mul_(ema, ema_decay)
-                torch._foreach_add_(ema, list(net.parameters()),
-                                    alpha=1 - ema_decay)
-        state.step += 1
+            _clip_by_global_norm(grads, clip)
+        apply_update(state, ema_decay)
         return {"l_pix": l_pix.detach()}
 
     return train_step

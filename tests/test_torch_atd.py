@@ -426,14 +426,14 @@ def test_shipped_options_build_with_the_flax_names():
     its parameters are the flax tree's leaves, name by name and shape by
     shape (the flax tree is only traced for its shapes)."""
     from super_resolution_tpu_torch.models import build_network
-    from super_resolution_tpu_torch.runtime import sr_model
+    from super_resolution_tpu_torch.runtime import esr_model
     from super_resolution_tpu_torch.ops.cuda_window_attention import \
         fused_msa_attention_supported
     from super_resolution_tpu_torch.utils.options import yaml_load
     from super_resolution_tpu_torch.utils.registry import MODEL_REGISTRY
 
     opt = yaml_load("options/esc/test/ATDLight/ATD_light_DFLIP_X4.yml")
-    assert MODEL_REGISTRY.get(opt["model_type"]) is sr_model.ESRModel
+    assert MODEL_REGISTRY.get(opt["model_type"]) is esr_model.ESRModel
     net_opt = dict(opt["network_g"], depths=[6], num_heads=[4])
     model = build_network(net_opt)
     assert isinstance(model, tatd.ATD)
@@ -483,7 +483,7 @@ def test_slice_matches_jax_runner(attn, rng, monkeypatch):
     tile on the fused route."""
     from super_resolution_tpu.runtime import build_model as j_build_model
     from super_resolution_tpu_torch.predict import Predictor
-    from super_resolution_tpu_torch.runtime.sr_model import ESRModel
+    from super_resolution_tpu_torch.runtime.esr_model import ESRModel
     from super_resolution_tpu_torch.utils.options import yaml_load
 
     monkeypatch.setenv("SR_TPU_ATTN", attn)

@@ -37,6 +37,13 @@ ATOL_MODULE = 2e-5
 ATOL_NET = 3e-5
 FORCED = ["fused_attention", "fused_attention_v3", "msa_flash_attention",
           "msa_qtile_attention"]
+# route -> the function WindowAttentionESC calls for it: the autograd entry
+# of a default route, the wrapper of a forced A/B route
+ENTRY = {None: "fused_msa_block_ad", "fused_attention": "fused_attention_ad",
+         "fused_attention_v3": "fused_attention_v3",
+         "msa_flash_attention": "msa_flash_attention_ad",
+         "msa_qtile_attention": "msa_qtile_attention"}
+ENTRIES = list(ENTRY.values())
 
 
 def _pair(a, dtype):
@@ -156,15 +163,13 @@ def test_window_attention_esc_matches_jax(route, use_pallas, rng,
     ref = np.asarray(jmod.apply({"params": params}, jnp.asarray(x)))
     tmod = tesc.WindowAttentionESC(32, 8, 2, attn_route=route).eval()
     tmod.load_state_dict(flax_to_state_dict(params, tmod), strict=True)
-    names = ["fused_msa_block", "fused_attention", "fused_attention_v3",
-             "msa_flash_attention", "msa_qtile_attention"]
-    calls = _count_calls(monkeypatch, tesc, names)
+    calls = _count_calls(monkeypatch, tesc, ENTRIES)
     with torch.no_grad():
         got = tmod(torch.from_numpy(x)).numpy()
     assert got.shape == ref.shape == (2, 13, 18, 32)
     np.testing.assert_allclose(got, ref, atol=ATOL_MODULE, rtol=0)
     if route in (None, "msa_flash_attention", "msa_qtile_attention"):
-        assert calls == {route or "fused_msa_block": 1}
+        assert calls == {ENTRY[route]: 1}
 
 
 def test_conv_ffn_and_block_match_jax(rng):
@@ -261,14 +266,11 @@ def test_esc_deployment_skips_the_ensemble(rng):
 def test_esc_kernel_calls_per_forward(rng, monkeypatch):
     """One forward calls the attention wrapper of its route once per block
     and ensembles the large filter once."""
-    names = ["fused_msa_block", "fused_attention", "fused_attention_v3",
-             "msa_flash_attention", "msa_qtile_attention", "geo_ensemble"]
     x = torch.from_numpy(rng.random((1, 16, 16, 3), dtype=np.float32))
-    for route, wrapper in [(None, "fused_msa_block"),
-                           ("msa_flash_attention", "msa_flash_attention"),
-                           ("msa_qtile_attention", "msa_qtile_attention")]:
+    for route in (None, "msa_flash_attention", "msa_qtile_attention"):
+        wrapper = ENTRY[route]
         with monkeypatch.context() as m:
-            calls = _count_calls(m, tesc, names[:5])
+            calls = _count_calls(m, tesc, ENTRIES)
             ens = tesc.geo_ensemble
             m.setattr(tesc, "geo_ensemble", lambda k: (
                 calls.__setitem__("geo", calls.get("geo", 0) + 1), ens(k))[1])
@@ -373,12 +375,12 @@ def test_published_options_build_with_the_flax_names(options):
     parameters are the flax tree's leaves, name by name and shape by shape
     (the flax tree is only traced for its shapes)."""
     from super_resolution_tpu_torch.models import build_network
-    from super_resolution_tpu_torch.runtime import sr_model
+    from super_resolution_tpu_torch.runtime import esr_model
     from super_resolution_tpu_torch.utils.options import yaml_load
     from super_resolution_tpu_torch.utils.registry import MODEL_REGISTRY
 
     opt = yaml_load(f"options/esc/test/{options}.yml")
-    assert MODEL_REGISTRY.get(opt["model_type"]) is sr_model.ESRModel
+    assert MODEL_REGISTRY.get(opt["model_type"]) is esr_model.ESRModel
     net_opt = dict(opt["network_g"], n_blocks=1)
     model = build_network(net_opt)
     jnet = jesc.ESC(**{k: v for k, v in net_opt.items() if k != "type"})
@@ -485,7 +487,7 @@ def test_slice_matches_jax_runner(attn_type, rng):
     of 3. Tolerance: float32 summation order through the network."""
     from super_resolution_tpu.runtime import build_model as j_build_model
     from super_resolution_tpu_torch.predict import Predictor
-    from super_resolution_tpu_torch.runtime.sr_model import ESRModel
+    from super_resolution_tpu_torch.runtime.esr_model import ESRModel
     from super_resolution_tpu_torch.utils.options import yaml_load
 
     text = YAML.replace("ATTN", attn_type)

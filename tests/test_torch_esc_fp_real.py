@@ -337,7 +337,7 @@ def test_slice_matches_jax_runner(arch, scale, rng):
     3 x 3 tiles in chunks of 3."""
     from super_resolution_tpu.runtime import build_model as j_build_model
     from super_resolution_tpu_torch.predict import Predictor
-    from super_resolution_tpu_torch.runtime.sr_model import ESRModel
+    from super_resolution_tpu_torch.runtime.esr_model import ESRModel
     from super_resolution_tpu_torch.utils.options import yaml_load
 
     text = YAML.replace("TYPE", arch).replace("SCALE", str(scale))

@@ -131,7 +131,7 @@ def test_hab_front_route_kernel_calls_and_guard(rng, monkeypatch):
     does; an unknown route is refused."""
     calls = {}
     for name in ("ln_split_ad", "hab_front", "gated_dconv_ffn_block_ad",
-                 "fused_ocab_attention", "mlp_block_ad"):
+                 "fused_ocab_attention_ad", "mlp_block_ad"):
         fn = getattr(that, name)
 
         def counted(*a, _fn=fn, _name=name, **kw):
@@ -142,7 +142,7 @@ def test_hab_front_route_kernel_calls_and_guard(rng, monkeypatch):
     with torch.no_grad():
         model(torch.from_numpy(rng.random((1, 16, 16, 3), dtype=np.float32)))
     assert calls == {"hab_front": 4, "gated_dconv_ffn_block_ad": 4,
-                     "fused_ocab_attention": 2, "mlp_block_ad": 2}
+                     "fused_ocab_attention_ad": 2, "mlp_block_ad": 2}
     with pytest.raises(ValueError, match="dim > esc_pdim"):
         that.HAB(8, 2, esc_pdim=8, front_route="hab_front")
     with pytest.raises(ValueError, match="front_route"):

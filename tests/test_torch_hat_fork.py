@@ -178,11 +178,10 @@ def test_hat_matches_jax(route, ocab_esc, monkeypatch, rng):
 def test_hat_kernel_calls_per_forward(rng, monkeypatch):
     """One forward calls ln_split and gated_dconv_ffn_block once per HAB,
     and per OCAB fused_ocab_attention (ESC-infused) or fused_ocab_block,
-    then mlp_block (all but fused_ocab_attention through their autograd
-    entries, ``*_ad``)."""
+    then mlp_block (all through their autograd entries, ``*_ad``)."""
     calls = {}
     for name in ("ln_split_ad", "gated_dconv_ffn_block_ad",
-                 "fused_ocab_attention", "fused_ocab_block_ad",
+                 "fused_ocab_attention_ad", "fused_ocab_block_ad",
                  "mlp_block_ad"):
         fn = getattr(that, name)
 
@@ -195,7 +194,7 @@ def test_hat_kernel_calls_per_forward(rng, monkeypatch):
     with torch.no_grad():
         model(x)
     assert calls == {"ln_split_ad": 4, "gated_dconv_ffn_block_ad": 4,
-                     "fused_ocab_attention": 2, "mlp_block_ad": 2}
+                     "fused_ocab_attention_ad": 2, "mlp_block_ad": 2}
     calls.clear()
     model = that.HAT(**{**SMALL, "ocab_esc_enable": False}).eval()
     with torch.no_grad():

@@ -400,12 +400,12 @@ def test_shipped_options_build_with_the_flax_names():
     name and shape by shape (the flax tree is only traced for its shapes);
     all six windows of a group are taken by the kernel's predicate."""
     from super_resolution_tpu_torch.models import build_network
-    from super_resolution_tpu_torch.runtime import sr_model
+    from super_resolution_tpu_torch.runtime import esr_model
     from super_resolution_tpu_torch.utils.options import yaml_load
     from super_resolution_tpu_torch.utils.registry import MODEL_REGISTRY
 
     opt = yaml_load("options/esc/test/HiTSRF/HiTSRF_DFLIP_X4.yml")
-    assert MODEL_REGISTRY.get(opt["model_type"]) is sr_model.ESRModel
+    assert MODEL_REGISTRY.get(opt["model_type"]) is esr_model.ESRModel
     net_opt = dict(opt["network_g"], depths=[6], num_heads=[6])
     model = build_network(net_opt)
     assert isinstance(model, thit.HiT_SRF)
@@ -453,7 +453,7 @@ def test_slice_matches_jax_runner(attn, rng, monkeypatch):
     fused route."""
     from super_resolution_tpu.runtime import build_model as j_build_model
     from super_resolution_tpu_torch.predict import Predictor
-    from super_resolution_tpu_torch.runtime.sr_model import ESRModel
+    from super_resolution_tpu_torch.runtime.esr_model import ESRModel
     from super_resolution_tpu_torch.utils.options import yaml_load
 
     monkeypatch.setenv("SR_TPU_ATTN", attn)

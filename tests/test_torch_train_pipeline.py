@@ -259,28 +259,44 @@ def test_hatmodel_option_file_builds_and_steps(tmp_path):
                                        STATE_FILE))
 
 
+TINY_ESC = dict(type="ESC", dim=16, pdim=8, kernel_size=5, n_blocks=1,
+                conv_blocks=1, window_size=8, num_heads=2,
+                upscaling_factor=2, exp_ratio=1.0)
+
+
 def test_train_cli_runs_without_jax(pairs, tmp_path):
     """``python -m super_resolution_tpu_torch.train -opt <yml> --device cpu``
     trains, writes its experiment directory, and imports no JAX
-    (``-X importtime`` lists every module it imported)."""
-    opt = _options(pairs, tmp_path / "exp", total_iter=2)
-    yml = _write(opt, tmp_path / "tiny.yml")
-    r = subprocess.run([sys.executable, "-X", "importtime", "-m",
-                        "super_resolution_tpu_torch.train", "-opt", yml,
-                        "--device", "cpu"],
-                       capture_output=True, text=True, timeout=300,
-                       cwd=str(tmp_path),
-                       env={"PYTHONPATH": REPO, "PATH": "",
-                            "HOME": str(tmp_path)})
-    assert r.returncode == 0, r.stderr[-3000:]
-    imported = [line.rsplit("|", 1)[-1].strip()
-                for line in r.stderr.splitlines()
-                if line.startswith("import time:")]
-    assert "super_resolution_tpu_torch.runtime.train_pipeline" in imported
-    bad = [m for m in imported
-           if m.split(".")[0] in ("jax", "jaxlib", "flax",
-                                  "super_resolution_tpu")]
-    assert not bad, bad
-    exp = tmp_path / "exp" / "tiny_train"
-    assert sorted(os.listdir(exp / "models")) == ["net_g_2"]
-    assert "End of training." in (exp / "train_tiny_train.log").read_text()
+    (``-X importtime`` lists every module it imported): an SRModel file,
+    and an ESRModel file with the ESC strategy's options (top-level
+    use_amp, gradient_clip, MESA from iteration 1, a momentum reset every
+    iteration)."""
+    esr = _options(pairs, tmp_path / "exp", net=TINY_ESC, total_iter=2)
+    esr.update(name="tiny_esr", model_type="ESRModel", use_amp=True)
+    esr["train"].update(gradient_clip=0.5, reset_momentum_iter=1, mesa_opt={
+        "type": "L1Loss", "loss_weight": 0.5, "reduction": "mean",
+        "start_ratio": 0.5})
+    for opt in (_options(pairs, tmp_path / "exp", total_iter=2), esr):
+        yml = _write(opt, tmp_path / f"{opt['name']}.yml")
+        r = subprocess.run([sys.executable, "-X", "importtime", "-m",
+                            "super_resolution_tpu_torch.train", "-opt", yml,
+                            "--device", "cpu"],
+                           capture_output=True, text=True, timeout=300,
+                           cwd=str(tmp_path),
+                           env={"PYTHONPATH": REPO, "PATH": "",
+                                "HOME": str(tmp_path)})
+        assert r.returncode == 0, r.stderr[-3000:]
+        imported = [line.rsplit("|", 1)[-1].strip()
+                    for line in r.stderr.splitlines()
+                    if line.startswith("import time:")]
+        assert "super_resolution_tpu_torch.runtime.train_pipeline" in imported
+        bad = [m for m in imported
+               if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                      "super_resolution_tpu")]
+        assert not bad, bad
+        exp = tmp_path / "exp" / opt["name"]
+        assert sorted(os.listdir(exp / "models")) == ["net_g_2"]
+        log = (exp / f"train_{opt['name']}.log").read_text()
+        assert "End of training." in log
+    assert "Reset momentums for net_g at iteration 2" in log
+    assert "l_mesa:" in log

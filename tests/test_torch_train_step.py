@@ -1,6 +1,7 @@
 """The port's SR train step against JAX ``make_sr_train_step`` on the CPU, on
 the same tiny fork HAT (bridged weights) and the same batches: the loss of
-every step, then the parameters and the EMA, for Adam, Adam with weight
+every step, then the parameters and the EMA, for Adam (also with the
+ESC-infused OCAB of ``train_HAT_SRx2_from_scratch.yml``), Adam with weight
 decay (decoupled, as optax.adamw), AdamW, SGD with momentum and a clipped
 global norm; a ``use_amp`` run against JAX's bf16 run; and per-RHAG
 ``use_checkpoint`` against the same step without it, drop path included.
@@ -54,6 +55,8 @@ def _train_opt(**optim):
 
 OPTIMIZERS = {
     "adam": _train_opt(),
+    # the fork's HAT x2 file's OCAB: ESC-infused, fused_ocab_attention
+    "adam_ocab_esc": _train_opt(),
     "adam_weight_decay": _train_opt(optim_g={"weight_decay": 0.05}),
     "adamw": _train_opt(optim_g={"type": "AdamW", "weight_decay": 0.02}),
     "sgd": dict(_train_opt(), optim_g={"type": "SGD", "lr": 0.05,
@@ -95,6 +98,11 @@ def _weights(kw):
     params = convert_state_dict({k: v.numpy() for k, v in sd.items()},
                                 template, strict=True)
     return sd, params
+
+
+# the networks of OPTIMIZERS' cases that are not TINY_KW's
+NETS = {"adam_ocab_esc": dict(TINY_KW, ocab_esc_enable=True, ocab_esc_pdim=8,
+                              ocab_esc_kernel=5)}
 
 
 @pytest.fixture(scope="module")
@@ -161,7 +169,9 @@ def _assert_params(tnet_or_ema, flax_params, atol_max, atol_mean):
 def test_five_steps_match_jax(name, weights):
     train_opt = OPTIMIZERS[name]
     batches = _batches(5)
-    jnet, params, tnet = _pair(weights)
+    kw = NETS.get(name, TINY_KW)
+    jnet, params, tnet = _pair(weights if kw is TINY_KW else _weights(kw),
+                               kw)
     ref_losses, ref_params, ref_ema = _run_jax(jnet, params, train_opt,
                                                batches)
     losses, state = _run_port(tnet, train_opt, batches)
