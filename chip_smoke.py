@@ -117,7 +117,26 @@ Phases, each of which raises on failure:
      4; checked as phase 6 (b), and the EMA of the resumed run, the
      momentum resets (2, 4, 6; 4, 6 resumed) and MESA's loss (0 before
      iteration 4) in both runs, the row 10 launches a step (5, 10 with
-     MESA) and row 9's (6).
+     MESA) and row 9's (6);
+  8. real-world GAN training: (a) the degradation synthesizer on the card
+     against the CPU (the GAN file's chain with its noise ranges at 0 and
+     its JPEG qualities fixed: deterministic; the LQ within 1e-4 but for
+     pixels one 8-bit level away, at most 0.5 % of them); (b) the train
+     pipeline on the four shipped real-world files at their published
+     networks and batches (options/train/train_Real_HAT_SRx4_mse_model.yml
+     and train_Real_HAT_GAN_SRx4_finetune_from_mse_model.yml: the fork's HAT
+     x4, batch 4; options/esc/train/ESC_Real_X4_MSE.yml and
+     ESC_Real_X4_GAN.yml: ESCReal x4, batch 12; gt 256 from a 400 canvas),
+     each in a copy with its GT root (12 synthetic images of 400 to 480 a
+     side), no pretrained G, seeded random VGG19 weights under
+     torchvision's names, a queue of two batches, 4 iterations and a
+     checkpoint every 2 overridden and logged; then a run resumed from
+     net_g_2. Checked: finite losses; the first iteration's losses against
+     the same iteration recomputed on the host CPU from the run's weights
+     and batch; the launches an iteration (rows 5 to 8: 6, 6, 36, 36; row
+     10: 10); that D and its spectral-norm u moved; the resumed run
+     against the uninterrupted one. Printed: s an iteration, images a
+     second, the synthesizer's and the G and D steps' ms, peak memory.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Exits non-zero, printing neither, when there
@@ -2719,6 +2738,381 @@ def check_esc_train_functions() -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 8
+# the four shipped real-world files: the fork's HAT x4 (every HAB fused: the
+# runners' G runs deterministic, so rows 7, 8 in each of the 36 HABs, rows
+# 5, 6 in each of the 6 OCABs) and ESCReal x4 (row 10 in each of its 10
+# blocks); D and the VGG19 run no kernel of the port
+_REAL_HAT_STEP = {"ln_split": 36, "gated_dconv_ffn_block": 36,
+                  "fused_ocab_block": 6, "mlp_block": 6}
+_REAL_ESC_STEP = {"fused_attention": 10}
+REAL_TRAIN_PATHS = {
+    "real_hat_mse": dict(
+        yml="options/train/train_Real_HAT_SRx4_mse_model.yml",
+        per_step=_REAL_HAT_STEP),
+    "real_hat_gan": dict(
+        yml="options/train/train_Real_HAT_GAN_SRx4_finetune_from_mse_model"
+            ".yml", per_step=_REAL_HAT_STEP),
+    "esc_real_mse": dict(yml="options/esc/train/ESC_Real_X4_MSE.yml",
+                         per_step=_REAL_ESC_STEP),
+    "esc_real_gan": dict(yml="options/esc/train/ESC_Real_X4_GAN.yml",
+                         per_step=_REAL_ESC_STEP),
+}
+# synthetic GT images for the real-world dataset: sides from 400 to 480, so
+# that its crop to the 400 canvas runs, 12 of them (ESC-Real's batch)
+REAL_IMAGES, REAL_ITERS, REAL_EVERY = 12, 4, 2
+# the synthesizer on the card against the CPU: the LQ within 1e-4, but for
+# pixels one 8-bit level away (the chain ends in a rounding to 1/255), at
+# most 0.5 % of them
+SYNTH_ATOL, SYNTH_LEVEL_SHARE = 1e-4, 0.005
+
+
+def write_real_gt(root: str) -> str:
+    """REAL_IMAGES seeded smooth-plus-noise GT PNGs, 400 to 480 a side."""
+    from super_resolution_tpu_torch.utils.img import imwrite
+
+    out = os.path.join(root, "real_gt")
+    os.makedirs(out, exist_ok=True)
+    rng = np.random.default_rng(8)
+    for i in range(REAL_IMAGES):
+        h, w = 400 + 8 * (i % 11), 480 - 8 * (i % 7)
+        yy, xx = np.mgrid[0:h, 0:w] / 40.0
+        base = 0.5 + 0.35 * np.sin(yy[..., None] * rng.uniform(0.5, 2)
+                                   + xx[..., None] * rng.uniform(0.5, 2)
+                                   + np.arange(3))
+        gt = np.clip(base + rng.normal(0, 0.04, base.shape), 0, 1)
+        imwrite((gt * 255).round().astype(np.uint8),
+                os.path.join(out, f"{i:04d}.png"))
+    return out
+
+
+def _synth_batch(n: int, seed: int) -> dict:
+    """A loader batch of the real-world dataset's form at its canvas."""
+    from super_resolution_tpu_torch.data.degradations import (
+        circular_lowpass_kernel, random_mixed_kernels)
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:400, 0:400] / 40.0
+    gt = np.stack([0.5 + 0.35 * np.sin(yy[..., None] * rng.uniform(0.5, 2)
+                                       + xx[..., None] * rng.uniform(0.5, 2)
+                                       + np.arange(3)) for _ in range(n)])
+    kinds = ["iso", "aniso", "generalized_iso", "generalized_aniso",
+             "plateau_iso", "plateau_aniso"]
+    prob = [0.45, 0.25, 0.12, 0.03, 0.12, 0.03]
+
+    def kernels(sigma):
+        return np.stack([random_mixed_kernels(kinds, prob, 21, sigma, sigma,
+                                              rng=rng) for _ in range(n)])
+
+    return {"gt": gt.astype(np.float32),
+            "kernel1": kernels((0.2, 3)).astype(np.float32),
+            "kernel2": kernels((0.2, 1.5)).astype(np.float32),
+            "sinc_kernel": np.stack([circular_lowpass_kernel(
+                rng.uniform(np.pi / 3, np.pi), 21) for _ in range(n)])
+            .astype(np.float32)}
+
+
+def check_synth_card_vs_cpu() -> None:
+    """Phase 8 (a): the degradation synthesizer of the shipped GAN file
+    (its noise ranges at 0, its JPEG qualities fixed at 60 and 85, so the
+    chain is deterministic) on the card against the CPU, four batches of 4
+    at the canvas 400 -> gt 256, one seed; and its ms a batch on the
+    card."""
+    import torch
+
+    from super_resolution_tpu_torch.runtime.realgan import \
+        DegradationSynthesizer
+    from super_resolution_tpu_torch.utils.options import yaml_load
+
+    opt = yaml_load(REAL_TRAIN_PATHS["real_hat_gan"]["yml"])
+    opt.update(noise_range=[0, 0], noise_range2=[0, 0],
+               poisson_scale_range=[0, 0], poisson_scale_range2=[0, 0],
+               jpeg_range=[60, 60], jpeg_range2=[85, 85])
+    synth = {d: DegradationSynthesizer(opt, 3, d) for d in ("cpu", "cuda")}
+    worst, share, ms = 0.0, 0.0, []
+    for i in range(4):
+        batch = _synth_batch(4, seed=i)
+        out = {}
+        for d in ("cpu", "cuda"):
+            args = [torch.from_numpy(batch[k]).to(d) for k in
+                    ("gt", "kernel1", "kernel2", "sinc_kernel")]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[d] = synth[d](*args)
+            torch.cuda.synchronize()
+            if d == "cuda":
+                ms.append(1e3 * (time.perf_counter() - t0))
+        diff = (out["cuda"][0].cpu() - out["cpu"][0]).abs()
+        off = diff > SYNTH_ATOL
+        worst = max(worst, float(diff.max()))
+        share = max(share, float(off.float().mean()))
+        lq_size = opt["gt_size"] // opt["scale"]
+        if (tuple(out["cuda"][0].shape) != (4, lq_size, lq_size, 3)
+                or float(diff.max()) > 1 / 255 + SYNTH_ATOL
+                or not bool(((diff[off] - 1 / 255).abs()
+                             <= SYNTH_ATOL).all())
+                or float(off.float().mean()) > SYNTH_LEVEL_SHARE
+                or not torch.equal(out["cuda"][1].cpu(), out["cpu"][1])):
+            raise AssertionError(f"synthesizer batch {i}: card against "
+                                 f"CPU max {float(diff.max())}, share "
+                                 f"{float(off.float().mean())}")
+    log(f"[real] synthesizer, card against CPU (noise 0, JPEG 60 / 85, 4 "
+        f"batches of 4, 400 -> LQ 64): max |diff| {worst:.3e}, share of "
+        f"pixels one 8-bit level away {share:.4f} (tolerance {SYNTH_ATOL} "
+        f"and {SYNTH_LEVEL_SHARE}); card {[round(v, 2) for v in ms]} ms a "
+        f"batch (the first with the card's first calls)")
+
+
+class RealClock:
+    """While a real-world run goes, wraps the runners: each iteration's
+    seconds, logs and launches, the synthesizer's and the G and D steps'
+    seconds (to a synchronised card), and the first iteration's weights,
+    spectral-norm state and (lq, gt, gt_usm)."""
+
+    def __init__(self, fns: dict):
+        self.fns = fns
+
+    def _counts(self) -> dict:
+        return {name: fn.launches for name, fn in self.fns.items()}
+
+    def __enter__(self):
+        import torch
+
+        from super_resolution_tpu_torch.runtime import realgan as r
+
+        self.iters, self.logs, self.counts = [], [], []
+        self.parts = {"synth": [], "g": [], "d": []}
+        self.first = None
+        cls = r.RealHATGANModel
+        self._undo = [(cls, n, cls.__dict__[n]) for n in
+                      ("optimize_parameters", "_g_step", "_d_step")]
+        self._undo.append((r.DegradationSynthesizer, "__call__",
+                           r.DegradationSynthesizer.__call__))
+
+        def timed(fn, key):
+            def run(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                self.parts[key].append(time.perf_counter() - t0)
+                return out
+            return run
+
+        step = cls.optimize_parameters
+
+        def timed_iteration(model, batch, current_iter):
+            first = self.first is None
+            if first:
+                self.first = {"g": {k: v.detach().cpu().clone() for k, v in
+                                    model.net_g.state_dict().items()},
+                              "d": None if model.net_d is None else {
+                                  k: v.detach().cpu().clone() for k, v in
+                                  model.net_d.state_dict().items()}}
+            before = self._counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(model, batch, current_iter)
+            torch.cuda.synchronize()
+            self.iters.append(time.perf_counter() - t0)
+            self.logs.append(model.get_current_log())
+            self.counts.append({k: v - before[k] for k, v in
+                                self._counts().items() if v - before[k]})
+            if first:
+                self.first.update(lq=model.lq.cpu(), gt=model.gt.cpu(),
+                                  gt_usm=model.gt_usm.cpu())
+
+        cls.optimize_parameters = timed_iteration
+        cls._g_step = timed(self._undo[1][2], "g")
+        cls._d_step = timed(self._undo[2][2], "d")
+        r.DegradationSynthesizer.__call__ = timed(self._undo[3][2], "synth")
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._undo:
+            setattr(owner, name, fn)
+
+
+def real_first_losses_on_cpu(model, first: dict) -> dict:
+    """The first iteration's losses recomputed on the host CPU, in float32,
+    forward only, from the run's first weights, spectral-norm state and
+    synthesized batch: G's forward and losses (D's spectral norm moved by
+    its fake pass), then D's real and fake passes, as the runner's step
+    orders them (runtime/realgan.py)."""
+    import torch
+
+    from super_resolution_tpu_torch.losses import build_loss
+    from super_resolution_tpu_torch.models import build_network
+
+    opt, train = model.opt, model.opt["train"]
+    net = build_network(opt["network_g"])
+    net.load_state_dict(first["g"], strict=True)
+    lq, gt, gt_usm = first["lq"], first["gt"], first["gt_usm"]
+    l1_gt = gt_usm if model.l1_gt_usm else gt
+    percep_gt = gt_usm if model.percep_gt_usm else gt
+    gan_gt = gt_usm if model.gan_gt_usm else gt
+    out = {}
+    with torch.no_grad():
+        sr = net.eval()(lq)
+        out["l_g_pix"] = float(build_loss(train["pixel_opt"])(sr, l1_gt))
+        total = out["l_g_pix"]
+        if train.get("perceptual_opt"):
+            p, _ = build_loss(train["perceptual_opt"])(sr, percep_gt)
+            out["l_g_percep"] = float(p)
+            total += out["l_g_percep"]
+        if model.net_d is not None:
+            d = build_network(opt["network_d"])
+            d.load_state_dict(first["d"], strict=True)
+            gan = build_loss(train["gan_opt"])
+            out["l_g_gan"] = float(gan(d(sr, update_sn_stats=True), True))
+            total += out["l_g_gan"]
+            real = d(gan_gt, update_sn_stats=True)
+            fake = d(sr, update_sn_stats=True)
+            out.update(l_d_real=float(gan(real, True, is_disc=True)),
+                       l_d_fake=float(gan(fake, False, is_disc=True)),
+                       out_d_real=float(real.mean()),
+                       out_d_fake=float(fake.mean()))
+        out["l_g_total"] = total
+    return out
+
+
+def real_train_path(label: str, spec: dict, gt_root: str, vgg: str,
+                    root: str, card: str) -> dict:
+    """Phase 8 (b): a shipped real-world file through ``train.py``'s
+    pipeline on the card at its published network and batch, overridden in
+    a copy (logged): the GT root, no pretrained G, the VGG19 .pth, a queue
+    of two batches (so the pool's swap runs from the third iteration),
+    total_iter, the checkpoint and print frequencies. REAL_ITERS
+    iterations with a checkpoint every REAL_EVERY, then a run resumed from
+    the first checkpoint. Checked: finite losses; the first iteration's
+    losses against the host CPU's (:func:`real_first_losses_on_cpu`); the
+    launches an iteration; that D and its spectral-norm ``u`` moved; the
+    resumed run against the uninterrupted one. Returns the whole run's
+    launch counts."""
+    import torch
+    import yaml
+
+    from super_resolution_tpu_torch.runtime.train_pipeline import \
+        train_pipeline
+    from super_resolution_tpu_torch.utils.options import yaml_load
+
+    opt = yaml_load(spec["yml"])
+    batch = opt["datasets"]["train"]["batch_size_per_gpu"]
+    overrides = {"datasets:train:dataroot_gt": gt_root,
+                 "path:pretrain_network_g": None,
+                 "queue_size": 2 * batch,
+                 "train:total_iter": REAL_ITERS,
+                 "logger:save_checkpoint_freq": REAL_EVERY,
+                 "logger:print_freq": 1}
+    if opt["train"].get("perceptual_opt"):
+        overrides["train:perceptual_opt:vgg_weights_path"] = vgg
+    if "val" in opt["datasets"]:
+        overrides["datasets:val:dataroot_lq"] = gt_root
+    for key, value in overrides.items():
+        node = opt
+        *parents, last = key.split(":")
+        for k in parents:
+            node = node[k]
+        node[last] = value
+    yml = os.path.join(root, f"{label}.yml")
+    with open(yml, "w") as f:
+        yaml.safe_dump(opt, f)
+    log(f"  overrides of {spec['yml']}: {overrides}")
+    fns = {name: fn for name, fn in wrappers().items() if name in KERNELS}
+    runs = {}
+    for run in ("whole", "resumed"):
+        argv = ["-opt", yml, "--device", "cuda"]
+        if run == "resumed":
+            ckpt = os.path.join(root, label, "whole", "experiments",
+                                opt["name"], "models", f"net_g_{REAL_EVERY}")
+            argv += ["--force_yml", f"path:resume_state={ckpt}"]
+        for fn in fns.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with RealClock(fns) as clock:
+            model, last = train_pipeline(os.path.join(root, label, run),
+                                         argv=argv)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        runs[run] = dict(clock=clock, model=model,
+                         counts={n: fn.launches for n, fn in fns.items()})
+        totals = [lg["l_g_total"] for lg in clock.logs]
+        if last != REAL_ITERS or not np.isfinite(totals).all():
+            raise AssertionError(f"{label} {run}: last iteration {last}, "
+                                 f"losses {totals}")
+        it = clock.iters
+        later = statistics.median(it[1:]) if len(it) > 1 else it[0]
+        parts = {k: (1e3 * statistics.median(v[1:] if len(v) > 1 else v)
+                     if v else 0.0) for k, v in clock.parts.items()}
+        log(f"[real:{label}] {card}: {run} run, {type(model).__name__}, "
+            f"batch {batch}, {len(it)} iterations: first {it[0]:.3f} s, "
+            f"then {later:.3f} s an iteration (median), "
+            f"{batch / later:.2f} images a second; synthesizer "
+            f"{parts['synth']:.1f} ms, G step {parts['g']:.1f} ms, D step "
+            f"{parts['d']:.1f} ms (medians; the synthesizer "
+            f"{100 * parts['synth'] / (1e3 * later):.1f} % of an "
+            f"iteration); peak memory {peak:.2f} GiB; wall {wall:.1f} s; "
+            f"l_g_total {[round(v, 6) for v in totals]}")
+    whole, resumed = runs["whole"], runs["resumed"]
+    clock, model = whole["clock"], whole["model"]
+
+    # the launches an iteration: G's forward, once
+    for i, counts in enumerate(clock.counts, start=1):
+        if counts != spec["per_step"]:
+            raise AssertionError(f"{label}: iteration {i} launched "
+                                 f"{counts}, expected {spec['per_step']}")
+    log(f"  launches an iteration {spec['per_step']}; the run "
+        f"{ {k: v for k, v in whole['counts'].items() if v} }")
+
+    # the first iteration's losses against the host CPU's
+    t0 = time.perf_counter()
+    ref = real_first_losses_on_cpu(model, clock.first)
+    got = clock.logs[0]
+    worst = max(abs(got[k] - v) / max(abs(v), 1e-12) for k, v in ref.items())
+    log(f"  first iteration on the card {dict(sorted(got.items()))}; on "
+        f"the host CPU {dict(sorted(ref.items()))}: max rel diff "
+        f"{worst:.2e} ({time.perf_counter() - t0:.1f} s)")
+    if sorted(ref) != sorted(k for k in got if k in ref) or worst > 1e-3:
+        raise AssertionError(f"{label}: first losses {got} vs {ref}")
+
+    # D and its spectral-norm state moved
+    if model.net_d is not None:
+        end = model.net_d.state_dict()
+        moved = {k: float((end[k].cpu() - v).abs().max())
+                 for k, v in clock.first["d"].items()}
+        u_moved = min(v for k, v in moved.items() if k.endswith("weight_u"))
+        w_moved = min(v for k, v in moved.items() if k.endswith("weight")
+                      and "weight_" not in k)
+        log(f"  D moved: every weight by at least {w_moved:.3e}, every "
+            f"spectral-norm u by at least {u_moved:.3e}")
+        if not (u_moved > 0 and w_moved > 0):
+            raise AssertionError(f"{label}: D did not move: {moved}")
+
+    # resumed from net_g_REAL_EVERY: the uninterrupted run's losses and
+    # weights, within the card's run-to-run spread
+    lr = opt["train"]["optim_g"]["lr"]
+    tail = [lg["l_g_total"] for lg in clock.logs[REAL_EVERY:]]
+    again = [lg["l_g_total"] for lg in resumed["clock"].logs]
+    nets = [("G", model.net_g, resumed["model"].net_g),
+            ("EMA", model.state.ema, resumed["model"].state.ema)]
+    if model.net_d is not None:
+        nets.append(("D", model.net_d, resumed["model"].net_d))
+    means = {n: float(_state_diff(b.state_dict(), a.state_dict()).mean())
+             for n, a, b in nets}
+    log(f"  resumed from net_g_{REAL_EVERY}: l_g_total "
+        f"{[round(v, 6) for v in again]} against "
+        f"{[round(v, 6) for v in tail]}; mean |diff| {means} (lr {lr})")
+    if (len(again) != len(tail) or not np.allclose(again, tail, rtol=1e-3)
+            or max(means.values()) > lr / 100):
+        raise AssertionError(f"{label}: the resumed run left the whole "
+                             f"one")
+    counts = whole["counts"]
+    del runs, whole, resumed, clock, model
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _short_names(mangled) -> dict:
     """Mangled kernel name -> ``name<template arguments>`` (c++filt, where
     the toolkit's host compiler brought it)."""
@@ -2891,6 +3285,26 @@ def main() -> int:
         for label, spec in ESC_TRAIN_PATHS.items():
             by_path[label] = run_train_path(label, spec, sets, root, card)
         log(f"[esc_train] phase 7 done in {time.perf_counter() - t7:.1f} s")
+
+        t8 = time.perf_counter()
+        log("[real] real-world GAN training: the synthesizer on the card "
+            "against the CPU, then the four shipped real-world files")
+        check_synth_card_vs_cpu()
+        from super_resolution_tpu_torch.models.vgg_arch import \
+            seeded_vgg19_state_dict
+        vgg = os.path.join(root, "vgg19.pth")
+        torch.save(seeded_vgg19_state_dict(0), vgg)
+        gt_root = write_real_gt(root)
+        log(f"[real] {REAL_IMAGES} GT images of 400 to 480 a side; VGG19: "
+            f"seeded random weights under torchvision's names ({vgg})")
+        for label, spec in REAL_TRAIN_PATHS.items():
+            t0 = time.perf_counter()
+            log(f"[real:{label}] train pipeline -> {spec['yml']}, the "
+                f"file's network and batch")
+            by_path[label] = real_train_path(label, spec, gt_root, vgg,
+                                             root, card)
+            log(f"[real:{label}] done in {time.perf_counter() - t0:.1f} s")
+        log(f"[real] phase 8 done in {time.perf_counter() - t8:.1f} s")
 
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():

@@ -13,12 +13,16 @@ Layout (NHWC activations throughout, as in the JAX package):
 - ``ops/``: the kernel wrappers (``cuda_attention.py``, ``cuda_ffn.py``,
   ``cuda_hab.py``, ``cuda_window_attention.py``) with their plain PyTorch
   versions, and the tensor helpers.
-- ``models/``: the classic HAT, the fork's HAT and ESC under their
-  checkpoints' names.
+- ``models/``: the classic HAT, the fork's HAT, ESC and the other archs
+  under their checkpoints' names; the U-Net discriminator and VGG19.
 - ``convert/``: the bridge from JAX/flax parameters to a state_dict.
-- ``runtime/``: the tiled-inference engine, the runners (inference and
-  validation) and the test pipeline.
-- ``data/``, ``metrics/``: the evaluation datasets and loader, PSNR / SSIM.
-- ``tools/``: folder inference, and a profile of one forward.
-- ``predict.py``: the serving entry point; ``test.py``: the test CLI.
+- ``runtime/``: the tiled-inference engine, the runners (inference,
+  validation and training, the real-world GAN runners among them) and the
+  test and train pipelines.
+- ``data/``, ``losses/``, ``metrics/``: the datasets and loaders, the
+  training losses, PSNR / SSIM.
+- ``tools/``: folder inference, and profiles of a forward and of a
+  real-world training iteration.
+- ``predict.py``: the serving entry point; ``test.py``, ``train.py``: the
+  test and train CLIs.
 """

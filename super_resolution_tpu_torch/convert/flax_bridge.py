@@ -18,6 +18,10 @@ and shape, a numeric child (``skip/0``, ``to_img/8``) keeps its index and a
 flattened one (``proj_1``, ``plk/proj_3``) becomes ``proj.1``, the
 depthwise 7x7 ``kernel`` goes back to OIHW and the Dense ``kernel``s of
 ``plk/proj_*`` to 1x1 conv weights.
+
+The discriminator's parameters (``params_d``) map the same way; its
+spectral-norm state (flax's ``batch_stats``) maps through
+:func:`sn_stats_to_state_dict`.
 """
 
 from __future__ import annotations
@@ -103,4 +107,19 @@ def flax_to_state_dict(flax_params: dict,
         raise KeyError(f"parameters without a flax leaf: {missing[:10]}")
     for name, t in target.items():
         out.setdefault(name, t.detach().clone())
+    return out
+
+
+def sn_stats_to_state_dict(sn_stats: dict) -> Dict[str, torch.Tensor]:
+    """flax ``SpectralNorm``'s state, {'SpectralNorm_i': {'conv1/kernel/u':
+    (1, out), 'conv1/kernel/sigma': ()}}, as the port's buffers
+    {'conv1.weight_u': (out,), 'conv1.weight_sigma': ()}."""
+    out = {}
+    for group in sn_stats.values():
+        for key, value in group.items():
+            layer, leaf, stat = key.split("/")
+            arr = np.array(value, dtype=np.float32)
+            name = f"{layer}.{_LEAF_TO_TORCH[leaf]}_{stat}"
+            out[name] = torch.from_numpy(arr.reshape(-1) if stat == "u"
+                                         else arr)
     return out

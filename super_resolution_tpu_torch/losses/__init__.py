@@ -1,13 +1,17 @@
 """Loss factory (port of super_resolution_tpu/losses/__init__.py; ref:
-basicsr/losses/__init__.py:19-31). The GAN and perceptual losses are not
-ported."""
+basicsr/losses/__init__.py:19-31)."""
 
 from copy import deepcopy
 
-from super_resolution_tpu_torch.losses import basic  # noqa: F401 registry
+from super_resolution_tpu_torch.losses import (  # noqa: F401 registry
+    basic, gan, perceptual)
 from super_resolution_tpu_torch.losses.basic import (  # noqa: F401
     CharbonnierLoss, L1Loss, MSELoss, WeightedTVLoss, charbonnier_loss,
-    l1_loss, mse_loss)
+    get_refined_artifact_map, l1_loss, mse_loss)
+from super_resolution_tpu_torch.losses.gan import (  # noqa: F401
+    GANLoss, MultiScaleGANLoss)
+from super_resolution_tpu_torch.losses.perceptual import (  # noqa: F401
+    PerceptualLoss)
 from super_resolution_tpu_torch.utils.registry import LOSS_REGISTRY
 
 

@@ -2,13 +2,14 @@
 basicsr/losses/basic_loss.py).
 
 Each loss is a small callable configured by the YAML ``type`` /
-``loss_weight`` / ``reduction`` schema; tensors are NHWC. The LDL artifact
-map (``get_refined_artifact_map``) belongs to the GAN runners and is not
-ported."""
+``loss_weight`` / ``reduction`` schema; tensors are NHWC.
+``get_refined_artifact_map`` is the LDL weight map of the real-world GAN
+runners (runtime/realgan.py)."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from super_resolution_tpu_torch.utils.registry import LOSS_REGISTRY
 
@@ -91,3 +92,30 @@ class WeightedTVLoss(_WeightedLoss):
             dx = dx * weight[:, :, 1:, :]
         return self.loss_weight * (_reduce(dy, self.reduction)
                                    + _reduce(dx, self.reduction))
+
+
+def _local_variance(x, ksize: int):
+    """The unbiased variance over each k x k window of the reflect-padded
+    NHWC ``x`` (ref: basicsr/losses/loss_util.py::get_local_weights), from
+    two box sums."""
+    pad = (ksize - 1) // 2
+    xp = F.pad(x.permute(0, 3, 1, 2), (pad, pad, pad, pad), mode="reflect")
+    s = F.avg_pool2d(xp, ksize, 1, divisor_override=1)
+    s2 = F.avg_pool2d(xp * xp, ksize, 1, divisor_override=1)
+    n = ksize * ksize
+    return ((s2 - s * s / n) / (n - 1)).permute(0, 2, 3, 1)
+
+
+def get_refined_artifact_map(img_gt, img_output, img_ema, ksize: int = 7):
+    """The LDL per-pixel artifact weight (Details or Artifacts, CVPR 2022;
+    ref: loss_util.py::get_refined_artifact_map, realesrgan_model.py
+    :222-225) on NHWC images: the channel-summed residual's per-image
+    variance^(1/5) times its local variance, 0 where the output is already
+    closer to the GT than the EMA network's output."""
+    residual_ema = (img_gt - img_ema).abs().sum(dim=-1, keepdim=True)
+    residual_sr = (img_gt - img_output).abs().sum(dim=-1, keepdim=True)
+    patch = torch.var(residual_sr, dim=(1, 2, 3), keepdim=True,
+                      correction=1) ** (1 / 5)
+    pixel = _local_variance(residual_sr, ksize)
+    return torch.where(residual_sr < residual_ema,
+                       torch.zeros_like(pixel), patch * pixel)

@@ -29,7 +29,8 @@ momentum reset, so its schedule's count, warmup included, starts again at
 optimizer and its reported learning rate keep it (ROADMAP.md queue 3).
 
 ``wave_opt`` raises, as in JAX: the reference builds no wavelet loss.
-``perceptual_opt`` raises: the VGG feature loss is not ported.
+``perceptual_opt`` raises: no shipped ``ESRModel`` file sets it, and this
+step does not add the VGG loss (``losses/perceptual.py``) yet.
 """
 
 from __future__ import annotations
@@ -110,8 +111,8 @@ class ESRModel(HATModel):
                 "refusing to silently ignore it")
         if train_opt.get("perceptual_opt"):
             raise NotImplementedError(
-                "perceptual_opt: the VGG feature loss is not ported "
-                "(ROADMAP.md queue 1, item 6: the VGG/GAN slice)")
+                "perceptual_opt: ESRModel's step does not add the VGG "
+                "loss yet (ROADMAP.md queue 1, item 1)")
         self.use_amp = bool(self.opt.get("use_amp", False))
         self.reset_momentum_iter = train_opt.get("reset_momentum_iter")
         self.cri_mesa, self.mesa_start_iter = None, None

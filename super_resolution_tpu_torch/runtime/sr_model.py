@@ -189,9 +189,8 @@ class SRModel:
     def get_current_log(self) -> dict:
         return {k: float(v) for k, v in self.log_dict.items()}
 
-    def save(self, epoch: int, current_iter: int) -> None:
-        """Checkpoint ``path.models/net_g_{current_iter}``
-        (runtime/checkpoint.py): the weights, the EMA weights, the
+    def checkpoint_tree(self, epoch: int, current_iter: int) -> dict:
+        """What :meth:`save` writes: the weights, the EMA weights, the
         optimizer, the drop-path generator where the runner keeps one,
         epoch and iteration."""
         tree = {"params": self.net_g.state_dict(), "epoch": epoch,
@@ -202,13 +201,22 @@ class SRModel:
             tree["opt_state"] = self.state.optimizer.state_dict()
         if self._drop_path_gen is not None:
             tree["rng_state"] = self._drop_path_gen.get_state()
+        return tree
+
+    def save(self, epoch: int, current_iter: int) -> None:
+        """Checkpoint :meth:`checkpoint_tree` to
+        ``path.models/net_g_{current_iter}`` (runtime/checkpoint.py)."""
         checkpoint.save_params(osp.join(self.opt["path"]["models"],
-                                        f"net_g_{current_iter}"), tree)
+                                        f"net_g_{current_iter}"),
+                               self.checkpoint_tree(epoch, current_iter))
 
     def resume_training(self, resume_path: str):
         """Load a checkpoint of :meth:`save` into the train state (after
         :meth:`setup_training`). Returns (epoch, iteration)."""
-        tree = checkpoint.load_tree(resume_path)
+        return self.resume_from_tree(checkpoint.load_tree(resume_path))
+
+    def resume_from_tree(self, tree: dict):
+        """:meth:`resume_training` on a loaded checkpoint."""
         load_state_dict(self.net_g, tree["params"])
         if self.state.ema is not None:
             load_state_dict(self.state.ema, tree.get("params_ema",

@@ -120,13 +120,18 @@ def apply_update(state: TrainState, ema_decay: float) -> None:
     for group in state.optimizer.param_groups:
         group["lr"] = lr
     state.optimizer.step()
+    update_ema(state, ema_decay)
+    state.step += 1
+
+
+def update_ema(state: TrainState, ema_decay: float) -> None:
+    """e = e * decay + p * (1 - decay) where the state keeps an EMA."""
     if state.ema is not None:
         with torch.no_grad():
             ema = list(state.ema.parameters())
             torch._foreach_mul_(ema, ema_decay)
             torch._foreach_add_(ema, list(state.net.parameters()),
                                 alpha=1 - ema_decay)
-    state.step += 1
 
 
 def make_sr_train_step(train_opt: dict):

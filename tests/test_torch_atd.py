@@ -35,6 +35,7 @@ from super_resolution_tpu_torch.convert.flax_bridge import (
     flax_path_to_torch_name, flax_to_state_dict)
 from super_resolution_tpu_torch.models import arch_util
 from super_resolution_tpu_torch.models import atd_arch as tatd
+from torch_threads import few_torch_threads  # noqa: F401
 
 SMALL = dict(embed_dim=24, depths=(2, 2), num_heads=(2, 2), window_size=8,
              category_size=64, num_tokens=16, reducted_dim=4,

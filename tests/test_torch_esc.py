@@ -27,6 +27,7 @@ from super_resolution_tpu_torch.models import esc_arch as tesc
 from super_resolution_tpu_torch.ops import attention as tatt
 from super_resolution_tpu_torch.ops import cuda_attention as ca
 from super_resolution_tpu_torch.ops import cuda_window_attention as cw
+from torch_threads import few_torch_threads  # noqa: F401
 
 SMALL = dict(dim=32, pdim=16, kernel_size=13, n_blocks=2, conv_blocks=2,
              window_size=8, num_heads=2, exp_ratio=1.25)

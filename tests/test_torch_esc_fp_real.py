@@ -31,6 +31,7 @@ from super_resolution_tpu_torch.models import esc_real_arch as treal
 from super_resolution_tpu_torch.ops import grid_sample as tgs
 from super_resolution_tpu_torch.ops import pixelshuffle as tps
 from super_resolution_tpu_torch.ops import resize as tres
+from torch_threads import few_torch_threads  # noqa: F401
 
 # float32 on both sides: the networks as the seven ported archs; the ops
 # differ by the order of a few float32 products and sums (F.grid_sample

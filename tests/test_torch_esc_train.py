@@ -28,6 +28,7 @@ from super_resolution_tpu_torch.ops import cuda_attention as tca
 from super_resolution_tpu_torch.ops import cuda_build
 from super_resolution_tpu_torch.ops import cuda_window_attention as tcw
 from super_resolution_tpu_torch.ops.attention import attention_with_bias
+from torch_threads import few_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL_GRAD = 2e-5

@@ -30,6 +30,7 @@ from super_resolution_tpu_torch.convert.flax_bridge import flax_to_state_dict
 from super_resolution_tpu_torch.runtime import build_model
 from super_resolution_tpu_torch.runtime.esr_model import (CLIP_HALVING_STEP,
                                                           ESRModel)
+from torch_threads import few_torch_threads  # noqa: F401
 
 NET = {"type": "ESC", "dim": 16, "pdim": 8, "kernel_size": 5, "n_blocks": 1,
        "conv_blocks": 1, "window_size": 8, "num_heads": 2,

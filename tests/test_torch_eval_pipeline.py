@@ -28,6 +28,7 @@ import yaml
 import jax
 
 from super_resolution_tpu_torch.convert.flax_bridge import flax_to_state_dict
+from torch_threads import few_torch_threads  # noqa: F401
 
 GT_SIZES = [(40, 48), (48, 40), (40, 48)]
 HAT_NET = dict(type="HAT", upscale=2, window_size=8, squeeze_factor=6,

@@ -35,6 +35,7 @@ from super_resolution_tpu_torch.ops.cuda_build import (CSRC_DIR,
                                                        MAX_DYNAMIC_SMEM)
 from test_torch_mlp_tail_mma import _Library
 from test_torch_msa_ocab_mma import BF16, _bf16_pair, _close, msa_online
+from torch_threads import few_torch_threads  # noqa: F401
 
 SOURCE = (CSRC_DIR / "hab_block.cu").read_text()
 TAIL_SOURCE = (CSRC_DIR / "mlp_tail.cu").read_text()

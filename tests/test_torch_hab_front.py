@@ -25,6 +25,7 @@ import torch
 from super_resolution_tpu_torch.convert.flax_bridge import flax_to_state_dict
 from super_resolution_tpu_torch.models import hat_arch as that
 from super_resolution_tpu_torch.ops import cuda_hab as ch
+from torch_threads import few_torch_threads  # noqa: F401
 
 ATOL = 1e-4
 RTOL_SUM = 1e-5

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 from super_resolution_tpu.models.hat_classic_arch import HATClassic as JHAT
 from super_resolution_tpu_torch.convert.flax_bridge import flax_to_state_dict
 from super_resolution_tpu_torch.models.hat_classic_arch import HATClassic
+from torch_threads import few_torch_threads  # noqa: F401
 
 SMALL = dict(embed_dim=60, depths=(2, 2), num_heads=(2, 2), window_size=8,
              compress_ratio=3, squeeze_factor=6, conv_scale=0.01,

@@ -23,6 +23,7 @@ from super_resolution_tpu.models import hat_arch as jhat
 from super_resolution_tpu_torch.convert.flax_bridge import flax_to_state_dict
 from super_resolution_tpu_torch.models import esc_arch as tesc
 from super_resolution_tpu_torch.models import hat_arch as that
+from torch_threads import few_torch_threads  # noqa: F401
 
 SMALL = dict(embed_dim=24, depths=(2, 2), num_heads=(2, 2), window_size=8,
              compress_ratio=3, squeeze_factor=6, conv_scale=0.01,

@@ -26,6 +26,7 @@ from super_resolution_tpu.ops import pallas_attention as pa
 from super_resolution_tpu_torch.convert.flax_bridge import flax_to_state_dict
 from super_resolution_tpu_torch.models import hitsrf_arch as thit
 from super_resolution_tpu_torch.ops import cuda_scc as cs
+from torch_threads import few_torch_threads  # noqa: F401
 
 SMALL = dict(img_size=16, embed_dim=20, depths=(3, 3), num_heads=(2, 2),
              base_win_size=(4, 4), hier_win_ratios=(0.5, 1, 2))

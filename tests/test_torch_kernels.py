@@ -33,6 +33,7 @@ from super_resolution_tpu_torch.ops import cuda_ffn as cf
 from super_resolution_tpu_torch.ops import cuda_hab as ch
 from super_resolution_tpu_torch.ops import cuda_psa as cp
 from super_resolution_tpu_torch.ops import cuda_window_attention as cw
+from torch_threads import few_torch_threads  # noqa: F401
 
 # float32 on both sides; the remaining difference is summation order and
 # the TPU kernel's A&S erf approximation (error < 1.5e-7)

@@ -44,6 +44,7 @@ from super_resolution_tpu_torch.ops.cuda_build import CSRC_DIR, MAX_DYNAMIC_SMEM
 from super_resolution_tpu_torch.ops.windowing import (extract_overlap_windows,
                                                       window_partition,
                                                       window_reverse)
+from torch_threads import few_torch_threads  # noqa: F401
 
 HEADER = (CSRC_DIR / "mma_attention.cuh").read_text()
 PROJ = (CSRC_DIR / "mma_proj.cuh").read_text()

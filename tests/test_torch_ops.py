@@ -16,6 +16,7 @@ from super_resolution_tpu.ops import windowing as jwin
 from super_resolution_tpu_torch.ops import attention as tattn
 from super_resolution_tpu_torch.ops import pixelshuffle as tps
 from super_resolution_tpu_torch.ops import windowing as twin
+from torch_threads import few_torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("ws,ratio", [(8, 0.5), (16, 0.5), (7, 0.5)])

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 
 from super_resolution_tpu.runtime.tile import tile_forward as j_tile_forward
 from super_resolution_tpu_torch.runtime.tile import tile_forward
+from torch_threads import few_torch_threads  # noqa: F401
 
 
 def _probe_net(np_mod):

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 from super_resolution_tpu.models import srformer_arch as jsrf
 from super_resolution_tpu_torch.convert.flax_bridge import flax_to_state_dict
 from super_resolution_tpu_torch.models import srformer_arch as tsrf
+from torch_threads import few_torch_threads  # noqa: F401
 
 SMALL = dict(img_size=16, embed_dim=24, depths=(2, 2), num_heads=(2, 2),
              window_size=8, mlp_ratio=2.0)

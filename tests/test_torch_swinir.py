@@ -17,6 +17,7 @@ import torch
 
 from super_resolution_tpu_torch.convert.flax_bridge import flax_to_state_dict
 from super_resolution_tpu_torch.models import swinir_arch as tsw
+from torch_threads import few_torch_threads  # noqa: F401
 
 SMALL = dict(embed_dim=24, depths=(2, 2), num_heads=(2, 2), window_size=8,
              mlp_ratio=2.0)

@@ -30,6 +30,7 @@ from super_resolution_tpu_torch.ops import cuda_attention as tca
 from super_resolution_tpu_torch.ops import cuda_build
 from super_resolution_tpu_torch.ops import cuda_ffn as tcf
 from super_resolution_tpu_torch.ops import cuda_hab as tch
+from torch_threads import few_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # float32 gradients of small blocks: summation order only

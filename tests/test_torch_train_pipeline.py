@@ -24,6 +24,7 @@ import jax
 from super_resolution_tpu_torch.runtime import sr_model as t_sr_model
 from super_resolution_tpu_torch.runtime.checkpoint import STATE_FILE
 from super_resolution_tpu_torch.runtime.train_pipeline import train_from_yaml
+from torch_threads import few_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_NET = dict(type="HAT", img_size=16, embed_dim=24, depths=[1, 1],

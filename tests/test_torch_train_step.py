@@ -30,6 +30,7 @@ from super_resolution_tpu_torch.convert.flax_bridge import flax_to_state_dict
 from super_resolution_tpu_torch.models import hat_arch as that
 from super_resolution_tpu_torch.runtime.train_loop import (init_train_state,
                                                            make_sr_train_step)
+from torch_threads import few_torch_threads  # noqa: F401
 
 TINY_KW = dict(img_size=16, embed_dim=24, depths=(1, 1), num_heads=(2, 2),
                window_size=8, compress_ratio=3, squeeze_factor=6,
