@@ -136,7 +136,33 @@ Phases, each of which raises on failure:
      and batch; the launches an iteration (rows 5 to 8: 6, 6, 36, 36; row
      10: 10); that D and its spectral-norm u moved; the resumed run
      against the uninterrupted one. Printed: s an iteration, images a
-     second, the synthesizer's and the G and D steps' ms, peak memory.
+     second, the synthesizer's and the G and D steps' ms, peak memory;
+  9. HATX: the train pipeline on
+     options/train/train_HAT_SRx2_ESC_OCAB_from_scratch.yml (HATX x2 at
+     its published width and batch 2, float32; its paired meta_info_file
+     replaced by one listing the synthetic pairs' GT names),
+     6 iterations with tile validation (64 / 16) on the x2 Set5 pairs,
+     then resumed from net_g_3, checked as phase 6 (b); no kernel runs
+     (JAX routes none of HATX to Pallas); then one HybridHATNAF forward at
+     the file's HATX widths on the card against the host CPU, no kernel
+     launched;
+  10. the arbitrary-scale app: (a) the autograd entries of rows 1, 2, 6,
+     12 and 14 at the arb encoders' training steps (batch 32: SwinIR's
+     unshifted and shifted blocks and MLP tail at 48 x 48, C 60 in 6 heads
+     of 10; ATD-light's shifted attention at 64 x 64, C 48; HiT-SRF's SCC
+     at 64 x 64, C 60, windows 8 and 64), as phase 6 (a); (b) LTE over each of the seven encoders at its published width
+     on one 64 x 64 LR queried at x3, in float32 and with the encoder in
+     bf16 (utils/precision.py), bf16 against float32 >= 35 dB, the
+     launches of a forward; (c) eval_arb on test-fast-set5-4.yml (one
+     call, then chunked: equal) and test-div2k-4.yml (chunked) with LIIF
+     over SwinIR on synthetic pairs, ``scale: 4`` added to the files'
+     datasets (they lack it, in JAX too); (d) train_arb for 3 iterations
+     at each file's batch on synthetic 256 x 256 GT: the five files JAX
+     trains and train_esc-lte, train_rdn-metasr, train_swinir-lte with
+     ``no_upsampling`` dropped from their encoder specs (logged): finite
+     losses, the first against the host CPU's on the same batch and
+     weights (1e-4 relative), the launches a step, the checkpoints; s an iteration, images
+     a second and peak memory printed.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Exits non-zero, printing neither, when there
@@ -3113,6 +3139,566 @@ def real_train_path(label: str, spec: dict, gt_root: str, vgg: str,
     return counts
 
 
+# ---------------------------------------------------------------- phase 9
+# HATX x2 (options/train/train_HAT_SRx2_ESC_OCAB_from_scratch.yml: embed
+# 180, 6 x 6 HABXs, ESC OCAB with focus bias and top-k 0.6, batch 2, gt 128,
+# tile validation 64 / 16): no kernel (JAX routes none of HATX to Pallas).
+# Its paired train set reads the synthetic pairs through a meta_info_file
+# that lists their GT names, as the file's DF2K-sub one does.
+HATX_YML = "options/train/train_HAT_SRx2_ESC_OCAB_from_scratch.yml"
+HATX_TRAIN_PATHS = {
+    "hatx_train": dict(yml=HATX_YML, batch=None, roots={
+        "datasets:train:dataroot_gt": "train_gt",
+        "datasets:train:dataroot_lq": "train_lq2",
+        "datasets:train:meta_info_file": "train_meta", **_X2_VAL},
+        per_step={}, per_image={}),
+}
+# HybridHATNAF's stem ahead of the file's HATX, on one 64 x 64 image
+NAF_STEM = dict(naf_width=64, naf_blocks=4)
+
+
+def check_hybrid_hat_naf(card: str) -> dict:
+    """Phase 9: one HybridHATNAF forward (NAF stem, then HATX at the HATX
+    file's widths; seeded weights, float32) on the card against the host
+    CPU. OCABX's top-k is discrete: a key whose score lies within rounding
+    of the threshold may be kept on one device and not on the other, so the
+    bound is 1e-3 of the output's scale, not TOL_F32."""
+    import torch
+
+    from super_resolution_tpu_torch.models import build_network
+    from super_resolution_tpu_torch.models.arch_util import init_weights
+    from super_resolution_tpu_torch.utils.options import yaml_load
+
+    net = dict(yaml_load(HATX_YML)["network_g"])
+    hat = {k: v for k, v in net.items()
+           if k not in ("type", "upscale", "window_size")}
+    model = build_network(dict(type="HybridHATNAF", **NAF_STEM,
+                               window_size=net["window_size"],
+                               upscale=net["upscale"], hat_kwargs=hat))
+    init_weights(model, torch.Generator().manual_seed(9))
+    model.eval()
+    x = torch.from_numpy(np.random.default_rng(9).random(
+        (1, 64, 64, 3), dtype=np.float32))
+    with torch.no_grad():
+        ref = model(x)
+        model.cuda()
+        before = _counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = model(x.cuda())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: v - before[k] for k, v in _counts().items()}
+    err = float((got.cpu() - ref).abs().max())
+    tol = 1e-3 * max(1.0, float(ref.abs().max()))
+    log(f"[hatx] {card}: HybridHATNAF (stem {NAF_STEM}, HATX of "
+        f"{HATX_YML}) 1 x 64 x 64 float32: card against the host CPU max "
+        f"|diff| {err:.3e} (tol {tol:.1e}), PSNR {psnr(got.cpu().numpy(), ref.numpy()):.2f} dB, "
+        f"{ms:.1f} ms on the card")
+    launched = {k: v for k, v in counts.items() if v}
+    if not (torch.isfinite(got).all() and err <= tol and not launched
+            and tuple(got.shape) == (1, 128, 128, 3)):
+        raise AssertionError(f"HybridHATNAF: err {err}, shape "
+                             f"{tuple(got.shape)}, launches {launched} "
+                             f"(it runs no kernel)")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+# --------------------------------------------------------------- phase 10
+# the autograd entries of the arb encoders' training, at the shapes a step
+# of their files gives them (batch 32; SwinIR: LQ 48 x 48, C 60 in 6 heads
+# of 10, window 8, shift 4, MLP hidden 120: its unshifted blocks, shifted
+# blocks and MLP tails, rows 1, 2 and 6; ATD-light: LQ 64 x 64, C 48 in 4
+# heads, window 16, shifted; HiT-SRF: LQ 64 x 64, C 60 in 6 heads at
+# windows 8 and 64 on base 8). Rows 1 and 6 had their entries before; the
+# other three are new.
+ARB_STEP_B = 32
+
+
+def arb_entry_cases(dtype, seed: int) -> list:
+    """(ops module, wrapper, entry, plain version, args, kwargs, shape
+    note) of the entries' checks; row 14's operands as :func:`scc_inputs`
+    draws them."""
+    import torch
+
+    from super_resolution_tpu_torch.ops import cuda_attention as ca
+    from super_resolution_tpu_torch.ops import cuda_ffn as cf
+    from super_resolution_tpu_torch.ops import cuda_scc as cs
+    from super_resolution_tpu_torch.ops import cuda_window_attention as cw
+    from super_resolution_tpu_torch.ops.attention import \
+        shift_attn_mask_tensor
+
+    t = _device_randn(dtype, seed)
+    b = ARB_STEP_B
+    cases = []
+    c, heads, ws, hw = 60, 6, 8, 48
+    swin = f"SwinIR encoder B{b} {hw}x{hw} C{c}"
+
+    def msa_operands():
+        return (t(b, hw, hw, c), t(c, 3 * c, s=c ** -0.5), t(3 * c, s=0.1),
+                t(c, c, s=c ** -0.5), t(c, s=0.1),
+                t(heads, 64, 64, s=0.5, dt=torch.float32))
+    cases.append((ca, "fused_msa_block", "fused_msa_block_ad",
+                  lambda *a, **k: ca.msa_block_reference(*a, None, **k),
+                  msa_operands(), dict(heads=heads, window_size=ws),
+                  f"{swin} unshifted"))
+    cases.append((ca, "fused_msa_block_shifted",
+                  "fused_msa_block_shifted_ad", ca.msa_block_shifted_reference,
+                  (*msa_operands(),
+                   shift_attn_mask_tensor(hw, hw, ws, 4, "cuda")),
+                  dict(heads=heads, window_size=ws, shift=4),
+                  f"{swin} shifted"))
+    cases.append((cf, "mlp_block", "mlp_block_ad", cf.mlp_block_reference,
+                  (t(b, hw, hw, c), 1.0 + t(c, s=0.1), t(c, s=0.1),
+                   t(c, 2 * c, s=c ** -0.5), t(2 * c, s=0.1),
+                   t(2 * c, c, s=(2 * c) ** -0.5), t(c, s=0.1)), {},
+                  f"{swin} hidden {2 * c}"))
+    c, heads, ws, hw = 48, 4, 16, 64
+    cases.append((cw, "fused_msa_attention", "fused_msa_attention_ad",
+                  cw.msa_attention_reference,
+                  (t(b, hw, hw, 3 * c, s=0.5),
+                   t(heads, 256, 256, s=0.5, dt=torch.float32)),
+                  dict(mask=shift_attn_mask_tensor(hw, hw, ws, 8, "cuda"),
+                       heads=heads, window_size=ws),
+                  f"ATD-light encoder B{b} {hw}x{hw} C{c} shifted"))
+    c, heads, hw = 60, 6, 64
+    for win in (8, 64):
+        cases.append((cs, "fused_scc_block", "fused_scc_block_ad",
+                      cs.scc_block_reference, scc_inputs(
+                          dtype, seed + win, (b, hw, hw, c, heads),
+                          (win, win), (8, 8)),
+                      dict(heads=heads, window_size=(win, win), base=(8, 8)),
+                      f"HiT-SRF encoder B{b} {hw}x{hw} C{c} window {win}"))
+    return cases
+
+
+def check_arb_train_functions() -> None:
+    """Phase 10 (a): the autograd entries of rows 1, 2, 6, 12 and 14 at the
+    arb encoders' steps' shapes, float32 (TF32 off) and bf16
+    (:func:`check_autograd_entry`)."""
+    import torch
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for mod, name, ad_name, plain, args, kw, what in arb_entry_cases(
+                dtype, seed=10):
+            check_autograd_entry(getattr(mod, name), getattr(mod, ad_name),
+                                 plain, args, kw, dtype, what)
+            del args
+            torch.cuda.empty_cache()
+
+
+def _lte(encoder: dict) -> dict:
+    """LTE over ``encoder`` as the LTE training files build it."""
+    return {"name": "lte", "args": {
+        "encoder_spec": encoder, "imnet_spec": {
+            "name": "mlp", "args": {"out_dim": 3,
+                                    "hidden_list": [256, 256, 256]}}}}
+
+
+# every encoder at its published width (the JAX fields' defaults, which the
+# training files keep) under LTE, and the launches of one forward: ESC's 5
+# blocks one fused_attention each; SwinIR's 4 RSTBs of 6 blocks; ATD-light's
+# 4 ATDBs of 6 layers; HiT-SRF's 4 groups of 6 blocks
+ARB_ENCODERS = {
+    "esc": {"fused_attention": 5},
+    "edsr-baseline": {},
+    "swinir": dict(zip(_SWIN, (12, 12, 24))),
+    "rdn": {},
+    "rcan": {},
+    "ATDLight": {"fused_msa_attention": 24},
+    "HiTSRF": {"fused_scc_block": 24},
+}
+# the encoders' forward: one 64 x 64 LR image queried at x3 (192 x 192)
+ARB_LR, ARB_SCALE = 64, 3
+
+
+def _counts() -> dict:
+    return {name: fn.launches for name, fn in wrappers().items()
+            if name in KERNELS}
+
+
+def arb_encoder_path(name: str, card: str) -> dict:
+    """Phase 10 (b): LTE over one encoder at its published width, seeded
+    weights, in float32 and with the encoder in bf16
+    (``utils/precision.py``: a cast copy, bf16 activations, float32
+    features into the head), two forwards each (the first's launches
+    counted, the second timed). Checked: the launches of a forward; the
+    encoder's bf16 features against its float32 ones at least PSNR_MIN_DB
+    over the float32 features' peak (the LTE output adds the bilinear
+    input skip, which would hide them), and the outputs likewise. Returns
+    one float32 forward's launches."""
+    import copy
+
+    import torch
+
+    from super_resolution_tpu_torch import arb
+    from super_resolution_tpu_torch.arb.models import make_coord
+    from super_resolution_tpu_torch.models.arch_util import init_weights
+    from super_resolution_tpu_torch.utils.precision import (cast_floating,
+                                                            wrap_apply)
+
+    model = arb.make(_lte({"name": name, "args": {}}))
+    init_weights(model, torch.Generator().manual_seed(10))
+    model = model.cuda().eval()
+    rng = np.random.default_rng(10)
+    hq = ARB_LR * ARB_SCALE
+    inp = torch.from_numpy(rng.random((1, ARB_LR, ARB_LR, 3),
+                                      dtype=np.float32)).cuda()
+    coord = torch.from_numpy(make_coord((hq, hq))[None]).cuda()
+    cell = torch.full_like(coord, 2.0 / hq)
+
+    class Bf16Trunk(torch.nn.Module):
+        def __init__(self, enc):
+            super().__init__()
+            self.enc = cast_floating(enc, torch.bfloat16)
+
+        def forward(self, x):
+            return wrap_apply(self.enc, torch.bfloat16)(x)
+
+    half = copy.deepcopy(model)
+    half.encoder = Bf16Trunk(model.encoder)
+    outs, feats = {}, {}
+    with torch.no_grad():
+        for label, net in (("float32", model), ("bf16", half)):
+            before = _counts()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[label] = net(inp, coord, cell)
+            torch.cuda.synchronize()
+            first = (time.perf_counter() - t0) * 1e3
+            launched = {k: v - before[k] for k, v in _counts().items()
+                        if v - before[k]}
+            if label == "float32":
+                counts = {k: v - before[k] for k, v in _counts().items()}
+            t0 = time.perf_counter()
+            net(inp, coord, cell)
+            torch.cuda.synchronize()
+            second = (time.perf_counter() - t0) * 1e3
+            feats[label] = net.encoder(inp).float()
+            log(f"[arb:{name}] {card}: LTE over {name}, LR {ARB_LR}x"
+                f"{ARB_LR} queried at x{ARB_SCALE}, {label}: {first:.1f} ms "
+                f"the first call, {second:.1f} ms the second, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+                f"launches {launched}")
+            if launched != ARB_ENCODERS[name]:
+                raise AssertionError(f"arb {name} {label}: launched "
+                                     f"{launched}, expected "
+                                     f"{ARB_ENCODERS[name]}")
+    fa, fb = (feats[k].cpu().numpy() for k in ("float32", "bf16"))
+    peak = float(np.abs(fa).max())
+    feat_db = 10.0 * float(np.log10(peak ** 2 / np.mean((fb - fa) ** 2)))
+    a, b = (outs[k].float().cpu().numpy().reshape(hq, hq, 3)
+            for k in ("float32", "bf16"))
+    db = psnr(b, a)
+    log(f"  bf16 against float32: features {feat_db:.2f} dB over their "
+        f"peak {peak:.3f}, output PSNR {db:.2f} dB; output finite "
+        f"{bool(np.isfinite(a).all())}, shape {tuple(outs['float32'].shape)}")
+    if not (np.isfinite(a).all() and min(db, feat_db) >= PSNR_MIN_DB):
+        raise AssertionError(f"arb {name}: bf16 PSNR {db}, features "
+                             f"{feat_db}")
+    del model, half, outs, feats
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _arb_yml(path: str) -> dict:
+    import yaml
+
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+# eval_arb: LIIF over SwinIR (train_swinir-liif.yml's model, no_upsampling
+# dropped), float32; launches an image: one encoder forward
+ARB_EVAL_MODEL = "options/arb/train-div2k/train_swinir-liif.yml"
+ARB_EVAL_FILES = ("options/arb/test/test-fast-set5-4.yml",
+                  "options/arb/test/test-div2k-4.yml")
+ARB_EVAL_BSIZE = 30000
+# synthetic DIV2K validation pairs for test-div2k-4 (GT sides, LR at x4)
+ARB_DIV2K = [(256, 320), (240, 200)]
+
+
+def _spec_without_no_upsampling(config: dict) -> dict:
+    """The file's model spec, ``no_upsampling`` dropped from its encoder's
+    args where the encoder has no such field (ESC, RDN and SwinIR; in JAX
+    neither: ROADMAP queue 3)."""
+    import copy
+    import inspect
+
+    from super_resolution_tpu_torch.arb.models import models
+
+    spec = copy.deepcopy(config["model"])
+    enc = spec["args"]["encoder_spec"]
+    if "no_upsampling" not in inspect.signature(
+            models[enc["name"]].__init__).parameters:
+        enc.get("args", {}).pop("no_upsampling", None)
+    return spec
+
+
+def arb_eval_path(sets: dict, root: str, card: str) -> dict:
+    """Phase 10 (c): ``eval_arb`` on test-fast-set5-4.yml (the synthetic
+    Set5 and its '<name>x4' LR) in one call, then the same chunked at
+    ARB_EVAL_BSIZE queries, equal to 1e-3 dB; and test-div2k-4.yml on
+    synthetic DIV2K pairs chunked at ARB_EVAL_BSIZE (the file's 500000
+    would take an image in one chunk). Both files' PairedImageDataset reads
+    a ``scale`` the files lack, in JAX too: ``scale: 4`` is added. Returns
+    the launches of the three runs."""
+    import torch
+
+    from super_resolution_tpu_torch import arb
+    from super_resolution_tpu_torch.models.arch_util import init_weights
+    from super_resolution_tpu_torch.utils.img import imwrite
+    from super_resolution_tpu_torch.utils.matlab import imresize
+
+    spec = _spec_without_no_upsampling(_arb_yml(ARB_EVAL_MODEL))
+    model = arb.make(spec)
+    init_weights(model, torch.Generator().manual_seed(11))
+    div2k = {k: os.path.join(root, "arb_div2k", k) for k in ("HR", "X4")}
+    rng = np.random.default_rng(11)
+    for i, (h, w) in enumerate(ARB_DIV2K):
+        yy, xx = np.mgrid[0:h, 0:w] / 48.0
+        img = 0.5 + 0.35 * np.sin(yy[..., None] * rng.uniform(0.5, 2)
+                                  + xx[..., None] * rng.uniform(0.5, 2)
+                                  + np.arange(3))
+        img = (np.clip(img, 0, 1) * 255).round().astype(np.uint8)
+        lq = np.clip(imresize(img.astype(np.float32) / 255.0, 0.25), 0, 1)
+        imwrite(img, os.path.join(div2k["HR"], f"{i:04d}.png"))
+        imwrite((lq * 255).round().astype(np.uint8),
+                os.path.join(div2k["X4"], f"{i:04d}x4.png"))
+    roots = {ARB_EVAL_FILES[0]: (sets["gt"], sets["lq_x4"]),
+             ARB_EVAL_FILES[1]: (div2k["HR"], div2k["X4"])}
+    start = _counts()
+    results = {}
+    for yml in ARB_EVAL_FILES:
+        config = _arb_yml(yml)
+        gt, lq = roots[yml]
+        config["test_dataset"]["dataset"].update(dataroot_gt=gt,
+                                                 dataroot_lq=lq, scale=4)
+        chunked = dict(config, fast_eval=False, eval_bsize=ARB_EVAL_BSIZE)
+        runs = ([("one call", config)] if config.get("fast_eval") else [])
+        runs.append(("chunked", chunked))
+        for how, cfg in runs:
+            before = _counts()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            value = arb.eval_arb(cfg, model, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = {k: v - before[k] for k, v in _counts().items()
+                        if v - before[k]}
+            results[(yml, how)] = value
+            log(f"[arb:eval] {card}: {yml} (scale: 4 added to its "
+                f"dataset) {how}"
+                f"{f' at {ARB_EVAL_BSIZE} queries' if how == 'chunked' else ''}"
+                f": PSNR {value:.4f} dB, {wall:.2f} s, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+                f"launches {launched}")
+            if not np.isfinite(value) or not launched:
+                raise AssertionError(f"eval_arb {yml} {how}: PSNR {value}, "
+                                     f"launches {launched}")
+    one, chunked = (results[(ARB_EVAL_FILES[0], k)]
+                    for k in ("one call", "chunked"))
+    if abs(one - chunked) > 1e-3:
+        raise AssertionError(f"eval_arb: one call {one} dB, chunked "
+                             f"{chunked} dB")
+    del model
+    torch.cuda.empty_cache()
+    return {k: v - start[k] for k, v in _counts().items()}
+
+
+# train_arb: the five files JAX trains, and three whose encoder specs carry
+# no_upsampling, dropped (logged); each at its own batch, 3 iterations (one
+# epoch over 3 batches of synthetic GT images of 256 x 256)
+ARB_TRAIN = {
+    "train_edsr-baseline-liif.yml": {},
+    "train_edsr-baseline-lte.yml": {},
+    "train_edsr-baseline-metasr.yml": {},
+    "train_atd-lte.yml": {"fused_msa_attention": 24},
+    "train_hitsrf-lte.yml": {"fused_scc_block": 24},
+    "train_esc-lte.yml": {"fused_attention": 5},
+    "train_rdn-metasr.yml": {},
+    "train_swinir-lte.yml": dict(zip(_SWIN, (12, 12, 24))),
+}
+ARB_TRAIN_ITERS, ARB_GT = 3, 256
+# the first loss on the card (float32, TF32 off) against the host CPU's
+ARB_LOSS_RTOL = 1e-4
+
+
+def write_arb_gt(root: str) -> dict:
+    """3 x the largest batch of synthetic GT images, ARB_GT a side, and a
+    meta_info_file for each batch size listing 3 batches of them."""
+    from super_resolution_tpu_torch.utils.img import imwrite
+
+    batches = sorted({_arb_yml(f"options/arb/train-div2k/{f}")
+                      ["train_dataset"]["batch_size"] for f in ARB_TRAIN})
+    gt = os.path.join(root, "arb_gt")
+    rng = np.random.default_rng(12)
+    yy, xx = np.mgrid[0:ARB_GT, 0:ARB_GT] / 40.0
+    names = []
+    for i in range(ARB_TRAIN_ITERS * batches[-1]):
+        img = 0.5 + 0.35 * np.sin(yy[..., None] * rng.uniform(0.5, 2)
+                                  + xx[..., None] * rng.uniform(0.5, 2)
+                                  + np.arange(3))
+        img = np.clip(img + rng.normal(0, 0.03, img.shape), 0, 1)
+        names.append(f"{i:04d}.png")
+        imwrite((img * 255).round().astype(np.uint8),
+                os.path.join(gt, names[-1]))
+    metas = {}
+    for b in batches:
+        metas[b] = os.path.join(root, f"arb_meta_{b}.txt")
+        with open(metas[b], "w") as f:
+            f.writelines(f"{n} ({ARB_GT},{ARB_GT},3)\n"
+                         for n in names[:ARB_TRAIN_ITERS * b])
+    return dict(gt=gt, metas=metas)
+
+
+class ArbClock:
+    """While train_arb runs: the end of every optimizer step (to a
+    synchronised card), the launches of each step, the first batch (as the
+    loader gave it) and the parameters before the first update."""
+
+    def __enter__(self):
+        import torch
+
+        from super_resolution_tpu_torch.data import TrainLoader
+
+        self.ends, self.step_counts = [], []
+        self.first_batch = self.first_params = None
+        self._step = torch.optim.Adam.step
+        self._epoch_iter = TrainLoader.epoch_iter
+        clock = self
+
+        def timed(opt, *a, **kw):
+            if clock.first_params is None:
+                clock.first_params = [p.detach().cpu().clone()
+                                      for g in opt.param_groups
+                                      for p in g["params"]]
+            before = clock._last
+            out = clock._step(opt, *a, **kw)
+            torch.cuda.synchronize()
+            clock.ends.append(time.perf_counter())
+            clock._last = _counts()
+            clock.step_counts.append({k: v - before[k] for k, v in
+                                      clock._last.items() if v - before[k]})
+            return out
+
+        def kept(loader, *a, **kw):
+            for batch in clock._epoch_iter(loader, *a, **kw):
+                if clock.first_batch is None:
+                    clock.first_batch = {k: np.array(v) for k, v in
+                                         batch.items()
+                                         if isinstance(v, np.ndarray)}
+                yield batch
+        torch.optim.Adam.step = timed
+        TrainLoader.epoch_iter = kept
+        self._last = _counts()
+        torch.cuda.synchronize()
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        from super_resolution_tpu_torch.data import TrainLoader
+
+        torch.optim.Adam.step = self._step
+        TrainLoader.epoch_iter = self._epoch_iter
+
+
+def arb_first_loss_on_cpu(config: dict, params: list, batch: dict) -> float:
+    """train_arb's first loss recomputed on the host CPU in float32: the
+    file's model with the parameters the card held before its first update
+    (in ``model.parameters()`` order, as the optimizer holds them), on the
+    first batch; the buffers from the seeded initialisation train_arb
+    makes."""
+    import torch
+
+    from super_resolution_tpu_torch.arb.models import make
+    from super_resolution_tpu_torch.models.arch_util import init_weights
+
+    model = make(config["model"])
+    init_weights(model, torch.Generator().manual_seed(config.get("seed", 0)))
+    own = list(model.parameters())
+    if [p.shape for p in own] != [p.shape for p in params]:
+        raise AssertionError("arb: the card's parameters do not match the "
+                             "model's")
+    with torch.no_grad():
+        for p, v in zip(own, params):
+            p.copy_(v)
+        data = {k: torch.from_numpy(v) for k, v in batch.items()}
+        pred = model.train()(data["inp"], data["coord"], data["cell"])
+        return float((pred - data["gt"]).abs().mean())
+
+
+def arb_train_path(name: str, data: dict, root: str, card: str) -> dict:
+    """Phase 10 (d): ``train_arb`` on a shipped file (a copy: its GT root
+    and the meta file of 3 batches, epoch_max 1, epoch_save 1; no_upsampling
+    dropped where its encoder lacks the field), at its batch, on the card.
+    Checked: 3 finite losses, the first of them against the host CPU's
+    on the same batch and weights within ARB_LOSS_RTOL, the launches a step
+    (one forward's: the backward runs the plain versions), the checkpoints.
+    Printed: s an iteration, peak memory. Returns the run's launches."""
+    import torch
+
+    from super_resolution_tpu_torch.arb.train import train_arb
+    from super_resolution_tpu_torch.runtime.checkpoint import STATE_FILE
+
+    yml = f"options/arb/train-div2k/{name}"
+    config = _arb_yml(yml)
+    spec = _spec_without_no_upsampling(config)
+    dropped = spec != config["model"]
+    config["model"] = spec
+    ds = config["train_dataset"]
+    batch = ds["batch_size"]
+    ds["dataset"] = dict(ds["dataset"], dataroot_gt=data["gt"],
+                         meta_info_file=data["metas"][batch])
+    config.update(epoch_max=1, epoch_save=1)
+    config.pop("val_dataset", None)
+    log(f"[arb:{name}] train_arb -> {yml}, batch {batch}, inp_size "
+        f"{ds.get('inp_size')}, sample_q {ds.get('sample_q')}; overridden: "
+        f"the GT root, a meta_info_file of {ARB_TRAIN_ITERS} batches, "
+        f"epoch_max 1, epoch_save 1"
+        f"{'; no_upsampling dropped from the encoder spec' if dropped else ''}")
+    start = _counts()
+    save = os.path.join(root, "arb_exp", name[:-4])
+    torch.cuda.reset_peak_memory_stats()
+    with ArbClock() as clock:
+        _, losses = train_arb(config, save, device="cuda")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = np.diff([clock.start] + clock.ends)
+    later = float(np.median(steps[1:]))
+    log(f"[arb:{name}] {card}: {len(losses)} iterations, first "
+        f"{steps[0]:.3f} s (set-up and loading included), then "
+        f"{later:.3f} s an iteration (median), {batch / later:.2f} images "
+        f"a second; peak memory {peak:.2f} GiB; losses "
+        f"{[round(v, 6) for v in losses]}; launches a step "
+        f"{clock.step_counts}")
+    cpu = arb_first_loss_on_cpu(config, clock.first_params,
+                                clock.first_batch)
+    rel = abs(losses[0] - cpu) / abs(cpu)
+    log(f"  first loss: card {losses[0]:.8f}, host CPU {cpu:.8f} on the "
+        f"same batch and weights, relative diff {rel:.3e} (tol "
+        f"{ARB_LOSS_RTOL:.0e})")
+    want = ARB_TRAIN[name]
+    saved = sorted(os.listdir(save))
+    if (len(losses) != ARB_TRAIN_ITERS or not np.isfinite(losses).all()
+            or not rel <= ARB_LOSS_RTOL
+            or any(c != want for c in clock.step_counts)
+            or saved != ["epoch-1", "epoch-last"]
+            or not os.path.exists(os.path.join(save, "epoch-last",
+                                               STATE_FILE))):
+        raise AssertionError(f"arb {name}: losses {losses} (the first on "
+                             f"the host CPU {cpu}), launches "
+                             f"{clock.step_counts} (expected {want}), "
+                             f"checkpoints {saved}")
+    torch.cuda.empty_cache()
+    return {k: v - start[k] for k, v in _counts().items()}
+
+
 def _short_names(mangled) -> dict:
     """Mangled kernel name -> ``name<template arguments>`` (c++filt, where
     the toolkit's host compiler brought it)."""
@@ -3305,6 +3891,28 @@ def main() -> int:
                                              root, card)
             log(f"[real:{label}] done in {time.perf_counter() - t0:.1f} s")
         log(f"[real] phase 8 done in {time.perf_counter() - t8:.1f} s")
+
+        t9 = time.perf_counter()
+        log("[hatx] HATX x2 through the train pipeline (no kernel: plain "
+            "PyTorch, as in JAX), then a HybridHATNAF forward")
+        for label, spec in HATX_TRAIN_PATHS.items():
+            by_path[label] = run_train_path(label, spec, sets, root, card)
+        by_path["hybrid_hat_naf"] = check_hybrid_hat_naf(card)
+        log(f"[hatx] phase 9 done in {time.perf_counter() - t9:.1f} s")
+
+        t10 = time.perf_counter()
+        log("[arb] the autograd entries the arb encoders train through "
+            "(kernel forward, plain backward)")
+        check_arb_train_functions()
+        log(f"[arb] entries done in {time.perf_counter() - t10:.1f} s")
+        for name in ARB_ENCODERS:
+            by_path[f"arb_lte_{name}"] = arb_encoder_path(name, card)
+        by_path["arb_eval"] = arb_eval_path(sets, root, card)
+        data = write_arb_gt(root)
+        for name in ARB_TRAIN:
+            by_path[f"arb_{name[6:-4]}"] = arb_train_path(name, data, root,
+                                                          card)
+        log(f"[arb] phase 10 done in {time.perf_counter() - t10:.1f} s")
 
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():

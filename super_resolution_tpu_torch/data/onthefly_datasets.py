@@ -35,7 +35,7 @@ class _GTOnlyBase:
     """The GT paths and the draws' generator the two datasets share."""
 
     def __init__(self, opt: dict):
-        _check_supported(opt, paired=False)
+        _check_supported(opt)
         self.opt = opt
         self.gt_folder = opt["dataroot_gt"]
         if opt.get("meta_info_file"):

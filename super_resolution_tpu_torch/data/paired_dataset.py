@@ -9,8 +9,9 @@ numpy arrays. In phase ``train`` a pair is cropped at random to
 the draws from the dataset's own ``random.Random``, which the train loader
 reseeds every epoch (:meth:`PairedImageDataset.seed`). What is not ported
 raises ``NotImplementedError`` rather than being read another way: another
-``io_backend`` than ``disk`` (LMDB) and a paired ``meta_info_file``
-(ROADMAP.md queue 1)."""
+``io_backend`` than ``disk`` (LMDB; ROADMAP.md queue 1). A paired
+``meta_info_file`` lists the GT names, each paired with the LQ of the same
+name through ``filename_tmpl``."""
 
 from __future__ import annotations
 
@@ -54,16 +55,29 @@ def paired_paths_from_folders(lq_folder: str, gt_folder: str,
     return paths
 
 
-def _check_supported(opt: dict, paired: bool) -> None:
+def paired_paths_from_meta_info(lq_folder: str, gt_folder: str,
+                                meta_info_file: str, filename_tmpl: str = "{}"):
+    """Pairs from a meta_info file listing GT names, the first word of a
+    line, in its order; the LQ of GT '<stem><ext>' is
+    ``filename_tmpl.format(stem) + ext`` (ref:
+    data_util.py::paired_paths_from_meta_info_file)."""
+    with open(meta_info_file, "r") as f:
+        gt_names = [line.strip().split(" ")[0] for line in f if line.strip()]
+    paths = []
+    for gt_name in gt_names:
+        stem, ext = osp.splitext(gt_name)
+        paths.append({"lq_path": osp.join(lq_folder,
+                                          f"{filename_tmpl.format(stem)}{ext}"),
+                      "gt_path": osp.join(gt_folder, gt_name)})
+    return paths
+
+
+def _check_supported(opt: dict) -> None:
     backend = (opt.get("io_backend") or {}).get("type", "disk")
     if backend != "disk":
         raise NotImplementedError(
             f"{opt.get('name')}: io_backend '{backend}' is not ported; only "
-            f"'disk' is (ROADMAP.md queue 1, item 3)")
-    if paired and opt.get("meta_info_file"):
-        raise NotImplementedError(
-            f"{opt.get('name')}: a paired meta_info_file is not ported "
-            f"(ROADMAP.md queue 1, item 3)")
+            f"'disk' is (ROADMAP.md queue 1, item 5)")
 
 
 def _normalize(opt: dict, *imgs):
@@ -76,18 +90,24 @@ def _normalize(opt: dict, *imgs):
 
 @DATASET_REGISTRY.register()
 class PairedImageDataset:
-    """LQ/GT pairs from two folders (ref: paired_image_dataset.py:79-94). In
-    phase ``train`` a random crop of ``gt_size`` and the flips, else the GT
-    cropped to LQ x scale; then ``mean`` / ``std`` applied."""
+    """LQ/GT pairs from two folders, or those a ``meta_info_file`` names
+    (ref: paired_image_dataset.py:47-94). In phase ``train`` a random crop
+    of ``gt_size`` and the flips, else the GT cropped to LQ x scale; then
+    ``mean`` / ``std`` applied."""
 
     def __init__(self, opt: dict):
-        _check_supported(opt, paired=True)
+        _check_supported(opt)
         self.opt = opt
         self.gt_folder = opt["dataroot_gt"]
         self.lq_folder = opt["dataroot_lq"]
         self.filename_tmpl = opt.get("filename_tmpl", "{}")
-        self.paths = paired_paths_from_folders(
-            self.lq_folder, self.gt_folder, self.filename_tmpl)
+        if opt.get("meta_info_file"):
+            self.paths = paired_paths_from_meta_info(
+                self.lq_folder, self.gt_folder, opt["meta_info_file"],
+                self.filename_tmpl)
+        else:
+            self.paths = paired_paths_from_folders(
+                self.lq_folder, self.gt_folder, self.filename_tmpl)
         self._rng = None
 
     def seed(self, seed: int) -> None:
@@ -123,7 +143,7 @@ class SingleImageDataset:
     ``meta_info_file`` lists (ref: single_image_dataset.py:10-40)."""
 
     def __init__(self, opt: dict):
-        _check_supported(opt, paired=False)
+        _check_supported(opt)
         self.opt = opt
         self.lq_folder = opt["dataroot_lq"]
         if opt.get("meta_info_file"):

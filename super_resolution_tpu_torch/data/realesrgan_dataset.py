@@ -36,7 +36,7 @@ class RealESRGANDataset:
     lists there) with their three kernels."""
 
     def __init__(self, opt: dict):
-        _check_supported(opt, paired=False)
+        _check_supported(opt)
         self.opt = opt
         self.gt_folder = opt["dataroot_gt"]
         if opt.get("meta_info"):

@@ -8,8 +8,9 @@ from super_resolution_tpu_torch.models import (atd_arch,  # noqa: F401 registry
                                                esc_arch, esc_fp_arch,
                                                esc_real_arch, hat_arch,
                                                hat_classic_arch,
-                                               hitsrf_arch, srformer_arch,
-                                               swinir_arch)
+                                               hatx_arch, hitsrf_arch,
+                                               hybrid_hat_naf_arch,
+                                               srformer_arch, swinir_arch)
 from super_resolution_tpu_torch.utils.registry import ARCH_REGISTRY
 
 # option keys of the reference's YAML files that change nothing here

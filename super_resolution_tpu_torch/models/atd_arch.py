@@ -18,11 +18,13 @@ Module and parameter names follow the torch checkpoints
 (``layers.0.residual_group.layers.1.attn_atd.scale``,
 ``...attn_aca.logit_scale``, ``...norm3.weight``, ``...sigma``,
 ``layers.0.residual_group.td``), so a state_dict with the official names
-loads with ``strict=True``. The module is for inference.
+loads with ``strict=True``.
 
 On the card every layer sends the (S)W-MSA through ``fused_msa_attention``
 (``ops/cuda_window_attention.py``), which launches its CUDA kernel or
-raises a ``ValueError`` that names the limit; the network pads its input
+raises a ``ValueError`` that names the limit, through its autograd entry
+``fused_msa_attention_ad`` (the kernel forward, autograd through the plain
+version backward: the arb ATD encoder trains); the network pads its input
 to a window multiple first. A CPU tensor takes the windowed plain path.
 The roll of a shifted layer stays outside the kernel: AC-MSA reads the
 same qkv image unrolled.
@@ -53,7 +55,7 @@ from super_resolution_tpu_torch.ops.attention import (
     attention_with_bias, relative_position_index_sa, shift_attn_mask_tensor)
 from super_resolution_tpu_torch.ops.cuda_build import use_kernel
 from super_resolution_tpu_torch.ops.cuda_window_attention import \
-    fused_msa_attention
+    fused_msa_attention_ad
 from super_resolution_tpu_torch.ops.windowing import (window_partition,
                                                       window_reverse)
 from super_resolution_tpu_torch.utils.registry import ARCH_REGISTRY
@@ -231,7 +233,7 @@ class ATDTransformerLayer(KernelOperands):
             shifted_qkv = torch.roll(qkv, (-ss, -ss), dims=(1, 2))
             mask = shift_attn_mask_tensor(h, w, ws, ss, str(x.device))
         if use_kernel(x):
-            out_img = fused_msa_attention(
+            out_img = fused_msa_attention_ad(
                 shifted_qkv.contiguous(), self.kernel_operands()["bias"],
                 mask, heads=heads, window_size=ws,
                 scale=(c // heads) ** -0.5)

@@ -17,13 +17,15 @@ Module and parameter names follow the torch checkpoints
 (``layers.0.residual_group.blocks.1.correlation.qv.conv.2.weight``,
 ``...correlation.pos.pos1.0.weight``,
 ``...mlp.dwconv.depthwise_conv.0.weight``), so a state_dict with the
-official names loads with ``strict=True``. The module is for inference.
+official names loads with ``strict=True``.
 
 Every block goes through ``fused_scc_block`` (``ops/cuda_scc.py``: the
 plain version for a CPU tensor; for a CUDA tensor the kernel, or a
 ``ValueError`` for a shape it cannot take, which
-``ops.cuda_scc.scc_block_supported`` tells beforehand). Both read the same
-cached bias.
+``ops.cuda_scc.scc_block_supported`` tells beforehand), through its
+autograd entry ``fused_scc_block_ad`` (the kernel forward, autograd through
+the plain version backward: the arb HiT-SRF encoder trains). Both read the
+same cached bias.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from super_resolution_tpu_torch.models.arch_util import (LN_EPS,
                                                          SRShell, conv_nhwc,
                                                          index_buffer,
                                                          layer_norm)
-from super_resolution_tpu_torch.ops.cuda_scc import fused_scc_block
+from super_resolution_tpu_torch.ops.cuda_scc import fused_scc_block_ad
 from super_resolution_tpu_torch.ops.windowing import reflect_pad
 from super_resolution_tpu_torch.utils.registry import ARCH_REGISTRY
 
@@ -148,9 +150,10 @@ class SCC(KernelOperands):
 
     def forward(self, x):
         ops = self.kernel_operands()
-        return fused_scc_block(self.qv(x).contiguous(), *ops["scc"],
-                               ops["bias"], heads=self.num_heads,
-                               window_size=self.window_size, base=self.base)
+        return fused_scc_block_ad(self.qv(x).contiguous(), *ops["scc"],
+                                  ops["bias"], heads=self.num_heads,
+                                  window_size=self.window_size,
+                                  base=self.base)
 
 
 class ConvFFNHiT(DepthwiseConvFFN):

@@ -7,8 +7,8 @@ Module and parameter names follow the official torch checkpoints
 ``conv_up1``, ``conv_hr``, ``conv_last``, ``patch_embed.norm``, ``norm``),
 so an official state_dict loads with ``strict=True`` through
 ``runtime.sr_model.load_state_dict``, which passes over the ``attn_mask``
-and ``attn.relative_position_index`` buffers the files carry. The module is
-for inference: drop path is the identity.
+and ``attn.relative_position_index`` buffers the files carry. Drop path is
+the identity.
 
 Every block goes through the kernels of the classic HAT
 (``ops/cuda_attention.py``, ``ops/cuda_ffn.py``): an unshifted block calls
@@ -16,7 +16,10 @@ Every block goes through the kernels of the classic HAT
 folded into the kernel; its output stays in rolled space and is rolled
 back), then the residual and ``mlp_block``. Each wrapper runs its plain
 PyTorch version for a CPU tensor and, for a CUDA tensor, launches its
-kernel or raises a ``ValueError`` that names the limit.
+kernel or raises a ``ValueError`` that names the limit. The three are
+called through their ``*_ad`` entries (the kernel forward, autograd
+through the plain version backward), so that a block trains, as the arb
+SwinIR encoder does.
 """
 
 from __future__ import annotations
@@ -37,8 +40,8 @@ from super_resolution_tpu_torch.models.hat_classic_arch import (
     Mlp, WindowAttentionClassic)
 from super_resolution_tpu_torch.ops.attention import shift_attn_mask_tensor
 from super_resolution_tpu_torch.ops.cuda_attention import (
-    fused_msa_block, fused_msa_block_shifted)
-from super_resolution_tpu_torch.ops.cuda_ffn import mlp_block
+    fused_msa_block_ad, fused_msa_block_shifted_ad)
+from super_resolution_tpu_torch.ops.cuda_ffn import mlp_block_ad
 from super_resolution_tpu_torch.utils.registry import ARCH_REGISTRY
 
 
@@ -76,13 +79,13 @@ class SwinTransformerBlock(KernelOperands):
         xn = layer_norm(self.norm1, x)
         if ss > 0:
             mask = shift_attn_mask_tensor(h, w, ws, ss, str(x.device))
-            attn = fused_msa_block_shifted(xn, *ops["msa"], mask, shift=ss,
-                                           **kw)
+            attn = fused_msa_block_shifted_ad(xn, *ops["msa"], mask,
+                                              shift=ss, **kw)
             attn = torch.roll(attn, (ss, ss), dims=(1, 2))
         else:
-            attn = fused_msa_block(xn, *ops["msa"], None, **kw)
-        return mlp_block((x + attn).contiguous(), *ops["tail"],
-                         eps=self.norm2.eps)
+            attn = fused_msa_block_ad(xn, *ops["msa"], **kw)
+        return mlp_block_ad((x + attn).contiguous(), *ops["tail"],
+                            eps=self.norm2.eps)
 
 
 class BasicLayer(nn.Module):

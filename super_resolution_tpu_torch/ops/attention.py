@@ -70,9 +70,12 @@ def shift_attn_mask(h: int, w: int, window_size: int,
 def shift_attn_mask_tensor(h: int, w: int, window_size: int,
                            shift_size: int, device: str) -> torch.Tensor:
     """``shift_attn_mask`` as a float32 tensor on ``device``, built once per
-    shape and shared by every caller, which must not modify it."""
-    return torch.from_numpy(
-        shift_attn_mask(h, w, window_size, shift_size)).to(device)
+    shape and shared by every caller, which must not modify it. It is built
+    outside inference mode, so that a training forward can save it for its
+    backward whichever mode first asked for it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(
+            shift_attn_mask(h, w, window_size, shift_size)).to(device)
 
 
 def attention_with_bias(q, k, v, bias, scale=None):

@@ -13,6 +13,7 @@ unit that equals the plain conv. The port's large-kernel conv is
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
 
@@ -55,3 +56,17 @@ def dynamic_depthwise_conv3x3(x, kernels):
         raise ValueError(f"kernels must be (B, 3, 3, C), got "
                          f"{tuple(kernels.shape)}")
     return dynamic_depthwise_conv(x, kernels)
+
+
+def shifted_neighborhoods(x, k: int, mode: str = "zero"):
+    """The k * k shifted copies of x stacked: (B, H, W, C) -> (B, H, W,
+    k * k, C), the taps in row-major (dy, dx) order over the window, as a
+    conv filter flattened as (kh, kw). ``mode``: ``zero`` pads with zeros,
+    any other mode is ``F.pad``'s (``reflect``, ``replicate``)."""
+    pad = k // 2
+    xp = F.pad(x.permute(0, 3, 1, 2), (pad, pad, pad, pad),
+               mode="constant" if mode == "zero" else mode)
+    xp = xp.permute(0, 2, 3, 1)
+    h, w = x.shape[1], x.shape[2]
+    return torch.stack([xp[:, dy:dy + h, dx:dx + w, :]
+                        for dy in range(k) for dx in range(k)], dim=3)

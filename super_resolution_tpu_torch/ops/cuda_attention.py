@@ -471,6 +471,22 @@ def fused_msa_block_ad(x_img, w_qkv, b_qkv, w_proj, b_proj, bias, *,
         window_size=window_size, scale=scale)
 
 
+def fused_msa_block_shifted_ad(x_img, w_qkv, b_qkv, w_proj, b_proj, bias,
+                               mask, *, heads: int, window_size: int,
+                               shift: int, scale: float | None = None):
+    """:func:`fused_msa_block_shifted` with a gradient (the RPB ``bias``
+    included; the mask takes none): the kernel forward, autograd through
+    :func:`msa_block_shifted_reference` backward. The output stays in
+    rolled space. Replaces
+    super_resolution_tpu/ops/pallas_attention.py::fused_msa_block_shifted_ad."""
+    if scale is None:
+        scale = (w_qkv.shape[1] // 3 // heads) ** -0.5
+    return with_plain_backward(
+        fused_msa_block_shifted, msa_block_shifted_reference,
+        (x_img, w_qkv, b_qkv, w_proj, b_proj, bias, mask), heads=heads,
+        window_size=window_size, shift=shift, scale=scale)
+
+
 def fused_ocab_attention_ad(q_img, kv_img, bias, *, heads: int,
                             window_size: int, overlap_win: int,
                             scale: float | None = None):

@@ -30,7 +30,8 @@ from super_resolution_tpu_torch.ops.cuda_build import (MAX_DYNAMIC_SMEM,
                                                        check_smem,
                                                        load_library,
                                                        raise_on_error,
-                                                       stream_of, use_kernel)
+                                                       stream_of, use_kernel,
+                                                       with_plain_backward)
 
 # limits and tile sizes of csrc/scc_block.cu, for the predicate below
 _ROWS, _CHUNK, _MAX_HALF, _MAX_HEAD_DIM = 32, 64, 64, 32
@@ -234,6 +235,18 @@ def fused_scc_block(qv_img, sl_w, sl_b, w_proj, b_proj, bias, *, heads: int,
     raise_on_error(name, err)
     fused_scc_block.launches += 1
     return out
+
+
+def fused_scc_block_ad(qv_img, sl_w, sl_b, w_proj, b_proj, bias, *,
+                       heads: int, window_size: tuple, base: tuple):
+    """:func:`fused_scc_block` with a gradient (the spatial bias and the base
+    projection included): the kernel forward, autograd through
+    :func:`scc_block_reference` backward. Replaces
+    super_resolution_tpu/ops/pallas_attention.py::fused_scc_block_ad."""
+    return with_plain_backward(
+        fused_scc_block, scc_block_reference,
+        (qv_img, sl_w, sl_b, w_proj, b_proj, bias), heads=heads,
+        window_size=tuple(window_size), base=tuple(base))
 
 
 # kernel launches of the wrapper; the plain path does not count

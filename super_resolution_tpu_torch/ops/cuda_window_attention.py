@@ -463,6 +463,19 @@ def fused_msa_attention(qkv_img, bias, mask=None, *, heads: int,
     return out
 
 
+def fused_msa_attention_ad(qkv_img, bias, mask=None, *, heads: int,
+                           window_size: int, scale: float | None = None):
+    """:func:`fused_msa_attention` with a gradient (the RPB ``bias``
+    included; the mask, where given, takes none): the kernel forward,
+    autograd through ``msa_attention_reference`` backward. Replaces
+    super_resolution_tpu/ops/pallas_attention.py::fused_msa_attention_ad."""
+    if scale is None:
+        scale = (qkv_img.shape[-1] // 3 // heads) ** -0.5
+    return with_plain_backward(fused_msa_attention, msa_attention_reference,
+                               (qkv_img, bias), mask=mask, heads=heads,
+                               window_size=window_size, scale=scale)
+
+
 # kernel launches of each wrapper; the plain path does not count
 fused_attention.launches = 0
 fused_attention_v3.launches = 0

@@ -1,0 +1,42 @@
+"""Random flax parameters of a module's shapes, carried into a port module
+by the flax bridge: the weights of the port tests that hold a module
+against its JAX counterpart without a flax init (``jax.eval_shape`` gives
+the tree's shapes; an init costs seconds a network)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from super_resolution_tpu_torch.convert.flax_bridge import flax_to_state_dict
+
+
+def random_params(shapes, rng):
+    """A param tree of the shapes' structure, every leaf non-zero: kernels
+    N(0, 1 / fan_in), the large-kernel OIHW filters likewise, LayerNorm
+    scales 1 + N(0, 0.1), biases and other vectors N(0, 0.1), RPB tables
+    N(0, 1)."""
+    def draw(path, s):
+        name = jax.tree_util.keystr(path)
+        shape = tuple(s.shape)
+        z = rng.standard_normal(shape).astype(np.float32)
+        if "relative_position_bias_table" in name:
+            return z
+        if name.endswith("['scale']"):
+            return 1.0 + 0.1 * z
+        if len(shape) <= 1:
+            return 0.1 * z
+        fan = (np.prod(shape[1:]) if name.endswith(("plk_filter']",
+                                                    "esc_plk']"))
+               else np.prod(shape[:-1]))
+        return z / np.sqrt(fan)
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def bridge(jmod, tmod, rng, *args, **kw):
+    """Random params of ``jmod`` applied to ``args`` (numpy arrays), loaded
+    strict into ``tmod``; returns the flax params."""
+    shapes = jax.eval_shape(lambda: jmod.init(
+        jax.random.PRNGKey(0), *(jnp.asarray(a) for a in args), **kw))
+    params = random_params(shapes["params"], rng)
+    tmod.load_state_dict(flax_to_state_dict(params, tmod), strict=True)
+    return params

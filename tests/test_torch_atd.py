@@ -241,7 +241,7 @@ def test_layer_matches_jax(is_last, shift, cfg, attn, rng, monkeypatch):
                                                    torch.from_numpy(b)))
     ref_x, ref_td = jmod.apply({"params": params}, jnp.asarray(x),
                                jnp.asarray(td))
-    calls = _count_calls(monkeypatch, tatd, "fused_msa_attention",
+    calls = _count_calls(monkeypatch, tatd, "fused_msa_attention_ad",
                          card=ws == 8)
     with torch.no_grad():
         got_x, got_td = tmod(torch.from_numpy(x), torch.from_numpy(td))
@@ -303,8 +303,8 @@ def test_atd_kernel_calls_per_forward(rng, monkeypatch):
     _, _, model = _nets(rng, upscale=2)
     masks, card = [], [True]
     monkeypatch.setattr(tatd, "use_kernel", lambda t: card[0])
-    fn = tatd.fused_msa_attention
-    monkeypatch.setattr(tatd, "fused_msa_attention", lambda *a, **kw: (
+    fn = tatd.fused_msa_attention_ad
+    monkeypatch.setattr(tatd, "fused_msa_attention_ad", lambda *a, **kw: (
         masks.append(a[2]), fn(*a, **kw))[1])
     x = torch.from_numpy(rng.random((1, 16, 24, 3), dtype=np.float32))
     with torch.no_grad():
@@ -498,7 +498,7 @@ def test_slice_matches_jax_runner(attn, rng, monkeypatch):
     pred.model._eval_net = None
     lq, = _robust(net, lambda: (rng.random((21, 19, 3), dtype=np.float32),),
                   pred.predict_array)
-    calls = _count_calls(monkeypatch, tatd, "fused_msa_attention")
+    calls = _count_calls(monkeypatch, tatd, "fused_msa_attention_ad")
     got = pred.predict_array(lq)
     assert len(calls) == 4 * 3          # 4 layers, 9 tiles in chunks of 3
     jmodel.feed_data({"lq": lq[None]})

@@ -2,10 +2,12 @@
 single-image datasets on one folder (paths, order, arrays), the sequential
 loader, the test half of the options (``--force_yml``, ``num_gpu: auto``,
 the CLI flags) and the log banner. What the port does not read raises
-``NotImplementedError``: another io_backend, a paired meta_info_file, a
-train loader across devices. No entry point picks the CPU by itself."""
+``NotImplementedError``: another io_backend, a train loader across
+devices. A paired meta_info_file, once among them, is read as JAX reads it.
+No entry point picks the CPU by itself."""
 
 import os
+from os import path as osp
 
 import cv2
 import numpy as np
@@ -94,22 +96,32 @@ def test_single_dataset_matches_jax(folders, meta, norm):
 
 @pytest.mark.parametrize("case", ["lmdb", "single_lmdb", "meta_info",
                                   "train"])
-def test_unported_inputs_raise(folders, case):
+def test_unported_inputs_raise(folders, case, tmp_path):
+    """Each input the port does not read raises; the paired
+    meta_info_file, ported since, is read as JAX reads it: the GT names it
+    lists, in its order, each with the LQ ``filename_tmpl`` names."""
     opt = _paired(folders, "lq_x2")
     if case == "lmdb":
         opt["io_backend"] = {"type": "lmdb"}
     elif case == "single_lmdb":
         opt.update(type="SingleImageDataset", io_backend={"type": "lmdb"})
     elif case == "meta_info":
-        opt["meta_info_file"] = folders["meta"]
+        meta = tmp_path / "meta_gt.txt"
+        meta.write_text("im2.png (36,44,3)\nim0.png (40,48,3)\n")
+        opt.update(meta_info_file=str(meta), filename_tmpl="{}x2")
+        got, ref = build_dataset(opt), j_build_dataset(opt)
+        assert got.paths == ref.paths
+        assert [osp.basename(p["lq_path"]) for p in got.paths] == [
+            "im2x2.png", "im0x2.png"]
+        _assert_same_items(got, ref)
+        return
     else:
         # the train phase is ported; training across devices is not
         opt.update(phase="train", gt_size=16, batch_size_per_gpu=2)
         with pytest.raises(NotImplementedError, match="mesh"):
             build_dataloader(build_dataset(opt), opt, mesh=object())
         return
-    match = {"lmdb": "lmdb", "single_lmdb": "lmdb",
-             "meta_info": "meta_info_file"}[case]
+    match = {"lmdb": "lmdb", "single_lmdb": "lmdb"}[case]
     with pytest.raises(NotImplementedError, match=match):
         build_dataset(opt)
 

@@ -156,7 +156,7 @@ def test_scc_matches_jax(win, attn, rng, monkeypatch):
     jmod, params, tmod = _jax_scc(rng, win)
     x = rng.standard_normal((1, 16, 16, 20)).astype(np.float32)
     ref = np.asarray(jmod.apply({"params": params}, jnp.asarray(x)))
-    calls = _count_calls(monkeypatch, thit, "fused_scc_block")
+    calls = _count_calls(monkeypatch, thit, "fused_scc_block_ad")
     with torch.no_grad():
         got = tmod(torch.from_numpy(x)).numpy()
     assert len(calls) == 1 and calls[0]["base"] == (min(win[0], 8),) * 2
@@ -172,7 +172,7 @@ def test_scc_windowed_plain_path_equals_fused_route(rng, monkeypatch):
     x = torch.from_numpy(
         rng.standard_normal((2, 16, 32, 20)).astype(np.float32))
     monkeypatch.setattr(cs, "scc_block_supported", lambda *a: False)
-    calls = _count_calls(monkeypatch, thit, "fused_scc_block")
+    calls = _count_calls(monkeypatch, thit, "fused_scc_block_ad")
     with torch.no_grad():
         fused = tmod(x)
         ops = tmod.kernel_operands()
@@ -270,7 +270,7 @@ def test_hitsrf_kernel_calls_per_forward(rng, monkeypatch):
     """One forward calls ``fused_scc_block`` once a block, each at its own
     window on the base the window allows."""
     _, _, model = _nets(rng, upscale=2)
-    calls = _count_calls(monkeypatch, thit, "fused_scc_block")
+    calls = _count_calls(monkeypatch, thit, "fused_scc_block_ad")
     with torch.no_grad():
         model(torch.from_numpy(rng.random((1, 16, 24, 3), dtype=np.float32)))
     assert [kw["window_size"] for kw in calls] == [(2, 2), (4, 4), (8, 8)] * 2
@@ -466,7 +466,7 @@ def test_slice_matches_jax_runner(attn, rng, monkeypatch):
     net.load_state_dict(flax_to_state_dict(jax.device_get(jmodel.params),
                                            net), strict=True)
     pred.model._eval_net = None
-    calls = _count_calls(monkeypatch, thit, "fused_scc_block")
+    calls = _count_calls(monkeypatch, thit, "fused_scc_block_ad")
 
     lq = rng.random((37, 45, 3), dtype=np.float32)
     got = pred.predict_array(lq)

@@ -38,7 +38,8 @@ def _recorded(monkeypatch, module, name):
 @pytest.mark.parametrize("shift", [0, 6])
 def test_atd_layer_at_window_12_reaches_the_kernel(shift, rng, monkeypatch):
     """Window 12 is no multiple of 8: on the card the layer still calls
-    ``fused_msa_attention``, and its result is the windowed plain path's."""
+    ``fused_msa_attention`` (through its autograd entry), and its result is
+    the windowed plain path's."""
     layer = tatd.ATDTransformerLayer(24, 2, 12, shift, 64, 8, 4, 5, 2.0)
     init_weights(layer, torch.Generator().manual_seed(0))
     layer.eval()
@@ -47,7 +48,7 @@ def test_atd_layer_at_window_12_reaches_the_kernel(shift, rng, monkeypatch):
     td = torch.from_numpy(rng.standard_normal((1, 8, 24), dtype=np.float32))
     with torch.no_grad():
         plain = layer(x, td)[0]
-        calls = _recorded(monkeypatch, tatd, "fused_msa_attention")
+        calls = _recorded(monkeypatch, tatd, "fused_msa_attention_ad")
         card = layer(x, td)[0]
     assert [kw["window_size"] for kw in calls] == [12]
     np.testing.assert_allclose(card.numpy(), plain.numpy(), atol=1e-5,

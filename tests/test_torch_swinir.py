@@ -89,11 +89,12 @@ def test_swinir_kernel_calls_per_forward(rng, monkeypatch):
     fused_msa_block_shifted for each shifted one, and mlp_block for every
     block; the shifted blocks share one mask."""
     calls = {}
-    for name in ("fused_msa_block", "fused_msa_block_shifted", "mlp_block"):
+    for name in ("fused_msa_block_ad", "fused_msa_block_shifted_ad",
+                 "mlp_block_ad"):
         fn = getattr(tsw, name)
 
         def counted(*a, _fn=fn, _name=name, **kw):
-            calls.setdefault(_name, []).append(a[6] if "msa" in _name
+            calls.setdefault(_name, []).append(a[6] if "shifted" in _name
                                                else None)
             return _fn(*a, **kw)
         monkeypatch.setattr(tsw, name, counted)
@@ -101,8 +102,9 @@ def test_swinir_kernel_calls_per_forward(rng, monkeypatch):
     with torch.no_grad():
         model(torch.from_numpy(rng.random((1, 16, 24, 3), dtype=np.float32)))
     assert {k: len(v) for k, v in calls.items()} == {
-        "fused_msa_block": 2, "fused_msa_block_shifted": 2, "mlp_block": 4}
-    masks = calls["fused_msa_block_shifted"]
+        "fused_msa_block_ad": 2, "fused_msa_block_shifted_ad": 2,
+        "mlp_block_ad": 4}
+    masks = calls["fused_msa_block_shifted_ad"]
     assert masks[0] is masks[1] and masks[0].shape == (6, 64, 64)
 
 

@@ -156,6 +156,32 @@ def test_train_loader_matches_jax(pairs, ratio):
             np.testing.assert_array_equal(g["gt"], r["gt"])
 
 
+def test_train_loader_with_meta_info_matches_jax(pairs, tmp_path):
+    """A paired meta_info_file (GT names in an order of its own, sizes
+    after them, as DF2K-sub's): the pairs it names, in its order, and two
+    epochs of batches equal to JAX's."""
+    from super_resolution_tpu.data import build_dataloader as j_loader
+    from super_resolution_tpu.data import build_dataset as j_dataset
+
+    meta = tmp_path / "meta_info.txt"
+    meta.write_text("".join(f"p{i}.png (40,40,3)\n" for i in (5, 1, 3, 0)))
+    opt = dict(_train_set_opt(pairs), meta_info_file=str(meta))
+    got_set, ref_set = build_dataset(opt), j_dataset(opt)
+    assert got_set.paths == ref_set.paths
+    assert [os.path.basename(p["gt_path"]) for p in got_set.paths] == [
+        "p5.png", "p1.png", "p3.png", "p0.png"]
+    got_loader = build_dataloader(got_set, opt, seed=4)
+    ref_loader = j_loader(ref_set, opt, seed=4)
+    for epoch in (0, 1):
+        got = list(got_loader.epoch_iter(epoch))
+        ref = list(ref_loader.epoch_iter(epoch))
+        assert len(got) == len(ref) == 1
+        for g, r in zip(got, ref):
+            assert g["gt_path"] == r["gt_path"]
+            for key in ("lq", "gt"):
+                np.testing.assert_array_equal(g[key], r[key])
+
+
 def test_train_dataset_item_matches_jax_with_its_rng(pairs):
     from super_resolution_tpu.data import build_dataset as j_dataset
     from super_resolution_tpu.data.transforms import mod_crop as j_mod_crop
