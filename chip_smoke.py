@@ -162,7 +162,27 @@ Phases, each of which raises on failure:
      ``no_upsampling`` dropped from their encoder specs (logged): finite
      losses, the first against the host CPU's on the same batch and
      weights (1e-4 relative), the launches a step, the checkpoints; s an iteration, images
-     a second and peak memory printed.
+     a second and peak memory printed;
+  11. training on every kernel route: (a) the autograd entries of rows 3,
+     4, 15, 18 and the bare gated FFN at the flagship HAT x4's step (4, 64,
+     64, 180), row 13 at SRFormer x4's (4, 72, 72, 180) without and with
+     the shift mask, row 16 at ESC-XL x4's qkv (4, 96, 96, 576), as phase 6
+     (a); (b) train.py's SR runner on options/train/
+     train_HAT_SRx4_from_scratch.yml with network_g swapped at drop-path
+     rate 0 (classic HAT x4 at the flagship width on both hab_routes,
+     SRFormer x4, SwinIR-M x4, ESC-XL x4 on the forced qtile route, the
+     file's fork HAT x4 on hab_front), batch 4, 3 steps, no validation:
+     finite losses, the launches each step, the first loss against the
+     host CPU's (1e-4 relative), then one step at rate 0.1 through the
+     runner and its launches; (c) SRGANModel (MSRResNet 64 x 16) and
+     ESRGANModel (RRDBNet 64 x 23, grow 32) against the VGG-style
+     discriminator at 64 features on 128 x 128 GT patches, BasicSR's SRGAN
+     / ESRGAN losses (L1 1e-2, VGG19 conv5_4 1, vanilla GAN 5e-3), batch
+     16, on RealESRGANPairedDataset over a meta_info of the synthetic pairs,
+     3 iterations: the first G and D losses against the host CPU's, D
+     moved, no kernel launched; and ESRModel on ESC_DIV2K_X4.yml with that
+     VGG19 loss added, batch 4 (cut from 16), its first pixel and
+     perceptual losses against the host CPU's.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Exits non-zero, printing neither, when there
@@ -2419,8 +2439,12 @@ def first_step_loss(net_opt: dict, state: dict, batch: dict, device: str,
                     seed: int | None = None) -> float:
     """The L1 loss of the first step's forward in float32 on ``device``:
     with ``seed``, in training mode with the same drop-path draws (the
-    SRModel runner's generator is a CPU one seeded with manual_seed + 1);
-    without, deterministic, as ESRModel's step runs."""
+    SRModel runner's generator is a CPU one seeded with manual_seed + 1;
+    a network whose forward takes no generator runs without it, as the
+    runner's step does); without, deterministic, as ESRModel's step
+    runs."""
+    import inspect
+
     import torch
 
     from super_resolution_tpu_torch.models import build_network
@@ -2431,7 +2455,8 @@ def first_step_loss(net_opt: dict, state: dict, batch: dict, device: str,
     lq = torch.from_numpy(batch["lq"]).to(device)
     gt = torch.from_numpy(batch["gt"]).to(device)
     with torch.no_grad():
-        if seed is None:
+        if seed is None or "generator" not in inspect.signature(
+                net.forward).parameters:
             sr = net(lq)
         else:
             sr = net(lq, generator=torch.Generator().manual_seed(seed + 1))
@@ -3699,6 +3724,428 @@ def arb_train_path(name: str, data: dict, root: str, card: str) -> dict:
     return {k: v - start[k] for k, v in _counts().items()}
 
 
+# --------------------------------------------------------------- phase 11
+# training on the kernel routes phases 6 to 10 leave out: the autograd
+# entries of rows 3, 4, 13, 15, 16, 18 and the bare gated FFN at the shapes
+# the train steps below give them; train.py's SR runner on each network
+# whose training reaches them, from train_HAT_SRx4_from_scratch.yml with
+# network_g swapped (batch ROUTE_B, gt 256, so LQ 64 x 64); then the paired
+# GAN runners and an ESRModel file with a perceptual loss
+ROUTE_YML = "options/train/train_HAT_SRx4_from_scratch.yml"
+ROUTE_B, ROUTE_ITERS = 4, 3
+# SRFormer x4's step: LQ 64 x 64 padded to 72 x 72 (windows of 24)
+PSA_STEP = (ROUTE_B, 72, 72, 180, 6, 24)
+# ESC-XL x4's step: LQ 64 x 64 padded to 96 x 96 (windows of 48)
+QTILE_STEP = (ROUTE_B, 96, 96, 192, 12, 48)
+_TRAIN_CLASSIC = {k: v for k, v in CLASSIC.items() if k != "stream_tail_rows"}
+# label -> network_g (None: the file's own, the fork's HAT x4), the launches
+# a step at drop-path rate 0, and those of one extra step at rate 0.1 (None:
+# the network has no drop path). At 0.1 only the network's first block
+# keeps its whole kernel route; the others keep their attention kernel
+# (classic HAT, SwinIR, SRFormer) or none (the fork's HAB runs unfused)
+ROUTE_TRAIN_PATHS = {
+    "route_classic": dict(
+        net=_TRAIN_CLASSIC, per_step=PATHS["classic"]["calls"],
+        per_step_dp={"fused_msa_block": 18, "fused_msa_block_shifted": 18,
+                     "mlp_block_sum3": 1, "fused_ocab_block": 6,
+                     "mlp_block": 6}),
+    "route_classic_hab_block": dict(
+        net=dict(_TRAIN_CLASSIC, hab_route="fused_hab_block"),
+        per_step=PATHS["classic_hab_block"]["calls"],
+        per_step_dp={"fused_hab_block": 1, "fused_msa_block": 17,
+                     "fused_msa_block_shifted": 18, "fused_ocab_block": 6,
+                     "mlp_block": 6}),
+    "route_srformer": dict(net=SRFORMER, per_step={"fused_psa_block": 36},
+                           per_step_dp={"fused_psa_block": 36}),
+    "route_swinir": dict(net=SWINIR, per_step=dict(zip(_SWIN, (18, 18, 36))),
+                         per_step_dp=dict(zip(_SWIN, (18, 18, 1)))),
+    "route_esc_xl_qtile": dict(
+        net=dict(ESC_XL, attn_route="msa_qtile_attention"),
+        per_step={"msa_qtile_attention": 8}, per_step_dp=None),
+    "route_fork_hab_front": dict(
+        net=None, per_step={"hab_front": 36, "gated_dconv_ffn_block": 36,
+                            "fused_ocab_block": 6, "mlp_block": 6},
+        per_step_dp={"hab_front": 1, "gated_dconv_ffn_block": 1,
+                     "fused_ocab_block": 6, "mlp_block": 6}),
+}
+# BasicSR's train_SRGAN_x4.yml and train_ESRGAN_x4.yml, their networks,
+# losses and optimizers as published (no pretrained G: seeded weights),
+# on RealESRGANPairedDataset over a meta_info of the synthetic pairs
+GAN_B, GAN_ITERS, GAN_GT = 16, 3, 128
+_GAN_TRAIN = {
+    "optim_g": {"type": "Adam", "lr": 1e-4, "weight_decay": 0,
+                "betas": [0.9, 0.99]},
+    "optim_d": {"type": "Adam", "lr": 1e-4, "weight_decay": 0,
+                "betas": [0.9, 0.99]},
+    "scheduler": {"type": "MultiStepLR",
+                  "milestones": [50000, 100000, 200000, 300000],
+                  "gamma": 0.5},
+    "total_iter": GAN_ITERS, "warmup_iter": -1,
+    "pixel_opt": {"type": "L1Loss", "loss_weight": 1e-2,
+                  "reduction": "mean"},
+    "perceptual_opt": {"type": "PerceptualLoss",
+                       "layer_weights": {"conv5_4": 1}, "vgg_type": "vgg19",
+                       "use_input_norm": True, "range_norm": False,
+                       "perceptual_weight": 1.0, "style_weight": 0,
+                       "criterion": "l1"},
+    "gan_opt": {"type": "GANLoss", "gan_type": "vanilla",
+                "real_label_val": 1.0, "fake_label_val": 0.0,
+                "loss_weight": 5e-3},
+    "net_d_iters": 1, "net_d_init_iters": 0}
+GAN_TRAIN_PATHS = {
+    "srgan_x4": dict(model_type="SRGANModel", train=_GAN_TRAIN,
+                     net=dict(type="MSRResNet", num_in_ch=3, num_out_ch=3,
+                              num_feat=64, num_block=16, upscale=4)),
+    "esrgan_x4": dict(model_type="ESRGANModel",
+                      train=dict(_GAN_TRAIN, ema_decay=0.999),
+                      net=dict(type="RRDBNet", num_in_ch=3, num_out_ch=3,
+                               num_feat=64, num_block=23, num_grow_ch=32)),
+}
+GAN_D = dict(type="VGGStyleDiscriminator", num_in_ch=3, num_feat=64)
+# ESRModel with perceptual_opt: options/esc/train/ESC_DIV2K_X4.yml with the
+# VGG19 loss of the GAN files added, at batch 4 (cut from the file's 16:
+# the host CPU recomputes the first step's VGG19 on 256 x 256 images)
+ESR_PERCEP_YML = "options/esc/train/ESC_DIV2K_X4.yml"
+ESR_PERCEP_B = 4
+
+
+def route_entry_cases(dtype, seed: int) -> list:
+    """(ops module, wrapper, entry, plain version, args, kwargs, shape
+    note) of the entries this phase adds, at the steps' shapes: rows 3, 4,
+    15, the bare gated FFN and row 18 at the flagship HAT's (ROUTE_B, 64,
+    64, 180) (:func:`kernel_cases`), row 13 at SRFormer's PSA_STEP without
+    and with the shift mask, row 16 at ESC-XL's QTILE_STEP."""
+    import torch
+
+    from super_resolution_tpu_torch.ops import cuda_ffn as cf
+    from super_resolution_tpu_torch.ops import cuda_hab as ch
+    from super_resolution_tpu_torch.ops import cuda_hab_block as chb
+    from super_resolution_tpu_torch.ops import cuda_psa as cp
+    from super_resolution_tpu_torch.ops import cuda_window_attention as cw
+
+    hat = kernel_cases(ROUTE_B, 64, dtype, seed)
+    what = f"HAT x4 step B{ROUTE_B} 64x64 C{C}"
+    cases = [(mod, name, f"{name}_ad", plain, *hat[name][:2], what)
+             for mod, name, plain in (
+                 (cf, "mlp_block_sum3", cf.mlp_block_sum3_reference),
+                 (cf, "mlp_block_sum3_shifted",
+                  cf.mlp_block_sum3_shifted_reference),
+                 (chb, "fused_hab_block", chb.hab_block_reference),
+                 (cf, "gated_dconv_ffn", cf.ffn_reference),
+                 (ch, "hab_front", ch.hab_front_reference))]
+    for label, (_, args, kw, *_) in psa_block_cases(dtype, seed,
+                                                    PSA_STEP).items():
+        cases.append((cp, "fused_psa_block", "fused_psa_block_ad",
+                      cp.psa_block_reference, args[:7],
+                      dict(kw, mask=args[7]),
+                      f"SRFormer x4 step {label} x {PSA_STEP[:4]}"))
+    t = _device_randn(dtype, seed)
+    b, h, w, c, heads, ws = QTILE_STEP
+    cases.append((cw, "msa_qtile_attention", "msa_qtile_attention_ad",
+                  cw.msa_qtile_reference,
+                  (t(b, h, w, 3 * c, s=0.5),
+                   t(heads, ws * ws, ws * ws, s=0.5, dt=torch.float32)),
+                  dict(heads=heads, window_size=ws),
+                  f"ESC-XL x4 step qkv {(b, h, w, 3 * c)} window {ws}"))
+    return cases
+
+
+def check_route_train_functions() -> None:
+    """Phase 11 (a): the entries of :func:`route_entry_cases`, float32 (TF32
+    off) and bf16 (:func:`check_autograd_entry`: forward and every input's
+    gradient against the plain version under autograd, one launch a
+    forward, forward + backward ms, the plain version's, peak memory)."""
+    import torch
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for mod, name, ad_name, plain, args, kw, what in route_entry_cases(
+                dtype, seed=110):
+            check_autograd_entry(getattr(mod, name), getattr(mod, ad_name),
+                                 plain, args, kw, dtype, what)
+            del args
+            torch.cuda.empty_cache()
+
+
+def _write_yml(opt: dict, root: str, label: str) -> str:
+    import yaml
+
+    path = os.path.join(root, f"{label}.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(opt, f)
+    return path
+
+
+def _rate(clock_steps: list, batch: int) -> str:
+    later = (statistics.median(clock_steps[1:]) if len(clock_steps) > 1
+             else clock_steps[0])
+    return (f"first {clock_steps[0]:.3f} s, then {later:.3f} s a step "
+            f"(median), {batch / later:.2f} images a second")
+
+
+def route_train_path(label: str, spec: dict, sets: dict, root: str,
+                     card: str) -> dict:
+    """Phase 11 (b): ``train.py``'s pipeline on ROUTE_YML with network_g
+    swapped (drop-path rate 0), batch ROUTE_B, its validation dropped,
+    ROUTE_ITERS steps on the synthetic pairs, float32 (TF32 off). Checked:
+    finite losses, the launches each step, the first loss against the host
+    CPU's float32 forward (1e-4 relative). Then one more step at drop-path
+    rate 0.1 through the same runner class on the run's last weights: its
+    launches and a finite loss. Returns the run's launch counts."""
+    import torch
+
+    from super_resolution_tpu_torch.runtime import build_model
+    from super_resolution_tpu_torch.runtime.train_pipeline import \
+        train_pipeline
+    from super_resolution_tpu_torch.utils.options import yaml_load
+
+    opt = yaml_load(ROUTE_YML)
+    opt["name"] = label
+    if spec["net"] is not None:
+        opt["network_g"] = dict(spec["net"])
+    else:
+        opt["network_g"]["front_route"] = "hab_front"
+    if spec["per_step_dp"] is not None:
+        opt["network_g"]["drop_path_rate"] = 0.0
+    opt.pop("val")
+    opt["datasets"].pop("val")
+    opt["datasets"]["train"].update(dataroot_gt=sets["train_gt"],
+                                    dataroot_lq=sets["train_lq"],
+                                    batch_size_per_gpu=ROUTE_B)
+    opt["train"]["total_iter"] = ROUTE_ITERS
+    opt["logger"].update(print_freq=1, save_checkpoint_freq=10 ** 6,
+                         use_tb_logger=False)
+    yml = _write_yml(opt, root, label)
+    net = opt["network_g"]
+    log(f"[route:{label}] train pipeline -> {ROUTE_YML} with network_g "
+        f"{net}, batch {ROUTE_B}, {ROUTE_ITERS} steps, no validation")
+    fns = {name: fn for name, fn in wrappers().items() if name in KERNELS}
+    for fn in fns.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with TrainClock(fns) as clock:
+        model, last = train_pipeline(os.path.join(root, label),
+                                     argv=["-opt", yml, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = {n: fn.launches for n, fn in fns.items()}
+    if last != ROUTE_ITERS or not np.isfinite(clock.losses).all():
+        raise AssertionError(f"{label}: last iteration {last}, losses "
+                             f"{clock.losses}")
+    for it, step_counts in enumerate(clock.step_counts, start=1):
+        got = {k: v for k, v in step_counts.items() if v}
+        if got != spec["per_step"]:
+            raise AssertionError(f"{label}: step {it} launched {got}, "
+                                 f"expected {spec['per_step']}")
+    log(f"[route:{label}] {card}: TF32 off, batch {ROUTE_B}: "
+        f"{_rate(clock.steps, ROUTE_B)}; peak memory {peak:.2f} GiB; wall "
+        f"{wall:.1f} s; losses {[round(v, 6) for v in clock.losses]}; "
+        f"launches a step {spec['per_step']}")
+    t0 = time.perf_counter()
+    ref = first_step_loss(net, clock.first_state, clock.first_batch, "cpu",
+                          opt["manual_seed"])
+    log(f"  first step's loss {clock.losses[0]:.6f} against {ref:.6f}, "
+        f"float32 on the host CPU ({time.perf_counter() - t0:.1f} s)")
+    if abs(clock.losses[0] - ref) > 1e-4 * abs(ref):
+        raise AssertionError(f"{label}: first loss {clock.losses[0]} vs "
+                             f"{ref}")
+    if spec["per_step_dp"] is not None:
+        state = {k: v.detach().clone() for k, v in
+                 model.net_g.state_dict().items()}
+        run_opt = dict(model.opt, network_g=dict(net, drop_path_rate=0.1))
+        del model
+        torch.cuda.empty_cache()
+        runner = build_model(run_opt, "cuda")
+        runner.net_g.load_state_dict(state, strict=True)
+        runner.setup_training()
+        before = {n: fn.launches for n, fn in fns.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.optimize_parameters(clock.first_batch, 1)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {n: fn.launches - before[n] for n, fn in fns.items()
+               if fn.launches - before[n]}
+        loss = float(runner.get_current_log()["l_pix"])
+        log(f"  one step at drop-path rate 0.1: launches {got}, loss "
+            f"{loss:.6f}, {secs:.3f} s (its first)")
+        if got != spec["per_step_dp"] or not np.isfinite(loss):
+            raise AssertionError(f"{label}: the step at rate 0.1 launched "
+                                 f"{got}, expected {spec['per_step_dp']}; "
+                                 f"loss {loss}")
+        counts = {n: fn.launches for n, fn in fns.items()}
+        del runner
+    else:
+        del model
+        log("  no extra step: the network has no drop path")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def write_gan_meta(sets: dict, root: str) -> str:
+    """A RealESRGANPairedDataset meta_info over the synthetic x4 pairs:
+    'gt_rel, lq_rel' a line."""
+    path = os.path.join(root, "gan_meta_info.txt")
+    names = sorted(os.listdir(sets["train_gt"]))
+    with open(path, "w") as f:
+        f.writelines(f"{n}, {n}\n" for n in names)
+    return path
+
+
+def gan_train_path(label: str, spec: dict, sets: dict, meta: str, vgg: str,
+                   root: str, card: str) -> dict:
+    """Phase 11 (c): ``train.py``'s pipeline with ``model_type`` SRGANModel
+    or ESRGANModel (RealHATGANModel without the synthesizer) at BasicSR's
+    published widths, losses and optimizers, on RealESRGANPairedDataset
+    over ``meta``, batch GAN_B, gt GAN_GT, GAN_ITERS iterations, float32
+    (TF32 off). Checked: finite losses; the first iteration's G and D
+    losses against the host CPU's (:func:`real_first_losses_on_cpu`; the
+    mean logits, which lie near 0 at D's seeded init, to 1e-4 absolute);
+    that D moved; no kernel launched (the CNNs and D run in cuDNN, as in
+    JAX). Returns the launch counts."""
+    import torch
+
+    from super_resolution_tpu_torch.runtime.train_pipeline import \
+        train_pipeline
+
+    train = json.loads(json.dumps(spec["train"]))
+    train["perceptual_opt"]["vgg_weights_path"] = vgg
+    opt = {"name": label, "model_type": spec["model_type"], "scale": 4,
+           "num_gpu": 1, "manual_seed": 0,
+           "datasets": {"train": {
+               "name": "synthetic", "type": "RealESRGANPairedDataset",
+               "dataroot_gt": sets["train_gt"],
+               "dataroot_lq": sets["train_lq"], "meta_info": meta,
+               "io_backend": {"type": "disk"}, "gt_size": GAN_GT,
+               "use_hflip": True, "use_rot": True,
+               "batch_size_per_gpu": GAN_B, "dataset_enlarge_ratio": 1}},
+           "network_g": dict(spec["net"]), "network_d": dict(GAN_D),
+           "path": {"pretrain_network_g": None, "strict_load_g": True,
+                    "resume_state": None},
+           "train": train,
+           "logger": {"print_freq": 1, "save_checkpoint_freq": 10 ** 6,
+                      "use_tb_logger": False}}
+    yml = _write_yml(opt, root, label)
+    log(f"[gan:{label}] train pipeline -> {spec['model_type']} "
+        f"{spec['net']} against {GAN_D}, batch {GAN_B}, gt {GAN_GT}, "
+        f"{GAN_ITERS} iterations; VGG19: seeded random weights ({vgg})")
+    fns = {name: fn for name, fn in wrappers().items() if name in KERNELS}
+    for fn in fns.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with RealClock(fns) as clock:
+        model, last = train_pipeline(os.path.join(root, label),
+                                     argv=["-opt", yml, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = {n: fn.launches for n, fn in fns.items()}
+    totals = [lg["l_g_total"] for lg in clock.logs]
+    if (last != GAN_ITERS or not np.isfinite(totals).all()
+            or type(model).__name__ != "RealHATGANModel" or model.high_order
+            or any(counts.values())):
+        raise AssertionError(f"{label}: last iteration {last}, losses "
+                             f"{totals}, runner {type(model).__name__}, "
+                             f"launches {counts}")
+    parts = {k: 1e3 * statistics.median(v[1:] if len(v) > 1 else v)
+             for k, v in clock.parts.items() if v}
+    log(f"[gan:{label}] {card}: TF32 off, batch {GAN_B}: "
+        f"{_rate(clock.iters, GAN_B)}; G step {parts['g']:.1f} ms, D step "
+        f"{parts['d']:.1f} ms (medians); peak memory {peak:.2f} GiB; wall "
+        f"{wall:.1f} s; l_g_total {[round(v, 6) for v in totals]}")
+    t0 = time.perf_counter()
+    ref = real_first_losses_on_cpu(model, clock.first)
+    got = clock.logs[0]
+    errs = {k: abs(got[k] - v) / (1.0 if k.startswith("out_d")
+                                  else max(abs(v), 1e-12))
+            for k, v in ref.items()}
+    log(f"  first iteration on the card {dict(sorted(got.items()))}; on the "
+        f"host CPU {dict(sorted(ref.items()))}: worst diff "
+        f"{max(errs.values()):.2e} (relative; the mean logits absolute) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if sorted(ref) != sorted(got) or any(
+            e > (1e-4 if k.startswith("out_d") else 1e-3)
+            for k, e in errs.items()):
+        raise AssertionError(f"{label}: first losses {got} vs {ref}")
+    end = model.net_d.state_dict()
+    moved = min(float((end[k].cpu() - v).abs().max())
+                for k, v in clock.first["d"].items()
+                if k.endswith("weight") and "bn" not in k)
+    log(f"  D moved: every conv and linear weight by at least {moved:.3e}")
+    if not moved > 0:
+        raise AssertionError(f"{label}: D did not move")
+    del model, clock
+    torch.cuda.empty_cache()
+    return counts
+
+
+def esr_perceptual_path(sets: dict, vgg: str, root: str, card: str) -> dict:
+    """Phase 11 (c): ESRModel with perceptual_opt through ``train.py``'s
+    pipeline: ESR_PERCEP_YML with the GAN files' VGG19 loss added, batch
+    ESR_PERCEP_B, its validation dropped, ROUTE_ITERS iterations, float32.
+    Checked: finite losses, the launches a step, the first step's pixel and
+    perceptual losses against the host CPU's (1e-4 relative). Returns the
+    launch counts."""
+    import torch
+
+    from super_resolution_tpu_torch.losses import build_loss
+    from super_resolution_tpu_torch.models import build_network
+    from super_resolution_tpu_torch.runtime.train_pipeline import \
+        train_pipeline
+    from super_resolution_tpu_torch.utils.options import yaml_load
+
+    label = "esr_perceptual"
+    opt = yaml_load(ESR_PERCEP_YML)
+    opt["name"] = label
+    opt.pop("val", None)
+    opt["datasets"] = {"train": dict(
+        opt["datasets"]["train"], dataroot_gt=sets["train_gt"],
+        dataroot_lq=sets["train_lq"], batch_size_per_gpu=ESR_PERCEP_B)}
+    percep = dict(_GAN_TRAIN["perceptual_opt"], vgg_weights_path=vgg)
+    opt["train"]["perceptual_opt"] = percep
+    opt["train"]["total_iter"] = ROUTE_ITERS
+    opt["path"]["pretrain_network_g"] = None
+    opt["logger"].update(print_freq=1, save_checkpoint_freq=10 ** 6,
+                         use_tb_logger=False)
+    yml = _write_yml(opt, root, label)
+    log(f"[esr:{label}] train pipeline -> {ESR_PERCEP_YML} with "
+        f"perceptual_opt {percep} added, batch {ESR_PERCEP_B}, "
+        f"{ROUTE_ITERS} steps, no validation")
+    fns = {name: fn for name, fn in wrappers().items() if name in KERNELS}
+    for fn in fns.values():
+        fn.launches = 0
+    with TrainClock(fns) as clock:
+        model, last = train_pipeline(os.path.join(root, label),
+                                     argv=["-opt", yml, "--device", "cuda"])
+    counts = {n: fn.launches for n, fn in fns.items()}
+    percs = [lg["l_percep"] for lg in clock.logs]
+    if (last != ROUTE_ITERS or not np.isfinite(clock.losses + percs).all()
+            or any({k: v for k, v in c.items() if v} != _ESC_STEP
+                   for c in clock.step_counts)):
+        raise AssertionError(f"{label}: last {last}, losses {clock.logs}, "
+                             f"launches {clock.step_counts}")
+    log(f"[esr:{label}] {card}: TF32 off, batch {ESR_PERCEP_B}: "
+        f"{_rate(clock.steps, ESR_PERCEP_B)}; l_pix "
+        f"{[round(v, 6) for v in clock.losses]}, l_percep "
+        f"{[round(v, 6) for v in percs]}; launches a step {_ESC_STEP}")
+    t0 = time.perf_counter()
+    net = build_network(opt["network_g"])
+    net.load_state_dict(clock.first_state, strict=True)
+    lq, gt = (torch.from_numpy(clock.first_batch[k]) for k in ("lq", "gt"))
+    with torch.no_grad():
+        sr = net.eval()(lq)
+        ref = {"l_pix": float(build_loss(opt["train"]["pixel_opt"])(sr, gt)),
+               "l_percep": float(build_loss(percep)(sr, gt)[0])}
+    got = {k: clock.logs[0][k] for k in ref}
+    log(f"  first step {got} against {ref}, float32 on the host CPU "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if any(abs(got[k] - v) > 1e-4 * abs(v) for k, v in ref.items()):
+        raise AssertionError(f"{label}: first losses {got} vs {ref}")
+    del model, clock
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _short_names(mangled) -> dict:
     """Mangled kernel name -> ``name<template arguments>`` (c++filt, where
     the toolkit's host compiler brought it)."""
@@ -3913,6 +4360,27 @@ def main() -> int:
             by_path[f"arb_{name[6:-4]}"] = arb_train_path(name, data, root,
                                                           card)
         log(f"[arb] phase 10 done in {time.perf_counter() - t10:.1f} s")
+
+        t11 = time.perf_counter()
+        log("[route] the autograd entries of rows 3, 4, 13, 15, 16, 18 and "
+            "the bare gated FFN (kernel forward, plain backward)")
+        check_route_train_functions()
+        log(f"[route] entries done in {time.perf_counter() - t11:.1f} s")
+        for label, spec in ROUTE_TRAIN_PATHS.items():
+            t0 = time.perf_counter()
+            by_path[label] = route_train_path(label, spec, sets, root, card)
+            log(f"[route:{label}] done in {time.perf_counter() - t0:.1f} s")
+        meta = write_gan_meta(sets, root)
+        for label, spec in GAN_TRAIN_PATHS.items():
+            t0 = time.perf_counter()
+            by_path[label] = gan_train_path(label, spec, sets, meta, vgg,
+                                            root, card)
+            log(f"[gan:{label}] done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        by_path["esr_perceptual"] = esr_perceptual_path(sets, vgg, root,
+                                                        card)
+        log(f"[esr:esr_perceptual] done in {time.perf_counter() - t0:.1f} s")
+        log(f"[route] phase 11 done in {time.perf_counter() - t11:.1f} s")
 
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():

@@ -19,7 +19,8 @@ flattened one (``proj_1``, ``plk/proj_3``) becomes ``proj.1``, the
 depthwise 7x7 ``kernel`` goes back to OIHW and the Dense ``kernel``s of
 ``plk/proj_*`` to 1x1 conv weights.
 
-The discriminator's parameters (``params_d``) map the same way; its
+The discriminators' parameters (``params_d``) map the same way, the
+VGG-style one's ``bn0_1`` / ``conv0_1`` verbatim (no sequence index); the
 spectral-norm state (flax's ``batch_stats``) maps through
 :func:`sn_stats_to_state_dict`.
 """
@@ -89,13 +90,16 @@ def flax_to_state_dict(flax_params: dict,
     params = {name for name, _ in module.named_parameters()}
     out = {}
     for path, value in flatten_params(flax_params).items():
-        name = flax_path_to_torch_name(path)
-        if name not in target and path[-1] in _LEAF_TO_TORCH:
-            # a parameter of the module's own can bear a leaf name that the
-            # map rewrites (ATD_CA's ``scale`` is no LayerNorm weight)
-            verbatim = ".".join(_SEQ_IDX.sub(r".\1", c) for c in path)
-            if verbatim in target:
-                name = verbatim
+        modules = [_SEQ_IDX.sub(r".\1", c) for c in path[:-1]]
+        # a parameter of the module's own can bear a leaf name that the map
+        # rewrites (ATD_CA's ``scale`` is no LayerNorm weight), and a module
+        # name can end in a number that is no sequence index (the VGG-style
+        # discriminator's ``bn0_1``)
+        candidates = (flax_path_to_torch_name(path),
+                      ".".join(modules + [path[-1]]),
+                      ".".join([*path[:-1],
+                                _LEAF_TO_TORCH.get(path[-1], path[-1])]))
+        name = next((c for c in candidates if c in target), candidates[0])
         if name not in target:
             raise KeyError(f"flax leaf {'/'.join(path)} -> {name}: no such "
                            f"tensor in {type(module).__name__}")
@@ -110,16 +114,22 @@ def flax_to_state_dict(flax_params: dict,
     return out
 
 
-def sn_stats_to_state_dict(sn_stats: dict) -> Dict[str, torch.Tensor]:
+def sn_stats_to_state_dict(sn_stats: dict,
+                           prefix: str = "") -> Dict[str, torch.Tensor]:
     """flax ``SpectralNorm``'s state, {'SpectralNorm_i': {'conv1/kernel/u':
     (1, out), 'conv1/kernel/sigma': ()}}, as the port's buffers
-    {'conv1.weight_u': (out,), 'conv1.weight_sigma': ()}."""
+    {'conv1.weight_u': (out,), 'conv1.weight_sigma': ()}; a submodule's
+    state ({'sa2': {'SpectralNorm_0': {'to_out/kernel/u': ...}}}) under its
+    name ('sa2.to_out.weight_u')."""
     out = {}
-    for group in sn_stats.values():
-        for key, value in group.items():
-            layer, leaf, stat = key.split("/")
+    for key, group in sn_stats.items():
+        if not key.startswith("SpectralNorm"):
+            out.update(sn_stats_to_state_dict(group, f"{prefix}{key}."))
+            continue
+        for path, value in group.items():
+            layer, leaf, stat = path.split("/")
             arr = np.array(value, dtype=np.float32)
-            name = f"{layer}.{_LEAF_TO_TORCH[leaf]}_{stat}"
+            name = f"{prefix}{layer}.{_LEAF_TO_TORCH[leaf]}_{stat}"
             out[name] = torch.from_numpy(arr.reshape(-1) if stat == "u"
                                          else arr)
     return out

@@ -11,7 +11,8 @@ reseeds every epoch (:meth:`PairedImageDataset.seed`). What is not ported
 raises ``NotImplementedError`` rather than being read another way: another
 ``io_backend`` than ``disk`` (LMDB; ROADMAP.md queue 1). A paired
 ``meta_info_file`` lists the GT names, each paired with the LQ of the same
-name through ``filename_tmpl``."""
+name through ``filename_tmpl``; :class:`RealESRGANPairedDataset`'s
+``meta_info`` lists both paths of a pair."""
 
 from __future__ import annotations
 
@@ -101,14 +102,16 @@ class PairedImageDataset:
         self.gt_folder = opt["dataroot_gt"]
         self.lq_folder = opt["dataroot_lq"]
         self.filename_tmpl = opt.get("filename_tmpl", "{}")
+        self.paths = self._pair_paths(opt)
+        self._rng = None
+
+    def _pair_paths(self, opt: dict) -> list:
         if opt.get("meta_info_file"):
-            self.paths = paired_paths_from_meta_info(
+            return paired_paths_from_meta_info(
                 self.lq_folder, self.gt_folder, opt["meta_info_file"],
                 self.filename_tmpl)
-        else:
-            self.paths = paired_paths_from_folders(
-                self.lq_folder, self.gt_folder, self.filename_tmpl)
-        self._rng = None
+        return paired_paths_from_folders(self.lq_folder, self.gt_folder,
+                                         self.filename_tmpl)
 
     def seed(self, seed: int) -> None:
         """Reseed the crops and flips (the train loader, every epoch)."""
@@ -135,6 +138,35 @@ class PairedImageDataset:
         img_gt, img_lq = _normalize(self.opt, img_gt, img_lq)
         return {"lq": img_lq, "gt": img_gt,
                 "lq_path": p["lq_path"], "gt_path": p["gt_path"]}
+
+
+def paired_paths_from_pair_list(lq_folder: str, gt_folder: str,
+                                meta_info: str):
+    """Pairs from a file whose lines are 'gt_rel, lq_rel' (ref:
+    basicsr/data/realesrgan_paired_dataset.py:64-71); blank lines skipped."""
+    paths = []
+    with open(meta_info) as f:
+        for line in f:
+            if not line.strip():
+                continue
+            gt_rel, lq_rel = (p.strip() for p in line.split(","))
+            paths.append({"gt_path": osp.join(gt_folder, gt_rel),
+                          "lq_path": osp.join(lq_folder, lq_rel)})
+    return paths
+
+
+@DATASET_REGISTRY.register()
+class RealESRGANPairedDataset(PairedImageDataset):
+    """:class:`PairedImageDataset` whose pairs, where the options have a
+    ``meta_info``, are the lines of that file, 'gt_rel, lq_rel' (ref:
+    basicsr/data/realesrgan_paired_dataset.py:12-110); crops, flips and
+    ``mean`` / ``std`` as the paired set's."""
+
+    def _pair_paths(self, opt: dict) -> list:
+        if opt.get("meta_info"):
+            return paired_paths_from_pair_list(
+                self.lq_folder, self.gt_folder, opt["meta_info"])
+        return super()._pair_paths(opt)
 
 
 @DATASET_REGISTRY.register()

@@ -4,7 +4,7 @@ import inspect
 from copy import deepcopy
 
 from super_resolution_tpu_torch.models import (atd_arch,  # noqa: F401 registry
-                                               discriminator_arch,
+                                               cnn_archs, discriminator_arch,
                                                esc_arch, esc_fp_arch,
                                                esc_real_arch, hat_arch,
                                                hat_classic_arch,

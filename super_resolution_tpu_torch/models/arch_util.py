@@ -19,6 +19,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from super_resolution_tpu_torch.ops.attention import (
     relative_position_index_oca, relative_position_index_sa)
@@ -51,6 +52,38 @@ def drop_path(x, rate: float, u):
     keep = 1.0 - rate
     mask = torch.floor(keep + u.to(x.device, torch.float32))
     return x / keep * mask.to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
+
+
+class DropPathBlock:
+    """A block whose branches take drop path at ``drop_path_rate`` (set by
+    the block): in training mode at a rate above 0 it takes two uniform
+    draws a sample (:func:`run_blocks`) and runs the route JAX's block runs
+    there (``deterministic=False``)."""
+
+    def takes_draws(self) -> bool:
+        return self.training and self.drop_path_rate > 0
+
+
+def run_blocks(blocks, x, draws):
+    """Each block of ``blocks`` in turn; a block that takes drop-path draws
+    (``takes_draws()``) gets the next (2, B) of ``draws``."""
+    n = 0
+    for blk in blocks:
+        if blk.takes_draws():
+            x = blk(x, draws[n])
+            n += 1
+        else:
+            x = blk(x)
+    return x
+
+
+class DropPathGroup(nn.Module):
+    """A residual group whose ``residual_group.blocks`` may take drop-path
+    draws; ``forward(x, draws)`` gets one (2, B) for each block that does
+    (:meth:`SRShell.run_layers`)."""
+
+    def draw_count(self) -> int:
+        return sum(blk.takes_draws() for blk in self.residual_group.blocks)
 
 
 def layer_norm(norm: nn.LayerNorm, x):
@@ -242,9 +275,16 @@ class SRShell(nn.Module):
     (``reflect`` as often as needed, ``symmetric``) before it crops the
     output; None leaves that to the caller.
 
+    Training (``run_layers``): a block that takes drop-path draws gets them
+    from the generator passed to ``forward``; with ``use_checkpoint`` each
+    residual group runs under ``torch.utils.checkpoint``.
+
     Weights start at torch's defaults; :func:`init_weights` gives the seeded
     initialisation, a checkpoint gives trained ones.
     """
+
+    # remat each residual group where a gradient is recorded
+    use_checkpoint = False
 
     def __init__(self, layers: Sequence[nn.Module], in_chans: int,
                  embed_dim: int, window_size: int, patch_norm: bool,
@@ -314,10 +354,23 @@ class SRShell(nn.Module):
         return self.recon(feat)
 
     def run_layers(self, body, generator: torch.Generator | None = None):
-        """The stack of residual groups (``generator``: the drop path's,
-        where a network has one)."""
-        for layer in self.layers:
-            body = layer(body)
+        """The stack of residual groups. The drop-path draws of every block
+        that takes them (:class:`DropPathGroup`) are made here, once, from
+        ``generator`` on its device (the CPU by default), outside any
+        checkpointed region, so that a recompute sees the same."""
+        counts = [layer.draw_count() if isinstance(layer, DropPathGroup)
+                  else 0 for layer in self.layers]
+        draws = [None] * len(counts)
+        if sum(counts):
+            device = generator.device if generator is not None else "cpu"
+            u = torch.rand((sum(counts), 2, body.shape[0]),
+                           generator=generator, device=device)
+            draws = u.to(body.device).split(counts)
+        remat = self.use_checkpoint and torch.is_grad_enabled()
+        for layer, d in zip(self.layers, draws):
+            args = (body, d) if isinstance(layer, DropPathGroup) else (body,)
+            body = (checkpoint(layer, *args, use_reentrant=False) if remat
+                    else layer(*args))
         return body
 
     def forward(self, x, generator: torch.Generator | None = None):

@@ -16,9 +16,10 @@ head of a window fits its shared memory, else a plain qkv matmul and
 image. Each wrapper runs its plain PyTorch version for a CPU tensor and
 launches its CUDA kernel for a CUDA tensor. The three are called through
 their ``*_ad`` entries, so that the network trains: on the card the kernel
-runs forward and the backward is autograd through the plain version. The
-forced A/B routes (``fused_attention_v3``, ``msa_qtile_attention``) have
-no backward on the card and raise under a gradient.
+runs forward and the backward is autograd through the plain version. Of
+the forced A/B routes, ``msa_qtile_attention`` trains through its entry as
+well; ``fused_attention_v3`` has no backward on the card (JAX has no entry
+for it either) and raises under a gradient.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from super_resolution_tpu_torch.ops.cuda_attention import (
 from super_resolution_tpu_torch.ops.cuda_window_attention import (
     fused_attention_ad, fused_attention_supported, fused_attention_v3,
     fused_attention_v3_supported, msa_flash_attention_ad,
-    msa_flash_supported, msa_qtile_attention, msa_qtile_supported,
+    msa_flash_supported, msa_qtile_attention_ad, msa_qtile_supported,
     window_attention_fused)
 from super_resolution_tpu_torch.ops.pixelshuffle import pixel_shuffle
 from super_resolution_tpu_torch.ops.windowing import (pad_to_multiple,
@@ -284,8 +285,8 @@ class WindowAttentionESC(KernelOperands):
             out = msa_flash_attention_ad(qkv, ops["bias"], heads=heads,
                                          window_size=ws, scale=d ** -0.5)
         elif route == "msa_qtile_attention":
-            out = msa_qtile_attention(qkv, ops["bias"], heads=heads,
-                                      window_size=ws, scale=d ** -0.5)
+            out = msa_qtile_attention_ad(qkv, ops["bias"], heads=heads,
+                                         window_size=ws, scale=d ** -0.5)
         else:
             wins = window_partition(qkv, ws).reshape(-1, ws * ws, 3, c)
             out = window_attention_fused(

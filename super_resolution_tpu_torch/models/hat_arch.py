@@ -23,14 +23,12 @@ Training (JAX ``hat_arch.py:164-211``, ``:552-583``): block i of the
 network has the drop-path rate linspace(0, drop_path_rate, blocks)[i]. In
 training mode a HAB whose rate is above 0 runs the unfused modules, with
 drop path on its attention and FFN branches; every other HAB, and every
-HAB in eval mode, runs the kernels. The kernels of the default route
-(``ln_split``, ``gated_dconv_ffn_block``, ``fused_ocab_block`` or, with
-``esc_enable``, ``fused_ocab_attention``, and ``mlp_block``) are called
-through their ``*_ad`` entries, whose backward is autograd through the
-plain version; the ``hab_front`` route has no backward on the card. The drop-path draws of a forward are made at once, before the
-first RHAG, from the generator the caller passes to ``forward``; with
-``use_checkpoint`` each RHAG runs under ``torch.utils.checkpoint``, and its
-recompute reuses those draws.
+HAB in eval mode, runs the kernels. The kernels of both routes
+(``ln_split`` or ``hab_front``, ``gated_dconv_ffn_block``,
+``fused_ocab_block`` or, with ``esc_enable``, ``fused_ocab_attention``,
+and ``mlp_block``) are called through their ``*_ad`` entries, whose
+backward is autograd through the plain version. The drop-path draws and
+``use_checkpoint``'s per-RHAG remat are ``arch_util.SRShell.run_layers``'s.
 """
 
 from __future__ import annotations
@@ -41,9 +39,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from super_resolution_tpu_torch.models.arch_util import (LN_EPS, HATShell,
+from super_resolution_tpu_torch.models.arch_util import (LN_EPS,
+                                                         DropPathBlock,
+                                                         DropPathGroup,
+                                                         HATShell,
                                                          KernelOperands,
                                                          conv_nhwc,
                                                          drop_path,
@@ -51,7 +51,8 @@ from super_resolution_tpu_torch.models.arch_util import (LN_EPS, HATShell,
                                                          gelu_exact,
                                                          index_buffer,
                                                          layer_norm,
-                                                         mlp_operands)
+                                                         mlp_operands,
+                                                         run_blocks)
 from super_resolution_tpu_torch.models.esc_arch import (ConvAttnWrapper,
                                                         orthogonal_oihw)
 from super_resolution_tpu_torch.ops.attention import \
@@ -60,7 +61,7 @@ from super_resolution_tpu_torch.ops.cuda_attention import (
     fused_ocab_attention_ad, fused_ocab_block_ad)
 from super_resolution_tpu_torch.ops.cuda_ffn import (
     ffn_reference, gated_dconv_ffn_block_ad, mlp_block_ad)
-from super_resolution_tpu_torch.ops.cuda_hab import hab_front, ln_split_ad
+from super_resolution_tpu_torch.ops.cuda_hab import hab_front_ad, ln_split_ad
 from super_resolution_tpu_torch.utils.registry import ARCH_REGISTRY
 
 FRONT_ROUTES = ("ln_split", "hab_front")
@@ -139,7 +140,7 @@ class ESCConvAttn(nn.Module):
         return self.core(x, self.plk_filter, x1, mean)
 
 
-class HAB(KernelOperands):
+class HAB(KernelOperands, DropPathBlock):
     """Hybrid attention block of the fork: norm1 -> {ESC conv attention +
     conv_scale * CAB} residual, then the gated depthwise-conv FFN residual.
     ``num_heads``, ``window_size``, ``shift_size`` and ``squeeze_factor``
@@ -186,11 +187,6 @@ class HAB(KernelOperands):
                           cab[2].weight.permute(2, 3, 1, 0).contiguous(),
                           cab[2].bias)}
 
-    def takes_draws(self) -> bool:
-        """Whether the block runs its unfused, drop-path route: in training
-        mode at a rate above 0 (JAX ``HAB.__call__``'s route choice)."""
-        return self.training and self.drop_path_rate > 0
-
     def forward(self, x, draws=None):
         """``draws``: (2, B) uniform draws of the attention and FFN branches'
         drop path, given where :meth:`takes_draws`."""
@@ -227,7 +223,7 @@ class HAB(KernelOperands):
         from the mean of cab_mid, the dynamic-kernel head from the mean of
         the ESC slab, then x + attn_x + conv_scale * cab_mid * gate."""
         pdim = self.esc_pdim
-        ln1, cab_mid, gap_cab, gap16 = hab_front(
+        ln1, cab_mid, gap_cab, gap16 = hab_front_ad(
             x, *ops["front"], eps=self.norm1.eps, pdim=pdim)
         inv_hw = 1.0 / (x.shape[1] * x.shape[2])
         attn_x = self.esc_attn(ln1, ln1[..., :pdim].contiguous(),
@@ -338,17 +334,10 @@ class AttenBlocks(nn.Module):
     def forward(self, x, draws=None):
         """``draws``: (n, 2, B), one (2, B) for each block that takes draws,
         in order."""
-        n = 0
-        for blk in self.blocks:
-            if blk.takes_draws():
-                x = blk(x, draws[n])
-                n += 1
-            else:
-                x = blk(x)
-        return self.overlap_attn(x)
+        return self.overlap_attn(run_blocks(self.blocks, x, draws))
 
 
-class RHAG(nn.Module):
+class RHAG(DropPathGroup):
     """Residual hybrid attention group: AttenBlocks -> 3x3 conv -> + skip."""
 
     def __init__(self, dim: int, depth: int, num_heads: int,
@@ -417,24 +406,3 @@ class HAT(HATShell):
                          overlap_ratio, patch_norm, upscale, img_range,
                          upsampler, resi_connection, stream_tail_rows)
         self.use_checkpoint = use_checkpoint
-
-    def run_layers(self, body, generator: torch.Generator | None = None):
-        """The RHAGs. The drop-path draws of every block that takes them are
-        made here, once, on the generator's device (the CPU by default),
-        outside any checkpointed region, so a recompute sees the same."""
-        counts = [sum(b.takes_draws() for b in layer.residual_group.blocks)
-                  for layer in self.layers]
-        draws = None
-        if sum(counts):
-            device = generator.device if generator is not None else "cpu"
-            draws = torch.rand((sum(counts), 2, body.shape[0]),
-                               generator=generator, device=device)
-            draws = draws.to(body.device).split(counts)
-        remat = self.use_checkpoint and torch.is_grad_enabled()
-        for i, layer in enumerate(self.layers):
-            d = draws[i] if draws is not None else None
-            if remat:
-                body = checkpoint(layer, body, d, use_reentrant=False)
-            else:
-                body = layer(body, d)
-        return body

@@ -6,43 +6,57 @@ Module and parameter names follow the official torch checkpoints
 state_dict with official names loads with ``strict=True``. Activations are
 NHWC throughout.
 
-Every HAB and OCAB goes through the six kernel wrappers of
-``ops/cuda_attention.py`` and ``ops/cuda_ffn.py``; each wrapper runs its
-plain PyTorch version for a CPU tensor and launches its CUDA kernel for a
-CUDA tensor. Per RHAG: each unshifted HAB calls ``fused_msa_block`` then
+Every HAB and OCAB goes through the seven kernel wrappers of
+``ops/cuda_attention.py``, ``ops/cuda_ffn.py`` and
+``ops/cuda_hab_block.py``, each through its ``*_ad`` entry (the kernel
+forward; autograd through the plain version backward); each wrapper runs
+its plain PyTorch version for a CPU tensor and launches its CUDA kernel for
+a CUDA tensor. Per RHAG: each unshifted HAB calls ``fused_msa_block`` then
 ``mlp_block_sum3``, each shifted HAB ``fused_msa_block_shifted`` then
 ``mlp_block_sum3_shifted``, and the OCAB ``fused_ocab_block`` then
 ``mlp_block``. With ``hab_route="fused_hab_block"`` each unshifted HAB
-calls ``fused_hab_block`` (``ops/cuda_hab_block.py``) once instead of its
-two: the whole block in one kernel, the attention image never written. The
-module is for inference: drop path is the identity.
+calls ``fused_hab_block`` once instead of its two: the whole block in one
+kernel, the attention image never written.
+
+Training (JAX ``hat_classic_arch.py:202-373``, ``:586-620``): block i of
+the network has the drop-path rate linspace(0, drop_path_rate, blocks)[i].
+In training mode a HAB whose rate is above 0 keeps its attention kernel,
+drops its attention branch, and runs its MLP tail unfused with drop path
+(JAX's route); every other HAB, and every HAB in eval mode, runs the
+kernels above. The draws, and ``use_checkpoint``'s per-RHAG remat, are
+``arch_util.SRShell.run_layers``'s.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from super_resolution_tpu_torch.models.arch_util import (LN_EPS, HATShell,
+from super_resolution_tpu_torch.models.arch_util import (LN_EPS,
+                                                         DropPathBlock,
+                                                         DropPathGroup,
+                                                         HATShell,
                                                          KernelOperands,
                                                          conv_nhwc,
+                                                         drop_path,
                                                          gather_bias,
                                                          gelu_exact,
                                                          index_buffer,
                                                          layer_norm,
-                                                         mlp_operands)
+                                                         mlp_operands,
+                                                         run_blocks)
 from super_resolution_tpu_torch.ops.attention import (
     relative_position_index_oca, relative_position_index_sa,
     shift_attn_mask_tensor)
 from super_resolution_tpu_torch.ops.cuda_attention import (
-    fused_msa_block, fused_msa_block_shifted, fused_ocab_block)
-from super_resolution_tpu_torch.ops.cuda_hab_block import fused_hab_block
-from super_resolution_tpu_torch.ops.cuda_ffn import (mlp_block,
-                                                     mlp_block_sum3,
-                                                     mlp_block_sum3_shifted)
+    fused_msa_block_ad, fused_msa_block_shifted_ad, fused_ocab_block_ad)
+from super_resolution_tpu_torch.ops.cuda_ffn import (
+    mlp_block_ad, mlp_block_sum3_ad, mlp_block_sum3_shifted_ad)
+from super_resolution_tpu_torch.ops.cuda_hab_block import fused_hab_block_ad
 from super_resolution_tpu_torch.utils.registry import ARCH_REGISTRY
 
 HAB_ROUTES = ("split", "fused_hab_block")
@@ -107,7 +121,8 @@ class WindowAttentionClassic(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU -> fc2 (official names); run by the fused tail kernels."""
+    """fc1 -> GELU -> fc2 (official names), run by the fused tail kernels;
+    ``forward`` is the unfused route of a block with drop path."""
 
     def __init__(self, in_features: int, hidden: int):
         super().__init__()
@@ -115,18 +130,23 @@ class Mlp(nn.Module):
         self.act = nn.GELU()
         self.fc2 = nn.Linear(hidden, in_features)
 
+    def forward(self, x):
+        return self.fc2(gelu_exact(self.fc1(x)))
 
-class HABClassic(KernelOperands):
+
+class HABClassic(KernelOperands, DropPathBlock):
     """Classic hybrid attention block: (S)W-MSA + conv_scale * CAB, then
     the MLP tail with the 3-way residual. ``hab_route``: ``split`` runs the
     attention and the tail as two kernels, ``fused_hab_block`` an unshifted
     block as one (a shifted block keeps the two: its roll-back lies between
-    them)."""
+    them). In training mode with ``drop_path_rate`` above 0 the tail runs
+    unfused, with drop path on both branches (:meth:`takes_draws`)."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int = 7,
                  shift_size: int = 0, compress_ratio: int = 3,
                  squeeze_factor: int = 30, conv_scale: float = 0.01,
-                 mlp_ratio: float = 4.0, hab_route: str = "split"):
+                 mlp_ratio: float = 4.0, hab_route: str = "split",
+                 drop_path_rate: float = 0.0):
         super().__init__()
         if hab_route not in HAB_ROUTES:
             raise ValueError(f"hab_route {hab_route!r}: one of {HAB_ROUTES}")
@@ -135,6 +155,7 @@ class HABClassic(KernelOperands):
         self.window_size = window_size
         self.shift_size = shift_size
         self.conv_scale = conv_scale
+        self.drop_path_rate = drop_path_rate
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = WindowAttentionClassic(dim, window_size, num_heads)
         self.conv_block = CABClassic(dim, compress_ratio, squeeze_factor)
@@ -150,31 +171,41 @@ class HABClassic(KernelOperands):
             "tail": mlp_operands(self.norm2, self.mlp.fc1, self.mlp.fc2),
         }
 
-    def forward(self, x):
+    def forward(self, x, draws=None):
+        """``draws``: (2, B) uniform draws of the attention and MLP
+        branches' drop path, given where :meth:`takes_draws`."""
         _, hh, ww, c = x.shape
         ws, ss = self.window_size, self.shift_size
         ops = self.kernel_operands()
-        scale = (c // self.num_heads) ** -0.5
+        msa = dict(heads=self.num_heads, window_size=ws,
+                   scale=(c // self.num_heads) ** -0.5)
         x = x.contiguous()
         xn = layer_norm(self.norm1, x)
         conv_x = self.conv_block(xn).contiguous()
+        unfused = self.takes_draws()
         if ss > 0:
             mask = shift_attn_mask_tensor(hh, ww, ws, ss, str(x.device))
-            attn = fused_msa_block_shifted(
-                xn, *ops["msa"], mask, heads=self.num_heads, window_size=ws,
-                shift=ss, scale=scale)
-            return mlp_block_sum3_shifted(x, attn, conv_x, *ops["tail"],
-                                          conv_scale=self.conv_scale,
-                                          shift=ss)
-        if self.hab_route == "fused_hab_block":
-            return fused_hab_block(xn, x, conv_x, *ops["msa"], *ops["tail"],
-                                   heads=self.num_heads, window_size=ws,
-                                   scale=scale, conv_scale=self.conv_scale,
-                                   eps=self.norm2.eps)
-        attn = fused_msa_block(xn, *ops["msa"], None, heads=self.num_heads,
-                               window_size=ws, scale=scale)
-        return mlp_block_sum3(x, attn, conv_x, *ops["tail"],
-                              conv_scale=self.conv_scale)
+            attn = fused_msa_block_shifted_ad(xn, *ops["msa"], mask,
+                                              shift=ss, **msa)
+            if not unfused:
+                return mlp_block_sum3_shifted_ad(
+                    x, attn, conv_x, *ops["tail"],
+                    conv_scale=self.conv_scale, shift=ss)
+            attn = torch.roll(attn, (ss, ss), dims=(1, 2))
+        elif self.hab_route == "fused_hab_block" and not unfused:
+            return fused_hab_block_ad(xn, x, conv_x, *ops["msa"],
+                                      *ops["tail"], **msa,
+                                      conv_scale=self.conv_scale,
+                                      eps=self.norm2.eps)
+        else:
+            attn = fused_msa_block_ad(xn, *ops["msa"], **msa)
+            if not unfused:
+                return mlp_block_sum3_ad(x, attn, conv_x, *ops["tail"],
+                                         conv_scale=self.conv_scale)
+        rate = self.drop_path_rate
+        x = x + drop_path(attn, rate, draws[0]) + conv_x * self.conv_scale
+        return x + drop_path(self.mlp(layer_norm(self.norm2, x)), rate,
+                             draws[1])
 
 
 class OCABClassic(KernelOperands):
@@ -217,45 +248,53 @@ class OCABClassic(KernelOperands):
     def forward(self, x):
         c = x.shape[-1]
         ops = self.kernel_operands()
-        x = fused_ocab_block(x.contiguous(), *ops["attn"], heads=self.num_heads,
-                             window_size=self.window_size,
-                             overlap_win=self.overlap_win_size,
-                             scale=(c // self.num_heads) ** -0.5,
-                             ln_eps=self.norm1.eps)
-        return mlp_block(x, *ops["tail"], eps=self.norm2.eps)
+        x = fused_ocab_block_ad(x.contiguous(), *ops["attn"],
+                                heads=self.num_heads,
+                                window_size=self.window_size,
+                                overlap_win=self.overlap_win_size,
+                                scale=(c // self.num_heads) ** -0.5,
+                                ln_eps=self.norm1.eps)
+        return mlp_block_ad(x.contiguous(), *ops["tail"], eps=self.norm2.eps)
 
 
 class AttenBlocksClassic(nn.Module):
+    """depth x HABClassic followed by one OCABClassic; block i has
+    drop-path rate ``drop_path_rates[i]`` (0 where the list is empty)."""
+
     def __init__(self, dim: int, depth: int, num_heads: int,
                  window_size: int, compress_ratio: int, squeeze_factor: int,
                  conv_scale: float, overlap_ratio: float,
-                 mlp_ratio: float = 4.0, hab_route: str = "split"):
+                 mlp_ratio: float = 4.0, hab_route: str = "split",
+                 drop_path_rates: Sequence[float] = ()):
         super().__init__()
+        rates = list(drop_path_rates) or [0.0] * depth
         self.blocks = nn.ModuleList([
             HABClassic(dim, num_heads, window_size,
                        0 if i % 2 == 0 else window_size // 2,
                        compress_ratio, squeeze_factor, conv_scale, mlp_ratio,
-                       hab_route)
+                       hab_route, rates[i])
             for i in range(depth)])
         self.overlap_attn = OCABClassic(dim, window_size, overlap_ratio,
                                         num_heads, mlp_ratio)
 
-    def forward(self, x):
-        for blk in self.blocks:
-            x = blk(x)
-        return self.overlap_attn(x)
+    def forward(self, x, draws=None):
+        """``draws``: one (2, B) for each block that takes draws, in
+        order."""
+        return self.overlap_attn(run_blocks(self.blocks, x, draws))
 
 
-class RHAGClassic(nn.Module):
+class RHAGClassic(DropPathGroup):
     def __init__(self, dim: int, depth: int, num_heads: int,
                  window_size: int, compress_ratio: int, squeeze_factor: int,
                  conv_scale: float, overlap_ratio: float,
                  mlp_ratio: float = 4.0, resi_connection: str = "1conv",
-                 hab_route: str = "split"):
+                 hab_route: str = "split",
+                 drop_path_rates: Sequence[float] = ()):
         super().__init__()
         self.residual_group = AttenBlocksClassic(
             dim, depth, num_heads, window_size, compress_ratio,
-            squeeze_factor, conv_scale, overlap_ratio, mlp_ratio, hab_route)
+            squeeze_factor, conv_scale, overlap_ratio, mlp_ratio, hab_route,
+            drop_path_rates)
         if resi_connection == "1conv":
             self.conv = nn.Conv2d(dim, dim, 3, 1, 1)
         elif resi_connection == "identity":
@@ -263,8 +302,8 @@ class RHAGClassic(nn.Module):
         else:
             raise ValueError(f"Unknown resi_connection: {resi_connection}")
 
-    def forward(self, x):
-        y = self.residual_group(x)
+    def forward(self, x, draws=None):
+        y = self.residual_group(x, draws)
         if self.conv is not None:
             y = conv_nhwc(self.conv, y)
         return y + x
@@ -276,6 +315,9 @@ class HATClassic(HATShell):
     residual -> pixel-shuffle reconstruction (``arch_util.HATShell``). Input
     and output are NHWC. ``hab_route`` picks the kernels of the unshifted
     HABs (:class:`HABClassic`); the default is the split route.
+    ``drop_path_rate`` and ``use_checkpoint`` act in training mode only (the
+    module docstring); ``forward(x, generator=g)`` draws the drop path from
+    ``g`` (torch's default generator where None).
 
     Weights start at torch's defaults; ``models.arch_util.init_weights``
     gives the seeded initialisation, a checkpoint gives trained ones.
@@ -291,12 +333,17 @@ class HATClassic(HATShell):
                  upscale: int = 2, img_range: float = 1.0,
                  upsampler: str = "pixelshuffle",
                  resi_connection: str = "1conv",
-                 stream_tail_rows: int = 0, hab_route: str = "split"):
+                 use_checkpoint: bool = False, stream_tail_rows: int = 0,
+                 hab_route: str = "split"):
+        dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
+        starts = np.cumsum([0, *depths]).tolist()
         layers = [
             RHAGClassic(embed_dim, depth, num_heads[i], window_size,
                         compress_ratio, squeeze_factor, conv_scale,
-                        overlap_ratio, mlp_ratio, resi_connection, hab_route)
+                        overlap_ratio, mlp_ratio, resi_connection, hab_route,
+                        dpr[starts[i]:starts[i] + depth])
             for i, depth in enumerate(depths)]
         super().__init__(layers, in_chans, embed_dim, window_size,
                          overlap_ratio, patch_norm, upscale, img_range,
                          upsampler, resi_connection, stream_tail_rows)
+        self.use_checkpoint = use_checkpoint

@@ -21,9 +21,9 @@ the reference's torch checkpoints (``layers.0.residual_group.blocks.1.mlp.dw
 
 Training: block i of the network has the drop-path rate linspace(0,
 drop_path_rate, blocks)[i], on both branches of a HABX in training mode; the
-draws of a forward are made at once by ``HAT.run_layers`` from the
-generator the caller passes to ``forward``, and ``use_checkpoint`` runs each
-RHAG under ``torch.utils.checkpoint``, as in the fork's HAT.
+draws of a forward are made at once by ``arch_util.SRShell.run_layers``
+from the generator the caller passes to ``forward``, and ``use_checkpoint``
+runs each RHAG under ``torch.utils.checkpoint``, as in the fork's HAT.
 """
 
 from __future__ import annotations
@@ -35,16 +35,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from super_resolution_tpu_torch.models.arch_util import (LN_EPS, HATShell,
+from super_resolution_tpu_torch.models.arch_util import (LN_EPS,
+                                                         DropPathBlock,
+                                                         DropPathGroup,
+                                                         HATShell,
                                                          conv_nhwc,
                                                          drop_path,
                                                          gather_bias,
                                                          gelu_exact,
                                                          index_buffer,
-                                                         layer_norm)
+                                                         layer_norm,
+                                                         run_blocks)
 from super_resolution_tpu_torch.models.esc_arch import (ConvAttnWrapper,
                                                         orthogonal_oihw)
-from super_resolution_tpu_torch.models.hat_arch import HAT, CAB, ESCConvAttn
+from super_resolution_tpu_torch.models.hat_arch import CAB, ESCConvAttn
 from super_resolution_tpu_torch.ops.attention import \
     relative_position_index_oca
 from super_resolution_tpu_torch.ops.windowing import (window_partition,
@@ -98,7 +102,7 @@ class SpatialGateDConvFFN(nn.Module):
                                    xb], dim=-1))
 
 
-class HABX(nn.Module):
+class HABX(nn.Module, DropPathBlock):
     """HATX's hybrid block: norm1 -> {ESC conv attention + conv_scale * CAB}
     residual, then the spatial-gate FFN residual; drop path on both
     branches in training mode at a rate above 0. ``num_heads``,
@@ -118,10 +122,6 @@ class HABX(nn.Module):
         self.conv_block = CAB(dim, compress_ratio)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = SpatialGateDConvFFN(dim, hab_ffn_ratio, 3)
-
-    def takes_draws(self) -> bool:
-        """Whether the block runs drop path (JAX ``HABX.__call__``)."""
-        return self.training and self.drop_path_rate > 0
 
     def forward(self, x, draws=None):
         """``draws``: (2, B) uniform draws of the two branches' drop path,
@@ -249,17 +249,10 @@ class AttenBlocksX(nn.Module):
     def forward(self, x, draws=None):
         """``draws``: (n, 2, B), one (2, B) for each block that takes draws,
         in order."""
-        n = 0
-        for blk in self.blocks:
-            if blk.takes_draws():
-                x = blk(x, draws[n])
-                n += 1
-            else:
-                x = blk(x)
-        return self.overlap_attn(x)
+        return self.overlap_attn(run_blocks(self.blocks, x, draws))
 
 
-class RHAGX(nn.Module):
+class RHAGX(DropPathGroup):
     """AttenBlocksX -> 3x3 conv (``1conv``; none otherwise, as in JAX) ->
     + skip."""
 
@@ -282,15 +275,13 @@ class HATX(HATShell):
     """HATX: NHWC RGB in [0, 1] -> NHWC upscaled RGB through the
     ``pixelshuffle`` tail (x2, x3, x4; any other ``upscale`` raises).
     ``drop_path_rate`` and ``use_checkpoint`` act in training mode only;
-    ``forward(x, generator=g)`` draws the drop path from ``g`` (the fork
-    HAT's :meth:`HAT.run_layers`). ``upsampler`` is taken for the options'
+    ``forward(x, generator=g)`` draws the drop path from ``g``
+    (``arch_util.SRShell.run_layers``). ``upsampler is taken for the options'
     sake, as in JAX: the tail is always the pixel shuffle.
 
     Weights start at torch's defaults; ``models.arch_util.init_weights``
     gives the seeded initialisation, a checkpoint gives trained ones.
     """
-
-    run_layers = HAT.run_layers
 
     def __init__(self, img_size: int = 64, in_chans: int = 3,
                  embed_dim: int = 96, depths: Sequence[int] = (6, 6, 6, 6),

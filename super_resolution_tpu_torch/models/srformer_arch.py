@@ -12,15 +12,22 @@ Module and parameter names follow the torch checkpoints
 (``layers.0.residual_group.blocks.1.attn.kv.weight``,
 ``...mlp.dwconv.depthwise_conv.0.weight``,
 ``...attn.aligned_relative_position_index``, ``...blocks.1.attn_mask``), so
-a state_dict with the official names loads with ``strict=True``. The module
-is for inference: drop path is the identity.
+a state_dict with the official names loads with ``strict=True``.
 
 On the card every block goes through ``fused_psa_block``
-(``ops/cuda_psa.py``), which launches its CUDA kernel or raises a
-``ValueError`` that names the limit; the kv projection and the permuted
-fold run on the whole image before it, which the network pads to a window
-multiple first. A CPU tensor takes the windowed plain path through
-:class:`PSA`.
+(``ops/cuda_psa.py``) by its ``fused_psa_block_ad`` entry (the kernel
+forward, autograd through the plain version backward), which launches its
+CUDA kernel or raises a ``ValueError`` that names the limit; the kv
+projection and the permuted fold run on the whole image before it, which
+the network pads to a window multiple first. A CPU tensor takes the
+windowed plain path through :class:`PSA`.
+
+Training (JAX ``srformer_arch.py:180-233``, ``:295-311``): block i of the
+network has the drop-path rate linspace(0, drop_path_rate, blocks)[i]; in
+training mode a block whose rate is above 0 drops its attention and FFN
+branches (the attention keeps its kernel, the ConvFFN is plain PyTorch in
+every mode, as in JAX). The draws, and ``use_checkpoint``'s per-group
+remat, are ``arch_util.SRShell.run_layers``'s.
 """
 
 from __future__ import annotations
@@ -34,14 +41,18 @@ from torch import nn
 
 from super_resolution_tpu_torch.models.arch_util import (LN_EPS,
                                                          DepthwiseConvFFN,
+                                                         DropPathBlock,
+                                                         DropPathGroup,
                                                          KernelOperands,
                                                          SRShell, conv_nhwc,
+                                                         drop_path,
                                                          gather_bias,
                                                          index_buffer,
-                                                         layer_norm)
+                                                         layer_norm,
+                                                         run_blocks)
 from super_resolution_tpu_torch.ops.attention import attention_with_bias
 from super_resolution_tpu_torch.ops.cuda_build import use_kernel
-from super_resolution_tpu_torch.ops.cuda_psa import fused_psa_block
+from super_resolution_tpu_torch.ops.cuda_psa import fused_psa_block_ad
 from super_resolution_tpu_torch.ops.windowing import (window_partition,
                                                       window_reverse)
 from super_resolution_tpu_torch.utils.registry import ARCH_REGISTRY
@@ -166,17 +177,20 @@ class ConvFFN(DepthwiseConvFFN):
         super().__init__(in_features, hidden, 5)
 
 
-class PSABlock(KernelOperands):
+class PSABlock(KernelOperands, DropPathBlock):
     """norm1 -> (shifted) permuted self-attention -> residual -> norm2 ->
-    ConvFFN -> residual."""
+    ConvFFN -> residual; in training mode at a rate above 0 with drop path
+    on both branches (:meth:`takes_draws`)."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int = 24,
                  shift_size: int = 0, mlp_ratio: float = 2.0,
-                 input_resolution: Sequence[int] | None = None):
+                 input_resolution: Sequence[int] | None = None,
+                 drop_path_rate: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.window_size = window_size
         self.shift_size = shift_size
+        self.drop_path_rate = drop_path_rate
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = PSA(dim, window_size, num_heads)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
@@ -194,7 +208,9 @@ class PSABlock(KernelOperands):
                         at.proj.weight.t().contiguous(), at.proj.bias),
                 "bias": at.bias()}
 
-    def forward(self, x):
+    def forward(self, x, draws=None):
+        """``draws``: (2, B) uniform draws of the attention and FFN
+        branches' drop path, given where :meth:`takes_draws`."""
         _, hh, ww, c = x.shape
         ws, ss = self.window_size, self.shift_size
         heads = self.num_heads
@@ -207,54 +223,63 @@ class PSABlock(KernelOperands):
         if use_kernel(x):
             ops = self.kernel_operands()
             kvw = permuted_kv_windows(self.attn.kv(x), ws)
-            x = fused_psa_block(x.contiguous(), *ops["psa"],
-                                kvw.contiguous(), ops["bias"], mask,
-                                heads=heads, window_size=ws,
-                                scale=(c // heads) ** -0.5)
+            x = fused_psa_block_ad(x.contiguous(), *ops["psa"],
+                                   kvw.contiguous(), ops["bias"], mask,
+                                   heads=heads, window_size=ws,
+                                   scale=(c // heads) ** -0.5)
         else:
             x_windows = window_partition(x, ws).reshape(-1, ws * ws, c)
             x = window_reverse(self.attn(x_windows, mask).reshape(
                 -1, ws, ws, c), ws, hh, ww)
         if ss > 0:
             x = torch.roll(x, (ss, ss), dims=(1, 2))
-        x = shortcut + x
-        return x + self.mlp(layer_norm(self.norm2, x))
+        if not self.takes_draws():
+            x = shortcut + x
+            return x + self.mlp(layer_norm(self.norm2, x))
+        rate = self.drop_path_rate
+        x = shortcut + drop_path(x, rate, draws[0])
+        return x + drop_path(self.mlp(layer_norm(self.norm2, x)), rate,
+                             draws[1])
 
 
 class PSABasicLayer(nn.Module):
+    """A group's blocks; block i has drop-path rate ``drop_path_rates[i]``
+    (0 where the list is empty)."""
+
     def __init__(self, dim: int, depth: int, num_heads: int,
                  window_size: int, mlp_ratio: float = 2.0,
-                 input_resolution: Sequence[int] | None = None):
+                 input_resolution: Sequence[int] | None = None,
+                 drop_path_rates: Sequence[float] = ()):
         super().__init__()
+        rates = list(drop_path_rates) or [0.0] * depth
         self.blocks = nn.ModuleList([
             PSABlock(dim, num_heads, window_size,
                      0 if i % 2 == 0 else window_size // 2, mlp_ratio,
-                     input_resolution)
+                     input_resolution, rates[i])
             for i in range(depth)])
 
-    def forward(self, x):
-        for blk in self.blocks:
-            x = blk(x)
-        return x
+    def forward(self, x, draws=None):
+        return run_blocks(self.blocks, x, draws)
 
 
-class PSAGroup(nn.Module):
+class PSAGroup(DropPathGroup):
     """residual_group + conv + skip."""
 
     def __init__(self, dim: int, depth: int, num_heads: int,
                  window_size: int, mlp_ratio: float = 2.0,
                  resi_connection: str = "1conv",
-                 input_resolution: Sequence[int] | None = None):
+                 input_resolution: Sequence[int] | None = None,
+                 drop_path_rates: Sequence[float] = ()):
         super().__init__()
         if resi_connection != "1conv":
             raise NotImplementedError(resi_connection)
         self.residual_group = PSABasicLayer(dim, depth, num_heads,
                                             window_size, mlp_ratio,
-                                            input_resolution)
+                                            input_resolution, drop_path_rates)
         self.conv = nn.Conv2d(dim, dim, 3, 1, 1)
 
-    def forward(self, x):
-        return conv_nhwc(self.conv, self.residual_group(x)) + x
+    def forward(self, x, draws=None):
+        return conv_nhwc(self.conv, self.residual_group(x, draws)) + x
 
 
 @ARCH_REGISTRY.register()
@@ -263,6 +288,10 @@ class SRFormer(SRShell):
     residual -> reconstruction (``arch_util.SRShell``, all three upsampler
     branches). Input and output are NHWC; an input that is no window
     multiple is reflect-padded at the bottom and the right.
+
+    ``drop_path_rate`` and ``use_checkpoint`` act in training mode only (the
+    module docstring); ``forward(x, generator=g)`` draws the drop path from
+    ``g``.
 
     Weights start at torch's defaults; ``models.arch_util.init_weights``
     gives the seeded initialisation, a checkpoint gives trained ones.
@@ -274,13 +303,18 @@ class SRFormer(SRShell):
                  window_size: int = 24, mlp_ratio: float = 2.0,
                  drop_path_rate: float = 0.1, patch_norm: bool = True,
                  upscale: int = 2, img_range: float = 1.0,
-                 upsampler: str = "", resi_connection: str = "1conv"):
+                 upsampler: str = "", resi_connection: str = "1conv",
+                 use_checkpoint: bool = False):
         if upsampler not in ("pixelshuffle", "pixelshuffledirect", ""):
             raise NotImplementedError(upsampler)
+        dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
+        starts = np.cumsum([0, *depths]).tolist()
         layers = [
             PSAGroup(embed_dim, depth, num_heads[i], window_size, mlp_ratio,
-                     resi_connection, (img_size, img_size))
+                     resi_connection, (img_size, img_size),
+                     dpr[starts[i]:starts[i] + depth])
             for i, depth in enumerate(depths)]
         super().__init__(layers, in_chans, embed_dim, window_size, patch_norm,
                          upscale, img_range, upsampler, resi_connection,
                          pad_mode="reflect")
+        self.use_checkpoint = use_checkpoint

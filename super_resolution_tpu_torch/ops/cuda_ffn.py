@@ -337,6 +337,41 @@ def mlp_block_ad(x, gamma, beta, w1, b1, w2, b2, *, eps: float = 1e-5):
                                (x, gamma, beta, w1, b1, w2, b2), eps=eps)
 
 
+def mlp_block_sum3_ad(shortcut, attn_x, conv_x, gamma, beta, w1, b1, w2, b2,
+                      *, conv_scale: float, eps: float = 1e-5,
+                      residual_scale: float = 1.0):
+    """:func:`mlp_block_sum3` with a gradient: the kernel forward, autograd
+    through :func:`mlp_block_sum3_reference` backward. Replaces
+    super_resolution_tpu/ops/pallas_ffn.py::mlp_block_sum3_ad."""
+    return with_plain_backward(
+        mlp_block_sum3, mlp_block_sum3_reference,
+        (shortcut, attn_x, conv_x, gamma, beta, w1, b1, w2, b2),
+        conv_scale=conv_scale, eps=eps, residual_scale=residual_scale)
+
+
+def mlp_block_sum3_shifted_ad(shortcut, attn_rolled, conv_x, gamma, beta, w1,
+                              b1, w2, b2, *, conv_scale: float, shift: int,
+                              eps: float = 1e-5,
+                              residual_scale: float = 1.0):
+    """:func:`mlp_block_sum3_shifted` with a gradient: the kernel forward,
+    autograd through :func:`mlp_block_sum3_shifted_reference` (the roll
+    back, then the sum3 tail) backward. Replaces
+    super_resolution_tpu/ops/pallas_ffn.py::mlp_block_sum3_shifted_ad."""
+    return with_plain_backward(
+        mlp_block_sum3_shifted, mlp_block_sum3_shifted_reference,
+        (shortcut, attn_rolled, conv_x, gamma, beta, w1, b1, w2, b2),
+        conv_scale=conv_scale, shift=shift, eps=eps,
+        residual_scale=residual_scale)
+
+
+def gated_dconv_ffn_ad(x, w1, b1, wd, bd, w2, b2):
+    """The bare :func:`gated_dconv_ffn` with a gradient: the kernel
+    forward, autograd through :func:`ffn_reference` backward. Replaces
+    super_resolution_tpu/ops/pallas_ffn.py::gated_dconv_ffn_ad."""
+    return with_plain_backward(gated_dconv_ffn, ffn_reference,
+                               (x, w1, b1, wd, bd, w2, b2))
+
+
 # kernel launches of each wrapper; the plain path does not count
 mlp_block.launches = 0
 mlp_block_sum3.launches = 0

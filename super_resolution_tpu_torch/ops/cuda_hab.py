@@ -230,6 +230,16 @@ def ln_split_ad(x, gamma, beta, *, eps: float = 1e-5, pdim: int = 16):
                                eps=eps, pdim=pdim)
 
 
+def hab_front_ad(x, gamma, beta, w1, b1, w2, b2, *, eps: float = 1e-5,
+                 pdim: int = 16):
+    """:func:`hab_front` with a gradient on its four outputs: the kernel
+    forward, autograd through :func:`hab_front_reference` backward. Replaces
+    super_resolution_tpu/ops/pallas_hab.py::hab_front_ad."""
+    return with_plain_backward(hab_front, hab_front_reference,
+                               (x, gamma, beta, w1, b1, w2, b2), eps=eps,
+                               pdim=pdim)
+
+
 # kernel launches of each wrapper; the plain path does not count
 ln_split.launches = 0
 hab_front.launches = 0

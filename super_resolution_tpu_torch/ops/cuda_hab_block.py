@@ -34,7 +34,8 @@ from super_resolution_tpu_torch.ops.cuda_build import (MAX_DYNAMIC_SMEM,
                                                        check_smem,
                                                        load_library,
                                                        raise_on_error,
-                                                       stream_of, use_kernel)
+                                                       stream_of, use_kernel,
+                                                       with_plain_backward)
 from super_resolution_tpu_torch.ops.cuda_ffn import (TAIL_MAX_C,
                                                      mlp_block_sum3_reference,
                                                      mma_mlp_tail_smem)
@@ -187,6 +188,24 @@ def fused_hab_block(lnx_img, x_img, conv_img, w_qkv, b_qkv, w_proj, b_proj,
     raise_on_error(name, err)
     fused_hab_block.launches += 1
     return out
+
+
+def fused_hab_block_ad(lnx_img, x_img, conv_img, w_qkv, b_qkv, w_proj,
+                       b_proj, bias, gamma, beta, w1, b1, w2, b2, *,
+                       heads: int, window_size: int,
+                       scale: float | None = None, conv_scale: float = 0.01,
+                       eps: float = 1e-5):
+    """:func:`fused_hab_block` with a gradient (the RPB ``bias`` included):
+    the kernel forward, autograd through :func:`hab_block_reference`
+    backward. Replaces
+    super_resolution_tpu/ops/pallas_attention.py::fused_hab_block_ad."""
+    if scale is None:
+        scale = (lnx_img.shape[-1] // heads) ** -0.5
+    return with_plain_backward(
+        fused_hab_block, hab_block_reference,
+        (lnx_img, x_img, conv_img, w_qkv, b_qkv, w_proj, b_proj, bias, gamma,
+         beta, w1, b1, w2, b2), heads=heads, window_size=window_size,
+        scale=scale, conv_scale=conv_scale, eps=eps)
 
 
 # kernel launches of the wrapper; the plain path does not count

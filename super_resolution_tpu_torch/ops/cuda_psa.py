@@ -33,7 +33,8 @@ from super_resolution_tpu_torch.ops.cuda_build import (MAX_DYNAMIC_SMEM,
                                                        check_smem,
                                                        load_library,
                                                        raise_on_error,
-                                                       stream_of, use_kernel)
+                                                       stream_of, use_kernel,
+                                                       with_plain_backward)
 from super_resolution_tpu_torch.ops.windowing import (window_partition,
                                                       window_reverse)
 
@@ -50,7 +51,7 @@ MMA_ROWS, MMA_KEY_CHUNK, MMA_SLAB, MMA_PANEL, MMA_PAD = 64, 48, 64, 64, 8
 def psa_block_reference(x_img, w_q, b_q, w_proj, b_proj, kv_windows, bias,
                         mask, heads: int, window_size: int,
                         scale: float | None = None):
-    """Plain version of :func:`fused_psa_block`."""
+    """Plain version of :func:`fused_psa_block` (mask None: no mask)."""
     _, h_img, w_img, c = x_img.shape
     ws = window_size
     d = c // heads
@@ -58,6 +59,9 @@ def psa_block_reference(x_img, w_q, b_q, w_proj, b_proj, kv_windows, bias,
         scale = d ** -0.5
     n = ws * ws
     nk = kv_windows.shape[1]
+    if mask is None:
+        mask = torch.zeros((1, n, nk), dtype=torch.float32,
+                           device=x_img.device)
     q_img = x_img @ w_q.to(x_img.dtype) + b_q.to(x_img.dtype)
     qw = window_partition(q_img, ws).reshape(-1, n, c)
     bw = qw.shape[0]
@@ -150,8 +154,6 @@ def fused_psa_block(x_img, w_q, b_q, w_proj, b_proj, kv_windows, bias,
     if scale is None:
         scale = (c // heads) ** -0.5
     if not use_kernel(x_img):
-        if mask is None:
-            mask = torch.zeros((1, n, nk), dtype=torch.float32)
         return psa_block_reference(x_img, w_q, b_q, w_proj, b_proj,
                                    kv_windows, bias, mask, heads, ws, scale)
     code = check_operands(name, x_img, x_img=x_img, w_q=w_q, b_q=b_q,
@@ -194,6 +196,22 @@ def fused_psa_block(x_img, w_q, b_q, w_proj, b_proj, kv_windows, bias,
     raise_on_error(name, err)
     fused_psa_block.launches += 1
     return out
+
+
+def fused_psa_block_ad(x_img, w_q, b_q, w_proj, b_proj, kv_windows, bias,
+                       mask=None, *, heads: int, window_size: int,
+                       scale: float | None = None):
+    """:func:`fused_psa_block` with a gradient (the compressed
+    ``kv_windows`` and the RPB ``bias`` included; the mask takes none): the
+    kernel forward, autograd through :func:`psa_block_reference` backward.
+    Replaces super_resolution_tpu/ops/pallas_attention.py::
+    fused_psa_block_ad."""
+    if scale is None:
+        scale = (x_img.shape[-1] // heads) ** -0.5
+    return with_plain_backward(
+        fused_psa_block, psa_block_reference,
+        (x_img, w_q, b_q, w_proj, b_proj, kv_windows, bias), mask=mask,
+        heads=heads, window_size=window_size, scale=scale)
 
 
 # kernel launches of the wrapper; the plain path does not count

@@ -393,6 +393,19 @@ def msa_flash_attention_ad(qkv_img, bias, *, heads: int, window_size: int,
                                window_size=window_size, scale=scale)
 
 
+def msa_qtile_attention_ad(qkv_img, bias, *, heads: int, window_size: int,
+                           scale: float | None = None):
+    """:func:`msa_qtile_attention` with a gradient (the RPB ``bias``
+    included): the kernel forward, autograd through
+    :func:`msa_qtile_reference` backward. Replaces
+    super_resolution_tpu/ops/pallas_attention.py::msa_qtile_attention_ad."""
+    if scale is None:
+        scale = (qkv_img.shape[-1] // 3 // heads) ** -0.5
+    return with_plain_backward(msa_qtile_attention, msa_qtile_reference,
+                               (qkv_img, bias), heads=heads,
+                               window_size=window_size, scale=scale)
+
+
 def fused_msa_attention(qkv_img, bias, mask=None, *, heads: int,
                         window_size: int, scale: float | None = None):
     """The whole (S)W-MSA middle on a qkv image: window partition, head

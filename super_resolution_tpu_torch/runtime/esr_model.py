@@ -28,9 +28,11 @@ momentum reset, so its schedule's count, warmup included, starts again at
 0; here the learning rate stays schedule(updates made), as the reference's
 optimizer and its reported learning rate keep it (ROADMAP.md queue 3).
 
-``wave_opt`` raises, as in JAX: the reference builds no wavelet loss.
-``perceptual_opt`` raises: no shipped ``ESRModel`` file sets it, and this
-step does not add the VGG loss (``losses/perceptual.py``) yet.
+``perceptual_opt`` adds the VGG perceptual and style terms
+(``losses/perceptual.py``) on the float32 output against the GT, as JAX's
+step does (logged as ``l_percep`` and ``l_style``); the pixel loss may then
+be absent. ``wave_opt`` raises, as in JAX: the reference builds no wavelet
+loss.
 """
 
 from __future__ import annotations
@@ -51,12 +53,15 @@ from super_resolution_tpu_torch.utils.registry import MODEL_REGISTRY
 CLIP_HALVING_STEP = 50000
 
 
-def make_esr_train_step(train_opt: dict, use_amp: bool, cri_mesa=None):
+def make_esr_train_step(train_opt: dict, use_amp: bool, cri_mesa=None,
+                        cri_perceptual=None):
     """ESRModel's step: f(state, batch, use_mesa) -> logs, which updates
     ``state`` in place. batch: {'lq', 'gt'} float32 tensors on the
-    network's device; logs: {'l_pix'[, 'l_mesa']}, 0-d tensors."""
+    network's device; ``cri_perceptual``: a ``PerceptualLoss`` on that
+    device or None; logs: {'l_pix', 'l_percep', 'l_style', 'l_mesa'}, those
+    the step computes, 0-d tensors."""
     cri_pix = build_pixel_criterion(train_opt)
-    if cri_pix is None:
+    if cri_pix is None and cri_perceptual is None:
         raise ValueError("Pixel and perceptual losses are both None.")
     ema_decay = train_opt.get("ema_decay", 0)
     clip = train_opt.get("gradient_clip")
@@ -68,9 +73,15 @@ def make_esr_train_step(train_opt: dict, use_amp: bool, cri_mesa=None):
         with (cast_parameters(net, torch.bfloat16) if use_amp
               else nullcontext()):
             sr = net(lq.to(torch.bfloat16) if use_amp else lq).float()
-            l_pix = cri_pix(sr, batch["gt"])
-            logs = {"l_pix": l_pix.detach()}
-            total = l_pix
+            terms = {}
+            if cri_pix is not None:
+                terms["l_pix"] = cri_pix(sr, batch["gt"])
+            if cri_perceptual is not None:
+                terms["l_percep"], terms["l_style"] = cri_perceptual(
+                    sr, batch["gt"])
+            terms = {k: v for k, v in terms.items() if v is not None}
+            logs = {k: v.detach() for k, v in terms.items()}
+            total = sum(terms.values())
             if use_mesa:
                 with torch.no_grad():
                     ema_out = state.ema(lq)
@@ -109,10 +120,10 @@ class ESRModel(HATModel):
             raise NotImplementedError(
                 "wave_opt: the reference registers no wavelet loss anywhere; "
                 "refusing to silently ignore it")
+        self.cri_perceptual = None
         if train_opt.get("perceptual_opt"):
-            raise NotImplementedError(
-                "perceptual_opt: ESRModel's step does not add the VGG "
-                "loss yet (ROADMAP.md queue 1, item 1)")
+            self.cri_perceptual = build_loss(
+                train_opt["perceptual_opt"]).to(self.device)
         self.use_amp = bool(self.opt.get("use_amp", False))
         self.reset_momentum_iter = train_opt.get("reset_momentum_iter")
         self.cri_mesa, self.mesa_start_iter = None, None
@@ -129,7 +140,8 @@ class ESRModel(HATModel):
         self.state = init_train_state(self.net_g,
                                       dict(train_opt, optim_g=optim))
         self._train_step = make_esr_train_step(train_opt, self.use_amp,
-                                               self.cri_mesa)
+                                               self.cri_mesa,
+                                               self.cri_perceptual)
         self._eval_net = None
         self.log_dict = {}
 

@@ -382,3 +382,25 @@ class HATModel(SRModel):
 class SwinIRModel(HATModel):
     """The SwinIR runner: pads to a window multiple like :class:`HATModel`
     (the network pads again only where a tile is no window multiple)."""
+
+
+@MODEL_REGISTRY.register()
+class SRGANModel(HATModel):
+    """The paired GAN runner's name (ref: basicsr/models/srgan_model.py):
+    it builds ``runtime.realgan.RealHATGANModel`` with
+    ``high_order_degradation`` false unless the options set it, so the LQ
+    comes from the dataset and no synthesizer runs (JAX ``SRGANModel``)."""
+
+    def __new__(cls, opt: dict, device="cuda"):
+        from super_resolution_tpu_torch.runtime.realgan import \
+            RealHATGANModel
+
+        opt = dict(opt)
+        opt.setdefault("high_order_degradation", False)
+        return RealHATGANModel(opt, device)
+
+
+@MODEL_REGISTRY.register()
+class ESRGANModel(SRGANModel):
+    """ESRGAN's runner name (ref: basicsr/models/esrgan_model.py), the same
+    as :class:`SRGANModel`."""

@@ -25,6 +25,7 @@ of the JAX step's arithmetic:
 from __future__ import annotations
 
 import copy
+import inspect
 from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Callable
@@ -139,8 +140,9 @@ def make_sr_train_step(train_opt: dict):
     updates ``state`` in place. batch: {'lq': (B, h, w, 3), 'gt': (B, H, W,
     3)} float32 tensors on the network's device; ``generator`` goes to the
     network's forward, which draws the drop path from it where it has one
-    (``models.arch_util.SRShell``). logs: {'l_pix': the loss, a 0-d tensor
-    on the device}."""
+    (``models.arch_util.SRShell``; a network whose forward takes no
+    generator runs without it, as flax ignores an rng a module does not
+    draw from). logs: {'l_pix': the loss, a 0-d tensor on the device}."""
     cri_pix = build_pixel_criterion(train_opt)
     if cri_pix is None:
         raise ValueError("train.pixel_opt is required for the SR step")
@@ -157,7 +159,9 @@ def make_sr_train_step(train_opt: dict):
               else nullcontext()):
             if use_amp:
                 lq = lq.to(torch.bfloat16)
-            sr = net(lq, generator=generator).float()
+            kw = ({"generator": generator} if "generator"
+                  in inspect.signature(net.forward).parameters else {})
+            sr = net(lq, **kw).float()
             l_pix = cri_pix(sr, batch["gt"])
             # inside the context: a checkpointed region recomputes here
             l_pix.backward()

@@ -39,11 +39,11 @@ ATOL_NET = 3e-5
 FORCED = ["fused_attention", "fused_attention_v3", "msa_flash_attention",
           "msa_qtile_attention"]
 # route -> the function WindowAttentionESC calls for it: the autograd entry
-# of a default route, the wrapper of a forced A/B route
+# of a route, the wrapper of fused_attention_v3, which has none
 ENTRY = {None: "fused_msa_block_ad", "fused_attention": "fused_attention_ad",
          "fused_attention_v3": "fused_attention_v3",
          "msa_flash_attention": "msa_flash_attention_ad",
-         "msa_qtile_attention": "msa_qtile_attention"}
+         "msa_qtile_attention": "msa_qtile_attention_ad"}
 ENTRIES = list(ENTRY.values())
 
 
@@ -557,9 +557,9 @@ def test_inference_tool_on_a_folder(tmp_path, rng, monkeypatch):
     assert inference.network_options("SwinIR", 4)["type"] == "SwinIR"
     assert inference.network_options("ESC-FP", 2)["type"] == "ESCFP"
     assert inference.network_options("ESC-Real", 2)["upscaling_factor"] == 4
-    monkeypatch.setitem(inference.MODEL_ZOO, "EDSR",
-                        lambda s: dict(type="EDSR", upscale=s))
+    monkeypatch.setitem(inference.MODEL_ZOO, "ECBSR",
+                        lambda s: dict(type="ECBSR", scale=s))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        inference.network_options("EDSR", 4)
+        inference.network_options("ECBSR", 4)
     args = inference.build_parser().parse_args(["--input", str(src)])
     assert args.device == "cuda" and args.model == "ESC" and args.tile == 0

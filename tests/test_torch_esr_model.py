@@ -250,13 +250,17 @@ def test_momentum_reset_keeps_the_schedule_where_jax_restarts_it(
     assert model.state.step == 3
 
 
-@pytest.mark.parametrize("key,loss", [
-    ("wave_opt", {"type": "L1Loss"}),
+@pytest.mark.parametrize("key,loss,error,match", [
+    ("wave_opt", {"type": "L1Loss"}, NotImplementedError, "wave_opt"),
     ("perceptual_opt", {"type": "PerceptualLoss",
-                        "layer_weights": {"conv5_4": 1}})])
-def test_unported_losses_raise(key, loss, weights):
+                        "layer_weights": {"conv5_4": 1}}, ValueError,
+     "vgg_weights_path")], ids=["wave_opt-loss0", "perceptual_opt-loss1"])
+def test_unported_losses_raise(key, loss, error, match, weights):
+    """``wave_opt`` raises, as in JAX; ``perceptual_opt`` is built (its
+    step is ``tests/test_torch_esr_perceptual.py``'s), and one without VGG
+    weights raises, as JAX's does: nothing is downloaded."""
     model = build_model(_options(**{key: loss}), "cpu")
-    with pytest.raises(NotImplementedError, match=key):
+    with pytest.raises(error, match=match):
         model.setup_training()
 
 

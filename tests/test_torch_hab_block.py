@@ -128,9 +128,9 @@ def test_the_two_routes_agree_and_call_their_kernels(rng, monkeypatch):
     HABs and the OCAB keep their wrappers; the outputs agree."""
     _, params = _jax_params(rng)
     x = torch.from_numpy(rng.random((2, 16, 24, 3), dtype=np.float32))
-    names = ("fused_hab_block", "fused_msa_block", "mlp_block_sum3",
-             "fused_msa_block_shifted", "mlp_block_sum3_shifted",
-             "fused_ocab_block", "mlp_block")
+    names = ("fused_hab_block_ad", "fused_msa_block_ad", "mlp_block_sum3_ad",
+             "fused_msa_block_shifted_ad", "mlp_block_sum3_shifted_ad",
+             "fused_ocab_block_ad", "mlp_block_ad")
     counts, outs = {}, {}
     for route in thc.HAB_ROUTES:
         calls = []

@@ -131,7 +131,7 @@ def test_hab_front_route_kernel_calls_and_guard(rng, monkeypatch):
     and ln_split never; the route needs dim > esc_pdim, as the JAX guard
     does; an unknown route is refused."""
     calls = {}
-    for name in ("ln_split_ad", "hab_front", "gated_dconv_ffn_block_ad",
+    for name in ("ln_split_ad", "hab_front_ad", "gated_dconv_ffn_block_ad",
                  "fused_ocab_attention_ad", "mlp_block_ad"):
         fn = getattr(that, name)
 
@@ -142,7 +142,7 @@ def test_hab_front_route_kernel_calls_and_guard(rng, monkeypatch):
     model = that.HAT(**SMALL, front_route="hab_front").eval()
     with torch.no_grad():
         model(torch.from_numpy(rng.random((1, 16, 16, 3), dtype=np.float32)))
-    assert calls == {"hab_front": 4, "gated_dconv_ffn_block_ad": 4,
+    assert calls == {"hab_front_ad": 4, "gated_dconv_ffn_block_ad": 4,
                      "fused_ocab_attention_ad": 2, "mlp_block_ad": 2}
     with pytest.raises(ValueError, match="dim > esc_pdim"):
         that.HAB(8, 2, esc_pdim=8, front_route="hab_front")

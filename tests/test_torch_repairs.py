@@ -66,7 +66,7 @@ def test_srformer_block_at_window_12_reaches_the_kernel(shift, rng,
                                              dtype=np.float32))
     with torch.no_grad():
         plain = blk(x)
-        calls = _recorded(monkeypatch, tsrf, "fused_psa_block")
+        calls = _recorded(monkeypatch, tsrf, "fused_psa_block_ad")
         card = blk(x)
     assert [kw["window_size"] for kw in calls] == [12]
     np.testing.assert_allclose(card.numpy(), plain.numpy(), atol=1e-5,

@@ -138,7 +138,7 @@ def test_psa_block_matches_jax(shift, shape, ws, attn, rng, monkeypatch):
     ref = np.asarray(jmod.apply({"params": params}, jnp.asarray(x)))
     tmod = tsrf.PSABlock(**kw).eval()
     tmod.load_state_dict(flax_to_state_dict(params, tmod), strict=True)
-    calls = _count_calls(monkeypatch, tsrf, "fused_psa_block",
+    calls = _count_calls(monkeypatch, tsrf, "fused_psa_block_ad",
                          card=ws % 8 == 0)
     with torch.no_grad():
         got = tmod(torch.from_numpy(x)).numpy()
@@ -181,8 +181,8 @@ def test_srformer_kernel_calls_per_forward(rng, monkeypatch):
     _, _, model = _nets(rng, upscale=2, upsampler="pixelshuffledirect")
     masks = []
     monkeypatch.setattr(tsrf, "use_kernel", lambda t: True)
-    fn = tsrf.fused_psa_block
-    monkeypatch.setattr(tsrf, "fused_psa_block", lambda *a, **kw: (
+    fn = tsrf.fused_psa_block_ad
+    monkeypatch.setattr(tsrf, "fused_psa_block_ad", lambda *a, **kw: (
         masks.append(a[7]), fn(*a, **kw))[1])
     with torch.no_grad():
         model(torch.from_numpy(rng.random((1, 16, 24, 3), dtype=np.float32)))
@@ -347,7 +347,7 @@ def test_slice_matches_jax_runner(attn, rng, monkeypatch):
     net.load_state_dict(flax_to_state_dict(jax.device_get(jmodel.params),
                                            net), strict=True)
     pred.model._eval_net = None
-    calls = _count_calls(monkeypatch, tsrf, "fused_psa_block")
+    calls = _count_calls(monkeypatch, tsrf, "fused_psa_block_ad")
 
     lq = rng.random((37, 45, 3), dtype=np.float32)
     got = pred.predict_array(lq)
