@@ -182,7 +182,29 @@ Phases, each of which raises on failure:
      3 iterations: the first G and D losses against the host CPU's, D
      moved, no kernel launched; and ESRModel on ESC_DIV2K_X4.yml with that
      VGG19 loss added, batch 4 (cut from 16), its first pixel and
-     perceptual losses against the host CPU's.
+     perceptual losses against the host CPU's;
+  12. the rest of the evaluation surface: (a) test.py on
+     options/test/HAT_tile_example.yml (the fork's HAT x4 at full width,
+     tile 256 / pad 32, chunk 4) with val: {bucketed_eval: true} and PSNR /
+     SSIM added, over synthetic pairs of Urban100 x4's LR sides (141 to
+     256; two sizes twice) and one 300 x 400 LR, bucketed and per image, in
+     bf16 (each three times) and float32: the launches a chunk forward (rows 7, 8
+     36 times, rows 5, 6 six), one input shape a bucket, bucketed against
+     per image (float32 max|diff| <= 1e-4, bf16 >= 45 dB), s an image of
+     each route, wall and inference (bf16: a first run of each route,
+     then bucketed, per image, per image, bucketed); (b) SRModel.test_selfensemble of options/test/HAT_SRx4.yml's
+     network at full width on one Set5 LR image, float32 on the card
+     against the host CPU within 1e-4, eight forwards' launches; (c) that
+     file's test pipeline on the synthetic Set5 read from .lmdb folders the
+     port's make_lmdb_from_imgs wrote, against the disk run: equal PSNR /
+     SSIM; (d) RawPack's reader built by g++, crop_batch against numpy, and
+     three iterations of phase 6's float32 file on a RawPackPairedDataset
+     over packs of phase 6's pairs: finite losses, the first batch against
+     numpy crops of the PNGs; (e) logger.profile on (a) and (d): one Chrome
+     trace each that names row 7's kernel (the tensor-core kernel in (a)'s
+     bf16, the FMA kernel in (d)'s float32); (f) calculate_psnr_pt /
+     calculate_ssim_pt on (a)'s outputs on the card against numpy, and
+     tools/eval_folder.py on (a)'s PNGs against the pipeline's metrics.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Exits non-zero, printing neither, when there
@@ -4146,6 +4168,544 @@ def esr_perceptual_path(sets: dict, vgg: str, root: str, card: str) -> dict:
     return counts
 
 
+# --------------------------------------------------------------- phase 12
+# the rest of the evaluation surface. (a) test.py on HAT_tile_example.yml
+# (the fork's HAT x4 at full width: embed 180, 6 x 6, window 16; tile 256 /
+# pad 32, chunk 4; ocab_esc_enable off) with val: {bucketed_eval: true} and
+# PSNR / SSIM added, over synthetic pairs: LR sides between 141 and 256 as
+# Urban100 x4 gives, two pairs of each of two sizes (a bucket of two
+# images), and one 300 x 400 LR of four tiles
+BUCKET_YML = "options/test/HAT_tile_example.yml"
+BUCKET_LR = {"u0": (141, 250), "u1": (141, 250), "u2": (190, 173),
+             "u3": (190, 173), "u4": (256, 200), "u5": (225, 236),
+             "u6": (300, 400)}
+BUCKET_METRICS = {
+    "psnr": {"type": "calculate_psnr", "crop_border": 4,
+             "test_y_channel": True},
+    "ssim": {"type": "calculate_ssim", "crop_border": 4,
+             "test_y_channel": True}}
+BUCKET_F32_TOL, BUCKET_BF16_MIN_DB = 1e-4, 45.0
+# the kernel the traces of (a) and (d) must name: (a) runs bf16, on the
+# tensor-core kernel; (d) trains float32, on the FMA kernel of row 7
+TRACE_KERNEL = {"a": "mma_gated_dconv_ffn_kernel",
+                "d": "gated_dconv_ffn_kernel"}
+# (b) the x8 self-ensemble on HAT_SRx4.yml's network, one Set5 LR image
+ENSEMBLE_YML, ENSEMBLE_IMAGE = "options/test/HAT_SRx4.yml", "butterfly"
+# (d) three iterations of phase 6's float32 file on RawPack packs of phase
+# 6's synthetic pairs, at phase 6's batch
+RAWPACK_ITERS = 3
+
+
+def write_bucket_pairs(root: str) -> dict:
+    """BUCKET_LR's pairs under root: GT of 4 x the LR sides (seeded smooth
+    content and noise, uint8) and the LR by area averaging at 1 / 4."""
+    import cv2
+
+    from super_resolution_tpu_torch.utils.img import imwrite
+
+    dirs = {k: os.path.join(root, k) for k in ("bucket_gt", "bucket_lq")}
+    rng = np.random.default_rng(12)
+    for name, (h, w) in BUCKET_LR.items():
+        yy, xx = np.mgrid[0:4 * h, 0:4 * w] / 96.0
+        base = 0.5 + 0.35 * np.sin(yy[..., None] * rng.uniform(0.5, 2)
+                                   + xx[..., None] * rng.uniform(0.5, 2)
+                                   + np.arange(3))
+        gt = np.clip(base + rng.normal(0, 0.04, base.shape), 0, 1)
+        gt = (gt * 255).round().astype(np.uint8)
+        imwrite(gt, os.path.join(dirs["bucket_gt"], f"{name}.png"))
+        imwrite(cv2.resize(gt, (w, h), interpolation=cv2.INTER_AREA),
+                os.path.join(dirs["bucket_lq"], f"{name}.png"))
+    return dirs
+
+
+def bucket_forwards(scale_ws: int, tile: dict, bucketed: bool) -> int:
+    """Chunk forwards of BUCKET_LR through the runner: per image, or by
+    buckets of the padded LR (runtime/batched_eval.py)."""
+    from super_resolution_tpu_torch.runtime.batched_eval import group_images
+    from super_resolution_tpu_torch.runtime.tile import _axis_plan
+
+    padded = [(-(-h // scale_ws) * scale_ws, -(-w // scale_ws) * scale_ws)
+              for h, w in BUCKET_LR.values()]
+    if not bucketed:
+        return sum(n_forwards(h, w, scale_ws, tile) for h, w in padded)
+    ts, tp = tile["tile_size"], tile["tile_pad"]
+    total = 0
+    for idxs in group_images(padded, ts, tp).values():
+        tiles = sum(_axis_plan(padded[i][0], ts, tp)[0]
+                    * _axis_plan(padded[i][1], ts, tp)[0] for i in idxs)
+        total += -(-tiles // min(tile["chunk"], tiles))
+    return total
+
+
+def trace_names(logdir: str, kernel: str) -> int:
+    """The one Chrome trace under logdir: its kernel events whose name
+    holds ``kernel`` (raises unless there is exactly one trace and it has
+    some)."""
+    traces = [f for f in os.listdir(logdir) if f.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        raise AssertionError(f"{logdir}: {len(traces)} traces, expected 1")
+    with open(os.path.join(logdir, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    hits = sum(1 for e in events if e.get("cat") == "kernel"
+               and kernel in e.get("name", ""))
+    size = os.path.getsize(os.path.join(logdir, traces[0])) / 2 ** 20
+    log(f"  trace {traces[0]} ({size:.1f} MiB, {len(events)} events): "
+        f"{hits} launches of {kernel}")
+    if not hits:
+        raise AssertionError(f"{logdir}: the trace names no {kernel}")
+    return hits
+
+
+def bucket_run(data: dict, pth: str, out_root: str, bucketed: bool,
+               bf16: bool, profile: bool = False) -> dict:
+    """One run of (a): test.py's pipeline on BUCKET_YML with the synthetic
+    pairs, PSNR / SSIM and ``bucketed_eval`` set, on the card. Returns the
+    results, each image's output on the host, the launch counts, the input
+    shapes of each bucket's chunks, the wall and inference seconds (to a
+    synchronised card) and the results directory."""
+    import torch
+
+    from super_resolution_tpu_torch.runtime import batched_eval
+    from super_resolution_tpu_torch.runtime import sr_model as m
+    from super_resolution_tpu_torch.runtime.test_pipeline import \
+        test_from_yaml
+    from super_resolution_tpu_torch.utils.options import yaml_load
+
+    opt = yaml_load(BUCKET_YML)
+    val = dict(opt["val"], bucketed_eval=bucketed, metrics=BUCKET_METRICS)
+    extra = dict(inference_dtype="bf16") if bf16 else {}
+    if profile:
+        extra["logger"] = {"profile": {}}
+    outputs, bucket_shapes, infer = [], [], []
+    post, group = m.SRModel._validation_postprocess, \
+        batched_eval.tile_forward_group
+    run_one, run_all = m.HATModel._run_inference, \
+        m.HATModel._bucketed_inference
+
+    def timed(fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            infer.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def keep(model, *a, **kw):
+        outputs.append(model.output[0].float().cpu().numpy())
+        return post(model, *a, **kw)
+
+    def counted_group(apply_fn, imgs, *a, **kw):
+        seen = set()
+
+        def fwd(x):
+            seen.add(tuple(x.shape))
+            return apply_fn(x)
+        out = group(fwd, imgs, *a, **kw)
+        bucket_shapes.append(sorted(seen))
+        return out
+
+    fns = {name: fn for name, fn in wrappers().items() if name in KERNELS}
+    for fn in fns.values():
+        fn.launches = 0
+    m.SRModel._validation_postprocess = keep
+    batched_eval.tile_forward_group = counted_group
+    m.HATModel._run_inference = timed(run_one)
+    m.HATModel._bucketed_inference = timed(run_all)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = test_from_yaml(
+            BUCKET_YML, out_root, device="cuda", datasets={"test_1": data},
+            val=val, path=dict(opt["path"], pretrain_network_g=pth), **extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        m.SRModel._validation_postprocess = post
+        batched_eval.tile_forward_group = group
+        m.HATModel._run_inference = run_one
+        m.HATModel._bucketed_inference = run_all
+    return dict(results=results[data["name"]], outputs=outputs,
+                counts={k: fn.launches for k, fn in fns.items()},
+                shapes=bucket_shapes, wall=wall, infer=sum(infer),
+                root=os.path.join(out_root, "results", opt["name"]))
+
+
+def bucket_path(sets: dict, root: str, card: str) -> dict:
+    """Phase 12 (a), (e) and (f): the bucketed route against the per-image
+    route on the card; the trace of the bucketed run; the batched metrics
+    and eval_folder on its outputs. Returns the timed bucketed run's
+    launch counts."""
+    import torch
+
+    from super_resolution_tpu_torch.metrics import (calculate_psnr,
+                                                    calculate_psnr_pt,
+                                                    calculate_ssim,
+                                                    calculate_ssim_pt)
+    from super_resolution_tpu_torch.tools.eval_folder import evaluate
+    from super_resolution_tpu_torch.utils.img import imread, tensor2img
+    from super_resolution_tpu_torch.utils.options import yaml_load
+
+    opt = yaml_load(BUCKET_YML)
+    tile, ws = opt["tile"], opt["network_g"]["window_size"]
+    pth = os.path.join(root, os.path.basename(BUCKET_YML) + ".pth")
+    if not os.path.exists(pth):
+        eval_weights(BUCKET_YML, pth)
+    data = dict(name="Urban100Shapes", type="PairedImageDataset",
+                dataroot_gt=sets["bucket_gt"], dataroot_lq=sets["bucket_lq"],
+                io_backend={"type": "disk"})
+    n = len(BUCKET_LR)
+    shapes = [(4 * h, 4 * w, 3) for h, w in BUCKET_LR.values()]
+    runs = {}
+    # a first run of each route (the bucketed one traced) meets its shapes;
+    # then the timed bf16 runs in the order bucketed, per image, per image,
+    # bucketed
+    for key, bucketed, bf16, profile in (
+            ("bucketed_bf16_first", True, True, True),
+            ("per_image_bf16_first", False, True, False),
+            ("bucketed_bf16", True, True, False),
+            ("per_image_bf16", False, True, False),
+            ("per_image_bf16_2", False, True, False),
+            ("bucketed_bf16_2", True, True, False),
+            ("bucketed_f32", True, False, False),
+            ("per_image_f32", False, False, False)):
+        run = bucket_run(data, pth, os.path.join(root, "bucket", key),
+                         bucketed, bf16, profile)
+        runs[key] = run
+        fwd = bucket_forwards(ws, tile, bucketed)
+        for name, count in run["counts"].items():
+            if count != _EVAL_HAT.get(name, 0) * fwd:
+                raise AssertionError(f"bucket:{key}: {name}: {count} "
+                                     f"launches, expected "
+                                     f"{_EVAL_HAT.get(name, 0)} x {fwd}")
+        if bucketed and any(len(s) != 1 for s in run["shapes"]):
+            raise AssertionError(f"bucket:{key}: a bucket ran several "
+                                 f"shapes: {run['shapes']}")
+        for out, shape in zip(run["outputs"], shapes, strict=True):
+            if out.shape != shape or not np.isfinite(out).all():
+                raise AssertionError(f"bucket:{key}: output {out.shape}, "
+                                     f"expected {shape}")
+        if not all(np.isfinite(v) for v in run["results"].values()):
+            raise AssertionError(f"bucket:{key}: metrics {run['results']}")
+        log(f"[bucket:{key}] {card}: {n} images, {fwd} chunk forwards, "
+            f"{run['wall'] / n:.3f} s an image wall, inference "
+            f"{run['infer'] / n:.4f}; bucket shapes "
+            f"{run['shapes'] or '-'}; launches "
+            f"{ {k: v for k, v in run['counts'].items() if v} }; results "
+            f"{run['results']}")
+        if profile:
+            trace_names(os.path.join(run["root"], "profile"),
+                        TRACE_KERNEL["a"])
+    f32 = max(float(np.abs(a - b).max()) for a, b in zip(
+        runs["bucketed_f32"]["outputs"], runs["per_image_f32"]["outputs"]))
+    bf16 = min(psnr(a, b) for a, b in zip(
+        runs["bucketed_bf16"]["outputs"], runs["per_image_bf16"]["outputs"]))
+    log(f"  bucketed against per-image: float32 max|diff| {f32:.3e} (tol "
+        f"{BUCKET_F32_TOL:.0e}), bf16 worst PSNR {bf16:.2f} dB (min "
+        f"{BUCKET_BF16_MIN_DB}); s an image (wall / inference): "
+        + ", ".join(f"{k} {runs[k]['wall'] / n:.3f} / "
+                    f"{runs[k]['infer'] / n:.4f}" for k in (
+                        "bucketed_bf16", "per_image_bf16", "per_image_bf16_2",
+                        "bucketed_bf16_2", "bucketed_f32", "per_image_f32")))
+    if f32 > BUCKET_F32_TOL or bf16 < BUCKET_BF16_MIN_DB:
+        raise AssertionError(f"bucketed against per-image: {f32}, {bf16}")
+
+    # (f) the batched metrics of the bucketed bf16 run's outputs on the card
+    # against the numpy protocol, on the same uint8 images
+    t0 = time.perf_counter()
+    worst = [0.0, 0.0]
+    for out, name in zip(runs["bucketed_bf16"]["outputs"], sorted(BUCKET_LR)):
+        sr8 = tensor2img(out)
+        gt8 = imread(os.path.join(sets["bucket_gt"], f"{name}.png"))
+        rgb = [torch.from_numpy(np.ascontiguousarray(v[:, :, ::-1]))
+               .cuda()[None].float() / 255 for v in (sr8, gt8)]
+        got = (float(calculate_psnr_pt(*rgb, 4, True)[0]),
+               float(calculate_ssim_pt(*rgb, 4, True)[0]))
+        ref = (calculate_psnr(sr8, gt8, 4, test_y_channel=True),
+               calculate_ssim(sr8, gt8, 4, test_y_channel=True))
+        worst = [max(worst[i], abs(got[i] - ref[i])) for i in range(2)]
+    log(f"  calculate_psnr_pt / calculate_ssim_pt on the card against "
+        f"numpy: worst |diff| {worst[0]:.2e} dB, {worst[1]:.2e} (tol 2e-3, "
+        f"5e-4) ({time.perf_counter() - t0:.1f} s)")
+    if worst[0] > 2e-3 or worst[1] > 5e-4:
+        raise AssertionError(f"batched metrics against numpy: {worst}")
+    t0 = time.perf_counter()
+    vis = os.path.join(runs["bucketed_bf16"]["root"], "visualization",
+                       data["name"])
+    summary = evaluate(vis, sets["bucket_gt"], 4)
+    res = runs["bucketed_bf16"]["results"]
+    log(f"  eval_folder on its PNGs: {summary} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if (summary["n_images"] != n
+            or abs(summary["psnr_y"] - res["psnr"]) > 1e-6
+            or abs(summary["ssim_y"] - res["ssim"]) > 1e-6
+            or not np.isfinite(summary["niqe"])):
+        raise AssertionError(f"eval_folder {summary} against {res}")
+    return runs["bucketed_bf16"]["counts"]
+
+
+def ensemble_path(sets: dict, root: str, card: str) -> dict:
+    """Phase 12 (b): ``test_selfensemble`` of HAT_SRx4.yml's runner at full
+    width (float32, the widened seeded weights) on one Set5 LR image, on
+    the card against the host CPU within phase 5's 1e-4; eight forwards'
+    launches. Returns the launch counts."""
+    import torch
+
+    from super_resolution_tpu_torch.runtime import build_model
+    from super_resolution_tpu_torch.utils.img import img2tensor, imread
+    from super_resolution_tpu_torch.utils.options import (process_options,
+                                                          yaml_load)
+
+    pth = os.path.join(root, os.path.basename(ENSEMBLE_YML) + ".pth")
+    if not os.path.exists(pth):
+        eval_weights(ENSEMBLE_YML, pth)
+    opt = yaml_load(ENSEMBLE_YML)
+    opt["path"]["pretrain_network_g"] = pth
+    opt = process_options(opt, os.path.join(root, "ensemble"),
+                          is_train=False)
+    lq = img2tensor(imread(os.path.join(sets["lq"], f"{ENSEMBLE_IMAGE}.png"),
+                           float32=True))[None]
+    fns = {name: fn for name, fn in wrappers().items() if name in KERNELS}
+    outs = {}
+    for device in ("cuda", "cpu"):
+        model = build_model(opt, device)
+        model.feed_data({"lq": lq})
+        if device == "cuda":
+            model.test_selfensemble()
+            torch.cuda.synchronize()
+        for fn in fns.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        model.test_selfensemble()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts = {k: fn.launches for k, fn in fns.items()}
+        outs[device] = (model.output[0].float().cpu().numpy(),
+                        time.perf_counter() - t0)
+        del model
+    err = float(np.abs(outs["cuda"][0] - outs["cpu"][0]).max())
+    log(f"[ensemble] {card}: x8 self-ensemble of {ENSEMBLE_YML}'s network "
+        f"on {ENSEMBLE_IMAGE} ({lq.shape[1]} x {lq.shape[2]}), float32: "
+        f"card {outs['cuda'][1]:.3f} s, host CPU {outs['cpu'][1]:.1f} s; "
+        f"max|card - CPU| {err:.3e} (tol 1e-4); launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if outs["cuda"][0].shape != (4 * lq.shape[1], 4 * lq.shape[2], 3):
+        raise AssertionError(f"ensemble output {outs['cuda'][0].shape}")
+    if err > 1e-4:
+        raise AssertionError(f"self-ensemble card against CPU: {err}")
+    for name, count in counts.items():
+        if count != 8 * _EVAL_HAT.get(name, 0):
+            raise AssertionError(f"ensemble: {name}: {count} launches, "
+                                 f"expected 8 x {_EVAL_HAT.get(name, 0)}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def lmdb_path(sets: dict, root: str, card: str) -> dict:
+    """Phase 12 (c): test.py on HAT_SRx4.yml (bf16, phase 5's weights)
+    reading the synthetic Set5 from .lmdb folders written by the port's
+    make_lmdb_from_imgs, against the same run on the disk folders: equal
+    PSNR / SSIM. Returns the LMDB run's launch counts."""
+    from super_resolution_tpu_torch.runtime.test_pipeline import \
+        test_from_yaml
+    from super_resolution_tpu_torch.utils.lmdb_util import \
+        make_lmdb_from_imgs
+    from super_resolution_tpu_torch.utils.options import yaml_load
+
+    opt = yaml_load(ENSEMBLE_YML)
+    pth = os.path.join(root, os.path.basename(ENSEMBLE_YML) + ".pth")
+    t0 = time.perf_counter()
+    lmdbs = {}
+    for side in ("gt", "lq"):
+        names = sorted(os.listdir(sets[side]))
+        lmdbs[side] = os.path.join(root, f"set5_{side}.lmdb")
+        make_lmdb_from_imgs(sets[side], lmdbs[side], names,
+                            [os.path.splitext(n)[0] for n in names])
+    log(f"[lmdb] Set5 written to {list(lmdbs.values())} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    fns = {name: fn for name, fn in wrappers().items() if name in KERNELS}
+    results = {}
+    for backend in ("disk", "lmdb"):
+        data = dict(opt["datasets"]["test_1"], io_backend={"type": backend},
+                    dataroot_gt=(sets["gt"] if backend == "disk"
+                                 else lmdbs["gt"]),
+                    dataroot_lq=(sets["lq"] if backend == "disk"
+                                 else lmdbs["lq"]))
+        for fn in fns.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = test_from_yaml(
+            ENSEMBLE_YML, os.path.join(root, f"lmdb_{backend}"),
+            device="cuda", datasets={"test_1": data},
+            path=dict(opt["path"], pretrain_network_g=pth),
+            inference_dtype="bf16")
+        results[backend] = res[data["name"]]
+        counts = {k: fn.launches for k, fn in fns.items()}
+        log(f"[lmdb:{backend}] {card}: {results[backend]} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    for metric, value in results["disk"].items():
+        if abs(results["lmdb"][metric] - value) > 1e-9:
+            raise AssertionError(f"lmdb {results['lmdb']} against disk "
+                                 f"{results['disk']}")
+    for name, count in counts.items():
+        if count != len(SET5) * _EVAL_HAT.get(name, 0):
+            raise AssertionError(f"lmdb: {name}: {count} launches")
+    return counts
+
+
+def rawpack_path(sets: dict, root: str, card: str) -> dict:
+    """Phase 12 (d) and (e): RawPack built by g++ at first use; crop_batch
+    against numpy crops; RAWPACK_ITERS iterations of phase 6's float32 file
+    (phase 6's batch) with datasets.train a RawPackPairedDataset over packs
+    of phase 6's synthetic pairs and logger.profile on the second
+    iteration: finite losses, the first batch against numpy crops of the
+    PNGs with the dataset's draws, the trace naming row 7's kernel.
+    Returns the launch counts of the run."""
+    import random
+
+    from super_resolution_tpu_torch import native
+    from super_resolution_tpu_torch.data import EnlargedSampler
+    from super_resolution_tpu_torch.data.rawpack_dataset import (
+        RawPackReader, pack_folder)
+    from super_resolution_tpu_torch.runtime import sr_model as m
+    from super_resolution_tpu_torch.runtime.train_pipeline import \
+        train_from_yaml
+    from super_resolution_tpu_torch.utils.img import imread
+    from super_resolution_tpu_torch.utils.options import yaml_load
+
+    t0 = time.perf_counter()
+    lib = native.build_native()
+    log(f"[rawpack] {os.path.basename(lib)} built by g++ in "
+        f"{time.perf_counter() - t0:.2f} s")
+    packs = {}
+    t0 = time.perf_counter()
+    for side in ("gt", "lq"):
+        packs[side] = os.path.join(root, f"train_{side}.srpk")
+        n = pack_folder(sets[f"train_{side}"], packs[side])
+    log(f"[rawpack] {n} pairs packed ({time.perf_counter() - t0:.2f} s)")
+    names = sorted(os.listdir(sets["train_gt"]))
+    gts = [imread(os.path.join(sets["train_gt"], f))[:, :, ::-1]
+           for f in names]
+
+    def numpy_crop(img, top, left, size, hflip, rot):
+        out = img[top:top + size, left:left + size]
+        if hflip:
+            out = out[:, ::-1]
+        if rot:
+            out = out.transpose(1, 0, 2)
+        return out
+
+    reader = RawPackReader(packs["gt"])
+    rng = np.random.default_rng(5)
+    idxs = rng.integers(0, n, 16)
+    tops, lefts = rng.integers(0, TRAIN_GT - 256, (2, 16))
+    hflips, rots = rng.integers(0, 2, (2, 16))
+    got = reader.crop_batch(idxs, tops, lefts, 256, hflips, rots)
+    for k in range(16):
+        if not np.array_equal(got[k], numpy_crop(gts[idxs[k]], tops[k],
+                                                 lefts[k], 256, hflips[k],
+                                                 rots[k])):
+            raise AssertionError(f"crop_batch item {k} against numpy")
+    log("  crop_batch of 16 crops of 256 with flips and transposes equals "
+        "numpy's")
+
+    spec = TRAIN_PATHS["train_f32"]
+    opt = yaml_load(spec["yml"])
+    train = opt["datasets"]["train"]
+    scale, gt_size = opt["scale"], train["gt_size"]
+    train = dict(name="rawpack", type="RawPackPairedDataset",
+                 gt_pack=packs["gt"], lq_pack=packs["lq"], scale=scale,
+                 gt_size=gt_size, use_hflip=train.get("use_hflip", True),
+                 use_rot=train.get("use_rot", True),
+                 batch_size_per_gpu=spec["batch"],
+                 dataset_enlarge_ratio=1)
+    first, losses = [], []
+    step = m.SRModel.optimize_parameters
+
+    def keep(model, batch, current_iter):
+        if not first:
+            first.append({k: np.array(v) for k, v in batch.items()
+                          if k in ("lq", "gt")})
+        step(model, batch, current_iter)
+        losses.append(model.get_current_log())
+
+    fns = {name: fn for name, fn in wrappers().items() if name in KERNELS}
+    for fn in fns.values():
+        fn.launches = 0
+    m.SRModel.optimize_parameters = keep
+    t0 = time.perf_counter()
+    try:
+        model, it = train_from_yaml(
+            spec["yml"], os.path.join(root, "rawpack"), device="cuda",
+            datasets={"train": train},
+            train=dict(opt["train"], total_iter=RAWPACK_ITERS),
+            val=dict(opt["val"], val_freq=10 ** 6),
+            logger=dict(opt["logger"], print_freq=1,
+                        save_checkpoint_freq=10 ** 6, use_tb_logger=False,
+                        profile={"start_iter": 1, "num_iters": 1}))
+    finally:
+        m.SRModel.optimize_parameters = step
+    wall = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in fns.items()}
+    log(f"[rawpack] {card}: {spec['yml']} on RawPackPairedDataset, batch "
+        f"{spec['batch']}, {it} iterations in {wall:.1f} s; losses "
+        f"{losses}; launches {({k: v for k, v in counts.items() if v})}")
+    if it != RAWPACK_ITERS or len(losses) != RAWPACK_ITERS or not all(
+            np.isfinite(v) for rec in losses for v in rec.values()):
+        raise AssertionError(f"rawpack training: {it} iterations, {losses}")
+
+    # the first batch: the loader's epoch-0 order and the dataset's draws
+    # (seed manual_seed), cropped from the PNGs by numpy
+    seed = model.opt["manual_seed"]
+    sampler = EnlargedSampler(n)
+    sampler.set_epoch(seed)
+    draws = random.Random(seed)
+    lq_size = gt_size // scale
+    lqs = [imread(os.path.join(sets["train_lq"], f))[:, :, ::-1]
+           for f in names]
+    for k, i in enumerate(sampler.indices()[:spec["batch"]]):
+        h, w = lqs[i].shape[:2]
+        top, left = draws.randint(0, h - lq_size), draws.randint(0, w - lq_size)
+        hflip = train["use_hflip"] and draws.random() < 0.5
+        rot = train["use_rot"] and draws.random() < 0.5
+        for key, img, t, l_, s in (("lq", lqs[i], top, left, lq_size),
+                                   ("gt", gts[i], top * scale, left * scale,
+                                    gt_size)):
+            ref = numpy_crop(img, t, l_, s, hflip, rot).astype(
+                np.float32) / 255.0
+            if not np.array_equal(first[0][key][k], ref):
+                raise AssertionError(f"rawpack first batch item {k} {key} "
+                                     f"against numpy")
+    log(f"  the first batch ({spec['batch']} items) equals the numpy crops "
+        f"of the PNGs")
+    trace_names(os.path.join(model.opt["path"]["experiments_root"],
+                             "profile"), TRACE_KERNEL["d"])
+    return counts
+
+
+def eval_surface(sets: dict, root: str, card: str) -> dict:
+    """Phase 12: label -> launch counts of (a) to (d)."""
+    import torch
+
+    by_path = {}
+    sets.update(write_bucket_pairs(root))
+    t0 = time.perf_counter()
+    by_path["eval_bucketed"] = bucket_path(sets, root, card)
+    log(f"[bucket] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["eval_selfensemble"] = ensemble_path(sets, root, card)
+    log(f"[ensemble] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["eval_lmdb"] = lmdb_path(sets, root, card)
+    log(f"[lmdb] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["train_rawpack"] = rawpack_path(sets, root, card)
+    log(f"[rawpack] done in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return by_path
+
+
 def _short_names(mangled) -> dict:
     """Mangled kernel name -> ``name<template arguments>`` (c++filt, where
     the toolkit's host compiler brought it)."""
@@ -4381,6 +4941,14 @@ def main() -> int:
                                                         card)
         log(f"[esr:esr_perceptual] done in {time.perf_counter() - t0:.1f} s")
         log(f"[route] phase 11 done in {time.perf_counter() - t11:.1f} s")
+
+        t12 = time.perf_counter()
+        log("[eval_surface] bucketed tiled validation, the x8 "
+            "self-ensemble, the LMDB and RawPack backends, the trace "
+            "windows, the batched metrics and eval_folder")
+        by_path.update(eval_surface(sets, root, card))
+        log(f"[eval_surface] phase 12 done in "
+            f"{time.perf_counter() - t12:.1f} s")
 
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():

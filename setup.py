@@ -11,7 +11,9 @@ setup(
                                     "super_resolution_tpu_torch",
                                     "super_resolution_tpu_torch.*"]),
     # the PyTorch port builds its CUDA kernels from these sources on first use
-    package_data={"super_resolution_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+    package_data={"super_resolution_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                                "csrc/*.cpp",
+                                                "metrics/*.npz"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy",
                       "pyyaml"],

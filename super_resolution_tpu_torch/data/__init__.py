@@ -20,7 +20,7 @@ from typing import Iterator
 import numpy as np
 
 from super_resolution_tpu_torch.data import (  # noqa: F401 registry
-    onthefly_datasets, paired_dataset, realesrgan_dataset)
+    onthefly_datasets, paired_dataset, rawpack_dataset, realesrgan_dataset)
 from super_resolution_tpu_torch.utils.registry import DATASET_REGISTRY
 
 

@@ -1,5 +1,5 @@
-"""Paired LQ/GT and single-LQ datasets on the disk backend (port of the
-folder half of super_resolution_tpu/data/paired_dataset.py; ref:
+"""Paired LQ/GT and single-LQ datasets (port of
+super_resolution_tpu/data/paired_dataset.py; ref:
 basicsr/data/paired_image_dataset.py:10-106,
 single_image_dataset.py:10-40).
 
@@ -7,12 +7,15 @@ Datasets are plain indexable objects returning float32 RGB HWC [0, 1]
 numpy arrays. In phase ``train`` a pair is cropped at random to
 ``gt_size`` and flipped and transposed (``use_hflip``, ``use_rot``), with
 the draws from the dataset's own ``random.Random``, which the train loader
-reseeds every epoch (:meth:`PairedImageDataset.seed`). What is not ported
-raises ``NotImplementedError`` rather than being read another way: another
-``io_backend`` than ``disk`` (LMDB; ROADMAP.md queue 1). A paired
-``meta_info_file`` lists the GT names, each paired with the LQ of the same
-name through ``filename_tmpl``; :class:`RealESRGANPairedDataset`'s
-``meta_info`` lists both paths of a pair."""
+reseeds every epoch (:meth:`PairedImageDataset.seed`). The paired set reads
+folders on disk, or with ``io_backend: {type: lmdb}`` two ``.lmdb``
+folders (keys from their meta_info.txt, values decoded by
+``utils/img.py::imfrombytes``). Another backend raises
+``NotImplementedError`` rather than being read another way (the JAX
+package reads its roots as folders on disk). A paired ``meta_info_file``
+lists the GT names, each paired with the LQ of the same name through
+``filename_tmpl``; :class:`RealESRGANPairedDataset`'s ``meta_info`` lists
+both paths of a pair."""
 
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ import numpy as np
 
 from super_resolution_tpu_torch.data.transforms import (augment,
                                                         paired_random_crop)
-from super_resolution_tpu_torch.utils.img import img2tensor, imread
+from super_resolution_tpu_torch.utils.img import (img2tensor, imfrombytes,
+                                                  imread)
 from super_resolution_tpu_torch.utils.misc import scandir
 from super_resolution_tpu_torch.utils.registry import DATASET_REGISTRY
 
@@ -73,12 +77,32 @@ def paired_paths_from_meta_info(lq_folder: str, gt_folder: str,
     return paths
 
 
-def _check_supported(opt: dict) -> None:
+def paired_paths_from_lmdb(lq_folder: str, gt_folder: str):
+    """Keys from the meta_info.txt the LMDB writer puts next to data.mdb,
+    sorted (ref: data_util.py::paired_paths_from_lmdb;
+    lmdb_util.py:78-87)."""
+    if not (lq_folder.endswith(".lmdb") and gt_folder.endswith(".lmdb")):
+        raise ValueError("lmdb io_backend requires both dataroots to be "
+                         f".lmdb folders, got {lq_folder} / {gt_folder}")
+
+    def read_keys(folder):
+        with open(osp.join(folder, "meta_info.txt")) as f:
+            return [line.split(".")[0] for line in f if line.strip()]
+
+    lq_keys, gt_keys = read_keys(lq_folder), read_keys(gt_folder)
+    if set(lq_keys) != set(gt_keys):
+        raise ValueError("LQ and GT lmdbs hold different key sets")
+    return [{"lq_path": k, "gt_path": k} for k in sorted(gt_keys)]
+
+
+def _check_supported(opt: dict, readable=("disk",)) -> str:
     backend = (opt.get("io_backend") or {}).get("type", "disk")
-    if backend != "disk":
+    if backend not in readable:
         raise NotImplementedError(
-            f"{opt.get('name')}: io_backend '{backend}' is not ported; only "
-            f"'disk' is (ROADMAP.md queue 1, item 5)")
+            f"{opt.get('name')}: io_backend '{backend}': this dataset reads "
+            f"{' or '.join(readable)} (the JAX package reads the roots of "
+            f"another backend as folders on disk)")
+    return backend
 
 
 def _normalize(opt: dict, *imgs):
@@ -97,12 +121,23 @@ class PairedImageDataset:
     ``mean`` / ``std`` applied."""
 
     def __init__(self, opt: dict):
-        _check_supported(opt)
+        backend = _check_supported(opt, ("disk", "lmdb"))
         self.opt = opt
         self.gt_folder = opt["dataroot_gt"]
         self.lq_folder = opt["dataroot_lq"]
         self.filename_tmpl = opt.get("filename_tmpl", "{}")
-        self.paths = self._pair_paths(opt)
+        self._file_client = None
+        if backend == "lmdb":
+            from super_resolution_tpu_torch.utils.file_client import \
+                FileClient
+
+            self.paths = paired_paths_from_lmdb(self.lq_folder,
+                                                self.gt_folder)
+            self._file_client = FileClient(
+                "lmdb", db_paths=[self.lq_folder, self.gt_folder],
+                client_keys=["lq", "gt"])
+        else:
+            self.paths = self._pair_paths(opt)
         self._rng = None
 
     def _pair_paths(self, opt: dict) -> list:
@@ -112,6 +147,13 @@ class PairedImageDataset:
                 self.filename_tmpl)
         return paired_paths_from_folders(self.lq_folder, self.gt_folder,
                                          self.filename_tmpl)
+
+    def _read(self, p: dict, key: str) -> np.ndarray:
+        """The image of ``p[key + '_path']`` ('gt' or 'lq'), RGB float32."""
+        if self._file_client is not None:
+            content = self._file_client.get(p[f"{key}_path"], key)
+            return img2tensor(imfrombytes(content, float32=True))
+        return img2tensor(imread(p[f"{key}_path"], float32=True))
 
     def seed(self, seed: int) -> None:
         """Reseed the crops and flips (the train loader, every epoch)."""
@@ -123,8 +165,7 @@ class PairedImageDataset:
     def __getitem__(self, index: int) -> dict:
         scale = self.opt["scale"]
         p = self.paths[index]
-        img_gt = img2tensor(imread(p["gt_path"], float32=True))
-        img_lq = img2tensor(imread(p["lq_path"], float32=True))
+        img_gt, img_lq = self._read(p, "gt"), self._read(p, "lq")
         if self.opt.get("phase") == "train":
             img_gt, img_lq = paired_random_crop(
                 img_gt, img_lq, self.opt["gt_size"], scale, rng=self._rng)

@@ -1,5 +1,6 @@
 """PSNR / SSIM with MATLAB parity (a copy of the numpy half of
-super_resolution_tpu/metrics/psnr_ssim.py).
+super_resolution_tpu/metrics/psnr_ssim.py), and its batched on-device
+half in PyTorch (``calculate_psnr_pt``, ``calculate_ssim_pt``).
 
 Matches the published protocol exactly (ref:
 HAT/ESC/basicsr/metrics/psnr_ssim.py — calculate_psnr:12-48,
@@ -15,8 +16,9 @@ metric stack has zero OpenCV dependency.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from super_resolution_tpu_torch.utils.color import to_y_channel
+from super_resolution_tpu_torch.utils.color import rgb_to_y_pt, to_y_channel
 from super_resolution_tpu_torch.utils.registry import METRIC_REGISTRY
 
 
@@ -100,3 +102,60 @@ def calculate_ssim(img, img2, crop_border, input_order="HWC", test_y_channel=Fal
     img2 = img2.astype(np.float64)
     ssims = [_ssim_channel(img[..., i], img2[..., i]) for i in range(img.shape[2])]
     return float(np.mean(ssims))
+
+
+# ---------------------------------------------------------------------------
+# batched, on the tensors' device (BasicSR's calculate_psnr_pt / _ssim_pt)
+# ---------------------------------------------------------------------------
+
+def _crop_and_y(img, img2, crop_border: int, test_y_channel: bool):
+    if crop_border != 0:
+        img = img[:, crop_border:-crop_border, crop_border:-crop_border, :]
+        img2 = img2[:, crop_border:-crop_border, crop_border:-crop_border, :]
+    if test_y_channel:
+        img, img2 = rgb_to_y_pt(img), rgb_to_y_pt(img2)
+    return img, img2
+
+
+def calculate_psnr_pt(img, img2, crop_border: int,
+                      test_y_channel: bool = False):
+    """Batched PSNR of NHWC [0, 1] tensors; returns the (N,) per-image
+    values (JAX ``calculate_psnr_jnp``)."""
+    img, img2 = _crop_and_y(img, img2, crop_border, test_y_channel)
+    d = img.float() - img2.float()
+    mse = (d * d).mean(dim=(1, 2, 3))
+    return 10.0 * torch.log10(1.0 / (mse + 1e-8))
+
+
+def calculate_ssim_pt(img, img2, crop_border: int,
+                      test_y_channel: bool = False):
+    """Batched SSIM of NHWC [0, 1] tensors, the valid-mode 11 x 11
+    Gaussian (sigma 1.5) as a depthwise ``F.conv2d``; returns the (N,)
+    per-image values averaged over channels (JAX ``calculate_ssim_jnp``,
+    which runs an XLA convolution)."""
+    import torch.nn.functional as F
+
+    img, img2 = _crop_and_y(img, img2, crop_border, test_y_channel)
+    x = img.float().permute(0, 3, 1, 2) * 255.0
+    y = img2.float().permute(0, 3, 1, 2) * 255.0
+    c = x.shape[1]
+    k = torch.as_tensor(gaussian_kernel_1d(11, 1.5), dtype=torch.float32,
+                        device=x.device)
+    kern = (k[:, None] * k[None, :]).expand(c, 1, 11, 11)
+
+    def blur(t):
+        return F.conv2d(t, kern, groups=c)
+
+    c1 = (0.01 * 255) ** 2
+    c2 = (0.03 * 255) ** 2
+    # the variances around 128: blur(x^2) - mu^2 loses bits to float32
+    # cancellation at the [0, 255] scale, and they are shift-invariant
+    xs, ys = x - 128.0, y - 128.0
+    mu1s, mu2s = blur(xs), blur(ys)
+    sigma1_sq = blur(xs * xs) - mu1s * mu1s
+    sigma2_sq = blur(ys * ys) - mu2s * mu2s
+    sigma12 = blur(xs * ys) - mu1s * mu2s
+    mu1, mu2 = mu1s + 128.0, mu2s + 128.0
+    cs = (2 * sigma12 + c2) / (sigma1_sq + sigma2_sq + c2)
+    ssim_map = ((2 * mu1 * mu2 + c1) / (mu1 * mu1 + mu2 * mu2 + c1)) * cs
+    return ssim_map.mean(dim=(1, 2, 3))

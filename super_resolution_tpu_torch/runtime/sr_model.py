@@ -17,9 +17,13 @@ checkpoints keep, so a resumed run draws what the uninterrupted run would.
 
 Validation runs one image at a time: inference, ``tensor2img``, the PNG
 under ``visualization/<set>/`` and the metrics on the MATLAB protocol, then
-the set's means and the best-metric record. Across processes
-(``dist_validation``) and bucketed across images (``val: {bucketed_eval:
-true}``) it is not ported, and asking for either raises.
+the set's means and the best-metric record. With ``val: {bucketed_eval:
+true}`` and ``tile:``, ``HATModel`` and the runners that inherit from it
+run the whole set's inference first, its tiles batched across images in a
+few input shapes (``runtime/batched_eval.py``), then the same per-image
+tail. ``SRModel.test_selfensemble`` averages the x8 flips and transposes.
+Validation across processes (``dist_validation``) is not ported, and
+asking for it raises.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ from super_resolution_tpu_torch.models import build_network
 from super_resolution_tpu_torch.models.arch_util import init_weights
 from super_resolution_tpu_torch.ops.windowing import pad_to_multiple
 from super_resolution_tpu_torch.runtime import checkpoint
+from super_resolution_tpu_torch.runtime.batched_eval import \
+    bucketed_tile_eval
 from super_resolution_tpu_torch.runtime.tile import tile_forward
 from super_resolution_tpu_torch.runtime.train_loop import (init_train_state,
                                                            make_sr_train_step)
@@ -151,6 +157,33 @@ class SRModel:
     def test(self) -> None:
         self.output = self._apply_fn()(self.lq)
 
+    @torch.inference_mode()
+    def test_selfensemble(self) -> None:
+        """x8 flip / transpose test-time augmentation averaged in SR space
+        (JAX ``SRModel.test_selfensemble``; ref: sr_model.py:132-178): the
+        eight variants of the LQ through the network, each output taken
+        back by its transforms in reverse order, then the mean."""
+        def tf(img, op):
+            if op == "v":
+                return img.flip(2)
+            if op == "h":
+                return img.flip(1)
+            return img.permute(0, 2, 1, 3)
+
+        variants = [self.lq]
+        for op in ("v", "h", "t"):
+            variants.extend([tf(v, op) for v in variants])
+        fwd = self._apply_fn()
+        outs = [fwd(v) for v in variants]
+        for i in range(len(outs)):
+            if i > 3:
+                outs[i] = tf(outs[i], "t")
+            if i % 4 > 1:
+                outs[i] = tf(outs[i], "h")
+            if (i % 4) % 2 == 1:
+                outs[i] = tf(outs[i], "v")
+        self.output = torch.stack(outs).mean(0)
+
     def _run_inference(self) -> None:
         """Hook for subclasses (padding / tiling)."""
         self.test()
@@ -162,7 +195,7 @@ class SRModel:
         if mesh is not None:
             raise NotImplementedError("training across devices (a mesh) is "
                                       "not ported (ROADMAP.md queue 1, "
-                                      "parallelism)")
+                                      "item 11)")
         train_opt = self.opt["train"]
         self.state = init_train_state(self.net_g, train_opt)
         self._train_step = make_sr_train_step(train_opt)
@@ -247,7 +280,7 @@ class SRModel:
                 and dist.get_world_size() > 1):
             raise NotImplementedError(
                 "validation across processes (dist_validation) is not "
-                "ported (ROADMAP.md queue 1, parallelism)")
+                "ported (ROADMAP.md queue 1, item 11)")
         self.nondist_validation(dataloader, current_iter, save_img,
                                 tb_logger)
 
@@ -351,13 +384,22 @@ class HATModel(SRModel):
     def window_size(self) -> int:
         return self.opt["network_g"].get("window_size", 16)
 
+    def _tile_options(self) -> dict:
+        """``tile:``; ``multichip: true`` (a device mesh) raises."""
+        tile_opt = self.opt["tile"]
+        if tile_opt.get("multichip"):
+            raise NotImplementedError(
+                "tile: {multichip: true} (a device mesh) is not ported "
+                "(ROADMAP.md queue 1, item 11)")
+        return tile_opt
+
     @torch.inference_mode()
     def _run_inference(self) -> None:
         _, h, w, _ = self.lq.shape
         img, _ = pad_to_multiple(self.lq, self.window_size())
         fwd = self._apply_fn()
         if "tile" in self.opt:
-            t = self.opt["tile"]
+            t = self._tile_options()
             out = tile_forward(fwd, img, self.scale, t["tile_size"],
                                t["tile_pad"], chunk=t.get("chunk", 8))
         else:
@@ -366,16 +408,49 @@ class HATModel(SRModel):
 
     def nondist_validation(self, dataloader, current_iter, save_img,
                            tb_logger=None):
-        """Per-image validation. The JAX runner's bucketed evaluation across
-        images (``val: {bucketed_eval: true}`` with ``tile:``) is not ported
-        and raises."""
-        if (self.opt.get("val") or {}).get("bucketed_eval") \
-                and "tile" in self.opt:
-            raise NotImplementedError(
-                "val: {bucketed_eval: true} with tile: is not ported "
-                "(runtime/batched_eval.py, ROADMAP.md queue 1 item 4)")
-        super().nondist_validation(dataloader, current_iter, save_img,
-                                   tb_logger)
+        """Per-image validation, or with ``val: {bucketed_eval: true}`` and
+        ``tile:`` the whole set's tiles batched across images
+        (:func:`~super_resolution_tpu_torch.runtime.batched_eval.
+        bucketed_tile_eval`, ``val.bucket_quant`` default 32), each LQ
+        reflect-padded to a window multiple as per image and each output
+        cropped to its true size; then the per-image tail in dataset
+        order."""
+        val_opt = self.opt.get("val") or {}
+        if not (val_opt.get("bucketed_eval") and "tile" in self.opt):
+            return super().nondist_validation(dataloader, current_iter,
+                                              save_img, tb_logger)
+        tile_opt = self._tile_options()
+        items = list(dataloader)
+        outs = self._bucketed_inference(items, tile_opt, val_opt)
+        dataset_name = dataloader.dataset.opt["name"]
+        with_metrics = val_opt.get("metrics") is not None
+        if with_metrics:
+            self.metric_results = {m: 0 for m in val_opt["metrics"]}
+            self._initialize_best_metric_results(dataset_name)
+        for val_data, out in zip(items, outs):
+            self.feed_data(val_data)
+            self.output = out
+            self._validation_postprocess(val_data, dataset_name, current_iter,
+                                         save_img)
+        if with_metrics and items:
+            self._finalize_validation(dataset_name, len(items), current_iter,
+                                      tb_logger)
+
+    @torch.inference_mode()
+    def _bucketed_inference(self, items: list, tile_opt: dict,
+                            val_opt: dict) -> list:
+        """The outputs of every item's LQ, cropped to LQ x scale."""
+        lqs, dims = [], []
+        for val_data in items:
+            lq = self._to_device(val_data["lq"])
+            dims.append((lq.shape[1], lq.shape[2]))
+            lqs.append(pad_to_multiple(lq, self.window_size())[0])
+        outs = bucketed_tile_eval(
+            self._apply_fn(), lqs, self.scale, tile_opt["tile_size"],
+            tile_opt["tile_pad"], chunk=tile_opt.get("chunk", 8),
+            quant=val_opt.get("bucket_quant", 32))
+        return [out[:, :h * self.scale, :w * self.scale, :]
+                for out, (h, w) in zip(outs, dims)]
 
 
 @MODEL_REGISTRY.register()

@@ -3,7 +3,8 @@ validation of each set (port of super_resolution_tpu/runtime/
 test_pipeline.py; ref: basicsr/test.py:11-45).
 
 Every entry point runs on ``cuda`` unless the caller asks for another
-device; nothing falls back to the CPU."""
+device; nothing falls back to the CPU. ``logger.profile`` traces the
+validation loop (``utils/profiler.py::trace_eval``)."""
 
 from __future__ import annotations
 
@@ -20,16 +21,13 @@ from super_resolution_tpu_torch.utils.options import (dict2str,
                                                       parse_options,
                                                       process_options,
                                                       yaml_load)
+from super_resolution_tpu_torch.utils.profiler import trace_eval
 
 
 def run_test(opt: dict, device="cuda") -> dict:
     """Validate every set of a processed option dict on ``device``.
     Returns {set name: {metric: mean}} (empty dicts where the options name
     no metric)."""
-    if (opt.get("logger") or {}).get("profile"):
-        raise NotImplementedError("logger.profile: the evaluation profiler "
-                                  "is not ported (ROADMAP.md queue 1, "
-                                  "item 3)")
     set_random_seed(opt["manual_seed"] + opt["rank"])
     make_exp_dirs(opt)
     log_file = osp.join(opt["path"]["log"], f"test_{opt['name']}.log")
@@ -47,12 +45,16 @@ def run_test(opt: dict, device="cuda") -> dict:
 
     model = build_model(opt, device)
     results = {}
-    for test_loader in test_loaders:
-        test_set_name = test_loader.dataset.opt["name"]
-        logger.info(f"Testing {test_set_name}...")
-        model.validation(test_loader, current_iter=opt["name"],
-                         save_img=opt["val"].get("save_img", True))
-        results[test_set_name] = dict(model.metric_results)
+    # logger.profile: one trace of the whole validation loop
+    with trace_eval((opt.get("logger") or {}).get("profile"),
+                    osp.join(opt["path"]["results_root"], "profile"),
+                    rank=opt["rank"]):
+        for test_loader in test_loaders:
+            test_set_name = test_loader.dataset.opt["name"]
+            logger.info(f"Testing {test_set_name}...")
+            model.validation(test_loader, current_iter=opt["name"],
+                             save_img=opt["val"].get("save_img", True))
+            results[test_set_name] = dict(model.metric_results)
     return results
 
 

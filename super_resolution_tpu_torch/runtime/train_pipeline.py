@@ -32,6 +32,7 @@ from super_resolution_tpu_torch.utils.options import (copy_opt_file,
                                                       parse_options,
                                                       process_options,
                                                       yaml_load)
+from super_resolution_tpu_torch.utils.profiler import TraceWindow
 
 
 def load_resume_state(opt: dict):
@@ -82,9 +83,6 @@ def run_train(opt: dict, opt_path: str | None = None, mesh=None,
     if mesh is not None or opt.get("mesh"):
         raise NotImplementedError("training across devices (a mesh) is not "
                                   "ported (ROADMAP.md queue 1, parallelism)")
-    if (opt.get("logger") or {}).get("profile"):
-        raise NotImplementedError("logger.profile: the trace window is not "
-                                  "ported (ROADMAP.md queue 1, item 3)")
     set_random_seed(opt["manual_seed"] + opt["rank"])
     resume_path = load_resume_state(opt)
     if resume_path is None:
@@ -114,6 +112,10 @@ def run_train(opt: dict, opt_path: str | None = None, mesh=None,
 
     msg_logger = MessageLogger(opt, current_iter, tb_logger)
     data_timer, iter_timer = AvgTimer(), AvgTimer()
+    # logger.profile: one trace of an iteration window
+    trace = TraceWindow(opt["logger"].get("profile"),
+                        osp.join(opt["path"]["experiments_root"], "profile"),
+                        rank=opt["rank"])
 
     total_iters = int(opt["train"]["total_iter"])
     num_iter_per_epoch = max(1, len(train_loader))
@@ -139,6 +141,8 @@ def run_train(opt: dict, opt_path: str | None = None, mesh=None,
                     stop = True
                     break
                 model.optimize_parameters(batch, current_iter)
+                trace.step(current_iter,
+                           block_on=getattr(model, "log_dict", None))
                 iter_timer.record()
 
                 if current_iter % print_freq == 0:
@@ -166,6 +170,7 @@ def run_train(opt: dict, opt_path: str | None = None, mesh=None,
             # a resume from it starts at the batch after that iteration's
             epoch += 1
 
+    trace.close()
     logger.info("End of training.")
     if opt["rank"] == 0:
         model.save(epoch, current_iter)

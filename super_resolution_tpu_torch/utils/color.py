@@ -1,5 +1,5 @@
 """Color-space conversions with MATLAB/BT.601 parity (a copy of
-super_resolution_tpu/utils/color.py without its jax variant).
+super_resolution_tpu/utils/color.py, its jax variant as ``rgb_to_y_pt``).
 
 Matches the reference's conventions exactly (ref:
 HAT/ESC/basicsr/utils/color_util.py — rgb2ycbcr at :5, bgr2ycbcr at :38,
@@ -79,3 +79,14 @@ def to_y_channel(img: np.ndarray) -> np.ndarray:
         img = bgr2ycbcr(img, y_only=True)
         img = img[..., None]
     return img * 255.0
+
+
+def rgb_to_y_pt(img):
+    """Batched RGB [0, 1] NHWC tensor -> Y [0, 1] NHW1, on the tensor's
+    device (JAX ``utils/color.py::rgb_to_y_jnp``; ref: color_util.py:186-205,
+    ``rgb2ycbcr_pt(y_only=True)``)."""
+    import torch
+
+    w = torch.as_tensor(_Y_WEIGHT_RGB, dtype=img.dtype, device=img.device)
+    y = img @ w + 16.0
+    return y[..., None] / 255.0

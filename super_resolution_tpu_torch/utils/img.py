@@ -59,3 +59,20 @@ def imwrite(img: np.ndarray, file_path: str, auto_mkdir: bool = True) -> None:
                     exist_ok=True)
     if not cv2.imwrite(file_path, img):
         raise IOError(f"Failed to write image: {file_path}")
+
+
+def imfrombytes(content: bytes, float32: bool = False,
+                flag: str = "color") -> np.ndarray:
+    """Decode encoded image bytes (the LMDB / memcached read path) to BGR
+    HWC, uint8 or with ``float32`` in [0, 1], as :func:`imread`. flag:
+    'color', 'grayscale' or 'unchanged' (ref: img_util.py::imfrombytes)."""
+    import cv2
+
+    flags = {"color": cv2.IMREAD_COLOR, "grayscale": cv2.IMREAD_GRAYSCALE,
+             "unchanged": cv2.IMREAD_UNCHANGED}[flag]
+    img = cv2.imdecode(np.frombuffer(content, np.uint8), flags)
+    if img is None:
+        raise ValueError("cv2.imdecode could not decode the bytes")
+    if float32:
+        img = img.astype(np.float32) / 255.0
+    return img

@@ -2,8 +2,10 @@
 single-image datasets on one folder (paths, order, arrays), the sequential
 loader, the test half of the options (``--force_yml``, ``num_gpu: auto``,
 the CLI flags) and the log banner. What the port does not read raises
-``NotImplementedError``: another io_backend, a train loader across
-devices. A paired meta_info_file, once among them, is read as JAX reads it.
+``NotImplementedError``: another io_backend than the paired set's disk and
+LMDB and the single set's disk, a train loader across devices. A paired
+meta_info_file and the paired LMDB backend, once among them, are read as
+JAX reads them.
 No entry point picks the CPU by itself."""
 
 import os
@@ -99,10 +101,16 @@ def test_single_dataset_matches_jax(folders, meta, norm):
 def test_unported_inputs_raise(folders, case, tmp_path):
     """Each input the port does not read raises; the paired
     meta_info_file, ported since, is read as JAX reads it: the GT names it
-    lists, in its order, each with the LQ ``filename_tmpl`` names."""
+    lists, in its order, each with the LQ ``filename_tmpl`` names. The
+    paired LMDB backend is ported too: on roots that are no ``.lmdb``
+    folders it raises JAX's ValueError."""
     opt = _paired(folders, "lq_x2")
     if case == "lmdb":
         opt["io_backend"] = {"type": "lmdb"}
+        for build in (build_dataset, j_build_dataset):
+            with pytest.raises(ValueError, match="lmdb io_backend"):
+                build(opt)
+        return
     elif case == "single_lmdb":
         opt.update(type="SingleImageDataset", io_backend={"type": "lmdb"})
     elif case == "meta_info":

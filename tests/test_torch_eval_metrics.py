@@ -105,7 +105,9 @@ def test_calculate_metric_dispatch_and_registry(rng):
                  "test_y_channel": True, "better": "higher"}):
         assert calculate_metric(data, opt) == j_calc(data, opt)
         assert "type" in opt     # the options are not consumed
-    assert sorted(METRIC_REGISTRY.keys()) == ["calculate_psnr",
+    # NIQE is registered; FID is not ported
+    assert sorted(METRIC_REGISTRY.keys()) == ["calculate_niqe",
+                                              "calculate_psnr",
                                               "calculate_ssim"]
     with pytest.raises(KeyError, match="calculate_psnr"):
-        calculate_metric(data, {"type": "calculate_niqe", "crop_border": 0})
+        calculate_metric(data, {"type": "calculate_fid", "crop_border": 0})

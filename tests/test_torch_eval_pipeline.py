@@ -332,9 +332,11 @@ def test_test_from_yaml_takes_top_level_overrides(sets, tmp_path, weights):
 @pytest.mark.parametrize("what", ["bucketed_eval", "profile", "world_size"])
 def test_unported_options_raise(what, sets, tmp_path, weights,
                                 monkeypatch):
-    """Bucketed evaluation with ``tile:``, the eval profiler and validation
-    across processes raise ``NotImplementedError``; none runs another
-    way."""
+    """Of the options once refused, bucketed evaluation with ``tile:`` and
+    the eval profiler are ported: each run's metrics equal the plain
+    run's, and ``logger.profile`` writes one Chrome trace under
+    ``<results_root>/profile``. Validation across processes still raises
+    ``NotImplementedError`` (queue 1, item 11); none runs another way."""
     import torch.distributed as dist
 
     from super_resolution_tpu_torch.runtime.test_pipeline import run_test
@@ -342,17 +344,28 @@ def test_unported_options_raise(what, sets, tmp_path, weights,
 
     case = "hat_tile" if what == "bucketed_eval" else "esc"
     opt = _options(case, "paired", sets, weights(case),
-                   tmp_path)
-    match = {"bucketed_eval": "batched_eval", "profile": "profiler",
-             "world_size": "dist_validation"}[what]
-    if what == "bucketed_eval":
-        opt["val"]["bucketed_eval"] = True
-    elif what == "profile":
-        opt["logger"] = {"profile": True}
-    opt = process_options(opt, str(tmp_path))
+                   tmp_path / "plain")
     if what == "world_size":
+        opt = process_options(opt, str(tmp_path))
         monkeypatch.setattr(dist, "is_initialized", lambda: True)
         monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
         monkeypatch.setattr(dist, "get_rank", lambda *a: 0)
-    with pytest.raises(NotImplementedError, match=match):
-        run_test(opt, device="cpu")
+        with pytest.raises(NotImplementedError,
+                           match="dist_validation.*item 11"):
+            run_test(opt, device="cpu")
+        return
+    plain = run_test(process_options(opt, str(tmp_path)), device="cpu")
+    opt = _options(case, "paired", sets, weights(case), tmp_path / what)
+    if what == "bucketed_eval":
+        opt["val"]["bucketed_eval"] = True
+    else:
+        opt["logger"] = {"profile": {}}
+    got = run_test(process_options(opt, str(tmp_path)), device="cpu")
+    assert got.keys() == plain.keys()
+    for name in plain:
+        assert got[name] == pytest.approx(plain[name], abs=1e-9)
+    traces = (sorted(os.listdir(tmp_path / what / f"eval_{case}" /
+                                "profile"))
+              if what == "profile" else [])
+    assert len(traces) == (what == "profile"), traces
+    assert all(t.endswith(".pt.trace.json") for t in traces)
