@@ -85,7 +85,8 @@ Phases, each of which raises on failure:
      4 (the file's 32 does not fit: batch 4 peaks near 11 GiB, about 2.7 GiB
      a sample of saved activations) and (c) on
      options/train/train_HAT_SRx4_amp_remat.yml (bf16, per-RHAG remat) at
-     its own batch 32, each file unedited but for its data roots (32
+     its own batch 32, each file at 2 of its 6 RHAGs (for the run's time
+     limit) and otherwise unedited but for its data roots (32
      synthetic DF2K-sub pairs, GT 480 x 480, LR by the MATLAB bicubic; the
      two images of the synthetic Set5 whose LR sides are multiples of the
      window, since the files' SRModel does not pad), total_iter 6, val_freq 3,
@@ -94,9 +95,9 @@ Phases, each of which raises on failure:
      weights and drop-path draws (on the host CPU for (b), on the card for
      (c)), net_g_3 and net_g_6 strict-loadable, a run resumed from net_g_3
      against the uninterrupted one, the launches a step (rows 7, 8 once, in
-     the one block at drop-path rate 0; rows 5, 6 six times; twice as many
-     under remat) and an eval image; seconds a step, images a second and
-     peak memory;
+     the one block at drop-path rate 0; rows 5, 6 twice, once a RHAG; twice
+     as many under remat) and an eval image; seconds a step, images a
+     second and peak memory;
   7. ESC-family training: (a) the four autograd entries ESC training and
      the fork's HAT x2 add (fused_attention at ESC x4's step, q (64, 4,
      1024, 16); fused_msa_block at window 16 on (16, 64, 64, 64);
@@ -114,10 +115,11 @@ Phases, each of which raises on failure:
      32: float32 without remat takes ~2.7 GiB a sample) with x2 LR of the
      same GT, and on train_HAT_SRx2_ImageNet_from_scratch.yml
      (ImageNetPairedDataset over a synthetic meta_info_file) at its batch
-     4; checked as phase 6 (b), and the EMA of the resumed run, the
-     momentum resets (2, 4, 6; 4, 6 resumed) and MESA's loss (0 before
-     iteration 4) in both runs, the row 10 launches a step (5, 10 with
-     MESA) and row 9's (6);
+     4, each at 2 of its 5 blocks (ESC) or 6 RHAGs (HAT), for the time;
+     checked as phase 6 (b), and the EMA of the resumed run, the momentum
+     resets (2, 4, 6; 4, 6 resumed) and MESA's loss (0 before iteration 4)
+     in both runs, the row 10 launches a step (2, 4 with MESA) and row 9's
+     (2);
   8. real-world GAN training: (a) the degradation synthesizer on the card
      against the CPU (the GAN file's chain with its noise ranges at 0 and
      its JPEG qualities fixed: deterministic; the LQ within 1e-4 but for
@@ -173,8 +175,10 @@ Phases, each of which raises on failure:
      SRFormer x4, SwinIR-M x4, ESC-XL x4 on the forced qtile route, the
      file's fork HAT x4 on hab_front), batch 4, 3 steps, no validation:
      finite losses, the launches each step, the first loss against the
-     host CPU's (1e-4 relative), then one step at rate 0.1 through the
-     runner and its launches; (c) SRGANModel (MSRResNet 64 x 16) and
+     host CPU's (1e-4 relative; the classic HAT at 2 of its 6 RHAGs and
+     ESC-XL at 2 of its 8 blocks, for the time), then one step at rate 0.1
+     through the runner and its launches; (c) SRGANModel (MSRResNet 64 x
+     16) and
      ESRGANModel (RRDBNet 64 x 23, grow 32) against the VGG-style
      discriminator at 64 features on 128 x 128 GT patches, BasicSR's SRGAN
      / ESRGAN losses (L1 1e-2, VGG19 conv5_4 1, vanilla GAN 5e-3), batch
@@ -204,7 +208,30 @@ Phases, each of which raises on failure:
      trace each that names row 7's kernel (the tensor-core kernel in (a)'s
      bf16, the FMA kernel in (d)'s float32); (f) calculate_psnr_pt /
      calculate_ssim_pt on (a)'s outputs on the card against numpy, and
-     tools/eval_folder.py on (a)'s PNGs against the pipeline's metrics.
+     tools/eval_folder.py on (a)'s PNGs against the pipeline's metrics;
+ 13. video SR, float32 with TF32 off, no kernel on the path: (a) the plain
+     DCN at EDVR-M's L1 shape (1, 180, 320, 64, dg 8) and at BasicVSR++'s
+     alignment (1, 180, 320, 128, dg 16), and the flow warp, on the card
+     against the host CPU, with their CUDA-event ms; (b) EDVR-M, EDVR-L,
+     TOFlow, DUF-52L, BasicVSR, IconVSR and BasicVSR++ at BasicSR's
+     widths on seeded weights (the DCNs' offset convs drawn): a 64 x 64
+     clip against the host CPU (1e-3 of the output's scale), then one
+     REDS-size request (LR 180 x 320; 5 frames for EDVR, 7 for DUF and
+     TOFlow at 256 x 448, 15 for the recurrent three): ms a clip,
+     out-Mpix/s, peak memory, the CUDA-event spans of the DCN, warp and
+     SpyNet calls and, from torch.profiler, the device time of the
+     kernels each launches beside the device's busy time; (c) train.py
+     through EDVRModel (EDVR-M, batch 4, tsa_iter 2, dcn_lr_mul 0.5) and
+     VideoRecurrentModel (BasicVSR, batch 1, 15 frames, fix_flow 2,
+     flow_lr_mul 0.125) on a synthetic REDS-layout clip, LR 64, 3
+     iterations: the first loss against the host CPU's, the frozen part
+     unmoved for 2 iterations and moved after; (d) one iteration of
+     VideoGANModel (EDVR-M) and VideoRecurrentGANModel (BasicVSR, 5
+     frames, fix_flow, lr_flow) against the U-Net discriminator with
+     spectral norm and a seeded VGG19: every loss against the host CPU's,
+     D moved; (e) test.py through VideoTestDataset (EDVR-M) and
+     VideoRecurrentTestDataset (BasicVSR) on seeded weights in a .pth:
+     the per-folder PSNR tables.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Exits non-zero, printing neither, when there
@@ -216,6 +243,7 @@ Usage: python3 chip_smoke.py
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -2233,22 +2261,32 @@ TRAIN_SHAPE = (4, 64)
 TRAIN_PAIRS, TRAIN_GT = 32, 480
 # the launches a step of the flagship HAT x4 files: rows 7, 8 once (the one
 # HAB at drop-path rate 0), rows 5, 6 once an RHAG; twice under remat
-_HAT_STEP = {"ln_split": 1, "gated_dconv_ffn_block": 1,
-             "fused_ocab_block": 6, "mlp_block": 6}
 _TRAIN_ROOTS = {"datasets:train:dataroot_gt": "train_gt",
                 "datasets:train:dataroot_lq": "train_lq",
                 "datasets:val:dataroot_gt": "val_gt",
                 "datasets:val:dataroot_lq": "val_lq"}
 # label -> option file, the batch it runs at (None: the file's), the data
 # roots it is given, the launches a step and an eval image
+# The training files of phases 6 and 7 run 2 of their 6 RHAGs (ESC: 2 of
+# its 5 blocks), added to a copy of each file: at full depth, with phase
+# 13, the whole script took 1251 s of its 1200 on a slower host, most of
+# it these files' runs and first losses on the host CPU. Their launches
+# scale with the depth.
+CUT_HAT = {"network_g:depths": [6, 6], "network_g:num_heads": [6, 6]}
+CUT_ESC = {"network_g:n_blocks": 2}
+_HAT2_STEP = {"ln_split": 1, "gated_dconv_ffn_block": 1,
+              "fused_ocab_block": 2, "mlp_block": 2}
+_HAT2_IMAGE = {"ln_split": 12, "gated_dconv_ffn_block": 12,
+               "fused_ocab_block": 2, "mlp_block": 2}
 TRAIN_PATHS = {
     "train_f32": dict(yml="options/train/train_HAT_SRx4_from_scratch.yml",
-                      batch=4, roots=_TRAIN_ROOTS, per_step=_HAT_STEP,
-                      per_image=_EVAL_HAT),
+                      batch=4, roots=_TRAIN_ROOTS, added=CUT_HAT,
+                      per_step=_HAT2_STEP, per_image=_HAT2_IMAGE),
     "train_amp_remat": dict(yml="options/train/train_HAT_SRx4_amp_remat.yml",
-                            batch=None, roots=_TRAIN_ROOTS,
-                            per_step={k: 2 * v for k, v in _HAT_STEP.items()},
-                            per_image=_EVAL_HAT),
+                            batch=None, roots=_TRAIN_ROOTS, added=CUT_HAT,
+                            per_step={k: 2 * v for k, v in
+                                      _HAT2_STEP.items()},
+                            per_image=_HAT2_IMAGE),
 }
 TRAIN_ITERS, TRAIN_EVERY = 6, 3
 
@@ -2690,11 +2728,11 @@ FORK_STEP_B = 8
 # HAT x2 runs fused_ocab_attention in each of its 6 OCABs, with rows 6 to 8
 # as the x4 files; the ImageNet file's HAT x2 has fused_ocab_block there
 _ESC_STEP = {"fused_attention": 5}
-_ESC_IMAGE = {"fused_attention": 5}
+_ESC2 = {"fused_attention": 2}
 _FORK2_STEP = {"ln_split": 1, "gated_dconv_ffn_block": 1,
-               "fused_ocab_attention": 6, "mlp_block": 6}
-_FORK2_IMAGE = {"ln_split": 36, "gated_dconv_ffn_block": 36,
-                "fused_ocab_attention": 6, "mlp_block": 6}
+               "fused_ocab_attention": 2, "mlp_block": 2}
+_FORK2_IMAGE = {"ln_split": 12, "gated_dconv_ffn_block": 12,
+                "fused_ocab_attention": 2, "mlp_block": 2}
 _ESC_ROOTS = {"datasets:train:dataroot_gt": "train_gt",
               "datasets:train:dataroot_lq": "train_lq"}
 for _i in range(1, 6):
@@ -2711,19 +2749,20 @@ ESC_STRATEGY = {"use_amp": True, "train:gradient_clip": 1.0,
                                    "reduction": "mean", "start_ratio": 0.67}}
 ESC_TRAIN_PATHS = {
     "esc_train_f32": dict(yml="options/esc/train/ESC_DIV2K_X4.yml",
-                          batch=None, roots=_ESC_ROOTS, per_step=_ESC_STEP,
-                          per_image=_ESC_IMAGE),
+                          batch=None, roots=_ESC_ROOTS, added=CUT_ESC,
+                          per_step=_ESC2, per_image=_ESC2),
     "esc_train_amp": dict(yml="options/esc/train/ESC_DIV2K_X4.yml",
-                          batch=None, roots=_ESC_ROOTS, added=ESC_STRATEGY,
-                          per_step=_ESC_STEP, per_image=_ESC_IMAGE,
+                          batch=None, roots=_ESC_ROOTS,
+                          added={**ESC_STRATEGY, **CUT_ESC},
+                          per_step=_ESC2, per_image=_ESC2,
                           mesa_from=4),
     "esc_dflip": dict(yml="options/esc/train/ESC_DFLIP_X4.yml", batch=None,
                       roots={k: v for k, v in _ESC_ROOTS.items()
                              if k != "datasets:train:dataroot_lq"},
-                      per_step=_ESC_STEP, per_image=_ESC_IMAGE),
+                      added=CUT_ESC, per_step=_ESC2, per_image=_ESC2),
     "esc_fp_train": dict(yml="options/esc/train/ESC_FP_X4.yml", batch=None,
-                         roots=_ESC_ROOTS, per_step=_ESC_STEP,
-                         per_image=_ESC_IMAGE),
+                         roots=_ESC_ROOTS, added=CUT_ESC,
+                         per_step=_ESC2, per_image=_ESC2),
     # the file's batch of 32 does not fit in float32 without remat (about
     # 2.7 GiB of saved activations a sample)
     "fork_x2_train": dict(yml="options/train/train_HAT_SRx2_from_scratch.yml",
@@ -2731,13 +2770,14 @@ ESC_TRAIN_PATHS = {
                               "datasets:train:dataroot_gt": "train_gt",
                               "datasets:train:dataroot_lq": "train_lq2",
                               **_X2_VAL},
-                          per_step=_FORK2_STEP, per_image=_FORK2_IMAGE),
+                          added=CUT_HAT, per_step=_FORK2_STEP,
+                          per_image=_FORK2_IMAGE),
     "imagenet_train": dict(
         yml="options/train/train_HAT_SRx2_ImageNet_from_scratch.yml",
         batch=None, roots={"datasets:train:dataroot_gt": "train_gt",
                            "datasets:train:meta_info_file": "train_meta",
                            **_X2_VAL},
-        per_step=_HAT_STEP, per_image=_EVAL_HAT),
+        added=CUT_HAT, per_step=_HAT2_STEP, per_image=_HAT2_IMAGE),
 }
 
 
@@ -2957,10 +2997,14 @@ class RealClock:
         self.parts = {"synth": [], "g": [], "d": []}
         self.first = None
         cls = r.RealHATGANModel
-        self._undo = [(cls, n, cls.__dict__[n]) for n in
-                      ("optimize_parameters", "_g_step", "_d_step")]
-        self._undo.append((r.DegradationSynthesizer, "__call__",
-                           r.DegradationSynthesizer.__call__))
+        # the G and D steps are realgan's module functions, which the
+        # runner's iteration looks up at each call
+        self._undo = [(cls, "optimize_parameters",
+                       cls.__dict__["optimize_parameters"]),
+                      (r, "gan_g_step", r.gan_g_step),
+                      (r, "gan_d_step", r.gan_d_step),
+                      (r.DegradationSynthesizer, "__call__",
+                       r.DegradationSynthesizer.__call__)]
 
         def timed(fn, key):
             def run(*args, **kw):
@@ -2996,8 +3040,8 @@ class RealClock:
                                   gt_usm=model.gt_usm.cpu())
 
         cls.optimize_parameters = timed_iteration
-        cls._g_step = timed(self._undo[1][2], "g")
-        cls._d_step = timed(self._undo[2][2], "d")
+        r.gan_g_step = timed(self._undo[1][2], "g")
+        r.gan_d_step = timed(self._undo[2][2], "d")
         r.DegradationSynthesizer.__call__ = timed(self._undo[3][2], "synth")
         return self
 
@@ -3759,7 +3803,11 @@ ROUTE_B, ROUTE_ITERS = 4, 3
 PSA_STEP = (ROUTE_B, 72, 72, 180, 6, 24)
 # ESC-XL x4's step: LQ 64 x 64 padded to 96 x 96 (windows of 48)
 QTILE_STEP = (ROUTE_B, 96, 96, 192, 12, 48)
-_TRAIN_CLASSIC = {k: v for k, v in CLASSIC.items() if k != "stream_tail_rows"}
+# the classic HAT's two routes train at 2 of their 6 RHAGs (the run's
+# time limit); their launches scale with the depth
+_TRAIN_CLASSIC = dict({k: v for k, v in CLASSIC.items()
+                       if k != "stream_tail_rows"},
+                      depths=[6, 6], num_heads=[HEADS, HEADS])
 # label -> network_g (None: the file's own, the fork's HAT x4), the launches
 # a step at drop-path rate 0, and those of one extra step at rate 0.1 (None:
 # the network has no drop path). At 0.1 only the network's first block
@@ -3767,23 +3815,30 @@ _TRAIN_CLASSIC = {k: v for k, v in CLASSIC.items() if k != "stream_tail_rows"}
 # (classic HAT, SwinIR, SRFormer) or none (the fork's HAB runs unfused)
 ROUTE_TRAIN_PATHS = {
     "route_classic": dict(
-        net=_TRAIN_CLASSIC, per_step=PATHS["classic"]["calls"],
-        per_step_dp={"fused_msa_block": 18, "fused_msa_block_shifted": 18,
-                     "mlp_block_sum3": 1, "fused_ocab_block": 6,
-                     "mlp_block": 6}),
+        net=_TRAIN_CLASSIC,
+        per_step={"fused_msa_block": 6, "fused_msa_block_shifted": 6,
+                  "mlp_block_sum3": 6, "mlp_block_sum3_shifted": 6,
+                  "fused_ocab_block": 2, "mlp_block": 2},
+        per_step_dp={"fused_msa_block": 6, "fused_msa_block_shifted": 6,
+                     "mlp_block_sum3": 1, "fused_ocab_block": 2,
+                     "mlp_block": 2}),
     "route_classic_hab_block": dict(
         net=dict(_TRAIN_CLASSIC, hab_route="fused_hab_block"),
-        per_step=PATHS["classic_hab_block"]["calls"],
-        per_step_dp={"fused_hab_block": 1, "fused_msa_block": 17,
-                     "fused_msa_block_shifted": 18, "fused_ocab_block": 6,
-                     "mlp_block": 6}),
+        per_step={"fused_hab_block": 6, "fused_msa_block_shifted": 6,
+                  "mlp_block_sum3_shifted": 6, "fused_ocab_block": 2,
+                  "mlp_block": 2},
+        per_step_dp={"fused_hab_block": 1, "fused_msa_block": 5,
+                     "fused_msa_block_shifted": 6, "fused_ocab_block": 2,
+                     "mlp_block": 2}),
     "route_srformer": dict(net=SRFORMER, per_step={"fused_psa_block": 36},
                            per_step_dp={"fused_psa_block": 36}),
     "route_swinir": dict(net=SWINIR, per_step=dict(zip(_SWIN, (18, 18, 36))),
                          per_step_dp=dict(zip(_SWIN, (18, 18, 1)))),
+    # ESC-XL cut to 2 of its 8 blocks: its first loss on the host CPU took
+    # 50.7 s of the run's time limit at full depth
     "route_esc_xl_qtile": dict(
-        net=dict(ESC_XL, attn_route="msa_qtile_attention"),
-        per_step={"msa_qtile_attention": 8}, per_step_dp=None),
+        net=dict(ESC_XL, attn_route="msa_qtile_attention", n_blocks=2),
+        per_step={"msa_qtile_attention": 2}, per_step_dp=None),
     "route_fork_hab_front": dict(
         net=None, per_step={"hab_front": 36, "gated_dconv_ffn_block": 36,
                             "fused_ocab_block": 6, "mlp_block": 6},
@@ -4706,6 +4761,712 @@ def eval_surface(sets: dict, root: str, card: str) -> dict:
     return by_path
 
 
+# --------------------------------------------------------------- phase 13
+# video SR: the plain DCN and flow warp on the card against the host CPU,
+# the seven video networks at their published widths (BasicSR's option
+# files' numbers: EDVR-M / EDVR-L x4, TOFlow, DUF-52L x4, BasicVSR /
+# IconVSR x4 at 64 features and 30 blocks, BasicVSR++ x4 at 64 channels
+# and 7 blocks), then train.py and test.py through the video runners on
+# synthetic REDS-layout clips. No kernel lies on this path: the DCN and the
+# warp are plain PyTorch, as in JAX (XLA there, no pallas_call).
+VIDEO_LR = (180, 320)              # a REDS frame, LR
+VIDEO_DCN = {                      # (B, H, W, C_in, C_out, deformable groups)
+    "edvr_l1": (1, 180, 320, 64, 64, 8),
+    "basicvsrpp_align": (1, 180, 320, 128, 64, 16),
+}
+VIDEO_NETS = {                     # network, frames of a request, LR size
+    "edvr_m": (dict(type="EDVR", num_feat=64, num_frame=5,
+                    deformable_groups=8, num_extract_block=5,
+                    num_reconstruct_block=10, with_tsa=True), 5, VIDEO_LR),
+    "edvr_l": (dict(type="EDVR", num_feat=128, num_frame=5,
+                    deformable_groups=8, num_extract_block=5,
+                    num_reconstruct_block=40, with_tsa=True), 5, VIDEO_LR),
+    "toflow": (dict(type="TOFlow", adapt_official_weights=True), 7,
+               (256, 448)),
+    "duf_52l": (dict(type="DUF", scale=4, num_layer=52), 7, VIDEO_LR),
+    "basicvsr": (dict(type="BasicVSR", num_feat=64, num_block=30), 15,
+                 VIDEO_LR),
+    "iconvsr": (dict(type="IconVSR", num_feat=64, num_block=30,
+                     keyframe_stride=5, temporal_padding=2), 15, VIDEO_LR),
+    "basicvsrpp": (dict(type="BasicVSRPlusPlus", mid_channels=64,
+                        num_blocks=7, max_residue_magnitude=10), 15,
+                   VIDEO_LR),
+}
+# the small clip held against the host CPU: 3 frames where the network
+# takes any count, else its own (IconVSR's keyframe padding needs 5)
+VIDEO_SMALL = dict(side=64, frames=dict(edvr_m=5, edvr_l=5, toflow=7,
+                                        duf_52l=7, basicvsr=3, iconvsr=5,
+                                        basicvsrpp=3))
+VIDEO_NET_TOL = 1e-3               # x max(1, max|CPU|): 30-60 layers deep
+VIDEO_REPS = 3
+VIDEO_RANGES = ("deform_conv", "flow_warp", "spynet")
+# (c): batch 4 for EDVR-M and 1 for BasicVSR, 3 iterations; (d): one
+# iteration at batch 1, BasicVSR's clip cut to 5 frames (its first losses
+# on the host CPU run VGG19 and D on every frame)
+VIDEO_TRAIN = dict(lr_side=64, frames=15, gan_frames=5, iters=3, freeze=2,
+                   edvr_b=4, basicvsr_b=1)
+VIDEO_VAL = dict(folders=("000", "011"), frames=5, lr_side=64)
+VIDEO_D = dict(type="UNetDiscriminatorSN", num_in_ch=3, num_feat=64,
+               skip_connection=True)
+
+
+def seeded_video_net(net_opt: dict, seed: int):
+    """The network at its seeded init, with every DCN's offset convolution
+    drawn like the other convolutions (its init is 0, which would leave the
+    sampling points on the grid)."""
+    import torch
+
+    from super_resolution_tpu_torch.models import build_network
+    from super_resolution_tpu_torch.models.arch_util import init_weights
+
+    net = build_network(dict(net_opt))
+    gen = torch.Generator().manual_seed(seed)
+    init_weights(net, gen)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if "conv_offset" in name:
+                bound = 1.0 / math.sqrt(p[0].numel()) if p.ndim > 1 else 0.01
+                p.uniform_(-bound, bound, generator=gen)
+    return net.eval()
+
+
+class VideoRanges:
+    """While open, each call of the DCN, the flow warp and SpyNet's forward
+    runs under a ``torch.profiler.record_function`` range named after it
+    (VIDEO_RANGES) between two CUDA events (the networks' modules hold
+    their own references, so each is patched there). ``spans()``: the
+    summed CUDA-event ms of each name's calls."""
+
+    def __enter__(self):
+        import functools
+
+        import torch
+
+        from super_resolution_tpu_torch.models import (basicvsr_arch,
+                                                       basicvsrpp_arch,
+                                                       edvr_arch,
+                                                       spynet_arch, tof_arch)
+
+        self.events = []
+
+        def ranged(fn, name):
+            @functools.wraps(fn)
+            def run(*args, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                with torch.profiler.record_function(name):
+                    start.record()
+                    out = fn(*args, **kw)
+                    end.record()
+                self.events.append((name, start, end))
+                return out
+            return run
+
+        self._undo = []
+        for mod, attr, name in (
+                (edvr_arch, "modulated_deform_conv2d", "deform_conv"),
+                (basicvsrpp_arch, "modulated_deform_conv2d", "deform_conv"),
+                (spynet_arch, "flow_warp", "flow_warp"),
+                (tof_arch, "flow_warp", "flow_warp"),
+                (basicvsr_arch, "flow_warp", "flow_warp"),
+                (basicvsrpp_arch, "flow_warp", "flow_warp"),
+                (spynet_arch.SpyNet, "forward", "spynet"),
+                (tof_arch.SPyNetTOF, "forward", "spynet")):
+            self._undo.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, ranged(getattr(mod, attr), name))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in reversed(self._undo):
+            setattr(mod, attr, fn)
+
+    def spans(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        out = dict.fromkeys(VIDEO_RANGES, 0.0)
+        for name, start, end in self.events:
+            out[name] += start.elapsed_time(end)
+        return out
+
+
+def kernel_shares(events) -> dict:
+    """From a profiler run's raw events: the device busy ms (every kernel,
+    copy and set) and, for each VIDEO_RANGES name, the device ms of the
+    kernels launched inside one of its ranges (a kernel is matched to its
+    CUDA runtime launch by correlation id, the launch to a range by its
+    host time). A kernel of a warp inside SpyNet counts for both."""
+    import bisect
+
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    launches, gpu = {}, []
+    ranges = {name: [] for name in VIDEO_RANGES}
+    for e in events:
+        name = e.name()
+        if e.device_type() == cuda:
+            if name not in ranges and not e.is_user_annotation():
+                gpu.append((e.correlation_id(), e.duration_ns()))
+        elif name in ranges:
+            ranges[name].append((e.start_ns(), e.end_ns()))
+        elif name.startswith("cu"):
+            launches[e.correlation_id()] = e.start_ns()
+    out = {"busy": sum(d for _, d in gpu) / 1e6, "matched": 0}
+    for name, spans in ranges.items():
+        spans.sort()
+        starts = [a for a, _ in spans]
+        total = 0
+        for corr, dur in gpu:
+            t = launches.get(corr)
+            i = -1 if t is None else bisect.bisect_right(starts, t) - 1
+            if i >= 0 and t <= spans[i][1]:
+                total += dur
+        out[name] = total / 1e6
+    out["matched"] = sum(1 for corr, _ in gpu if corr in launches)
+    out["kernels"] = len(gpu)
+    return out
+
+
+def video_profile(fwd) -> dict:
+    """One forward under VideoRanges for the CUDA-event spans, then one
+    under torch.profiler (CPU and CUDA activity) for the device busy time
+    and each range's kernels' device time (:func:`kernel_shares`); both
+    with their wall (CUDA events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def walled(run):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    with VideoRanges() as ranges:
+        wall = walled(fwd)
+        spans = ranges.spans()
+    with VideoRanges():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prof_wall = walled(fwd)
+    shares = kernel_shares(prof.profiler.kineto_results.events())
+    return {"wall": wall, "spans": spans, "prof_wall": prof_wall, **shares}
+
+
+def check_video_ops(card: str) -> None:
+    """Phase 13 (a): the plain DCN at EDVR-M's L1 shape and at BasicVSR++'s
+    alignment shape, and the flow warp, on the card against the host CPU
+    (float32, TF32 off), with their CUDA-event ms."""
+    import torch
+
+    from super_resolution_tpu_torch.ops.deform_conv import \
+        modulated_deform_conv2d
+    from super_resolution_tpu_torch.ops.flow import flow_warp
+
+    rng = np.random.default_rng(13)
+
+    def t(*shape, s=1.0):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * s).astype(np.float32))
+
+    for label, (b, h, w, cin, cout, dg) in VIDEO_DCN.items():
+        args = (torch.from_numpy(rng.random((b, h, w, cin), np.float32)),
+                t(b, h, w, 2 * dg * 9, s=2.0),
+                torch.sigmoid(t(b, h, w, dg * 9)),
+                t(cout, cin, 3, 3, s=(cin * 9) ** -0.5), t(cout, s=0.1))
+        ref = modulated_deform_conv2d(*args, padding=1, deformable_groups=dg)
+        dev = [a.cuda() for a in args]
+        torch.cuda.synchronize()
+        got = modulated_deform_conv2d(*dev, padding=1, deformable_groups=dg)
+        err = float((got.cpu() - ref).abs().max())
+        tol = TOL_F32 * max(1.0, float(ref.abs().max()))
+        ms = time_ms(lambda: modulated_deform_conv2d(
+            *dev, padding=1, deformable_groups=dg), reps=5, warmup=1)
+        cols = b * h * w * 9 * cin * 4 / 2 ** 20
+        log(f"[video:ops] {card}: modulated_deform_conv2d {label} "
+            f"({b}, {h}, {w}, {cin}) -> {cout}, dg {dg}: card against the "
+            f"host CPU max |diff| {err:.3e} (tol {tol:.1e}); {ms:.3f} ms a "
+            f"call (CUDA events, median of 5); column tensor {cols:.0f} MiB")
+        if not (err <= tol and torch.isfinite(got).all()):
+            raise AssertionError(f"deform conv {label}: err {err}")
+    x = torch.from_numpy(rng.random((1, *VIDEO_LR, 64), np.float32))
+    flow = t(1, *VIDEO_LR, 2, s=3.0)
+    for mode in ("zeros", "border"):
+        ref = flow_warp(x, flow, padding_mode=mode)
+        xd, fd = x.cuda(), flow.cuda()
+        got = flow_warp(xd, fd, padding_mode=mode)
+        err = float((got.cpu() - ref).abs().max())
+        ms = time_ms(lambda: flow_warp(xd, fd, padding_mode=mode), reps=5,
+                     warmup=1)
+        log(f"[video:ops] {card}: flow_warp (1, {VIDEO_LR[0]}, "
+            f"{VIDEO_LR[1]}, 64) {mode}: max |diff| {err:.3e} (tol "
+            f"{TOL_F32:.0e}); {ms:.3f} ms a call")
+        if not err <= TOL_F32:
+            raise AssertionError(f"flow_warp {mode}: err {err}")
+
+
+def video_net_path(label: str, card: str) -> dict:
+    """Phase 13 (b), one network at its published width: a small clip on
+    the card against the host CPU, then one REDS-size request with its ms,
+    out-Mpix/s, peak memory and the profiler's shares. Returns the launch
+    counts (none: no kernel lies on the path)."""
+    import torch
+
+    net_opt, frames, (h, w) = VIDEO_NETS[label]
+    net = seeded_video_net(net_opt, 13)
+    side = VIDEO_SMALL["side"]
+    rng = np.random.default_rng(13)
+    small = torch.from_numpy(rng.random(
+        (1, VIDEO_SMALL["frames"][label], side, side, 3), np.float32))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = net(small)
+        cpu_s = time.perf_counter() - t0
+        net.cuda()
+        got = net(small.cuda()).cpu()
+    err = float((got - ref).abs().max())
+    tol = VIDEO_NET_TOL * max(1.0, float(ref.abs().max()))
+    log(f"[video:{label}] {card}: {net_opt} on {tuple(small.shape)}: card "
+        f"against the host CPU max |diff| {err:.3e} (tol {tol:.1e}), PSNR "
+        f"{psnr(got.numpy(), ref.numpy()):.2f} dB (the CPU forward "
+        f"{cpu_s:.1f} s)")
+    if not (err <= tol and torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: card against CPU err {err}")
+
+    x = torch.from_numpy(rng.random((1, frames, h, w, 3),
+                                    np.float32)).cuda()
+    fns = {name: fn for name, fn in wrappers().items() if name in KERNELS}
+    for fn in fns.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out = net(x)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        ms = time_ms(lambda: net(x), reps=VIDEO_REPS, warmup=0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        t0 = time.perf_counter()
+        prof = video_profile(lambda: net(x))
+        prof_s = time.perf_counter() - t0
+    counts = {n: fn.launches for n, fn in fns.items()}
+    mpix = out[0].numel() / 3 / 1e6
+    log(f"[video:{label}] {card}: REDS-size request {tuple(x.shape)} -> "
+        f"{tuple(out.shape)}: {ms:.1f} ms a clip (CUDA events, median of "
+        f"{VIDEO_REPS}), {mpix / (ms / 1e3):.2f} out-Mpix/s, peak memory "
+        f"{peak:.2f} GiB; the first forward {first:.2f} s, the two "
+        f"profiled ones {prof_s:.1f} s")
+    spans = ", ".join(f"{k} {prof['spans'][k]:.1f} ms "
+                      f"({100 * prof['spans'][k] / prof['wall']:.1f}%)"
+                      for k in VIDEO_RANGES if prof["spans"][k] > 0)
+    log(f"  CUDA-event spans of the calls in a {prof['wall']:.1f} ms "
+        f"forward: {spans or 'no DCN, warp or SpyNet'}")
+    if prof["busy"] > 0 and prof["matched"]:
+        shares = ", ".join(f"{k} {prof[k]:.1f} ms "
+                           f"({100 * prof[k] / prof['busy']:.1f}%)"
+                           for k in VIDEO_RANGES if prof[k] > 0)
+        log(f"  torch.profiler: device busy {prof['busy']:.1f} ms of a "
+            f"{prof['prof_wall']:.1f} ms forward (idle "
+            f"{100 * (1 - prof['busy'] / prof['prof_wall']):.1f}%), "
+            f"{prof['kernels']} device ops ({prof['matched']} matched to "
+            f"their launch); kernels of {shares or 'no DCN, warp or SpyNet'}")
+    else:
+        log(f"  torch.profiler: device busy {prof['busy']:.1f} ms, "
+            f"{prof['matched']} of {prof['kernels']} device ops matched to "
+            f"a launch: the shares by profiler not measured")
+    if not (torch.isfinite(out).all() and not any(counts.values())):
+        raise AssertionError(f"{label}: non-finite output or launches "
+                             f"{counts}")
+    del net, x, out
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _smooth_frames(rng, n: int, side: int) -> list:
+    """``n`` smooth random uint8 frames of side x side (noise blurred by a
+    x8 bicubic upsampling, so the LR downsampling keeps some content)."""
+    import cv2
+
+    out = []
+    for _ in range(n):
+        base = (rng.random((side // 8, side // 8, 3)) * 255).astype(np.uint8)
+        out.append(cv2.resize(base, (side, side),
+                              interpolation=cv2.INTER_CUBIC))
+    return out
+
+
+def write_video_sets(root: str) -> dict:
+    """Synthetic clips in REDS's layout: a training clip ``001`` of 100
+    frames (GT 4 x VIDEO_TRAIN's LR side, LR by area), its meta file, and a
+    validation tree of VIDEO_VAL's folders (REDS4's names)."""
+    import cv2
+
+    rng = np.random.default_rng(13)
+    paths = {}
+
+    def clips(name, folders, n, lr_side):
+        for folder in folders:
+            for side, sub in ((lr_side * 4, "gt"), (lr_side, "lq")):
+                os.makedirs(os.path.join(root, name, sub, folder),
+                            exist_ok=True)
+            for i, img in enumerate(_smooth_frames(rng, n, lr_side * 4)):
+                cv2.imwrite(os.path.join(root, name, "gt", folder,
+                                         f"{i:08d}.png"), img)
+                cv2.imwrite(os.path.join(root, name, "lq", folder,
+                                         f"{i:08d}.png"),
+                            cv2.resize(img, (lr_side, lr_side),
+                                       interpolation=cv2.INTER_AREA))
+        return (os.path.join(root, name, "gt"),
+                os.path.join(root, name, "lq"))
+
+    side = VIDEO_TRAIN["lr_side"]
+    paths["train"] = clips("reds_train", ["001"], 100, side)
+    meta = os.path.join(root, "reds_meta.txt")
+    with open(meta, "w") as f:
+        f.write(f"001 100 ({4 * side},{4 * side},3)\n")
+    paths["meta"] = meta
+    paths["val"] = clips("reds_val", VIDEO_VAL["folders"],
+                         VIDEO_VAL["frames"], VIDEO_VAL["lr_side"])
+    return paths
+
+
+class VideoClock:
+    """While a video run goes, wraps ``optimize_parameters`` of the video
+    runners: each iteration's seconds (to a synchronised card) and logs,
+    the first batch and weights, and the weights after each iteration of
+    the parameters ``watch`` names."""
+
+    def __init__(self, watch):
+        self.watch = watch
+
+    def __enter__(self):
+        import torch
+
+        from super_resolution_tpu_torch.runtime import video_models as vm
+
+        self.iters, self.logs, self.states = [], [], []
+        self.first = None
+        self._undo = [(cls, cls.__dict__.get("optimize_parameters"))
+                      for cls in (vm.VideoBaseModel, vm.VideoGANModel,
+                                  vm.VideoRecurrentGANModel)]
+
+        def wrap(step):
+            def run(model, batch, current_iter):
+                if self.first is None:
+                    self.first = {
+                        "batch": {k: batch[k] for k in ("lq", "gt")},
+                        "g": {k: v.detach().cpu().clone() for k, v in
+                              model.net_g.state_dict().items()},
+                        "d": None if getattr(model, "net_d", None) is None
+                        else {k: v.detach().cpu().clone() for k, v in
+                              model.net_d.state_dict().items()}}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(model, batch, current_iter)
+                torch.cuda.synchronize()
+                self.iters.append(time.perf_counter() - t0)
+                self.logs.append(model.get_current_log())
+                self.states.append({k: v.detach().cpu().clone() for k, v in
+                                    model.net_g.named_parameters()
+                                    if self.watch(k)})
+            return run
+
+        for cls, _ in self._undo:
+            cls.optimize_parameters = wrap(getattr(cls,
+                                                   "optimize_parameters"))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, fn in self._undo:
+            if fn is None:
+                del cls.optimize_parameters
+            else:
+                cls.optimize_parameters = fn
+
+
+def _video_train_opt(label: str, model_type: str, net: dict, data: dict,
+                     batch: int, frames: int, train: dict,
+                     total_iter: int) -> dict:
+    dataset = ({"type": "REDSDataset", "num_frame": frames}
+               if model_type in ("EDVRModel", "VideoGANModel") else
+               {"type": "REDSRecurrentDataset", "num_frame": frames})
+    side = VIDEO_TRAIN["lr_side"]
+    return {
+        "name": label, "model_type": model_type, "scale": 4, "num_gpu": 1,
+        "manual_seed": 0, "network_g": dict(net),
+        "datasets": {"train": dict(
+            dataset, name="reds_synthetic", dataroot_gt=data["train"][0],
+            dataroot_lq=data["train"][1], meta_info_file=data["meta"],
+            val_partition="REDS4", io_backend={"type": "disk"},
+            gt_size=4 * side, interval_list=[1], random_reverse=False,
+            use_hflip=True, use_rot=True, batch_size_per_gpu=batch,
+            dataset_enlarge_ratio=1)},
+        "path": {"pretrain_network_g": None, "strict_load_g": True,
+                 "resume_state": None},
+        "train": dict({
+            "ema_decay": 0.999,
+            "optim_g": {"type": "Adam", "lr": 2e-4, "betas": [0.9, 0.99]},
+            "scheduler": {"type": "CosineAnnealingRestartLR",
+                          "periods": [300000], "restart_weights": [1],
+                          "eta_min": 1e-7},
+            "total_iter": total_iter, "warmup_iter": -1,
+            "pixel_opt": {"type": "CharbonnierLoss", "loss_weight": 1.0,
+                          "reduction": "mean"}}, **train),
+        "logger": {"print_freq": 1, "save_checkpoint_freq": 10 ** 6,
+                   "use_tb_logger": False}}
+
+
+def _video_first_losses_on_cpu(model, first: dict) -> dict:
+    """The first iteration's losses recomputed on the host CPU in float32
+    from the run's first weights and batch: the pixel loss, and for the
+    GAN runners the perceptual and GAN losses (the frames in the batch)
+    and D's (D's spectral norm moved by G's fake pass first)."""
+    import torch
+
+    from super_resolution_tpu_torch.losses import build_loss
+    from super_resolution_tpu_torch.models import build_network
+
+    opt, train = model.opt, model.opt["train"]
+    net = build_network(opt["network_g"])
+    net.load_state_dict(first["g"], strict=True)
+    lq = torch.from_numpy(first["batch"]["lq"])
+    gt = torch.from_numpy(first["batch"]["gt"])
+    out = {}
+    with torch.no_grad():
+        sr = net.eval()(lq)
+        pix = float(build_loss(train["pixel_opt"])(sr, gt))
+        if first["d"] is None:
+            return {"l_pix": pix}
+        flat = ((lambda v: v.reshape((-1,) + v.shape[-3:]))
+                if model.video_frames else (lambda v: v))
+        out["l_g_pix"] = total = pix
+        p, _ = build_loss(train["perceptual_opt"])(flat(sr), flat(gt))
+        out["l_g_percep"] = float(p)
+        d = build_network(opt["network_d"])
+        d.load_state_dict(first["d"], strict=True)
+        gan = build_loss(train["gan_opt"])
+        out["l_g_gan"] = float(gan(d(flat(sr), update_sn_stats=True), True))
+        out["l_g_total"] = total + out["l_g_percep"] + out["l_g_gan"]
+        real = d(flat(gt), update_sn_stats=True)
+        fake = d(flat(sr), update_sn_stats=True)
+        out.update(l_d_real=float(gan(real, True, is_disc=True)),
+                   l_d_fake=float(gan(fake, False, is_disc=True)),
+                   out_d_real=float(real.mean()),
+                   out_d_fake=float(fake.mean()))
+    return out
+
+
+def video_train_path(label: str, opt: dict, watch, frozen_iters: int,
+                     root: str, card: str) -> dict:
+    """Phase 13 (c) and (d): ``train.py``'s pipeline on ``opt``; the first
+    iteration's losses against the host CPU's; the parameters ``watch``
+    names unchanged through the first ``frozen_iters`` iterations and moved
+    after. Returns the launch counts."""
+    import torch
+
+    from super_resolution_tpu_torch.runtime.train_pipeline import \
+        train_pipeline
+
+    yml = _write_yml(opt, root, label)
+    fns = {name: fn for name, fn in wrappers().items() if name in KERNELS}
+    for fn in fns.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with VideoClock(watch) as clock:
+        model, last = train_pipeline(os.path.join(root, label),
+                                     argv=["-opt", yml, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = {n: fn.launches for n, fn in fns.items()}
+    key = "l_g_total" if "network_d" in opt else "l_pix"
+    losses = [lg[key] for lg in clock.logs]
+    b = opt["datasets"]["train"]["batch_size_per_gpu"]
+    log(f"[video:{label}] {card}: {opt['model_type']} "
+        f"{opt['network_g']['type']}, batch {b}, "
+        f"{opt['datasets']['train']['num_frame']} frames of LR "
+        f"{VIDEO_TRAIN['lr_side']} x {VIDEO_TRAIN['lr_side']}, TF32 off: "
+        f"{_rate(clock.iters, b)}; peak memory {peak:.2f} GiB; wall "
+        f"{wall:.1f} s; {key} {[round(v, 6) for v in losses]}")
+    if (last != opt["train"]["total_iter"] or not np.isfinite(losses).all()
+            or any(counts.values())):
+        raise AssertionError(f"{label}: last iteration {last}, losses "
+                             f"{losses}, launches {counts}")
+    ref = _video_first_losses_on_cpu(model, clock.first)
+    got = clock.logs[0]
+    errs = {k: abs(got[k] - v) / (1.0 if k.startswith("out_d")
+                                  else max(abs(v), 1e-12))
+            for k, v in ref.items()}
+    log(f"  first iteration on the card {dict(sorted(got.items()))}; on "
+        f"the host CPU {dict(sorted(ref.items()))}: worst diff "
+        f"{max(errs.values()):.2e} (relative; the mean logits absolute)")
+    if any(e > (1e-4 if k.startswith("out_d") else 1e-3)
+           for k, e in errs.items()):
+        raise AssertionError(f"{label}: first losses {got} vs {ref}")
+    start = {k: v for k, v in clock.first["g"].items() if watch(k)}
+    moved = [max(float((s[k] - start[k]).abs().max()) for k in start)
+             for s in clock.states]
+    log(f"  the watched parameters ({len(start)} tensors) moved by at most "
+        f"{[f'{m:.2e}' for m in moved]} after each iteration (frozen "
+        f"through iteration {frozen_iters})")
+    if any(moved[:frozen_iters]) or not all(m > 0 for m in
+                                            moved[frozen_iters:]):
+        raise AssertionError(f"{label}: watched parameters moved {moved}")
+    if "network_d" in opt:
+        end = model.net_d.state_dict()
+        d_moved = max(float((end[k].cpu() - v).abs().max())
+                      for k, v in clock.first["d"].items()
+                      if k.endswith("weight_orig") or k.endswith("weight"))
+        log(f"  D moved by up to {d_moved:.3e}")
+        if not d_moved > 0:
+            raise AssertionError(f"{label}: D did not move")
+    del model, clock
+    torch.cuda.empty_cache()
+    return counts
+
+
+def video_test_path(label: str, net: dict, model_type: str, dataset: str,
+                    data: dict, root: str, card: str) -> dict:
+    """Phase 13 (e): ``test.py``'s pipeline through a video test dataset on
+    seeded weights saved as a .pth; prints the per-folder PSNR tables."""
+    import torch
+
+    from super_resolution_tpu_torch.runtime.test_pipeline import \
+        test_pipeline
+
+    pth = os.path.join(root, f"{label}.pth")
+    torch.save({"params": seeded_video_net(net, 5).state_dict()}, pth)
+    opt = {"name": label, "model_type": model_type, "scale": 4,
+           "num_gpu": 1, "manual_seed": 0, "network_g": dict(net),
+           "datasets": {"test_1": {
+               "name": "REDS4_synthetic", "type": dataset,
+               "dataroot_gt": data["val"][0], "dataroot_lq": data["val"][1],
+               "cache_data": True, "num_frame": 5, "padding": "reflection",
+               "io_backend": {"type": "disk"}}},
+           "path": {"pretrain_network_g": pth, "strict_load_g": True},
+           "val": {"save_img": False, "metrics": {"psnr": {
+               "type": "calculate_psnr", "crop_border": 0,
+               "test_y_channel": False}}}}
+    yml = _write_yml(opt, root, label)
+    fns = {name: fn for name, fn in wrappers().items() if name in KERNELS}
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    results = test_pipeline(os.path.join(root, label),
+                            argv=["-opt", yml, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    counts = {n: fn.launches for n, fn in fns.items()}
+    tables = results["REDS4_synthetic"]
+    log(f"[video:{label}] {card}: test pipeline -> {model_type} "
+        f"{net['type']} on {dataset} ({len(tables)} folders of "
+        f"{VIDEO_VAL['frames']} frames, LR {VIDEO_VAL['lr_side']} a side) "
+        f"in {wall:.1f} s; PSNR by folder and frame:")
+    for folder, table in tables.items():
+        log(f"  {folder}: {[round(float(v), 4) for v in table[:, 0]]} "
+            f"mean {float(table.mean()):.4f} dB")
+    if (sorted(tables) != sorted(VIDEO_VAL["folders"])
+            or any(not np.isfinite(t).all() or t.shape[0] !=
+                   VIDEO_VAL["frames"] for t in tables.values())
+            or any(counts.values())):
+        raise AssertionError(f"{label}: tables {tables}, launches {counts}")
+    return counts
+
+
+def video_phase(card: str, root: str) -> dict:
+    """Phase 13: (a) the ops, (b) the seven networks, (c) train.py through
+    EDVRModel and VideoRecurrentModel, (d) one iteration of each video GAN
+    runner, (e) test.py through both video test datasets. Returns the
+    launch counts of each path (all 0)."""
+    by_path = {}
+    t0 = time.perf_counter()
+    check_video_ops(card)
+    log(f"[video] (a) ops done in {time.perf_counter() - t0:.1f} s")
+    for label in VIDEO_NETS:
+        t1 = time.perf_counter()
+        by_path[f"video_{label}"] = video_net_path(label, card)
+        log(f"[video:{label}] done in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    data = write_video_sets(root)
+    log(f"[video] synthetic REDS-layout clips written in "
+        f"{time.perf_counter() - t1:.1f} s")
+    edvr, basicvsr = VIDEO_NETS["edvr_m"][0], VIDEO_NETS["basicvsr"][0]
+    its, freeze = VIDEO_TRAIN["iters"], VIDEO_TRAIN["freeze"]
+    runs = {
+        "video_edvr_train": (_video_train_opt(
+            "video_edvr_train", "EDVRModel", edvr, data,
+            VIDEO_TRAIN["edvr_b"], 5, {"tsa_iter": freeze,
+                                       "dcn_lr_mul": 0.5}, its),
+            lambda k: "fusion" not in k, freeze),
+        "video_basicvsr_train": (_video_train_opt(
+            "video_basicvsr_train", "VideoRecurrentModel", basicvsr, data,
+            VIDEO_TRAIN["basicvsr_b"], VIDEO_TRAIN["frames"],
+            {"fix_flow": freeze, "flow_lr_mul": 0.125}, its),
+            lambda k: "spynet" in k, freeze),
+    }
+    import torch
+
+    from super_resolution_tpu_torch.models.vgg_arch import \
+        seeded_vgg19_state_dict
+    vgg = os.path.join(root, "video_vgg19.pth")
+    torch.save(seeded_vgg19_state_dict(0), vgg)
+    gan_train = {
+        "optim_d": {"type": "Adam", "lr": 1e-4, "betas": [0.9, 0.99]},
+        "perceptual_opt": {
+            "type": "PerceptualLoss", "vgg_weights_path": vgg,
+            "layer_weights": {"conv5_4": 1}, "vgg_type": "vgg19",
+            "use_input_norm": True, "perceptual_weight": 1.0,
+            "style_weight": 0, "range_norm": False, "criterion": "l1"},
+        "gan_opt": {"type": "GANLoss", "gan_type": "vanilla",
+                    "real_label_val": 1.0, "fake_label_val": 0.0,
+                    "loss_weight": 5e-3},
+        "net_d_iters": 1, "net_d_init_iters": 0}
+    for label, model_type, net, frames, extra, watch in (
+            ("video_edvr_gan", "VideoGANModel", edvr, 5, {},
+             lambda k: "conv_last" in k),
+            ("video_basicvsr_gan", "VideoRecurrentGANModel", basicvsr,
+             VIDEO_TRAIN["gan_frames"], {"fix_flow": 1, "lr_flow": 2.5e-5},
+             lambda k: "spynet" in k)):
+        opt = _video_train_opt(label, model_type, net, data, 1, frames,
+                               dict(gan_train, **extra), 1)
+        opt["network_d"] = dict(VIDEO_D)
+        runs[label] = (opt, watch, 1 if extra else 0)
+    for label, (opt, watch, frozen) in runs.items():
+        t1 = time.perf_counter()
+        by_path[label] = video_train_path(label, opt, watch, frozen, root,
+                                          card)
+        log(f"[video:{label}] done in {time.perf_counter() - t1:.1f} s")
+    for label, net, model_type, dataset in (
+            ("video_edvr_test", edvr, "EDVRModel", "VideoTestDataset"),
+            ("video_basicvsr_test", basicvsr, "VideoRecurrentModel",
+             "VideoRecurrentTestDataset")):
+        t1 = time.perf_counter()
+        by_path[label] = video_test_path(label, net, model_type, dataset,
+                                         data, root, card)
+        log(f"[video:{label}] done in {time.perf_counter() - t1:.1f} s")
+    return by_path
+
+
+def video_main() -> None:
+    """Phase 13 alone (``python3 -c "import chip_smoke;
+    chip_smoke.video_main()"``), TF32 off as in :func:`main`."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        video_phase(card, root)
+    log(f"[video] phase 13 done in {time.perf_counter() - t0:.1f} s")
+
+
 def _short_names(mangled) -> dict:
     """Mangled kernel name -> ``name<template arguments>`` (c++filt, where
     the toolkit's host compiler brought it)."""
@@ -4949,6 +5710,14 @@ def main() -> int:
         by_path.update(eval_surface(sets, root, card))
         log(f"[eval_surface] phase 12 done in "
             f"{time.perf_counter() - t12:.1f} s")
+
+        t13 = time.perf_counter()
+        log("[video] video SR: the plain DCN and flow warp, the seven "
+            "networks at their published widths, train.py through the "
+            "video runners and the video GAN runners, test.py through the "
+            "video test datasets (no kernel lies on this path)")
+        by_path.update(video_phase(card, root))
+        log(f"[video] phase 13 done in {time.perf_counter() - t13:.1f} s")
 
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():

@@ -19,6 +19,14 @@ flattened one (``proj_1``, ``plk/proj_3``) becomes ``proj.1``, the
 depthwise 7x7 ``kernel`` goes back to OIHW and the Dense ``kernel``s of
 ``plk/proj_*`` to 1x1 conv weights.
 
+The video networks need none either: their flax names hold BasicSR's
+dotted names (``pcd_align/offset_conv1.l1``, ``spynet/basic_module.0/
+basic_module.0``, ``deform_align.backward_1``), which the map keeps; the
+DCNs' raw ``weight`` is OIHW already and is copied as it is; the ``mean``
+and ``std`` of SpyNet and TOFlow, (1, 1, 1, 3) in flax, are reshaped to
+the (1, 3, 1, 1) of BasicSR's; DUF's and TOFlow's frozen batch-norm
+statistics, flax parameters, become the port's buffers.
+
 The discriminators' parameters (``params_d``) map the same way, the
 VGG-style one's ``bn0_1`` / ``conv0_1`` verbatim (no sequence index); the
 spectral-norm state (flax's ``batch_stats``) maps through
@@ -78,23 +86,20 @@ def _untransform(leaf: str, src: np.ndarray, target_shape: tuple) -> np.ndarray:
     return src
 
 
-def flax_to_state_dict(flax_params: dict,
-                       module: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """A full state_dict for ``module`` from a flax param tree.
-
-    Every flax leaf must name a parameter of ``module`` and every parameter
-    must be covered; buffers (index tables) keep the module's own values.
-    The result loads with ``module.load_state_dict(sd, strict=True)``.
-    """
+def flax_torch_names(flax_params: dict,
+                     module: torch.nn.Module) -> Dict[tuple, str]:
+    """{flax leaf path: the name of the tensor of ``module`` it maps to}.
+    A flax name may hold dots of its own (EDVR's ``offset_conv1.l1``,
+    SpyNet's ``basic_module.0``, BasicVSR++'s ``deform_align.backward_1``):
+    the map keeps them."""
     target = module.state_dict()
-    params = {name for name, _ in module.named_parameters()}
-    out = {}
-    for path, value in flatten_params(flax_params).items():
+    names = {}
+    for path in flatten_params(flax_params):
         modules = [_SEQ_IDX.sub(r".\1", c) for c in path[:-1]]
         # a parameter of the module's own can bear a leaf name that the map
         # rewrites (ATD_CA's ``scale`` is no LayerNorm weight), and a module
         # name can end in a number that is no sequence index (the VGG-style
-        # discriminator's ``bn0_1``)
+        # discriminator's ``bn0_1``, BasicVSR++'s ``backward_1``)
         candidates = (flax_path_to_torch_name(path),
                       ".".join(modules + [path[-1]]),
                       ".".join([*path[:-1],
@@ -103,6 +108,26 @@ def flax_to_state_dict(flax_params: dict,
         if name not in target:
             raise KeyError(f"flax leaf {'/'.join(path)} -> {name}: no such "
                            f"tensor in {type(module).__name__}")
+        names[path] = name
+    return names
+
+
+def flax_to_state_dict(flax_params: dict,
+                       module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """A full state_dict for ``module`` from a flax param tree.
+
+    Every flax leaf must name a tensor of ``module`` and every parameter
+    must be covered; buffers the tree lacks (index tables) keep the
+    module's own values, those it has (frozen batch norms' statistics) take
+    the tree's. The result loads with ``module.load_state_dict(sd,
+    strict=True)``.
+    """
+    target = module.state_dict()
+    params = {name for name, _ in module.named_parameters()}
+    names = flax_torch_names(flax_params, module)
+    out = {}
+    for path, value in flatten_params(flax_params).items():
+        name = names[path]
         arr = _untransform(path[-1], value, tuple(target[name].shape))
         out[name] = torch.from_numpy(np.array(arr)).to(
             target[name].dtype)

@@ -20,7 +20,8 @@ from typing import Iterator
 import numpy as np
 
 from super_resolution_tpu_torch.data import (  # noqa: F401 registry
-    onthefly_datasets, paired_dataset, rawpack_dataset, realesrgan_dataset)
+    onthefly_datasets, paired_dataset, rawpack_dataset, realesrgan_dataset,
+    video_datasets)
 from super_resolution_tpu_torch.utils.registry import DATASET_REGISTRY
 
 

@@ -53,11 +53,13 @@ def paired_random_crop(img_gts, img_lqs, gt_patch_size: int, scale: int,
             img_lqs[0] if single_lq else img_lqs)
 
 
-def augment(imgs, hflip: bool = True, rotation: bool = True,
+def augment(imgs, hflip: bool = True, rotation: bool = True, flows=None,
+            return_status: bool = False,
             rng: random.Random | None = None):
     """Horizontal flip, vertical flip and transpose, each with probability
-    1/2, the same for every image of the list (ref: transforms.py:116-180;
-    the optical-flow half is not ported)."""
+    1/2, the same for every image of the list and for the optical flows,
+    whose components flip sign and swap with them (ref:
+    transforms.py:116-180)."""
     rng = rng or random
     do_hflip = hflip and rng.random() < 0.5
     do_vflip = rotation and rng.random() < 0.5
@@ -72,5 +74,24 @@ def augment(imgs, hflip: bool = True, rotation: bool = True,
             img = img.transpose(1, 0, 2) if img.ndim == 3 else img.T
         return np.ascontiguousarray(img)
 
-    single = not isinstance(imgs, list)
-    return _augment(imgs) if single else [_augment(img) for img in imgs]
+    def _augment_flow(flow):
+        if do_hflip:
+            flow = flow[:, ::-1, :].copy()
+            flow[:, :, 0] *= -1
+        if do_vflip:
+            flow = flow[::-1, :, :].copy()
+            flow[:, :, 1] *= -1
+        if do_rot90:
+            flow = flow.transpose(1, 0, 2)[:, :, [1, 0]]
+        return np.ascontiguousarray(flow)
+
+    def each(fn, items):
+        return fn(items) if not isinstance(items, list) else [fn(v) for v
+                                                              in items]
+
+    imgs = each(_augment, imgs)
+    status = (do_hflip, do_vflip, do_rot90)
+    if flows is not None:
+        flows = each(_augment_flow, flows)
+        return (imgs, flows, status) if return_status else (imgs, flows)
+    return (imgs, status) if return_status else imgs

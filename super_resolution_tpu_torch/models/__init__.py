@@ -4,13 +4,18 @@ import inspect
 from copy import deepcopy
 
 from super_resolution_tpu_torch.models import (atd_arch,  # noqa: F401 registry
-                                               cnn_archs, discriminator_arch,
+                                               basicvsr_arch,
+                                               basicvsrpp_arch, cnn_archs,
+                                               discriminator_arch, duf_arch,
+                                               ecbsr_arch, edvr_arch,
                                                esc_arch, esc_fp_arch,
                                                esc_real_arch, hat_arch,
                                                hat_classic_arch,
                                                hatx_arch, hitsrf_arch,
                                                hybrid_hat_naf_arch,
-                                               srformer_arch, swinir_arch)
+                                               ridnet_arch, spynet_arch,
+                                               srformer_arch, swinir_arch,
+                                               tof_arch)
 from super_resolution_tpu_torch.utils.registry import ARCH_REGISTRY
 
 # option keys of the reference's YAML files that change nothing here

@@ -174,7 +174,7 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, nn.LayerNorm):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
-        elif isinstance(m, (nn.Conv1d, nn.Conv2d)):
+        elif isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Conv3d)):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
             nn.init.uniform_(m.weight, -bound, bound, generator=generator)
             if m.bias is not None:

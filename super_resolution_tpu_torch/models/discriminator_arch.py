@@ -207,14 +207,17 @@ class DeepUNetDiscriminatorSN(nn.Module):
 
 class FrozenBatchNorm(nn.Module):
     """BatchNorm on its stored statistics, in every mode: (x - running_mean)
-    / sqrt(running_var + eps) * weight + bias over the channels of NCHW x,
+    / sqrt(running_var + eps) * weight + bias over the channels of x (axis
+    ``channel_dim``: 1 for NCHW, -1 for the video networks' NHWC / NDHWC),
     under ``nn.BatchNorm2d``'s names (``num_batches_tracked`` too, so its
     checkpoints load strict). The statistics are buffers: nothing trains or
     updates them (JAX ``arch_util.FrozenBatchNorm``)."""
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 channel_dim: int = 1):
         super().__init__()
         self.eps = eps
+        self.channel_dim = channel_dim
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -223,8 +226,11 @@ class FrozenBatchNorm(nn.Module):
                              torch.tensor(0, dtype=torch.long))
 
     def forward(self, x):
+        shape = [1] * x.ndim
+        shape[self.channel_dim] = -1
+
         def col(t):
-            return t.reshape(1, -1, 1, 1)
+            return t.reshape(shape)
         return ((x - col(self.running_mean))
                 * col(torch.rsqrt(self.running_var + self.eps))
                 * col(self.weight) + col(self.bias))

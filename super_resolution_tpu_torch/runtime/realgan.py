@@ -12,8 +12,12 @@ shapes and branches. The noise and the JPEG qualities come from a
 numbers (ROADMAP.md queue 3).
 
 The step mirrors JAX's: the generator runs deterministic (no drop path),
-through autograd; G's optimizer and schedule are ``optim_g``'s, D's a
-constant-lr Adam of ``optim_d``'s ``lr`` and ``betas``. The discriminator's
+through autograd; G's optimizer and schedule are ``optim_g``'s, its
+gradients clipped at ``grad_clip_norm`` where set (JAX's optimizer
+chain), D's a constant-lr Adam of ``optim_d``'s ``lr`` and ``betas``. The
+step is module functions (``gan_g_step``, ``gan_d_step``,
+``gan_iteration``), which ``attach_gan_training`` and
+``gan_optimize_step`` put on the video GAN runners too. The discriminator's
 spectral-norm ``u`` moves three times an iteration: in G's fake pass, then
 in D's real pass and D's fake pass on the detached output. The EMA decays
 every iteration, also one where ``net_d_iters`` / ``net_d_init_iters`` keep
@@ -40,10 +44,9 @@ from super_resolution_tpu_torch.ops.diffjpeg import jpeg_compress_decompress
 from super_resolution_tpu_torch.ops.resize import resize_to
 from super_resolution_tpu_torch.runtime.sr_model import (HATModel,
                                                          load_state_dict)
-from super_resolution_tpu_torch.runtime.train_loop import (apply_update,
-                                                           filled_grads,
-                                                           init_train_state,
-                                                           update_ema)
+from super_resolution_tpu_torch.runtime.train_loop import (
+    apply_update, clip_by_global_norm, filled_grads, init_train_state,
+    make_freeze_mask, update_ema)
 from super_resolution_tpu_torch.utils.registry import MODEL_REGISTRY
 
 RESIZE_MODES = ["area", "bilinear", "bicubic"]
@@ -247,6 +250,8 @@ class RealHATGANModel(HATModel):
             self.cri_perceptual.to(self.device)
         self.cri_gan = loss("gan_opt") if self.net_d is not None else None
         self.cri_ldl = loss("ldl_opt")
+        self.grad_mask, self.video_frames = None, False
+        self.grad_clip = train_opt.get("grad_clip_norm")
         self.l1_gt_usm = opt.get("l1_gt_usm", True)
         self.percep_gt_usm = opt.get("percep_gt_usm", True)
         self.gan_gt_usm = opt.get("gan_gt_usm", False)
@@ -276,85 +281,12 @@ class RealHATGANModel(HATModel):
                                if self.is_train and hasattr(self, "synth")
                                else self.gt)
 
-    def _g_step(self, l1_gt, percep_gt):
-        """G's loss on ``self.lq``, its update and the EMA's. Returns (sr,
-        logs)."""
-        state, net_d = self.state, self.net_d
-        state.optimizer.zero_grad(set_to_none=False)
-        if net_d is not None:
-            net_d.requires_grad_(False)
-        sr = state.net.eval()(self.lq)
-        logs, total = {}, 0.0
-        if self.cri_pix is not None:
-            l_pix = self.cri_pix(sr, l1_gt)
-            total = total + l_pix
-            logs["l_g_pix"] = l_pix
-        if self.cri_ldl is not None:
-            # the artifact map of the plain GT, this output and the EMA
-            # network's (realesrgan_model.py:211-225); the map is not
-            # detached, as in the reference
-            with torch.no_grad():
-                out_ema = state.ema(self.lq)
-            pw = get_refined_artifact_map(self.gt, sr, out_ema, 7)
-            l_ldl = self.cri_ldl(pw * sr, pw * self.gt)
-            total = total + l_ldl
-            logs["l_g_ldl"] = l_ldl
-        if self.cri_perceptual is not None:
-            l_p, l_s = self.cri_perceptual(sr, percep_gt)
-            if l_p is not None:
-                total = total + l_p
-                logs["l_g_percep"] = l_p
-            if l_s is not None:
-                total = total + l_s
-                logs["l_g_style"] = l_s
-        if self.cri_gan is not None:
-            # D's spectral norm moves here too, as torch's does in a
-            # training-mode forward (realhatgan_model.py:203-207)
-            fake_pred = net_d(sr, update_sn_stats=True)
-            l_gan = self.cri_gan(fake_pred, True, is_disc=False)
-            total = total + l_gan
-            logs["l_g_gan"] = l_gan
-        logs["l_g_total"] = total
-        total.backward()
-        filled_grads(state)
-        apply_update(state, self.ema_decay)
-        return sr.detach(), {k: v.detach() for k, v in logs.items()}
-
-    def _d_step(self, sr, gan_gt) -> dict:
-        """D's loss on ``gan_gt`` (real) and ``sr`` (fake) and its update."""
-        net_d = self.net_d.requires_grad_(True)
-        self.optimizer_d.zero_grad(set_to_none=False)
-        real_pred = net_d(gan_gt, update_sn_stats=True)
-        l_real = self.cri_gan(real_pred, True, is_disc=True)
-        fake_pred = net_d(sr.detach(), update_sn_stats=True)
-        l_fake = self.cri_gan(fake_pred, False, is_disc=True)
-        (l_real + l_fake).backward()
-        self.optimizer_d.step()
-        return {"l_d_real": l_real.detach(), "l_d_fake": l_fake.detach(),
-                "out_d_real": real_pred.detach().mean(),
-                "out_d_fake": fake_pred.detach().mean()}
-
     def optimize_parameters(self, batch: dict, current_iter: int) -> None:
         self.feed_data(batch)
-        l1_gt = self.gt_usm if self.l1_gt_usm else self.gt
-        percep_gt = self.gt_usm if self.percep_gt_usm else self.gt
-        gan_gt = self.gt_usm if self.gan_gt_usm else self.gt
-        logs = {}
-        run_g = (current_iter % self.net_d_iters == 0
-                 and current_iter > self.net_d_init_iters)
-        sr = None
-        if run_g or self.net_d is None:
-            sr, g_logs = self._g_step(l1_gt, percep_gt)
-            logs.update(g_logs)
-        elif self.ema_decay > 0:
-            update_ema(self.state, self.ema_decay)
-        if self.net_d is not None:
-            if sr is None:
-                with torch.no_grad():
-                    sr = self.net_g.eval()(self.lq)
-            logs.update(self._d_step(sr, gan_gt))
-        self.log_dict = logs
-        self._eval_net = None
+        gan_iteration(self, self.gt_usm if self.l1_gt_usm else self.gt,
+                      self.gt_usm if self.percep_gt_usm else self.gt,
+                      self.gt_usm if self.gan_gt_usm else self.gt,
+                      current_iter)
 
     def checkpoint_tree(self, epoch: int, current_iter: int) -> dict:
         """:meth:`SRModel.checkpoint_tree`, and D with its spectral-norm
@@ -445,3 +377,157 @@ class RealESRNetModel(RealHATMSEModel):
             self.gt_usm = self.gt
         else:
             super().feed_data(data)
+
+
+# ----------------------------------------------------------------------
+# The G / D step, shared by the runners above and the video GAN runners
+# (JAX ``attach_gan_training`` / ``gan_optimize_step``, runtime/
+# realgan.py:534-712; ref: video_gan_model.py:7-19,
+# video_recurrent_gan_model.py:12-180).
+
+
+def _frames(model, x):
+    """The video runners' frames in the batch: (B, T, H, W, C) -> (B * T,
+    H, W, C) for the perceptual loss and D; other runners pass x on."""
+    return x.reshape((-1,) + x.shape[-3:]) if model.video_frames else x
+
+
+def gan_g_step(model, l1_gt, percep_gt):
+    """G's loss on ``model.lq``, its update (the freeze mask, then the
+    clip, as JAX's chain) and the EMA's. Returns (sr, logs)."""
+    state, net_d = model.state, model.net_d
+    state.optimizer.zero_grad(set_to_none=False)
+    if net_d is not None:
+        net_d.requires_grad_(False)
+    sr = state.net.eval()(model.lq)
+    logs, total = {}, 0.0
+    if model.cri_pix is not None:
+        l_pix = model.cri_pix(sr, l1_gt)
+        total = total + l_pix
+        logs["l_g_pix"] = l_pix
+    if model.cri_ldl is not None:
+        # the artifact map of the plain GT, this output and the EMA
+        # network's (realesrgan_model.py:211-225); the map is not detached,
+        # as in the reference
+        with torch.no_grad():
+            out_ema = state.ema(model.lq)
+        pw = get_refined_artifact_map(model.gt, sr, out_ema, 7)
+        l_ldl = model.cri_ldl(pw * sr, pw * model.gt)
+        total = total + l_ldl
+        logs["l_g_ldl"] = l_ldl
+    if model.cri_perceptual is not None:
+        l_p, l_s = model.cri_perceptual(_frames(model, sr),
+                                        _frames(model, percep_gt))
+        if l_p is not None:
+            total = total + l_p
+            logs["l_g_percep"] = l_p
+        if l_s is not None:
+            total = total + l_s
+            logs["l_g_style"] = l_s
+    if model.cri_gan is not None:
+        # D's spectral norm moves here too, as torch's does in a
+        # training-mode forward (realhatgan_model.py:203-207)
+        fake_pred = net_d(_frames(model, sr), update_sn_stats=True)
+        l_gan = model.cri_gan(fake_pred, True, is_disc=False)
+        total = total + l_gan
+        logs["l_g_gan"] = l_gan
+    logs["l_g_total"] = total
+    total.backward()
+    grads = filled_grads(state)
+    if model.grad_mask is not None:
+        model.grad_mask(state.net.named_parameters(), state.step)
+    if model.grad_clip:
+        clip_by_global_norm(grads, model.grad_clip)
+    apply_update(state, model.ema_decay)
+    return sr.detach(), {k: v.detach() for k, v in logs.items()}
+
+
+def gan_d_step(model, sr, gan_gt) -> dict:
+    """D's loss on ``gan_gt`` (real) and ``sr`` (fake) and its update."""
+    net_d = model.net_d.requires_grad_(True)
+    model.optimizer_d.zero_grad(set_to_none=False)
+    real_pred = net_d(_frames(model, gan_gt), update_sn_stats=True)
+    l_real = model.cri_gan(real_pred, True, is_disc=True)
+    fake_pred = net_d(_frames(model, sr.detach()), update_sn_stats=True)
+    l_fake = model.cri_gan(fake_pred, False, is_disc=True)
+    (l_real + l_fake).backward()
+    model.optimizer_d.step()
+    return {"l_d_real": l_real.detach(), "l_d_fake": l_fake.detach(),
+            "out_d_real": real_pred.detach().mean(),
+            "out_d_fake": fake_pred.detach().mean()}
+
+
+def gan_iteration(model, l1_gt, percep_gt, gan_gt, current_iter: int):
+    """One G / D alternation on the fed batch (ref: srgan_model.py:85-141):
+    G where ``current_iter`` is a multiple of ``net_d_iters`` past
+    ``net_d_init_iters`` (the EMA decays otherwise), then D."""
+    logs = {}
+    run_g = (current_iter % model.net_d_iters == 0
+             and current_iter > model.net_d_init_iters)
+    sr = None
+    if run_g or model.net_d is None:
+        sr, g_logs = gan_g_step(model, l1_gt, percep_gt)
+        logs.update(g_logs)
+    elif model.ema_decay > 0:
+        update_ema(model.state, model.ema_decay)
+    if model.net_d is not None:
+        if sr is None:
+            with torch.no_grad():
+                sr = model.net_g.eval()(model.lq)
+        logs.update(gan_d_step(model, sr, gan_gt))
+    model.log_dict = logs
+    model._eval_net = None
+
+
+def attach_gan_training(model, mesh=None, video: bool = False) -> None:
+    """SRGAN-style G / D training on a runner with ``net_g`` (JAX
+    ``attach_gan_training``): the discriminator of ``network_d`` (seeded
+    from ``manual_seed`` + 2), G's optimizer, D's constant-lr Adam, the
+    losses. ``video``: the frames go into the batch for the perceptual
+    loss and D, and with ``fix_flow`` the flow network (and IconVSR's EDVR)
+    is frozen for that many iterations and, with ``lr_flow``, trains at
+    lr_flow (ref: video_recurrent_gan_model.py:57-77)."""
+    if mesh is not None:
+        raise NotImplementedError("training across devices (a mesh) is not "
+                                  "ported (ROADMAP.md queue 1, parallelism)")
+    opt, train_opt = model.opt, model.opt["train"]
+    model.ema_decay = train_opt.get("ema_decay", 0)
+    fix_flow = train_opt.get("fix_flow") if video else None
+    lr_rules = None
+    if fix_flow and train_opt.get("lr_flow"):
+        lr_rules = {"spynet": train_opt["lr_flow"]
+                    / train_opt["optim_g"]["lr"]}
+    model.state = init_train_state(model.net_g, train_opt, lr_rules)
+    model.grad_mask = make_freeze_mask([(("spynet", "edvr"), fix_flow)]
+                                       if fix_flow else None)
+    model.grad_clip = train_opt.get("grad_clip_norm")
+    model.video_frames = video
+    net_d = build_network(opt["network_d"])
+    init_weights(net_d, torch.Generator().manual_seed(
+        int(opt.get("manual_seed") or 0) + 2))
+    model.net_d = net_d.to(model.device)
+
+    def loss(key):
+        return build_loss(train_opt[key]) if train_opt.get(key) else None
+
+    model.cri_pix = loss("pixel_opt")
+    model.cri_perceptual = loss("perceptual_opt")
+    if model.cri_perceptual is not None:
+        model.cri_perceptual.to(model.device)
+    model.cri_gan = loss("gan_opt")
+    model.cri_ldl = None
+    model.net_d_iters = train_opt.get("net_d_iters", 1)
+    model.net_d_init_iters = train_opt.get("net_d_init_iters", 0)
+    opt_d = train_opt["optim_d"]
+    model.optimizer_d = torch.optim.Adam(
+        model.net_d.parameters(), lr=opt_d["lr"],
+        betas=tuple(opt_d.get("betas", (0.9, 0.999))), eps=1e-8)
+    model._eval_net = None
+    model.log_dict = {}
+
+
+def gan_optimize_step(model, batch: dict, current_iter: int) -> None:
+    """Feed ``batch`` and run :func:`gan_iteration` with the plain GT for
+    every loss (JAX ``gan_optimize_step``)."""
+    model.feed_data(batch)
+    gan_iteration(model, model.gt, model.gt, model.gt, current_iter)

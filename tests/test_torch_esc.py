@@ -557,9 +557,9 @@ def test_inference_tool_on_a_folder(tmp_path, rng, monkeypatch):
     assert inference.network_options("SwinIR", 4)["type"] == "SwinIR"
     assert inference.network_options("ESC-FP", 2)["type"] == "ESCFP"
     assert inference.network_options("ESC-Real", 2)["upscaling_factor"] == 4
-    monkeypatch.setitem(inference.MODEL_ZOO, "ECBSR",
-                        lambda s: dict(type="ECBSR", scale=s))
+    monkeypatch.setitem(inference.MODEL_ZOO, "StyleGAN2",
+                        lambda s: dict(type="StyleGAN2Generator", out_size=s))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        inference.network_options("ECBSR", 4)
+        inference.network_options("StyleGAN2", 4)
     args = inference.build_parser().parse_args(["--input", str(src)])
     assert args.device == "cuda" and args.model == "ESC" and args.tile == 0
