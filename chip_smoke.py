@@ -231,7 +231,33 @@ Phases, each of which raises on failure:
      spectral norm and a seeded VGG19: every loss against the host CPU's,
      D moved; (e) test.py through VideoTestDataset (EDVR-M) and
      VideoRecurrentTestDataset (BasicVSR) on seeded weights in a .pth:
-     the per-folder PSNR tables.
+     the per-folder PSNR tables;
+ 14. faces, float32 with TF32 off, no kernel on the path (it launches none
+     of the 18 rows; each of its paths' counts is checked to be 0): (a)
+     StyleGAN2Generator and StyleGAN2GeneratorBilinear at BasicSR's
+     train_StyleGAN2_256_Cmul2_FFHQ widths (256 x 256, 512-dim styles, 8
+     MLP layers, channel multiplier 2) on seeded weights, a forward of two
+     mixed styles with explicit noise on the card against the host CPU;
+     then train.py through StyleGAN2Model (and the discriminator at 256 /
+     Cmul 2) at batch 4 on a disk FFHQDataset of 8 synthetic 256 x 256
+     faces, the file's periods (the path penalty every 4 iterations, R1
+     every 16), 16 iterations: iteration 16's losses (R1 and the path
+     penalty among them) against the host CPU's from the weights before
+     each step and the same draws, s a step of each of the four kinds,
+     peak memory, the 4-a-row sample grid; (b) train.py through
+     HiFaceGANModel (64 features; D 2 scales of 4 layers at 64) on two
+     written 512 x 512 pairs at scale 1, batch 1, 2 iterations, with L1,
+     a seeded VGG19 (BasicSR's five perceptual layers), MultiScaleGANLoss
+     hinge and GANFeatLoss: the first iteration's losses against the host
+     CPU's, s an iteration, peak memory; (c) DFDNet at 64 features on one
+     512 x 512 face with a seeded dictionary in which each part's own
+     feature is one atom: a forward on the card against the host CPU and
+     its ms; (d) the FID InceptionV3 on a seeded pt_inception state dict:
+     block-3 features on the card against the host CPU, and
+     tools/eval_folder.py --fid-weights (calculate_fid) on 32 written
+     96 x 96 seeded images against their noisy copies. Card
+     against CPU within 1e-3 of the output's scale, first losses within
+     1e-3. Alone: ``python3 -c "import chip_smoke; chip_smoke.face_main()"``.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Exits non-zero, printing neither, when there
@@ -5467,6 +5493,668 @@ def video_main() -> None:
     log(f"[video] phase 13 done in {time.perf_counter() - t0:.1f} s")
 
 
+# phase 14: the face stack, float32 with TF32 off, no kernel on the path.
+# StyleGAN2 at BasicSR's train_StyleGAN2_256_Cmul2_FFHQ widths and
+# regularisation periods (the path penalty every 4 iterations, R1 every 16)
+FACE_SG_G = dict(type="StyleGAN2Generator", out_size=256, num_style_feat=512,
+                 num_mlp=8, channel_multiplier=2, resample_kernel=[1, 3, 3, 1],
+                 lr_mlp=0.01)
+FACE_SG_D = dict(type="StyleGAN2Discriminator", out_size=256,
+                 channel_multiplier=2, resample_kernel=[1, 3, 3, 1])
+# batch, synthetic FFHQ faces, iterations: the 16th fires both penalties
+FACE_SG_TRAIN = dict(batch=4, images=8, iters=16)
+# HiFaceGAN on 512 x 512 faces at scale 1, BasicSR's perceptual layers
+FACE_HF_G = dict(type="HiFaceGAN", num_in_ch=3, num_feat=64)
+FACE_HF_D = dict(type="HiFaceGANDiscriminator", num_in_ch=3, num_out_ch=3,
+                 conditional_d=True, num_d=2, n_layers_d=4, num_feat=64)
+FACE_HF_TRAIN = dict(batch=1, images=2, iters=2, side=512)
+# DFDNet's part boxes (x0, y0, x1, y1) on a 512 x 512 face, in the layout
+# of an aligned FFHQ face, and the dictionary: atoms a part, atom side at
+# each of the four feature scales (256, 128, 64, 32)
+FACE_DFDNET_PARTS = [(150, 190, 230, 250), (282, 190, 362, 250),
+                     (216, 240, 296, 330), (190, 340, 322, 410)]
+FACE_DFDNET_ATOMS = dict(n=32, sides=(32, 16, 8, 4))
+# FID: eval_folder's pairs and their side (under 96 + 2 x 4: one NIQE
+# block gives no covariance, ROADMAP.md queue 3)
+FACE_FID = dict(n=32, side=96)
+FACE_TOL = 1e-3
+
+
+def _face_launches_zero() -> dict:
+    fns = {name: fn for name, fn in wrappers().items() if name in KERNELS}
+    for fn in fns.values():
+        fn.launches = 0
+    return fns
+
+
+def _face_counts(fns: dict, label: str) -> dict:
+    counts = {n: fn.launches for n, fn in fns.items()}
+    if any(counts.values()):
+        raise AssertionError(f"{label}: kernels launched {counts}")
+    return counts
+
+
+def _face_check(label: str, cpu, card) -> float:
+    """max |card - cpu| against FACE_TOL x max(1, max |cpu|); raises."""
+    import torch
+
+    err = float((card.detach().float().cpu() - cpu).abs().max())
+    tol = FACE_TOL * max(1.0, float(cpu.abs().max()))
+    if not (err <= tol and bool(torch.isfinite(card).all())):
+        raise AssertionError(f"{label}: card against CPU err {err} > {tol}")
+    return err
+
+
+def _seeded_net(opt: dict, seed: int):
+    import torch
+
+    from super_resolution_tpu_torch.models import build_network
+    from super_resolution_tpu_torch.models.arch_util import init_weights
+
+    net = build_network(opt)
+    init_weights(net, torch.Generator().manual_seed(seed))
+    return net.eval()
+
+
+def write_faces(root: str, name: str, n: int, side: int, seed: int) -> str:
+    """``n`` smooth synthetic side x side face-sized PNGs."""
+    import cv2
+
+    out = os.path.join(root, name)
+    os.makedirs(out, exist_ok=True)
+    for i, img in enumerate(_smooth_frames(np.random.default_rng(seed), n,
+                                           side)):
+        cv2.imwrite(os.path.join(out, f"{i:08d}.png"), img)
+    return out
+
+
+class FaceClock:
+    """While phase 14's StyleGAN2 run goes: the seconds of each step by
+    kind (D, D + R1, G, G + path length; to a synchronised card), each
+    iteration's logs, and at iteration ``snap_iter`` its real batch, its
+    draws and the weights (and mean path length) before each step."""
+
+    def __init__(self, snap_iter: int):
+        self.snap_iter = snap_iter
+
+    def __enter__(self):
+        import torch
+
+        from super_resolution_tpu_torch.runtime.stylegan2_model import \
+            StyleGAN2Model as cls
+
+        self.cls = cls
+        self.saved = {n: cls.__dict__[n] for n in
+                      ("d_step", "g_step", "g_reg_step", "train_iteration")}
+        self.times = {"d": [], "d_r1": [], "g": [], "g_path": []}
+        self.logs, self.snap, self.it = [], None, None
+
+        def host(sd):
+            return {k: v.detach().cpu().clone() for k, v in sd.items()}
+
+        def timed(kind_of, step):
+            def run(model, part, *args):
+                kind = kind_of(*args)
+                if self.it == self.snap_iter:
+                    self.snap[kind] = {
+                        "g": host(model.net_g.state_dict()),
+                        "d": host(model.net_d.state_dict()),
+                        "mean": float(model.mean_path_length)}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(model, part, *args)
+                torch.cuda.synchronize()
+                self.times[kind].append(time.perf_counter() - t0)
+                return out
+            return run
+
+        def iteration(model, draws, current_iter):
+            self.it = current_iter
+            if current_iter == self.snap_iter:
+                self.snap = {"draws": draws, "real": model.real_img.cpu()}
+            self.saved["train_iteration"](model, draws, current_iter)
+            self.logs.append(model.get_current_log())
+
+        cls.d_step = timed(lambda do_r1: "d_r1" if do_r1 else "d",
+                           self.saved["d_step"])
+        cls.g_step = timed(lambda: "g", self.saved["g_step"])
+        cls.g_reg_step = timed(lambda: "g_path", self.saved["g_reg_step"])
+        cls.train_iteration = iteration
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.cls, name, fn)
+
+
+def _sg_losses_on_cpu(opt: dict, snap: dict) -> dict:
+    """Iteration ``snap``'s losses on the host CPU in float32 from the
+    weights before each step and the same draws (the penalties' values
+    need first-order gradients only)."""
+    import torch
+
+    from super_resolution_tpu_torch.losses import build_loss
+    from super_resolution_tpu_torch.losses.gan import (g_path_regularize,
+                                                       r1_penalty)
+    from super_resolution_tpu_torch.models import build_network
+
+    tr = opt["train"]
+    g, d = build_network(opt["network_g"]), build_network(opt["network_d"])
+    cri = build_loss(tr["gan_opt"])
+    draws, real = snap["draws"], snap["real"]
+
+    def gen(part, **kw):
+        return g(part["styles"], inject_index=part["inject"],
+                 noise=part["noise"], **kw)
+
+    out = {}
+    g.load_state_dict(snap["d_r1"]["g"])
+    d.load_state_dict(snap["d_r1"]["d"])
+    with torch.no_grad():
+        fake_pred = d(gen(draws["d"])[0])
+    real = real.clone().requires_grad_(True)
+    real_pred = d(real)
+    out["l_d"] = float(cri(real_pred, True, is_disc=True)
+                       + cri(fake_pred, False, is_disc=True))
+    out["real_score"] = float(real_pred.mean())
+    out["fake_score"] = float(fake_pred.mean())
+    out["l_d_r1"] = float(tr["r1_reg_weight"] / 2 * r1_penalty(
+        real_pred, real) * tr["net_d_reg_every"])
+    g.load_state_dict(snap["g"]["g"])
+    d.load_state_dict(snap["g"]["d"])
+    with torch.no_grad():
+        out["l_g"] = float(cri(d(gen(draws["g"])[0]), True))
+    g.load_state_dict(snap["g_path"]["g"])
+    fake, latents = gen(draws["path"], return_latents=True)
+    penalty, length, _ = g_path_regularize(
+        fake, latents, torch.tensor(snap["g_path"]["mean"]),
+        noise=draws["path"]["path_noise"])
+    out["l_g_path"] = float(tr["path_reg_weight"] * tr["net_g_reg_every"]
+                            * penalty)
+    out["path_length"] = float(length)
+    return out
+
+
+def _face_loss_errors(got: dict, ref: dict) -> dict:
+    """Relative errors; the scores and mean logits against max(1, |v|)."""
+    return {k: abs(got[k] - v) / (max(1.0, abs(v))
+                                  if k.endswith("score") else abs(v))
+            for k, v in ref.items()}
+
+
+def face_top_kernels(fn, n: int = 4) -> str:
+    """One call of ``fn`` under torch.profiler: the device's busy ms
+    against the wall, and the ``n`` kernels of the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda and not e.is_user_annotation():
+            by_name[e.name()] = (by_name.get(e.name(), 0.0)
+                                 + e.duration_ns() / 1e6)
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n]
+    return (f"device busy {busy:.1f} ms of a {wall:.1f} ms call under the "
+            f"profiler; " + "; ".join(
+                f"{name[:70]} {ms:.1f} ms ({100 * ms / max(busy, 1e-9):.0f}%)"
+                for name, ms in top))
+
+
+def face_stylegan2(card: str, root: str) -> dict:
+    """Phase 14 (a): both generators' forwards with explicit noise on the
+    card against the host CPU; then train.py through StyleGAN2Model on a
+    disk FFHQDataset, its 16th iteration's losses against the host CPU's,
+    s a step of each kind, peak memory, the sample grid. Returns the
+    launch counts of each path (none)."""
+    import torch
+
+    from super_resolution_tpu_torch.runtime.train_pipeline import \
+        train_pipeline
+
+    by_path = {}
+    for label, net_opt in (("face_stylegan2_fir", FACE_SG_G),
+                           ("face_stylegan2_bilinear",
+                            {**{k: v for k, v in FACE_SG_G.items()
+                                if k != "resample_kernel"},
+                             "type": "StyleGAN2GeneratorBilinear"})):
+        fns = _face_launches_zero()
+        net = _seeded_net(net_opt, 14)
+        g = torch.Generator().manual_seed(14)
+        z = [torch.randn(2, 512, generator=g) for _ in range(2)]
+        noise = [torch.randn(2, 1, 2 ** ((i + 5) // 2), 2 ** ((i + 5) // 2),
+                             generator=g) for i in range(net.num_layers)]
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ref, _ = net(z, noise=noise, inject_index=7)
+            cpu_s = time.perf_counter() - t0
+            net.cuda()
+            zc, nc = [v.cuda() for v in z], [v.cuda() for v in noise]
+            got, _ = net(zc, noise=nc, inject_index=7)
+            ms = time_ms(lambda: net(zc, noise=nc, inject_index=7), reps=5)
+        err = _face_check(label, ref, got)
+        log(f"[face:{label}] {card}: {net_opt['type']} 256 x 256, 512-dim "
+            f"styles, 8 MLP layers, channel multiplier 2, batch 2 mixing "
+            f"at 7: card against the host CPU max |diff| {err:.3e} (the "
+            f"CPU forward {cpu_s:.1f} s); {ms:.2f} ms a forward")
+        by_path[label] = _face_counts(fns, label)
+        del net
+    torch.cuda.empty_cache()
+
+    label = "face_stylegan2_train"
+    tr = FACE_SG_TRAIN
+    faces = write_faces(root, "ffhq", tr["images"], 256, 14)
+    opt = {"name": label, "model_type": "StyleGAN2Model", "num_gpu": 1,
+           "manual_seed": 0,
+           "datasets": {"train": {
+               "name": "FFHQ", "type": "FFHQDataset", "dataroot_gt": faces,
+               "io_backend": {"type": "disk"}, "use_hflip": True,
+               "mean": [0.5, 0.5, 0.5], "std": [0.5, 0.5, 0.5],
+               "batch_size_per_gpu": tr["batch"],
+               "dataset_enlarge_ratio": 1}},
+           "network_g": dict(FACE_SG_G), "network_d": dict(FACE_SG_D),
+           "path": {"pretrain_network_g": None, "strict_load_g": True,
+                    "resume_state": None,
+                    "experiments_root": os.path.join(root, "face_exp")},
+           "train": {"optim_g": {"type": "Adam", "lr": 2e-3},
+                     "optim_d": {"type": "Adam", "lr": 2e-3},
+                     "total_iter": tr["iters"], "warmup_iter": -1,
+                     "gan_opt": {"type": "GANLoss",
+                                 "gan_type": "wgan_softplus",
+                                 "loss_weight": 1},
+                     "r1_reg_weight": 10, "path_reg_weight": 2,
+                     "net_g_reg_every": 4, "net_d_reg_every": 16,
+                     "mixing_prob": 0.9},
+           "val": {"num_val_samples": 16},
+           "logger": {"print_freq": 4, "save_checkpoint_freq": 10 ** 6,
+                      "use_tb_logger": False}}
+    yml = _write_yml(opt, root, label)
+    fns = _face_launches_zero()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with FaceClock(tr["iters"]) as clock:
+        model, last = train_pipeline(os.path.join(root, label),
+                                     argv=["-opt", yml, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    model.nondist_validation(None, last)
+    grid = os.path.join(model.opt["path"]["visualization"], "train",
+                        f"train_{last}.png")
+    by_path[label] = _face_counts(fns, label)
+    steps = ", ".join(f"{k} {statistics.median(v) * 1e3:.1f} ms (x{len(v)})"
+                      for k, v in clock.times.items() if v)
+    log(f"[face:{label}] {card}: StyleGAN2Model through train.py, batch "
+        f"{tr['batch']}, {tr['iters']} iterations on {tr['images']} "
+        f"synthetic 256 x 256 faces, TF32 off: s a step by kind (median): "
+        f"{steps}; peak memory {peak:.2f} GiB; wall {wall:.1f} s; sample "
+        f"grid {grid}")
+    ref = _sg_losses_on_cpu(opt, clock.snap)
+    got = clock.logs[-1]
+    errs = _face_loss_errors(got, ref)
+    log(f"  iteration {tr['iters']} (R1 and the path penalty) on the card "
+        f"{dict(sorted(got.items()))}; on the host CPU "
+        f"{dict(sorted(ref.items()))}: worst diff {max(errs.values()):.2e}")
+    finite = all(np.isfinite(list(lg.values())).all() for lg in clock.logs)
+    if (last != tr["iters"] or not finite or not os.path.isfile(grid)
+            or len(clock.times["d_r1"]) != 1
+            or len(clock.times["g_path"]) != tr["iters"] // 4
+            or max(errs.values()) > FACE_TOL):
+        raise AssertionError(f"{label}: last {last}, finite {finite}, "
+                             f"steps {clock.times}, errors {errs}")
+    draws = model.make_draws(tr["batch"], tr["iters"])
+    for kind, step in (("D + R1", lambda: model.d_step(draws["d"], True)),
+                       ("G", lambda: model.g_step(draws["g"])),
+                       ("G + path", lambda: model.g_reg_step(
+                           draws["path"]))):
+        log(f"  one {kind} step: {face_top_kernels(step)}")
+    del model, clock
+    torch.cuda.empty_cache()
+    return by_path
+
+
+class _FirstIteration:
+    """Wraps ``HiFaceGANModel.optimize_parameters`` while a run goes: each
+    iteration's seconds (to a synchronised card) and logs, and the first
+    batch with the weights before it."""
+
+    def __enter__(self):
+        import torch
+
+        from super_resolution_tpu_torch.runtime.hifacegan_model import \
+            HiFaceGANModel as cls
+
+        self.cls, self.saved = cls, cls.__dict__["optimize_parameters"]
+        self.iters, self.logs, self.first = [], [], None
+
+        def run(model, batch, current_iter):
+            if self.first is None:
+                self.first = {
+                    "batch": {k: batch[k] for k in ("lq", "gt")},
+                    **{n: {k: v.detach().cpu().clone()
+                           for k, v in net.state_dict().items()}
+                       for n, net in (("g", model.net_g),
+                                      ("d", model.net_d))}}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.saved(model, batch, current_iter)
+            torch.cuda.synchronize()
+            self.iters.append(time.perf_counter() - t0)
+            self.logs.append(model.get_current_log())
+
+        cls.optimize_parameters = run
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.optimize_parameters = self.saved
+
+
+def face_hifacegan(card: str, root: str, vgg: str) -> dict:
+    """Phase 14 (b): train.py through HiFaceGANModel on written 512 x 512
+    pairs: the first iteration's losses against the host CPU's, s an
+    iteration, peak memory."""
+    import cv2
+    import torch
+
+    from super_resolution_tpu_torch.runtime import build_model
+    from super_resolution_tpu_torch.runtime.train_pipeline import \
+        train_pipeline
+
+    label = "face_hifacegan"
+    tr = FACE_HF_TRAIN
+    gt = write_faces(root, "hf_gt", tr["images"], tr["side"], 15)
+    lq = os.path.join(root, "hf_lq")
+    os.makedirs(lq, exist_ok=True)
+    for name in sorted(os.listdir(gt)):
+        img = cv2.imread(os.path.join(gt, name))
+        small = cv2.resize(img, (tr["side"] // 4, tr["side"] // 4),
+                           interpolation=cv2.INTER_AREA)
+        cv2.imwrite(os.path.join(lq, name),
+                    cv2.resize(small, (tr["side"], tr["side"]),
+                               interpolation=cv2.INTER_CUBIC))
+    opt = {"name": label, "model_type": "HiFaceGANModel", "scale": 1,
+           "num_gpu": 1, "manual_seed": 0,
+           "datasets": {"train": {
+               "name": "faces", "type": "PairedImageDataset",
+               "dataroot_gt": gt, "dataroot_lq": lq,
+               "io_backend": {"type": "disk"}, "gt_size": tr["side"],
+               "use_hflip": True, "use_rot": False,
+               "batch_size_per_gpu": tr["batch"],
+               "dataset_enlarge_ratio": 1}},
+           "network_g": dict(FACE_HF_G), "network_d": dict(FACE_HF_D),
+           "path": {"pretrain_network_g": None, "strict_load_g": True,
+                    "resume_state": None,
+                    "experiments_root": os.path.join(root, "face_exp")},
+           "train": {
+               "optim_g": {"type": "Adam", "lr": 1e-4, "betas": [0.5, 0.999]},
+               "optim_d": {"type": "Adam", "lr": 4e-4, "betas": [0.5, 0.999]},
+               "scheduler": {"type": "MultiStepLR", "milestones": [600000],
+                             "gamma": 0.5},
+               "total_iter": tr["iters"], "warmup_iter": -1,
+               "pixel_opt": {"type": "L1Loss", "loss_weight": 1.0,
+                             "reduction": "mean"},
+               "perceptual_opt": {
+                   "type": "PerceptualLoss", "vgg_weights_path": vgg,
+                   "layer_weights": {"conv1_2": 0.1, "conv2_2": 0.1,
+                                     "conv3_4": 1, "conv4_4": 1,
+                                     "conv5_4": 1},
+                   "vgg_type": "vgg19", "use_input_norm": True,
+                   "perceptual_weight": 1.0, "style_weight": 0,
+                   "range_norm": True, "criterion": "l1"},
+               "gan_opt": {"type": "MultiScaleGANLoss", "gan_type": "hinge",
+                           "loss_weight": 1.0},
+               "feature_matching_opt": {"type": "GANFeatLoss",
+                                        "loss_weight": 10.0},
+               "net_d_iters": 1, "net_d_init_iters": 0},
+           "logger": {"print_freq": 1, "save_checkpoint_freq": 10 ** 6,
+                      "use_tb_logger": False}}
+    yml = _write_yml(opt, root, label)
+    fns = _face_launches_zero()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _FirstIteration() as clock:
+        model, last = train_pipeline(os.path.join(root, label),
+                                     argv=["-opt", yml, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = _face_counts(fns, label)
+    log(f"[face:{label}] {card}: HiFaceGANModel through train.py, "
+        f"{FACE_HF_G['num_feat']} features, D {FACE_HF_D['num_d']} scales "
+        f"of {FACE_HF_D['n_layers_d']} layers, batch {tr['batch']} of "
+        f"{tr['side']} x {tr['side']}, TF32 off: "
+        f"{_rate(clock.iters, tr['batch'])}; peak memory {peak:.2f} GiB; "
+        f"wall {wall:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+
+    cpu = build_model(opt, "cpu")
+    cpu.setup_training()
+    cpu.net_g.load_state_dict(clock.first["g"])
+    cpu.net_d.load_state_dict(clock.first["d"])
+    cpu.feed_data(clock.first["batch"])
+    with torch.no_grad():
+        sr = cpu.net_g(cpu.lq)
+        fake, real = cpu.discriminate(cpu.lq, sr, cpu.gt)
+        ref = {"l_g_pix": float(cpu.cri_pix(sr, cpu.gt)),
+               "l_g_percep": float(cpu.cri_perceptual(sr, cpu.gt)[0]),
+               "l_g_gan": float(cpu.cri_gan(fake, True, is_disc=False)),
+               "l_g_feat": float(cpu.cri_feat(fake, real)),
+               "l_d_real": float(cpu.cri_gan(real, True, is_disc=True)),
+               "l_d_fake": float(cpu.cri_gan(fake, False, is_disc=True))}
+    ref["l_g_total"] = (ref["l_g_pix"] + ref["l_g_percep"] + ref["l_g_gan"]
+                        + ref["l_g_feat"])
+    got = clock.logs[0]
+    errs = _face_loss_errors(got, ref)
+    log(f"  first iteration on the card {dict(sorted(got.items()))}; on "
+        f"the host CPU {dict(sorted(ref.items()))}: worst diff "
+        f"{max(errs.values()):.2e} (relative)")
+    finite = all(np.isfinite(list(lg.values())).all() for lg in clock.logs)
+    if last != tr["iters"] or not finite or max(errs.values()) > FACE_TOL:
+        raise AssertionError(f"{label}: last {last}, finite {finite}, "
+                             f"errors {errs}")
+    return {label: counts}
+
+
+def face_dfdnet(card: str) -> dict:
+    """Phase 14 (c): one DFDNet forward at 64 features on a 512 x 512
+    face, card against the host CPU, and its ms. The dictionary: seeded
+    N(0, 1) atoms (FACE_DFDNET_ATOMS), one of which in each part is the
+    part's own VGG feature scaled and shifted (the AdaIN undoes it), so
+    the atom choice leads by a margin."""
+    import torch
+    import torch.nn.functional as F
+
+    label = "face_dfdnet"
+    net = _seeded_net(dict(type="DFDNet", num_feat=64), 16)
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy(np.stack(_smooth_frames(rng, 1, 512)).astype(
+        np.float32) / 127.5 - 1.0)
+    locs = [np.asarray([b]) for b in FACE_DFDNET_PARTS]
+    with torch.no_grad():
+        feats = net.vgg_extractor(x)
+    dic = {}
+    for layer, f_size, side in zip(net.vgg_layers, net.feature_sizes,
+                                   FACE_DFDNET_ATOMS["sides"]):
+        dic[str(f_size)] = {}
+        for part, box in zip(net.parts, FACE_DFDNET_PARTS):
+            x0, y0, x1, y1 = [v // (512 // f_size) for v in box]
+            own = F.interpolate(feats[layer][:, :, y0:y1, x0:x1],
+                                size=(side, side), mode="bilinear",
+                                align_corners=False)[0]
+            atoms = torch.from_numpy(rng.standard_normal(
+                (FACE_DFDNET_ATOMS["n"],) + tuple(own.shape)).astype(
+                    np.float32))
+            scale = torch.from_numpy(rng.uniform(
+                0.5, 2.0, (own.shape[0], 1, 1)).astype(np.float32))
+            atoms[int(rng.integers(FACE_DFDNET_ATOMS["n"]))] = (own * scale
+                                                                + scale)
+            dic[str(f_size)][part] = atoms
+    fns = _face_launches_zero()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = net(x, locs, dic)
+        cpu_s = time.perf_counter() - t0
+        net.cuda()
+        xc = x.cuda()
+        dc = {k: {p: v.cuda() for p, v in d.items()} for k, d in dic.items()}
+        got = net(xc, locs, dc)
+        ms = time_ms(lambda: net(xc, locs, dc), reps=5)
+    err = _face_check(label, ref, got)
+    log(f"[face:{label}] {card}: DFDNet at 64 features on one 512 x 512 "
+        f"face, {FACE_DFDNET_ATOMS['n']} atoms a part of sides "
+        f"{FACE_DFDNET_ATOMS['sides']}, part boxes {FACE_DFDNET_PARTS}: "
+        f"card against the host CPU max |diff| {err:.3e} (the CPU forward "
+        f"{cpu_s:.1f} s); {ms:.1f} ms a forward (batch 1, eager)")
+    counts = _face_counts(fns, label)
+    del net
+    torch.cuda.empty_cache()
+    return {label: counts}
+
+
+def pt_inception_state_dict(seed: int = 0) -> dict:
+    """Seeded random weights under the raw pt_inception names, with its
+    ``fc`` and one ``AuxLogits`` entry (which a load passes over):
+    He-normal convs, BatchNorm scales 1 + N(0, 0.1), shifts and means N(0,
+    0.1), variances in [0.5, 1.5), so that the features vary with the
+    input (with 0.1 N(0, 1) convs every image gives the same block-3
+    features)."""
+    import torch
+
+    from super_resolution_tpu_torch.models.inception_arch import \
+        FIDInceptionV3
+
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in FIDInceptionV3().state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        z = torch.randn(v.shape, generator=g)
+        if k.endswith("conv.weight"):
+            sd[k] = z * (2.0 / v[0].numel()) ** 0.5
+        elif k.endswith("running_var"):
+            sd[k] = 0.5 + torch.rand(v.shape, generator=g)
+        else:
+            sd[k] = (1.0 if k.endswith("bn.weight") else 0.0) + 0.1 * z
+    sd["fc.weight"] = torch.zeros(1008, 2048)
+    sd["fc.bias"] = torch.zeros(1008)
+    sd["AuxLogits.fc.weight"] = torch.zeros(1008, 768)
+    return sd
+
+
+def face_fid(card: str, root: str) -> dict:
+    """Phase 14 (d): the FID InceptionV3's block-3 features on the card
+    against the host CPU; tools/eval_folder.py --fid-weights (its
+    calculate_fid, features on the card) on two written seeded sets."""
+    import contextlib
+    import io
+
+    import cv2
+    import torch
+
+    from super_resolution_tpu_torch.models.inception_arch import (
+        FIDInceptionV3, load_fid_inception)
+    from super_resolution_tpu_torch.tools import eval_folder
+
+    label = "face_fid"
+    fns = _face_launches_zero()
+    sd = pt_inception_state_dict(17)
+    net = FIDInceptionV3()
+    load_fid_inception(net, sd)
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(np.stack(_smooth_frames(rng, 8, 256)).astype(
+        np.float32)[..., ::-1].copy() / 255.0)
+    with torch.no_grad():
+        ref = net.eval()(x)[0]
+        xc = x.cuda()
+        got = net.cuda()(xc)[0]
+        ms = time_ms(lambda: net(xc), reps=5)
+    err = _face_check(label, ref, got)
+    log(f"[face:{label}] {card}: FIDInceptionV3 on a seeded pt_inception "
+        f"state dict, 8 images of 256 x 256 resized to 299: block-3 "
+        f"features card against the host CPU max |diff| {err:.3e}; "
+        f"{ms:.2f} ms a batch")
+    # calculate_fid through eval_folder: the FID of two seeded sets of
+    # FACE_FID["n"] written images (96 x 96: no NIQE, ROADMAP.md queue 3)
+    n = FACE_FID["n"]
+    sr, hr = os.path.join(root, "fid_sr"), os.path.join(root, "fid_hr")
+    for d in (sr, hr):
+        os.makedirs(d, exist_ok=True)
+    for i, img in enumerate(_smooth_frames(rng, n, FACE_FID["side"])):
+        cv2.imwrite(os.path.join(hr, f"{i:04d}.png"), img)
+        noisy = np.clip(img + rng.normal(0, 6, img.shape), 0, 255)
+        cv2.imwrite(os.path.join(sr, f"{i:04d}.png"), noisy.astype(np.uint8))
+    weights = os.path.join(root, "pt_inception.pth")
+    torch.save(sd, weights)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        eval_folder.main(["--sr", sr, "--hr", hr, "--crop-border", "4",
+                          "--fid-weights", weights, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    summary = json.loads(out.getvalue().strip().splitlines()[-1])["summary"]
+    log(f"  tools/eval_folder.py --fid-weights (calculate_fid) on {n} "
+        f"written {FACE_FID['side']} x {FACE_FID['side']} pairs, seeded "
+        f"images against their noisy copies: {summary} in {wall:.1f} s (the "
+        f"2048 x 2048 matrix root on the host)")
+    counts = _face_counts(fns, label)
+    fid = summary.get("fid", np.nan)
+    if not (np.isfinite(fid) and fid > 0 and summary["n_images"] == n):
+        raise AssertionError(f"{label}: summary {summary}")
+    return {label: counts}
+
+
+def face_phase(card: str, root: str) -> dict:
+    """Phase 14: (a) StyleGAN2, (b) HiFaceGAN, (c) DFDNet, (d) FID.
+    Returns the launch counts of each path (all 0: no kernel lies on the
+    face stack)."""
+    import torch
+
+    from super_resolution_tpu_torch.models.vgg_arch import \
+        seeded_vgg19_state_dict
+
+    by_path = {}
+    t0 = time.perf_counter()
+    by_path.update(face_stylegan2(card, root))
+    log(f"[face] (a) StyleGAN2 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    vgg = os.path.join(root, "face_vgg19.pth")
+    torch.save(seeded_vgg19_state_dict(0), vgg)
+    by_path.update(face_hifacegan(card, root, vgg))
+    log(f"[face] (b) HiFaceGAN done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path.update(face_dfdnet(card))
+    log(f"[face] (c) DFDNet done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path.update(face_fid(card, root))
+    log(f"[face] (d) FID done in {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
+def face_main() -> None:
+    """Phase 14 alone (``python3 -c "import chip_smoke;
+    chip_smoke.face_main()"``), TF32 off as in :func:`main`."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+    log(card)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        face_phase(card, root)
+    log(f"[face] phase 14 done in {time.perf_counter() - t0:.1f} s")
+
+
 def _short_names(mangled) -> dict:
     """Mangled kernel name -> ``name<template arguments>`` (c++filt, where
     the toolkit's host compiler brought it)."""
@@ -5718,6 +6406,14 @@ def main() -> int:
             "video test datasets (no kernel lies on this path)")
         by_path.update(video_phase(card, root))
         log(f"[video] phase 13 done in {time.perf_counter() - t13:.1f} s")
+
+        t14 = time.perf_counter()
+        log("[face] the face stack: StyleGAN2 (FIR and bilinear) and its "
+            "runner through train.py, HiFaceGAN and its runner, DFDNet, "
+            "the FID InceptionV3, calculate_fid and eval_folder's FID (no "
+            "kernel lies on this path: it launches none of the 18 rows)")
+        by_path.update(face_phase(card, root))
+        log(f"[face] phase 14 done in {time.perf_counter() - t14:.1f} s")
 
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():

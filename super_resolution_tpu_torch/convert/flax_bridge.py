@@ -31,6 +31,18 @@ The discriminators' parameters (``params_d``) map the same way, the
 VGG-style one's ``bn0_1`` / ``conv0_1`` verbatim (no sequence index); the
 spectral-norm state (flax's ``batch_stats``) maps through
 :func:`sn_stats_to_state_dict`.
+
+The face networks add two rules. StyleGAN2's leaves need none: their flax
+names are BasicSR's dotted ones (``style_mlp.1``, ``activate.bias``,
+``constant_input.weight``, ``noises.noise0``), the modulated weights
+(1, O, I, k, k) and the equalised ones keep torch's layout, and ToRGB's
+bias (1, 1, 1, 3) is reshaped to (1, 3, 1, 1); the spectral-norm convs'
+``weight_orig``, ``weight_u`` and ``weight_v`` keep name and shape. But
+DFDNet's VGG19 names its convs ``conv1_1`` .. ``conv5_4`` in flax and
+``features.N`` in the port (torchvision's names), and a flax module that
+its forward never calls has no leaves (HiFaceGAN's ``fc`` and the
+``to_rgbs`` before the train phase's): ``flax_to_state_dict(...,
+keep=...)`` lets those keep the module's own values.
 """
 
 from __future__ import annotations
@@ -40,6 +52,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from super_resolution_tpu_torch.models.vgg_arch import VGG19_LAYERS
 
 _SEQ_IDX = re.compile(r"_(\d+)$")
 _LEAF_TO_TORCH = {"kernel": "weight", "scale": "weight", "bias": "bias",
@@ -100,10 +114,14 @@ def flax_torch_names(flax_params: dict,
         # rewrites (ATD_CA's ``scale`` is no LayerNorm weight), and a module
         # name can end in a number that is no sequence index (the VGG-style
         # discriminator's ``bn0_1``, BasicVSR++'s ``backward_1``)
+        leaf = _LEAF_TO_TORCH.get(path[-1], path[-1])
         candidates = (flax_path_to_torch_name(path),
                       ".".join(modules + [path[-1]]),
-                      ".".join([*path[:-1],
-                                _LEAF_TO_TORCH.get(path[-1], path[-1])]))
+                      ".".join([*path[:-1], leaf]),
+                      # a VGG19 conv by basicsr's layer name
+                      ".".join([f"features.{VGG19_LAYERS.index(c)}"
+                                if c in VGG19_LAYERS else c
+                                for c in path[:-1]] + [leaf]))
         name = next((c for c in candidates if c in target), candidates[0])
         if name not in target:
             raise KeyError(f"flax leaf {'/'.join(path)} -> {name}: no such "
@@ -112,15 +130,16 @@ def flax_torch_names(flax_params: dict,
     return names
 
 
-def flax_to_state_dict(flax_params: dict,
-                       module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+def flax_to_state_dict(flax_params: dict, module: torch.nn.Module,
+                       keep=()) -> Dict[str, torch.Tensor]:
     """A full state_dict for ``module`` from a flax param tree.
 
     Every flax leaf must name a tensor of ``module`` and every parameter
     must be covered; buffers the tree lacks (index tables) keep the
     module's own values, those it has (frozen batch norms' statistics) take
-    the tree's. The result loads with ``module.load_state_dict(sd,
-    strict=True)``.
+    the tree's. A parameter whose name starts with an entry of ``keep``
+    may lack a leaf and keeps the module's value. The result loads with
+    ``module.load_state_dict(sd, strict=True)``.
     """
     target = module.state_dict()
     params = {name for name, _ in module.named_parameters()}
@@ -131,7 +150,8 @@ def flax_to_state_dict(flax_params: dict,
         arr = _untransform(path[-1], value, tuple(target[name].shape))
         out[name] = torch.from_numpy(np.array(arr)).to(
             target[name].dtype)
-    missing = sorted(params - set(out))
+    missing = sorted(p for p in params - set(out)
+                     if not p.startswith(tuple(keep)))
     if missing:
         raise KeyError(f"parameters without a flax leaf: {missing[:10]}")
     for name, t in target.items():

@@ -8,7 +8,8 @@ C) for the sliding-window networks or (T, H, W, C) for the recurrent ones.
 Every random draw comes from the dataset's ``random.Random`` (reseeded
 each epoch by the train loader) in the JAX package's order, so a seed gives
 JAX's frames, crops and flips. Reads go through ``utils/file_client.py``
-(disk or LMDB). StyleGAN's ``FFHQDataset`` waits for the face runners.
+(disk or LMDB). ``FFHQDataset``, StyleGAN's GT-only face set, lives here
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -566,3 +567,48 @@ class VideoRecurrentTestDataset(VideoTestDataset):
 
     def __len__(self):
         return len(self.folders)
+
+
+@DATASET_REGISTRY.register()
+class FFHQDataset:
+    """FFHQ GT-only faces for StyleGAN training (ref:
+    basicsr/data/ffhq_dataset.py:13-77): each item the image as float32 RGB
+    (H, W, 3), flipped with ``use_hflip`` (the draw from the dataset's
+    ``random.Random``), then (img - mean) / std. Paths: an LMDB's
+    ``meta_info.txt`` keys; ``num_imgs`` names 00000000.png ... (70000
+    where the folder does not exist); else the folder's files, sorted."""
+
+    def __init__(self, opt):
+        self.opt = opt
+        self.io_backend_opt = dict(opt["io_backend"])
+        self.gt_folder = opt["dataroot_gt"]
+        self.mean = np.asarray(opt["mean"], np.float32)
+        self.std = np.asarray(opt["std"], np.float32)
+        self.file_client = None
+        if self.io_backend_opt.get("type") == "lmdb":
+            self.io_backend_opt["db_paths"] = self.gt_folder
+            with open(osp.join(self.gt_folder, "meta_info.txt")) as fin:
+                self.paths = [line.split(".")[0] for line in fin]
+        elif opt.get("num_imgs") is not None or not osp.isdir(self.gt_folder):
+            self.paths = [osp.join(self.gt_folder, f"{v:08d}.png")
+                          for v in range(opt.get("num_imgs", 70000))]
+        else:
+            self.paths = sorted(scandir(self.gt_folder, full_path=True))
+        self._rng = random.Random()
+
+    def seed(self, seed: int):
+        self._rng = random.Random(seed)
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, index):
+        if self.file_client is None:
+            opt = dict(self.io_backend_opt)
+            self.file_client = FileClient(opt.pop("type"), **opt)
+        img_gt = img2tensor(imfrombytes(self.file_client.get(
+            self.paths[index]), float32=True))
+        img_gt = augment(img_gt, hflip=self.opt.get("use_hflip", True),
+                         rotation=False, rng=self._rng)
+        img_gt = (img_gt - self.mean) / self.std
+        return {"gt": img_gt, "gt_path": self.paths[index]}

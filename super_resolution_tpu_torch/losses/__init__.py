@@ -9,7 +9,8 @@ from super_resolution_tpu_torch.losses.basic import (  # noqa: F401
     CharbonnierLoss, L1Loss, MSELoss, WeightedTVLoss, charbonnier_loss,
     get_refined_artifact_map, l1_loss, mse_loss)
 from super_resolution_tpu_torch.losses.gan import (  # noqa: F401
-    GANLoss, MultiScaleGANLoss)
+    GANFeatLoss, GANLoss, MultiScaleGANLoss, g_path_regularize,
+    gradient_penalty_loss, r1_penalty)
 from super_resolution_tpu_torch.losses.perceptual import (  # noqa: F401
     PerceptualLoss)
 from super_resolution_tpu_torch.utils.registry import LOSS_REGISTRY

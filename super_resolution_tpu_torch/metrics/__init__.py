@@ -3,8 +3,9 @@ super_resolution_tpu/metrics/__init__.py; ref:
 HAT/ESC/basicsr/metrics/__init__.py:10-20). Registered: ``calculate_psnr``,
 ``calculate_ssim`` and ``calculate_niqe``; the batched on-device
 ``calculate_psnr_pt`` / ``calculate_ssim_pt`` (the JAX ``_jnp`` functions)
-are exported beside them. FID is not ported (ROADMAP.md queue 1,
-item 10)."""
+are exported beside them. FID (``metrics/fid.py``) is a statistic of two
+sets of images, not of one image, and stays out of the registry, as in
+JAX."""
 
 from copy import deepcopy
 

@@ -6,16 +6,20 @@ from copy import deepcopy
 from super_resolution_tpu_torch.models import (atd_arch,  # noqa: F401 registry
                                                basicvsr_arch,
                                                basicvsrpp_arch, cnn_archs,
+                                               dfdnet_arch,
                                                discriminator_arch, duf_arch,
                                                ecbsr_arch, edvr_arch,
                                                esc_arch, esc_fp_arch,
                                                esc_real_arch, hat_arch,
                                                hat_classic_arch,
-                                               hatx_arch, hitsrf_arch,
+                                               hatx_arch, hifacegan_arch,
+                                               hitsrf_arch,
                                                hybrid_hat_naf_arch,
                                                ridnet_arch, spynet_arch,
-                                               srformer_arch, swinir_arch,
-                                               tof_arch)
+                                               srformer_arch,
+                                               stylegan2_arch,
+                                               stylegan2_bilinear_arch,
+                                               swinir_arch, tof_arch)
 from super_resolution_tpu_torch.utils.registry import ARCH_REGISTRY
 
 # option keys of the reference's YAML files that change nothing here

@@ -429,3 +429,67 @@ class HATShell(SRShell):
             return streamed_rows(self.recon, feat, self.upscale,
                                  self.stream_tail_rows)
         return self.recon(feat)
+
+
+def _l2n(x):
+    return x / (x.norm() + 1e-12)
+
+
+class StoredSpectralNormConv2d(nn.Module):
+    """A conv divided by its spectral norm as ``torch.nn.utils.
+    spectral_norm`` computes it in eval mode, in every mode (port of the
+    JAX package's ``arch_util.SNConv2d``; DFDNet's and HiFaceGAN's convs).
+
+    It holds ``weight_orig`` (a parameter), ``weight_u`` (out,) and
+    ``weight_v`` (in k k,) (buffers), the names of a torch spectral-norm
+    checkpoint, and computes sigma = u . (W v) from the stored vectors, with
+    no power iteration: u and v take no gradient and an optimizer step
+    leaves them as they are, as in JAX. ``torch.nn.utils.spectral_norm``
+    power-iterates and stores new vectors in every training-mode forward,
+    and would drift from JAX after the first step. The U-Net's
+    ``discriminator_arch.SNConv2d`` is flax ``nn.SpectralNorm`` (one power
+    iteration a forward from the stored u, v not stored) and is not this.
+    NCHW in and out."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, dilation: int = 1,
+                 bias: bool = True):
+        super().__init__()
+        self.out_channels = out_channels
+        self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.weight_orig = nn.Parameter(torch.empty(
+            out_channels, in_channels, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
+        self.register_buffer("weight_u", torch.zeros(out_channels))
+        self.register_buffer("weight_v", torch.zeros(
+            in_channels * kernel_size * kernel_size))
+        self.seeded_init(None)
+
+    @torch.no_grad()
+    def seeded_init(self, generator, iterations: int = 20) -> None:
+        """torch's default conv draw (uniform, bound 1 / sqrt(fan_in)), and
+        u and v of ``iterations`` power iterations on that weight from a
+        random v, so that sigma is its largest singular value, as in a
+        trained checkpoint (vectors drawn at random give a sigma near 0)."""
+        w = self.weight_orig
+        bound = 1.0 / math.sqrt(w[0].numel())
+        nn.init.uniform_(w, -bound, bound, generator=generator)
+        if self.bias is not None:
+            nn.init.uniform_(self.bias, -bound, bound, generator=generator)
+        w = w.reshape(self.out_channels, -1)
+        v = _l2n(torch.randn(w.shape[1], generator=generator,
+                             device=w.device, dtype=w.dtype))
+        for _ in range(iterations):
+            v = _l2n(w.t() @ _l2n(w @ v))
+        self.weight_u.copy_(_l2n(w @ v))
+        self.weight_v.copy_(v)
+
+    def sn_weight(self):
+        w = self.weight_orig
+        sigma = torch.dot(self.weight_u,
+                          w.reshape(self.out_channels, -1) @ self.weight_v)
+        return w / sigma
+
+    def forward(self, x):
+        return F.conv2d(x, self.sn_weight(), self.bias, self.stride,
+                        self.padding, self.dilation)

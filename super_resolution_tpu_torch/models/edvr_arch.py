@@ -24,6 +24,7 @@ from super_resolution_tpu_torch.models.cnn_archs import ResidualBlockNoBN
 from super_resolution_tpu_torch.ops.deform_conv import (
     dcn_offset_mask_from_conv, modulated_deform_conv2d)
 from super_resolution_tpu_torch.ops.pixelshuffle import pixel_shuffle
+from super_resolution_tpu_torch.ops.pool import avg_pool2d
 from super_resolution_tpu_torch.ops.resize import resize_to
 from super_resolution_tpu_torch.utils.registry import ARCH_REGISTRY
 
@@ -49,7 +50,7 @@ def max_pool_3x3s2(x):
 
 def avg_pool_3x3s2(x):
     """nn.AvgPool2d(3, 2, 1): the padding counts, every window / 9."""
-    return F.avg_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+    return avg_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
 
 
 def residual_blocks(num_feat: int, n: int) -> nn.Sequential:

@@ -3,7 +3,8 @@
 from copy import deepcopy
 
 from super_resolution_tpu_torch.runtime import (  # noqa: F401 registry
-    esr_model, realgan, sr_model, video_models)
+    esr_model, hifacegan_model, realgan, sr_model, stylegan2_model,
+    video_models)
 from super_resolution_tpu_torch.utils.registry import MODEL_REGISTRY
 
 

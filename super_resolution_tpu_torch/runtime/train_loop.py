@@ -159,10 +159,15 @@ def init_train_state(net: torch.nn.Module, train_opt: dict,
 
 
 def filled_grads(state: TrainState) -> list:
-    """The gradient of every parameter the optimizer updates, a zero one
+    """:func:`fill_missing_grads` of the state's optimizer."""
+    return fill_missing_grads(state.optimizer)
+
+
+def fill_missing_grads(optimizer: torch.optim.Optimizer) -> list:
+    """The gradient of every parameter ``optimizer`` updates, a zero one
     given to each that got none (so that every moment and step count moves
     as optax's do)."""
-    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    params = [p for g in optimizer.param_groups for p in g["params"]]
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)

@@ -5,13 +5,17 @@ of results against a folder of HR references (the i-th file of each,
 sorted, cropped to their common size), and NIQE of each result with at
 least one 96 x 96 block after the border crop. Prints one line an image,
 then one JSON line ``{"summary": {...}}`` with the means and
-``n_images``.
+``n_images``; with ``--fid-weights`` (the pt_inception ``.pth``) and
+``--hr``, also the FID of the result set against the reference set.
 
     python3 -m super_resolution_tpu_torch.tools.eval_folder \
-        --sr results/foo --hr datasets/GTmod4 [--crop-border 4]
+        --sr results/foo --hr datasets/GTmod4 [--crop-border 4] \
+        [--fid-weights pt_inception.pth] [--device cuda]
 
-It runs on the host in numpy (the metrics of ``metrics/``); no card is
-needed. ``--fid-weights`` raises: FID is not ported.
+The per-image metrics run on the host in numpy (``metrics/``); the FID's
+InceptionV3 runs on ``--device`` (``cuda`` unless the caller asks for
+``cpu``) on the images as RGB in [0, 1]. The JAX script hands FID the BGR
+uint8 reads (ROADMAP.md queue 3).
 """
 
 from __future__ import annotations
@@ -57,19 +61,38 @@ def evaluate(sr_dir: str, hr_dir: str | None = None,
     return summary
 
 
+def folder_fid(sr_dir: str, hr_dir: str, weights: str,
+               device="cuda") -> float:
+    """The FID of every image of ``sr_dir`` against every one of
+    ``hr_dir``, read as RGB float32 in [0, 1]."""
+    from super_resolution_tpu_torch.metrics.fid import calculate_fid
+    from super_resolution_tpu_torch.utils.img import imread
+    from super_resolution_tpu_torch.utils.misc import scandir
+
+    def rgb(folder):
+        return [imread(p, float32=True)[:, :, ::-1]
+                for p in sorted(scandir(folder, full_path=True))]
+
+    return float(calculate_fid(rgb(sr_dir), rgb(hr_dir),
+                               inception_weights_path=weights,
+                               device=device))
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--sr", required=True, help="folder of SR results")
     p.add_argument("--hr", default=None, help="folder of HR references")
     p.add_argument("--crop-border", type=int, default=4)
     p.add_argument("--fid-weights", default=None,
-                   help="InceptionV3 weights for FID (not ported)")
+                   help="the pt_inception .pth: adds the FID of --sr "
+                        "against --hr")
+    p.add_argument("--device", default="cuda",
+                   help="where the FID's InceptionV3 runs")
     args = p.parse_args(argv)
-    if args.fid_weights:
-        raise NotImplementedError(
-            "--fid-weights: FID (metrics/fid.py with models/inception_arch"
-            ".py) is not ported (ROADMAP.md queue 1, item 10)")
     summary = evaluate(args.sr, args.hr, args.crop_border)
+    if args.fid_weights and args.hr:
+        summary["fid"] = folder_fid(args.sr, args.hr, args.fid_weights,
+                                    args.device)
     print(json.dumps({"summary": summary}))
 
 

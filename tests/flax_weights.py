@@ -40,3 +40,28 @@ def bridge(jmod, tmod, rng, *args, **kw):
     params = random_params(shapes["params"], rng)
     tmod.load_state_dict(flax_to_state_dict(params, tmod), strict=True)
     return params
+
+
+def converge_sn(tree, rng, iterations: int = 30):
+    """Set every spectral-norm conv's stored ``weight_u`` / ``weight_v`` of
+    a flax tree to the power iteration's on its ``weight_orig``, in place,
+    as a trained checkpoint holds them: drawn at random, u . (W v) can be
+    near 0 and the conv's weight W / sigma huge. Returns the tree."""
+    for value in tree.values():
+        if not isinstance(value, dict):
+            continue
+        if "weight_orig" not in value:
+            converge_sn(value, rng, iterations)
+            continue
+        w = np.asarray(value["weight_orig"], np.float64)
+        w = w.reshape(w.shape[0], -1)
+        v = rng.standard_normal(w.shape[1])
+        for _ in range(iterations):
+            u = w @ v
+            u /= np.linalg.norm(u)
+            v = w.T @ u
+            v /= np.linalg.norm(v)
+        u = w @ v
+        value["weight_u"] = (u / np.linalg.norm(u)).astype(np.float32)
+        value["weight_v"] = v.astype(np.float32)
+    return tree

@@ -9,7 +9,9 @@ the CPU:
 - ``imfrombytes`` against JAX's;
 - NIQE against JAX's within 1e-9;
 - ``tools/eval_folder.py``'s JSON against the JAX script's on the same
-  folders, in a subprocess that imports no JAX; ``--fid-weights`` raises;
+  folders, in a subprocess that imports no JAX; with ``--fid-weights``
+  its FID against the script's (JAX's ``calculate_fid`` handed the RGB
+  [0, 1] images the port reads, where the script hands it BGR uint8);
 - ``logger.profile`` writes exactly one Chrome trace in a 3-iteration CPU
   training run;
 - ``plot_util``'s text readers and ``smooth_data`` against JAX's.
@@ -180,9 +182,32 @@ def test_eval_folder_matches_jax_script(tmp_path, monkeypatch, capsys):
     for k, v in ref["summary"].items():
         assert got["summary"][k] == pytest.approx(v, abs=1e-9), k
 
+    # --fid-weights: the FID of the two folders on a seeded pt_inception
+    # state dict. JAX's script hands FID the BGR uint8 reads (ROADMAP.md
+    # queue 3); its calculate_fid gets the RGB [0, 1] images the port uses
+    from chip_smoke import pt_inception_state_dict
+    from super_resolution_tpu.metrics import fid as j_fid
     from super_resolution_tpu_torch.tools import eval_folder
-    with pytest.raises(NotImplementedError, match="item 10"):
-        eval_folder.main([*args, "--fid-weights", "inception.pth"])
+
+    weights = os.path.join(str(tmp_path), "pt_inception.pth")
+    torch.save(pt_inception_state_dict(), weights)
+    capsys.readouterr()
+    eval_folder.main([*args, "--fid-weights", weights, "--device", "cpu"])
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    j_calculate_fid = j_fid.calculate_fid
+
+    def rgb01(imgs):
+        return [i[:, :, ::-1].astype(np.float32) / 255.0 for i in imgs]
+
+    monkeypatch.setattr(j_fid, "calculate_fid", lambda a, b, **kw:
+                        j_calculate_fid(rgb01(a), rgb01(b), **kw))
+    monkeypatch.setattr(sys, "argv", ["eval_folder.py", *args,
+                                      "--fid-weights", weights])
+    j_eval_folder.main()
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert ref["summary"]["fid"] > 0
+    assert got["summary"]["fid"] == pytest.approx(ref["summary"]["fid"],
+                                                  rel=1e-3)
 
 
 def test_train_profile_writes_one_trace(tmp_path):

@@ -105,7 +105,7 @@ def test_calculate_metric_dispatch_and_registry(rng):
                  "test_y_channel": True, "better": "higher"}):
         assert calculate_metric(data, opt) == j_calc(data, opt)
         assert "type" in opt     # the options are not consumed
-    # NIQE is registered; FID is not ported
+    # NIQE is registered; FID, a statistic of two sets, is not
     assert sorted(METRIC_REGISTRY.keys()) == ["calculate_niqe",
                                               "calculate_psnr",
                                               "calculate_ssim"]
