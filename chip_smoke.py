@@ -125,7 +125,8 @@ Phases, each of which raises on failure:
      its JPEG qualities fixed: deterministic; the LQ within 1e-4 but for
      pixels one 8-bit level away, at most 0.5 % of them); (b) the train
      pipeline on the four shipped real-world files at their published
-     networks and batches (options/train/train_Real_HAT_SRx4_mse_model.yml
+     widths and batches, 2 of their 6 RHAGs (ESCReal 2 of 10 blocks; a
+     cut for the time limit) (options/train/train_Real_HAT_SRx4_mse_model.yml
      and train_Real_HAT_GAN_SRx4_finetune_from_mse_model.yml: the fork's HAT
      x4, batch 4; options/esc/train/ESC_Real_X4_MSE.yml and
      ESC_Real_X4_GAN.yml: ESCReal x4, batch 12; gt 256 from a 400 canvas),
@@ -159,7 +160,8 @@ Phases, each of which raises on failure:
      call, then chunked: equal) and test-div2k-4.yml (chunked) with LIIF
      over SwinIR on synthetic pairs, ``scale: 4`` added to the files'
      datasets (they lack it, in JAX too); (d) train_arb for 3 iterations
-     at each file's batch on synthetic 256 x 256 GT: the five files JAX
+     at each file's batch, at most 16 (a cut for the time limit: the files
+     of 32 run at 16), on synthetic 256 x 256 GT: the five files JAX
      trains and train_esc-lte, train_rdn-metasr, train_swinir-lte with
      ``no_upsampling`` dropped from their encoder specs (logged): finite
      losses, the first against the host CPU's on the same batch and
@@ -258,6 +260,23 @@ Phases, each of which raises on failure:
      96 x 96 seeded images against their noisy copies. Card
      against CPU within 1e-3 of the output's scale, first losses within
      1e-3. Alone: ``python3 -c "import chip_smoke; chip_smoke.face_main()"``.
+
+ 15. parallelism (super_resolution_tpu_torch/parallel/): (a) train.py on
+     phase 6's float32 file (2 RHAGs, batch 4) for 2 steps with ``mesh:
+     {data: -1}`` in an NCCL world of one against the same run without a
+     mesh: losses and final weights and EMA within 1e-6 relative; (b) two
+     spawned ranks of a gloo group on the one card (NCCL refuses two ranks
+     on one GPU), a (model: 2) mesh: HATClassic x4 at full width (C 180,
+     6 heads, window 16, hidden 360) at 2 RHAGs, one tiled forward of a
+     64 x 64 input through the runner's tensor-parallel route against the
+     one-process call: float32 within 1e-4 of scale, bf16 PSNR >= 35 dB
+     against the float32 one-process output, each rank's launches of rows
+     1 to 6 (wrapper counts, and the float32 kernels' device launches under
+     torch.profiler) equal to the one-process counts; one TP train step's
+     gradients against the one-process step's; (c) pipeline_forward over
+     (pipe: 2) against the one-process forward, and spatial_shard_forward
+     of an exact-receptive-field CNN over (data: 2) against the unsharded
+     one. Alone: ``python3 -c "import chip_smoke; chip_smoke.par_main()"``.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Exits non-zero, printing neither, when there
@@ -2882,20 +2901,22 @@ def check_esc_train_functions() -> None:
 # runners' G runs deterministic, so rows 7, 8 in each of the 36 HABs, rows
 # 5, 6 in each of the 6 OCABs) and ESCReal x4 (row 10 in each of its 10
 # blocks); D and the VGG19 run no kernel of the port
-_REAL_HAT_STEP = {"ln_split": 36, "gated_dconv_ffn_block": 36,
-                  "fused_ocab_block": 6, "mlp_block": 6}
-_REAL_ESC_STEP = {"fused_attention": 10}
+# for the 1200 s limit the four files run 2 of their 6 RHAGs (ESC-Real 2 of
+# its 10 blocks), as phases 6 and 7 do
+_REAL_HAT_STEP = {"ln_split": 12, "gated_dconv_ffn_block": 12,
+                  "fused_ocab_block": 2, "mlp_block": 2}
+_REAL_ESC_STEP = {"fused_attention": 2}
 REAL_TRAIN_PATHS = {
     "real_hat_mse": dict(
         yml="options/train/train_Real_HAT_SRx4_mse_model.yml",
-        per_step=_REAL_HAT_STEP),
+        added=CUT_HAT, per_step=_REAL_HAT_STEP),
     "real_hat_gan": dict(
         yml="options/train/train_Real_HAT_GAN_SRx4_finetune_from_mse_model"
-            ".yml", per_step=_REAL_HAT_STEP),
+            ".yml", added=CUT_HAT, per_step=_REAL_HAT_STEP),
     "esc_real_mse": dict(yml="options/esc/train/ESC_Real_X4_MSE.yml",
-                         per_step=_REAL_ESC_STEP),
+                         added=CUT_ESC, per_step=_REAL_ESC_STEP),
     "esc_real_gan": dict(yml="options/esc/train/ESC_Real_X4_GAN.yml",
-                         per_step=_REAL_ESC_STEP),
+                         added=CUT_ESC, per_step=_REAL_ESC_STEP),
 }
 # synthetic GT images for the real-world dataset: sides from 400 to 480, so
 # that its crop to the 400 canvas runs, 12 of them (ESC-Real's batch)
@@ -3122,8 +3143,9 @@ def real_first_losses_on_cpu(model, first: dict) -> dict:
 def real_train_path(label: str, spec: dict, gt_root: str, vgg: str,
                     root: str, card: str) -> dict:
     """Phase 8 (b): a shipped real-world file through ``train.py``'s
-    pipeline on the card at its published network and batch, overridden in
-    a copy (logged): the GT root, no pretrained G, the VGG19 .pth, a queue
+    pipeline on the card at its published widths and batch, overridden in
+    a copy (logged): the depth (``spec['added']``), the GT root, no
+    pretrained G, the VGG19 .pth, a queue
     of two batches (so the pool's swap runs from the third iteration),
     total_iter, the checkpoint and print frequencies. REAL_ITERS
     iterations with a checkpoint every REAL_EVERY, then a run resumed from
@@ -3146,7 +3168,7 @@ def real_train_path(label: str, spec: dict, gt_root: str, vgg: str,
                  "queue_size": 2 * batch,
                  "train:total_iter": REAL_ITERS,
                  "logger:save_checkpoint_freq": REAL_EVERY,
-                 "logger:print_freq": 1}
+                 "logger:print_freq": 1, **spec["added"]}
     if opt["train"].get("perceptual_opt"):
         overrides["train:perceptual_opt:vgg_weights_path"] = vgg
     if "val" in opt["datasets"]:
@@ -3641,6 +3663,16 @@ ARB_TRAIN = {
     "train_swinir-lte.yml": dict(zip(_SWIN, (12, 12, 24))),
 }
 ARB_TRAIN_ITERS, ARB_GT = 3, 256
+# for the 1200 s limit the files of batch 32 train at 16 (their first loss is
+# recomputed on the host CPU at that batch, which at 32 more than doubles
+# the phase)
+ARB_BATCH_MAX = 16
+
+
+def arb_batch(config: dict) -> int:
+    """The batch a train_arb file runs at here: its own, at most
+    ARB_BATCH_MAX."""
+    return min(config["train_dataset"]["batch_size"], ARB_BATCH_MAX)
 # the first loss on the card (float32, TF32 off) against the host CPU's
 ARB_LOSS_RTOL = 1e-4
 
@@ -3650,8 +3682,8 @@ def write_arb_gt(root: str) -> dict:
     meta_info_file for each batch size listing 3 batches of them."""
     from super_resolution_tpu_torch.utils.img import imwrite
 
-    batches = sorted({_arb_yml(f"options/arb/train-div2k/{f}")
-                      ["train_dataset"]["batch_size"] for f in ARB_TRAIN})
+    batches = sorted({arb_batch(_arb_yml(f"options/arb/train-div2k/{f}"))
+                      for f in ARB_TRAIN})
     gt = os.path.join(root, "arb_gt")
     rng = np.random.default_rng(12)
     yy, xx = np.mgrid[0:ARB_GT, 0:ARB_GT] / 40.0
@@ -3754,7 +3786,8 @@ def arb_first_loss_on_cpu(config: dict, params: list, batch: dict) -> float:
 def arb_train_path(name: str, data: dict, root: str, card: str) -> dict:
     """Phase 10 (d): ``train_arb`` on a shipped file (a copy: its GT root
     and the meta file of 3 batches, epoch_max 1, epoch_save 1; no_upsampling
-    dropped where its encoder lacks the field), at its batch, on the card.
+    dropped where its encoder lacks the field), at its batch (at most
+    ARB_BATCH_MAX), on the card.
     Checked: 3 finite losses, the first of them against the host CPU's
     on the same batch and weights within ARB_LOSS_RTOL, the launches a step
     (one forward's: the backward runs the plain versions), the checkpoints.
@@ -3770,12 +3803,13 @@ def arb_train_path(name: str, data: dict, root: str, card: str) -> dict:
     dropped = spec != config["model"]
     config["model"] = spec
     ds = config["train_dataset"]
-    batch = ds["batch_size"]
+    batch = ds["batch_size"] = arb_batch(config)
     ds["dataset"] = dict(ds["dataset"], dataroot_gt=data["gt"],
                          meta_info_file=data["metas"][batch])
     config.update(epoch_max=1, epoch_save=1)
     config.pop("val_dataset", None)
-    log(f"[arb:{name}] train_arb -> {yml}, batch {batch}, inp_size "
+    log(f"[arb:{name}] train_arb -> {yml}, batch {batch} (the file's "
+        f"{_arb_yml(yml)['train_dataset']['batch_size']}), inp_size "
         f"{ds.get('inp_size')}, sample_q {ds.get('sample_q')}; overridden: "
         f"the GT root, a meta_info_file of {ARB_TRAIN_ITERS} batches, "
         f"epoch_max 1, epoch_save 1"
@@ -6155,6 +6189,420 @@ def face_main() -> None:
     log(f"[face] phase 14 done in {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------- phase 15
+# parallelism (super_resolution_tpu_torch/parallel/): (a) train.py with
+# ``mesh: {data: -1}`` in an NCCL world of one against the same run without
+# a mesh; (b) two ranks of a gloo group on the one card, a (model: 2) mesh:
+# classic HAT x4 at full width and 2 of its 6 RHAGs, head- and
+# hidden-parallel; (c) pipeline_forward over (pipe: 2) and
+# spatial_shard_forward over (data: 2) on the same two ranks
+PAR_NET = dict(CLASSIC, depths=[6, 6], num_heads=[HEADS] * 2,
+               drop_path_rate=0.0)
+# the fork's HAT x2 at full width, 2 of its 6 RHAGs: under TP rows 7, 8
+# and 9 run whole on each rank, rows 6 (the OCAB tail) on its hidden slice
+PAR_FORK = dict(FORK, depths=[6, 6], num_heads=[HEADS] * 2)
+PAR_FORK_CALLS = {"ln_split": 12, "gated_dconv_ffn_block": 12,
+                  "fused_ocab_attention": 2, "mlp_block": 2}
+PAR_STEPS = 2
+PAR_TOL = 1e-6        # (a): losses and final state, relative
+PAR_PSNR = 35.0       # (b): bf16 TP output against the float32 one-process
+PAR_CALLS = {"fused_msa_block": 6, "fused_msa_block_shifted": 6,
+             "mlp_block_sum3": 6, "mlp_block_sum3_shifted": 6,
+             "fused_ocab_block": 2, "mlp_block": 2}
+# rank 0 of (c) runs its RHAG at every tick of GPipe: 2 microbatches, 2
+# ranks, 2 + 2 - 1 ticks
+PAR_PP_TICKS = 3
+# the float32 kernels of rows 1 to 6 by their device names (trace events)
+PAR_SYMBOLS = ("msa_block_kernel", "ocab_block_kernel", "mlp_tail_kernel")
+
+
+def par_world_of_one(sets: dict, root: str, card: str) -> dict:
+    """(a) Phase 6's float32 file (2 of its 6 RHAGs, batch 4) through
+    train.py's pipeline for PAR_STEPS steps, without a mesh and then with
+    ``mesh: {data: -1}`` in an NCCL world of one (the process group joined
+    through the env:// variables torchrun would set); no validation. The
+    losses and the final weights and EMA must agree within PAR_TOL
+    (relative; the state by its norm). Returns the mesh run's counts."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    import yaml
+
+    from super_resolution_tpu_torch.runtime.train_pipeline import \
+        train_pipeline
+    from super_resolution_tpu_torch.utils.options import yaml_load
+
+    spec = TRAIN_PATHS["train_f32"]
+    opt = yaml_load(spec["yml"])
+    opt["network_g"].update(depths=[6, 6], num_heads=[6, 6])
+    force = [f"{key}={sets[name]}" for key, name in spec["roots"].items()]
+    force += [f"train:total_iter={PAR_STEPS}", "val:val_freq=1000",
+              f"logger:save_checkpoint_freq={PAR_STEPS}",
+              "logger:print_freq=1",
+              f"datasets:train:batch_size_per_gpu={spec['batch']}"]
+    fns = {name: fn for name, fn in wrappers().items() if name in KERNELS}
+    runs = {}
+    for run in ("plain", "mesh"):
+        yml = os.path.join(root, f"par_{run}.yml")
+        with open(yml, "w") as f:
+            yaml.safe_dump(dict(opt, mesh={"data": -1}) if run == "mesh"
+                           else opt, f)
+        if run == "mesh":
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            os.environ.update(MASTER_ADDR="127.0.0.1",
+                              MASTER_PORT=str(port), RANK="0",
+                              WORLD_SIZE="1", LOCAL_RANK="0")
+        for fn in fns.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        try:
+            with TrainClock(fns) as clock:
+                model, last = train_pipeline(
+                    os.path.join(root, f"par_{run}"),
+                    argv=["-opt", yml, "--device", "cuda", "--force_yml",
+                          *force])
+            if run == "mesh":
+                backend = dist.get_backend()
+                world = dist.get_world_size()
+        finally:
+            if run == "mesh":
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+                for k in ("MASTER_ADDR", "MASTER_PORT", "RANK",
+                          "WORLD_SIZE", "LOCAL_RANK"):
+                    os.environ.pop(k, None)
+        runs[run] = dict(losses=clock.losses, wall=time.perf_counter() - t0,
+                         steps=clock.steps, counts={
+                             n: fn.launches for n, fn in fns.items()},
+                         net=model.net_g.state_dict(),
+                         ema=model.state.ema.state_dict())
+        if last != PAR_STEPS:
+            raise AssertionError(f"[par:a] {run}: last iteration {last}")
+    plain, mesh = runs["plain"], runs["mesh"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in
+                   zip(mesh["losses"], plain["losses"]))
+
+    def rel(a, b):
+        num = sum(float((a[k].float() - v.float()).square().sum())
+                  for k, v in b.items() if v.is_floating_point())
+        den = sum(float(v.float().square().sum()) for v in b.values()
+                  if v.is_floating_point())
+        return math.sqrt(num / den)
+
+    w_err, e_err = rel(mesh["net"], plain["net"]), rel(mesh["ema"],
+                                                       plain["ema"])
+    log(f"[par:a] {card}: {backend} world of {world}, mesh {{data: -1}}: "
+        f"losses {mesh['losses']} against {plain['losses']} without a mesh "
+        f"(max rel {loss_err:.3e}); weights rel {w_err:.3e}, EMA rel "
+        f"{e_err:.3e}; s a step {[round(s, 3) for s in mesh['steps']]} "
+        f"against {[round(s, 3) for s in plain['steps']]}; wall "
+        f"{mesh['wall']:.1f} s against {plain['wall']:.1f} s")
+    if (len(mesh["losses"]) != PAR_STEPS or backend != "nccl" or world != 1
+            or max(loss_err, w_err, e_err) > PAR_TOL):
+        raise AssertionError("[par:a] the world of one left the no-mesh run")
+    if mesh["counts"] != plain["counts"]:
+        raise AssertionError(f"[par:a] launches {mesh['counts']} against "
+                             f"{plain['counts']}")
+    return mesh["counts"]
+
+
+def _par_opt() -> dict:
+    return {"name": "par", "model_type": "HATModel", "scale": 4,
+            "manual_seed": 0, "path": {}, "network_g": dict(PAR_NET),
+            "tile": {"tile_size": 64, "tile_pad": 8, "chunk": 1},
+            "train": {"optim_g": {"type": "Adam", "lr": 2e-4,
+                                  "betas": [0.9, 0.99]},
+                      "scheduler": {"type": "MultiStepLR",
+                                    "milestones": [100], "gamma": 0.5},
+                      "pixel_opt": {"type": "L1Loss", "loss_weight": 1.0},
+                      "ema_decay": 0}}
+
+
+def _par_profiled(fn) -> tuple:
+    """fn()'s result, its seconds to a synchronised card and the device
+    launches of each of PAR_SYMBOLS under torch.profiler."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    names = {s: 0 for s in PAR_SYMBOLS}
+    for ev in prof.events():
+        for s in PAR_SYMBOLS:
+            if s in ev.name:
+                names[s] += 1
+    return out, secs, names
+
+
+def _par_warm(fn, reps: int = 3) -> float:
+    """Median seconds of ``reps`` warm calls of fn, each to a synchronised
+    card (both ranks call it in step)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def _par_checks(rank: int) -> dict:
+    """One rank's part of (b) and (c); returns its figures."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from super_resolution_tpu_torch.models import build_network
+    from super_resolution_tpu_torch.models.arch_util import init_weights
+    from super_resolution_tpu_torch.parallel.pipeline import pipeline_forward
+    from super_resolution_tpu_torch.parallel.spatial import \
+        spatial_shard_forward
+    from super_resolution_tpu_torch.parallel.tp import tp_attention
+    from super_resolution_tpu_torch.runtime.sr_model import HATModel
+
+    res = {}
+    fns = {name: fn for name, fn in wrappers().items() if name in KERNELS}
+
+    def counted(fn):
+        for f in fns.values():
+            f.launches = 0
+        out = _par_profiled(fn)
+        return out, {n: f.launches for n, f in fns.items()}
+
+    mesh = init_device_mesh("cuda", (2,), mesh_dim_names=("model",))
+    one = HATModel(_par_opt(), "cuda")
+    tp = HATModel(_par_opt(), "cuda")
+    tp.setup_training(mesh)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    lq = torch.rand((1, 64, 64, 3), generator=gen, device="cuda")
+
+    def infer(model, bf16=False):
+        model.opt["val"] = {"inference_dtype": "bf16"} if bf16 else {}
+        model._eval_net = None
+        model.feed_data({"lq": lq})
+        model._run_inference()
+        return model.output.float()
+
+    (ref, s_one, sym_one), c_one = counted(lambda: infer(one))
+    (out, s_tp, sym_tp), c_tp = counted(lambda: infer(tp))
+    res.update(err=float((out - ref).abs().max())
+               / max(1.0, float(ref.abs().max())), s_one=s_one, s_tp=s_tp,
+               sym_one=sym_one, sym_tp=sym_tp, counts_one=c_one,
+               counts_tp=c_tp, warm_one=_par_warm(lambda: infer(one)),
+               warm_tp=_par_warm(lambda: infer(tp)))
+
+    # the fork's HAT under TP: its HABs and its OCAB's attention have no
+    # TP route and launch their kernels on the whole replicated weights,
+    # its OCAB tail runs hidden-parallel
+    fork = build_network(dict(PAR_FORK))
+    init_weights(fork, torch.Generator().manual_seed(3))
+    fork = fork.to("cuda").eval()
+    with torch.inference_mode():
+        (f_ref, _, _), c_fork_one = counted(lambda: fork(lq))
+        with tp_attention(mesh):
+            (f_tp, _, _), c_fork_tp = counted(lambda: fork(lq))
+    res.update(fork_err=float((f_tp - f_ref).abs().max())
+               / max(1.0, float(f_ref.abs().max())),
+               counts_fork_one=c_fork_one, counts_fork_tp=c_fork_tp)
+    out_bf16 = infer(tp, bf16=True)
+    mse = float((out_bf16.clamp(0, 1) - ref.clamp(0, 1)).square().mean())
+    res["psnr_bf16"] = 10 * math.log10(1.0 / max(mse, 1e-20))
+
+    # one TP train step against the one-process step: the gradients
+    gt = torch.rand((2, 256, 256, 3), generator=gen, device="cuda")
+    batch = {"lq": torch.nn.functional.avg_pool2d(
+        gt.permute(0, 3, 1, 2), 4).permute(0, 2, 3, 1).contiguous(),
+        "gt": gt}
+    one.setup_training()
+    grads = {}
+    for label, model in (("one", one), ("tp", tp)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.optimize_parameters(batch, 1)
+        torch.cuda.synchronize()
+        res[f"step_{label}"] = time.perf_counter() - t0
+        res[f"loss_{label}"] = float(model.log_dict["l_pix"])
+        grads[label] = {n: p.grad for n, p in
+                        model.net_g.named_parameters()}
+    res["grad_err"] = max(
+        float((grads["tp"][n] - g).abs().max())
+        / max(float(g.abs().max()), 1e-12) for n, g in grads["one"].items())
+
+    # (c) GPipe over (pipe: 2), 2 microbatches; rows counted on rank 0
+    pipe = init_device_mesh("cuda", (2,), mesh_dim_names=("pipe",))
+    x2 = torch.rand((2, 64, 64, 3), generator=gen, device="cuda")
+    with torch.inference_mode():
+        net = one.net_g.eval()
+        ref2 = net(x2)
+        (pp_out, s_pp, _), c_pp = counted(
+            lambda: pipeline_forward(net, x2, pipe, microbatches=2))
+        res.update(warm_pp=_par_warm(
+            lambda: pipeline_forward(net, x2, pipe, microbatches=2)),
+            warm_pp_one=_par_warm(lambda: net(x2)))
+    res.update(pp_err=float((pp_out - ref2).abs().max())
+               / max(1.0, float(ref2.abs().max())), s_pp=s_pp,
+               counts_pp=c_pp)
+
+    # row-sharded inference of an exact-receptive-field CNN (radius 7)
+    data = init_device_mesh("cuda", (2,), mesh_dim_names=("data",))
+    ks = [torch.randn(shape, generator=gen, device="cuda") * 0.1 for shape in
+          ((32, 3, 5, 5), (32, 32, 5, 5), (32, 32, 5, 5), (48, 32, 3, 3))]
+
+    def cnn(x):
+        y = x.permute(0, 3, 1, 2)
+        for k in ks[:-1]:
+            y = torch.nn.functional.leaky_relu(
+                torch.nn.functional.conv2d(y, k, padding=k.shape[-1] // 2))
+        y = torch.nn.functional.pixel_shuffle(
+            torch.nn.functional.conv2d(y, ks[-1], padding=1), 4)
+        return y.permute(0, 2, 3, 1)
+
+    img = torch.rand((1, 512, 512, 3), generator=gen, device="cuda")
+    with torch.inference_mode():
+        whole = cnn(img)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded = spatial_shard_forward(cnn, img, 4, data, halo=8)
+        torch.cuda.synchronize()
+        res["s_spatial"] = time.perf_counter() - t0
+    res["spatial_err"] = (float((sharded - whole).abs().max())
+                          / max(1.0, float(whole.abs().max())))
+    return res
+
+
+def _par_rank(rank: int, store: str, out_dir: str) -> None:
+    """A rank of (b) and (c): joins the gloo group on cuda:0 (NCCL refuses
+    two ranks on one card) and writes its figures or its error."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=2)
+    try:
+        res = _par_checks(rank)
+    except Exception:  # handed to the parent, which raises
+        res = {"error": traceback.format_exc()}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def par_two_ranks(root: str, card: str) -> dict:
+    """(b) and (c) on two spawned ranks; checks their figures and returns
+    rank 0's launch counts of the tensor-parallel forward and of the
+    pipelined one."""
+    import torch.multiprocessing as mp
+
+    out_dir = os.path.join(root, "par_ranks")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    mp.start_processes(_par_rank, args=(os.path.join(out_dir, "store"),
+                                        out_dir),
+                       nprocs=2, join=True, start_method="spawn")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+        if "error" in ranks[r]:
+            raise AssertionError(f"[par] rank {r} failed:\n"
+                                 f"{ranks[r]['error']}")
+    log(f"[par:b] two ranks joined, checked and left in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rows = set(PAR_CALLS)
+    for r, res in enumerate(ranks):
+        tp_rows = {k: v for k, v in res["counts_tp"].items() if v}
+        one_rows = {k: v for k, v in res["counts_one"].items() if v}
+        log(f"[par:b] {card}: rank {r}: HATClassic x4 (C 180, 6 heads, "
+            f"window 16, hidden 360, 2 RHAGs), one 64 x 64 tile, (model: 2): "
+            f"float32 max err {res['err']:.3e} of scale against one process; "
+            f"bf16 PSNR {res['psnr_bf16']:.2f} dB against the float32 "
+            f"one-process output; {res['s_tp']:.3f} s against "
+            f"{res['s_one']:.3f} s (first calls, profiled), warm "
+            f"{res['warm_tp']:.4f} s against {res['warm_one']:.4f} s "
+            f"(median of 3); launches {tp_rows} against "
+            f"{one_rows}; trace kernels {res['sym_tp']} against "
+            f"{res['sym_one']}; train step loss {res['loss_tp']:.6f} "
+            f"against {res['loss_one']:.6f}, grads max err "
+            f"{res['grad_err']:.3e} of each tensor's scale, "
+            f"{res['step_tp']:.3f} s against {res['step_one']:.3f} s")
+        fork_tp = {k: v for k, v in res["counts_fork_tp"].items() if v}
+        fork_one = {k: v for k, v in res["counts_fork_one"].items() if v}
+        log(f"[par:b] {card}: rank {r}: the fork's HAT x2 (C 180, 2 RHAGs) "
+            f"under tp_attention, one 64 x 64 input: max err "
+            f"{res['fork_err']:.3e} of scale against one process; launches "
+            f"{fork_tp} against {fork_one}")
+        log(f"[par:c] {card}: rank {r}: pipeline_forward (pipe: 2, 2 "
+            f"microbatches of one 64 x 64 image) max err {res['pp_err']:.3e} "
+            f"of scale, {res['s_pp']:.3f} s, warm {res['warm_pp']:.4f} s "
+            f"against {res['warm_pp_one']:.4f} s in one process; "
+            f"spatial_shard_forward of a "
+            f"512 x 512 image (a CNN of receptive radius 7, halo 8) max err "
+            f"{res['spatial_err']:.3e} of scale, {res['s_spatial']:.3f} s")
+        if (res["err"] > TOL_F32 or res["psnr_bf16"] < PAR_PSNR
+                or tp_rows != PAR_CALLS or one_rows != PAR_CALLS
+                or set(tp_rows) != rows or res["sym_tp"] != res["sym_one"]
+                or not all(res["sym_tp"].values())
+                or res["grad_err"] > TOL_F32
+                or abs(res["loss_tp"] - res["loss_one"])
+                > TOL_F32 * abs(res["loss_one"])
+                or res["fork_err"] > TOL_F32
+                or fork_tp != PAR_FORK_CALLS or fork_one != PAR_FORK_CALLS
+                or res["pp_err"] > TOL_F32 or res["spatial_err"] > 1e-5
+                or {k: v for k, v in res["counts_pp"].items() if v} != {
+                    k: v // 2 * PAR_PP_TICKS for k, v in PAR_CALLS.items()}):
+            raise AssertionError(f"[par] rank {r}: a check failed: {res}")
+    return {"parallel_tp": ranks[0]["counts_tp"],
+            "parallel_tp_fork": ranks[0]["counts_fork_tp"],
+            "parallel_pp": ranks[0]["counts_pp"]}
+
+
+def par_main() -> None:
+    """Phase 15 alone (``python3 -c "import chip_smoke;
+    chip_smoke.par_main()"``), after the build and phase 6's data."""
+    import torch
+
+    from super_resolution_tpu_torch.ops import cuda_build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+    cuda_build.build()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        sets = write_eval_sets(root)
+        sets.update(write_train_pairs(root, sets))
+        by_path = par_phase(sets, root, card)
+    log(f"[par] phase 15 done in {time.perf_counter() - t0:.1f} s; "
+        f"launches {by_path}")
+
+
+def par_phase(sets: dict, root: str, card: str) -> dict:
+    """Phase 15: (a), then (b) and (c). Returns the launch counts of each
+    path."""
+    t0 = time.perf_counter()
+    by_path = {"parallel_dp1": par_world_of_one(sets, root, card)}
+    log(f"[par:a] done in {time.perf_counter() - t0:.1f} s")
+    by_path.update(par_two_ranks(root, card))
+    return by_path
+
+
 def _short_names(mangled) -> dict:
     """Mangled kernel name -> ``name<template arguments>`` (c++filt, where
     the toolkit's host compiler brought it)."""
@@ -6414,6 +6862,14 @@ def main() -> int:
             "kernel lies on this path: it launches none of the 18 rows)")
         by_path.update(face_phase(card, root))
         log(f"[face] phase 14 done in {time.perf_counter() - t14:.1f} s")
+
+        t15 = time.perf_counter()
+        log("[par] parallelism: train.py with a mesh in an NCCL world of "
+            "one; then two gloo ranks on the card: head- and "
+            "hidden-parallel HATClassic (rows 1 to 6 on each rank's "
+            "slice), GPipe and row-sharded inference")
+        by_path.update(par_phase(sets, root, card))
+        log(f"[par] phase 15 done in {time.perf_counter() - t15:.1f} s")
 
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():

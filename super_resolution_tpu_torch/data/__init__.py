@@ -31,13 +31,17 @@ def build_dataset(dataset_opt: dict):
 
 
 class EnlargedSampler:
-    """Epoch-seeded permutation over len * ratio indices, wrapped modulo the
-    dataset's length (ref: data_sampler.py:31-44, one process: rank 0 of
-    1)."""
+    """Epoch-seeded permutation over len * ratio indices (rounded up to a
+    multiple of the ranks), wrapped modulo the dataset's length; rank r
+    takes every world_size-th index from r (ref: data_sampler.py:31-44)."""
 
-    def __init__(self, num_samples: int, ratio: float = 1):
+    def __init__(self, num_samples: int, ratio: float = 1,
+                 world_size: int = 1, rank: int = 0):
         self.num_samples = num_samples
-        self.total_size = int(np.ceil(num_samples * ratio))
+        self.world_size, self.rank = world_size, rank
+        self.total_size = (int(np.ceil(num_samples * ratio / world_size))
+                           * world_size)
+        self.per_rank = self.total_size // world_size
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -45,7 +49,8 @@ class EnlargedSampler:
 
     def indices(self) -> np.ndarray:
         g = np.random.default_rng(self.epoch)
-        return g.permutation(self.total_size) % self.num_samples
+        idx = g.permutation(self.total_size) % self.num_samples
+        return idx[self.rank:self.total_size:self.world_size]
 
 
 class PrefetchIterator:
@@ -107,14 +112,14 @@ class TrainLoader:
     ``len(self)`` of them."""
 
     def __init__(self, dataset, batch_size: int, ratio: float = 1,
-                 seed: int = 0):
+                 seed: int = 0, world_size: int = 1, rank: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
-        self.sampler = EnlargedSampler(len(dataset), ratio)
+        self.sampler = EnlargedSampler(len(dataset), ratio, world_size, rank)
         self.seed = seed
 
     def __len__(self):
-        return self.sampler.total_size // self.batch_size
+        return self.sampler.per_rank // self.batch_size
 
     def epoch_iter(self, epoch: int, start: int = 0):
         """The batches of one epoch from batch ``start`` on. The batches
@@ -123,7 +128,7 @@ class TrainLoader:
         in the middle of an epoch goes on where it stopped)."""
         self.sampler.set_epoch(self.seed + epoch)
         if hasattr(self.dataset, "seed"):
-            self.dataset.seed(self.seed + epoch * 7919)
+            self.dataset.seed(self.seed + epoch * 7919 + self.sampler.rank)
 
         def gen():
             idx = self.sampler.indices()
@@ -131,7 +136,7 @@ class TrainLoader:
                 items = [self.dataset[int(i)] for i in
                          idx[b * self.batch_size:(b + 1) * self.batch_size]]
                 if b >= start:
-                    yield _collate(items)
+                    yield collate(items)
 
         return PrefetchIterator(gen())
 
@@ -147,10 +152,12 @@ class EvalLoader:
 
     def __iter__(self):
         for i in range(len(self.dataset)):
-            yield _collate([self.dataset[i]])
+            yield collate([self.dataset[i]])
 
 
-def _collate(items: list) -> dict:
+def collate(items: list) -> dict:
+    """A batch of dataset items: arrays stacked on a new leading axis,
+    other values listed."""
     out = {}
     for key in items[0]:
         vals = [it[key] for it in items]
@@ -163,13 +170,17 @@ def _collate(items: list) -> dict:
 
 def build_dataloader(dataset, dataset_opt: dict, seed: int = 0, mesh=None):
     """The loader of a dataset: for phase ``train`` a :class:`TrainLoader` of
-    ``batch_size_per_gpu`` on this one process, seeded with ``seed``; for a
-    val or test set an :class:`EvalLoader`."""
-    if mesh is not None:
-        raise NotImplementedError("training across devices (a mesh) is not "
-                                  "ported (ROADMAP.md queue 1, parallelism)")
+    ``batch_size_per_gpu`` (per device, as the reference's per GPU: the
+    global batch is that times the ``data`` axis), seeded with ``seed``;
+    with a ``mesh``, rank r of its ``data`` axis loads the r-th share of
+    each epoch (the ranks of a ``model`` or ``pipe`` axis load the same
+    batch); for a val or test set an :class:`EvalLoader`."""
     if dataset_opt["phase"] == "train":
+        from super_resolution_tpu_torch.parallel.mesh import (axis_rank,
+                                                              axis_size)
+
         return TrainLoader(
             dataset, batch_size=dataset_opt["batch_size_per_gpu"],
-            ratio=dataset_opt.get("dataset_enlarge_ratio", 1), seed=seed)
+            ratio=dataset_opt.get("dataset_enlarge_ratio", 1), seed=seed,
+            world_size=axis_size(mesh, "data"), rank=axis_rank(mesh, "data"))
     return EvalLoader(dataset)

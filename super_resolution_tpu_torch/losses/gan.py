@@ -15,6 +15,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from super_resolution_tpu_torch.utils.registry import LOSS_REGISTRY
@@ -105,14 +106,17 @@ def gradient_penalty_loss(disc_fn, real, fake, alpha=None, generator=None):
 
 
 def g_path_regularize(fake_img, latents, mean_path_length, noise=None,
-                      generator=None, decay: float = 0.01):
+                      generator=None, decay: float = 0.01, group=None):
     """StyleGAN2's path-length penalty (ref: gan_loss.py:159-168).
 
     fake_img: (B, H, W, 3), the generator's NHWC output computed from
     ``latents`` (B, L, C); noise: a standard normal of fake_img's shape
     (divided here by sqrt(H W)), else drawn from ``generator``. Returns
     (penalty with its graph, mean path length, new mean path length), the
-    last two detached."""
+    last two detached. ``group``: the ranks of data parallelism, each on
+    an equal share of the batch; the mean path length is then the whole
+    batch's, summed over the ranks forward and backward, so that the
+    averaged gradients equal the one-process penalty's."""
     if noise is None:
         noise = torch.randn(fake_img.shape, generator=generator,
                             device=fake_img.device, dtype=fake_img.dtype)
@@ -120,10 +124,16 @@ def g_path_regularize(fake_img, latents, mean_path_length, noise=None,
     grad = torch.autograd.grad((fake_img * noise).sum(), latents,
                                create_graph=True)[0]
     path_lengths = torch.sqrt(grad.pow(2).sum(2).mean(1))
-    path_mean = mean_path_length + decay * (path_lengths.mean()
-                                            - mean_path_length)
+    batch_mean = path_lengths.mean()
+    if group is not None:
+        from super_resolution_tpu_torch.parallel.mesh import (
+            copy_to_group, reduce_from_group)
+
+        batch_mean = reduce_from_group(copy_to_group(batch_mean, group),
+                                       group) / dist.get_world_size(group)
+    path_mean = mean_path_length + decay * (batch_mean - mean_path_length)
     path_penalty = (path_lengths - path_mean).pow(2).mean()
-    return path_penalty, path_lengths.detach().mean(), path_mean.detach()
+    return path_penalty, batch_mean.detach(), path_mean.detach()
 
 
 @LOSS_REGISTRY.register()

@@ -373,6 +373,37 @@ class SRShell(nn.Module):
                     else layer(*args))
         return body
 
+    def _normalize(self, x):
+        return (MeanShift.normalize(x, self.img_range) if self.in_chans == 3
+                else x * self.img_range)
+
+    def head(self, x):
+        """Everything ahead of the residual-group stack: (feat, body) of a
+        window-multiple input (the split of ``parallel/pipeline.py``, which
+        runs the shape-preserving groups as pipeline stages)."""
+        ws = self.window_size
+        if x.shape[1] % ws or x.shape[2] % ws:
+            raise ValueError(f"{type(self).__name__}.head needs a "
+                             f"window-multiple input (window {ws}), got "
+                             f"{tuple(x.shape)}; pad as HATModel does")
+        feat = conv_nhwc(self.conv_first, self._normalize(x)).contiguous()
+        return feat, self.patch_embed(feat)
+
+    def tail(self, body, feat, x=None):
+        """Everything after the stack: the norm, the body conv and the
+        global residual, the reconstruction. ``x``: the input, which the
+        ``""`` upsampler adds back."""
+        body = layer_norm(self.norm, body)
+        if self.conv_after_body is not None:
+            body = apply_residual_conv(self.conv_after_body, body)
+        feat = body + feat
+        if self.upsampler:
+            y = self.reconstruct(feat)
+        else:
+            y = self._normalize(x) + conv_nhwc(self.conv_last, feat)
+        return (MeanShift.denormalize(y, self.img_range) if self.in_chans == 3
+                else y / self.img_range)
+
     def forward(self, x, generator: torch.Generator | None = None):
         """``generator`` goes to :meth:`run_layers`."""
         h, w = x.shape[1], x.shape[2]
@@ -382,20 +413,9 @@ class SRShell(nn.Module):
             pad = (pad_symmetric if self.pad_mode == "symmetric"
                    else reflect_pad)
             x = pad(x, pad_h, pad_w)
-        x = (MeanShift.normalize(x, self.img_range) if self.in_chans == 3
-             else x * self.img_range)
-        feat = conv_nhwc(self.conv_first, x).contiguous()
+        feat = conv_nhwc(self.conv_first, self._normalize(x)).contiguous()
         body = self.run_layers(self.patch_embed(feat), generator)
-        body = layer_norm(self.norm, body)
-        if self.conv_after_body is not None:
-            body = apply_residual_conv(self.conv_after_body, body)
-        feat = body + feat
-        if self.upsampler:
-            y = self.reconstruct(feat)
-        else:
-            y = x + conv_nhwc(self.conv_last, feat)
-        y = (MeanShift.denormalize(y, self.img_range) if self.in_chans == 3
-             else y / self.img_range)
+        y = self.tail(body, feat, x)
         if self.pad_mode is not None:
             y = y[:, :h * self.crop_scale, :w * self.crop_scale, :]
         return y

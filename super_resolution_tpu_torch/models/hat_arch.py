@@ -62,6 +62,9 @@ from super_resolution_tpu_torch.ops.cuda_attention import (
 from super_resolution_tpu_torch.ops.cuda_ffn import (
     ffn_reference, gated_dconv_ffn_block_ad, mlp_block_ad)
 from super_resolution_tpu_torch.ops.cuda_hab import hab_front_ad, ln_split_ad
+from super_resolution_tpu_torch.parallel.tp import tp_route_for
+from super_resolution_tpu_torch.parallel.tp_ffn import \
+    hidden_parallel_mlp_block
 from super_resolution_tpu_torch.utils.registry import ARCH_REGISTRY
 
 FRONT_ROUTES = ("ln_split", "hab_front")
@@ -304,6 +307,13 @@ class OCAB(KernelOperands):
         else:
             x = fused_ocab_block_ad(x, *ops["block"], ops["bias"], **kw,
                                     ln_eps=self.norm1.eps)
+        # under tensor parallelism the tail runs hidden-parallel where the
+        # model axis divides its hidden dim (JAX hat_arch.py:406-422)
+        tp_hidden = tp_route_for(self.mlp[0].out_features)
+        if tp_hidden is not None:
+            return hidden_parallel_mlp_block(
+                x.contiguous(), *ops["tail"], mesh=tp_hidden[0],
+                axis=tp_hidden[1], eps=self.norm2.eps)
         return mlp_block_ad(x.contiguous(), *ops["tail"], eps=self.norm2.eps)
 
 

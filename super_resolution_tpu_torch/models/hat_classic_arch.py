@@ -57,6 +57,11 @@ from super_resolution_tpu_torch.ops.cuda_attention import (
 from super_resolution_tpu_torch.ops.cuda_ffn import (
     mlp_block_ad, mlp_block_sum3_ad, mlp_block_sum3_shifted_ad)
 from super_resolution_tpu_torch.ops.cuda_hab_block import fused_hab_block_ad
+from super_resolution_tpu_torch.parallel.tp import tp_route_for
+from super_resolution_tpu_torch.parallel.tp_attention import (
+    head_parallel_msa_block, head_parallel_ocab_block)
+from super_resolution_tpu_torch.parallel.tp_ffn import (
+    hidden_parallel_mlp_block, hidden_parallel_mlp_sum3)
 from super_resolution_tpu_torch.utils.registry import ARCH_REGISTRY
 
 HAB_ROUTES = ("split", "fused_hab_block")
@@ -173,7 +178,12 @@ class HABClassic(KernelOperands, DropPathBlock):
 
     def forward(self, x, draws=None):
         """``draws``: (2, B) uniform draws of the attention and MLP
-        branches' drop path, given where :meth:`takes_draws`."""
+        branches' drop path, given where :meth:`takes_draws`. Under
+        tensor parallelism (``parallel.tp.tp_attention``) the attention
+        runs head-parallel where the model axis divides the heads, and the
+        tail hidden-parallel where it divides the hidden dim (the split
+        route, whatever ``hab_route`` says); a part that neither route
+        covers launches its kernels on the whole weights."""
         _, hh, ww, c = x.shape
         ws, ss = self.window_size, self.shift_size
         ops = self.kernel_operands()
@@ -183,25 +193,38 @@ class HABClassic(KernelOperands, DropPathBlock):
         xn = layer_norm(self.norm1, x)
         conv_x = self.conv_block(xn).contiguous()
         unfused = self.takes_draws()
-        if ss > 0:
-            mask = shift_attn_mask_tensor(hh, ww, ws, ss, str(x.device))
+        tp_heads = tp_route_for(self.num_heads)
+        tp_hidden = tp_route_for(self.mlp.fc1.out_features)
+        mask = (shift_attn_mask_tensor(hh, ww, ws, ss, str(x.device))
+                if ss > 0 else None)
+        if tp_heads is not None:
+            attn = head_parallel_msa_block(
+                xn, *ops["msa"], mask, **msa, shift=ss, mesh=tp_heads[0],
+                axis=tp_heads[1])
+        elif ss > 0:
             attn = fused_msa_block_shifted_ad(xn, *ops["msa"], mask,
                                               shift=ss, **msa)
-            if not unfused:
-                return mlp_block_sum3_shifted_ad(
-                    x, attn, conv_x, *ops["tail"],
-                    conv_scale=self.conv_scale, shift=ss)
-            attn = torch.roll(attn, (ss, ss), dims=(1, 2))
-        elif self.hab_route == "fused_hab_block" and not unfused:
+        elif (self.hab_route == "fused_hab_block" and not unfused
+              and tp_hidden is None):
             return fused_hab_block_ad(xn, x, conv_x, *ops["msa"],
                                       *ops["tail"], **msa,
                                       conv_scale=self.conv_scale,
                                       eps=self.norm2.eps)
         else:
             attn = fused_msa_block_ad(xn, *ops["msa"], **msa)
-            if not unfused:
-                return mlp_block_sum3_ad(x, attn, conv_x, *ops["tail"],
-                                         conv_scale=self.conv_scale)
+        if not unfused:
+            tail = dict(conv_scale=self.conv_scale)
+            if tp_hidden is not None:
+                return hidden_parallel_mlp_sum3(
+                    x, attn, conv_x, *ops["tail"], **tail, shift=ss,
+                    mesh=tp_hidden[0], axis=tp_hidden[1], eps=self.norm2.eps)
+            if ss > 0:
+                return mlp_block_sum3_shifted_ad(x, attn, conv_x,
+                                                 *ops["tail"], **tail,
+                                                 shift=ss)
+            return mlp_block_sum3_ad(x, attn, conv_x, *ops["tail"], **tail)
+        if ss > 0:
+            attn = torch.roll(attn, (ss, ss), dims=(1, 2))
         rate = self.drop_path_rate
         x = x + drop_path(attn, rate, draws[0]) + conv_x * self.conv_scale
         return x + drop_path(self.mlp(layer_norm(self.norm2, x)), rate,
@@ -246,14 +269,24 @@ class OCABClassic(KernelOperands):
         }
 
     def forward(self, x):
+        """Under tensor parallelism the attention half runs head-parallel
+        and the tail hidden-parallel where the model axis divides them."""
         c = x.shape[-1]
         ops = self.kernel_operands()
-        x = fused_ocab_block_ad(x.contiguous(), *ops["attn"],
-                                heads=self.num_heads,
-                                window_size=self.window_size,
-                                overlap_win=self.overlap_win_size,
-                                scale=(c // self.num_heads) ** -0.5,
-                                ln_eps=self.norm1.eps)
+        kw = dict(heads=self.num_heads, window_size=self.window_size,
+                  overlap_win=self.overlap_win_size,
+                  scale=(c // self.num_heads) ** -0.5, ln_eps=self.norm1.eps)
+        tp_heads = tp_route_for(self.num_heads)
+        if tp_heads is not None:
+            x = head_parallel_ocab_block(x.contiguous(), *ops["attn"], **kw,
+                                         mesh=tp_heads[0], axis=tp_heads[1])
+        else:
+            x = fused_ocab_block_ad(x.contiguous(), *ops["attn"], **kw)
+        tp_hidden = tp_route_for(self.mlp.fc1.out_features)
+        if tp_hidden is not None:
+            return hidden_parallel_mlp_block(
+                x.contiguous(), *ops["tail"], mesh=tp_hidden[0],
+                axis=tp_hidden[1], eps=self.norm2.eps)
         return mlp_block_ad(x.contiguous(), *ops["tail"], eps=self.norm2.eps)
 
 

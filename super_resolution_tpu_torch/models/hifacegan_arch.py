@@ -150,7 +150,11 @@ class SPADEGenerator(nn.Module):
                  is_train: bool = True, init_train_phase: int = 3):
         super().__init__()
         if use_vae:
-            raise NotImplementedError("use_vae (as in JAX)")
+            raise NotImplementedError(
+                "use_vae: the reference's VAE encoder is not built. JAX's "
+                "generator takes the field and ignores it (the same network "
+                "as use_vae false); the port refuses it rather than train "
+                "another network than the options name")
         nf = num_feat
         self.is_train, self.init_train_phase = is_train, init_train_phase
         self.fc = nn.Conv2d(num_in_ch, 16 * nf, 3, padding=1)

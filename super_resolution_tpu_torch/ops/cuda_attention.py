@@ -441,18 +441,19 @@ def fused_ocab_attention(q_img, kv_img, bias, *, heads: int,
 def fused_ocab_block_ad(x_img, ln_scale, ln_bias, w_q, b_q, w_kv, b_kv,
                         w_proj, b_proj, bias, *, heads: int, window_size: int,
                         overlap_win: int, scale: float | None = None,
-                        ln_eps: float = 1e-5):
+                        ln_eps: float = 1e-5, residual_scale: float = 1.0):
     """:func:`fused_ocab_block` with a gradient (the RPB ``bias`` included):
     the kernel forward, autograd through :func:`ocab_block_reference`
     backward. Replaces
-    super_resolution_tpu/ops/pallas_attention.py::fused_ocab_block_ad."""
+    super_resolution_tpu/ops/pallas_attention.py::fused_ocab_block_ad (and,
+    with ``residual_scale``, ``fused_ocab_block_scaled_ad``)."""
     if scale is None:
         scale = (w_q.shape[1] // heads) ** -0.5
     return with_plain_backward(
         fused_ocab_block, ocab_block_reference,
         (x_img, ln_scale, ln_bias, w_q, b_q, w_kv, b_kv, w_proj, b_proj, bias),
         heads=heads, window_size=window_size, overlap_win=overlap_win,
-        scale=scale, ln_eps=ln_eps)
+        scale=scale, ln_eps=ln_eps, residual_scale=residual_scale)
 
 
 def fused_msa_block_ad(x_img, w_qkv, b_qkv, w_proj, b_proj, bias, *,

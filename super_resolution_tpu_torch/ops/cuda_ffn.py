@@ -329,12 +329,15 @@ def gated_dconv_ffn_block_ad(x, gamma, beta, w1, b1, wd, bd, w2, b2, *,
         (x, gamma, beta, w1, b1, wd, bd, w2, b2), eps=eps)
 
 
-def mlp_block_ad(x, gamma, beta, w1, b1, w2, b2, *, eps: float = 1e-5):
+def mlp_block_ad(x, gamma, beta, w1, b1, w2, b2, *, eps: float = 1e-5,
+                 residual_scale: float = 1.0):
     """:func:`mlp_block` with a gradient: the kernel forward, autograd
     through :func:`mlp_block_reference` backward. Replaces
-    super_resolution_tpu/ops/pallas_ffn.py::mlp_block_ad."""
+    super_resolution_tpu/ops/pallas_ffn.py::mlp_block_ad (and, with
+    ``residual_scale``, ``mlp_block_scaled_ad``)."""
     return with_plain_backward(mlp_block, mlp_block_reference,
-                               (x, gamma, beta, w1, b1, w2, b2), eps=eps)
+                               (x, gamma, beta, w1, b1, w2, b2), eps=eps,
+                               residual_scale=residual_scale)
 
 
 def mlp_block_sum3_ad(shortcut, attn_x, conv_x, gamma, beta, w1, b1, w2, b2,

@@ -35,6 +35,7 @@ import torch
 
 # the contract with the per-image engine needs the same planner
 from super_resolution_tpu_torch.runtime.tile import _axis_plan as _plan
+from super_resolution_tpu_torch.runtime.tile import split_over_mesh
 
 
 def _pair(v):
@@ -64,13 +65,6 @@ def group_images(shapes: Sequence[Tuple[int, int]], tile_size, tile_pad,
     return groups
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "bucketed evaluation over a device mesh (tile: {multichip: "
-            "true}) is not ported (ROADMAP.md queue 1, item 11)")
-
-
 def _index_grid(starts: torch.Tensor, size: int) -> torch.Tensor:
     """(N,) starts -> (N, size) indices start + 0 .. size - 1."""
     return starts[:, None] + torch.arange(size, device=starts.device)
@@ -86,10 +80,11 @@ def tile_forward_group(apply_fn: Callable, imgs: Sequence[torch.Tensor],
       apply_fn: batched NHWC -> NHWC x``scale`` forward (the runner's
         ``wrap_apply``: the cast to the inference dtype happens inside).
       imgs: (1, h_i, w_i, C) tensors on one device.
+      mesh: a 1-D mesh to split each chunk over
+        (``tile.split_over_mesh``); every rank returns every output.
     Returns:
       list of (1, h_i * scale, w_i * scale, C') tensors, in order.
     """
-    _check_mesh(mesh)
     ts_y, ts_x = _pair(tile_size)
     tp_y, tp_x = _pair(tile_pad)
     dims = [(int(im.shape[1]), int(im.shape[2])) for im in imgs]
@@ -119,6 +114,8 @@ def tile_forward_group(apply_fn: Callable, imgs: Sequence[torch.Tensor],
                               for i, p in enumerate(plans)])
     n = len(sy)
     chunk = min(chunk, n)
+    if mesh is not None:
+        apply_fn, chunk = split_over_mesh(apply_fn, chunk, mesh)
     n_pad = (-n) % chunk
     if n_pad:
         sy, sx, img_idx = (np.concatenate([a, np.repeat(a[:1], n_pad)])
@@ -163,13 +160,12 @@ def bucketed_tile_eval(apply_fn: Callable, imgs: Sequence[torch.Tensor],
     """Tiled upscale of a varied-size image list: grouped by signature
     (:func:`group_images`), each group through :func:`tile_forward_group`;
     the results in input order."""
-    _check_mesh(mesh)
     shapes = [(int(im.shape[1]), int(im.shape[2])) for im in imgs]
     groups = group_images(shapes, tile_size, tile_pad, quant)
     results: List = [None] * len(imgs)
     for idxs in groups.values():
         outs = tile_forward_group(apply_fn, [imgs[i] for i in idxs], scale,
-                                  tile_size, tile_pad, chunk, quant)
+                                  tile_size, tile_pad, chunk, quant, mesh)
         for i, o in zip(idxs, outs):
             results[i] = o
     return results

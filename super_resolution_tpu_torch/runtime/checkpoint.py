@@ -17,6 +17,7 @@ import time
 from os import path as osp
 
 import torch
+import torch.distributed
 
 from super_resolution_tpu_torch.utils.logger import get_root_logger
 
@@ -30,8 +31,12 @@ def state_file(path: str) -> str:
 
 def save_params(path: str, tree: dict, retries: int = 3) -> None:
     """Write ``tree`` to the directory ``path`` (created), through a
-    temporary file renamed into place. An OSError is retried, 1 s apart
-    (ref: base_model.py:237-252); the last one raises."""
+    temporary file renamed into place; in a process group only rank 0
+    writes (every rank builds the tree: under tensor or pipeline
+    parallelism that gathers it). An OSError is retried, 1 s apart (ref:
+    base_model.py:237-252); the last one raises."""
+    if torch.distributed.is_initialized() and torch.distributed.get_rank():
+        return
     last_exc = None
     for attempt in range(retries):
         try:

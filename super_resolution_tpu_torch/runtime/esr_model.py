@@ -111,10 +111,11 @@ class ESRModel(HATModel):
     training strategy (the module docstring)."""
 
     def setup_training(self, mesh=None) -> None:
-        if mesh is not None:
-            raise NotImplementedError("training across devices (a mesh) is "
-                                      "not ported (ROADMAP.md queue 1, "
-                                      "parallelism)")
+        """The ESC strategy's state; ``mesh``: data parallelism over its
+        ``data`` axis (``realgan.runner_data_parallel``)."""
+        from super_resolution_tpu_torch.runtime.realgan import \
+            runner_data_parallel
+
         train_opt = self.opt["train"]
         if train_opt.get("wave_opt"):
             raise NotImplementedError(
@@ -142,6 +143,7 @@ class ESRModel(HATModel):
         self._train_step = make_esr_train_step(train_opt, self.use_amp,
                                                self.cri_mesa,
                                                self.cri_perceptual)
+        runner_data_parallel(self, mesh)
         self._eval_net = None
         self.log_dict = {}
 

@@ -30,10 +30,11 @@ class HiFaceGANModel(SRModel):
     """Face renovation GAN runner; D seeded from ``manual_seed`` + 2."""
 
     def setup_training(self, mesh=None) -> None:
-        if mesh is not None:
-            raise NotImplementedError("training across devices (a mesh) is "
-                                      "not ported (ROADMAP.md queue 1, "
-                                      "parallelism)")
+        """G and D's state; ``mesh``: data parallelism over its ``data``
+        axis (``realgan.runner_data_parallel``)."""
+        from super_resolution_tpu_torch.runtime.realgan import \
+            runner_data_parallel
+
         train_opt = self.opt["train"]
         if train_opt.get("ema_decay", 0) > 0:
             raise NotImplementedError(
@@ -61,6 +62,7 @@ class HiFaceGANModel(SRModel):
         self.optimizer_d = torch.optim.Adam(
             self.net_d.parameters(), lr=opt_d["lr"],
             betas=tuple(opt_d.get("betas", (0.9, 0.999))), eps=1e-8)
+        runner_data_parallel(self, mesh, [self.optimizer_d])
         self._eval_net = None
         self.log_dict = {}
 

@@ -45,7 +45,8 @@ from super_resolution_tpu_torch.ops.resize import resize_to
 from super_resolution_tpu_torch.runtime.sr_model import (HATModel,
                                                          load_state_dict)
 from super_resolution_tpu_torch.runtime.train_loop import (
-    apply_update, clip_by_global_norm, filled_grads, init_train_state,
+    apply_update, average_grads, clip_by_global_norm, filled_grads,
+    init_train_state,
     make_freeze_mask, update_ema)
 from super_resolution_tpu_torch.utils.registry import MODEL_REGISTRY
 
@@ -221,12 +222,12 @@ class RealHATGANModel(HATModel):
 
     # -------------------------------------------------------------- training
     def setup_training(self, mesh=None) -> None:
-        if mesh is not None:
-            raise NotImplementedError("training across devices (a mesh) is "
-                                      "not ported (ROADMAP.md queue 1, "
-                                      "parallelism)")
+        from super_resolution_tpu_torch.parallel.mesh import axis_rank
+
         opt, train_opt = self.opt, self.opt["train"]
-        seed = int(opt.get("manual_seed") or 0)
+        # each data-parallel rank degrades its own share of the batch
+        seed = int(opt.get("manual_seed") or 0) + 7919 * axis_rank(mesh,
+                                                                   "data")
         self.ema_decay = train_opt.get("ema_decay", 0)
         self.state = init_train_state(self.net_g, train_opt)
 
@@ -263,6 +264,8 @@ class RealHATGANModel(HATModel):
             self.optimizer_d = torch.optim.Adam(
                 self.net_d.parameters(), lr=opt_d["lr"], betas=betas,
                 eps=1e-8)
+        runner_data_parallel(self, mesh, [self.optimizer_d]
+                             if self.net_d is not None else [])
         self._eval_net = None
         self.log_dict = {}
 
@@ -451,6 +454,7 @@ def gan_d_step(model, sr, gan_gt) -> dict:
     fake_pred = net_d(_frames(model, sr.detach()), update_sn_stats=True)
     l_fake = model.cri_gan(fake_pred, False, is_disc=True)
     (l_real + l_fake).backward()
+    average_grads(model.optimizer_d)
     model.optimizer_d.step()
     return {"l_d_real": l_real.detach(), "l_d_fake": l_fake.detach(),
             "out_d_real": real_pred.detach().mean(),
@@ -487,9 +491,6 @@ def attach_gan_training(model, mesh=None, video: bool = False) -> None:
     loss and D, and with ``fix_flow`` the flow network (and IconVSR's EDVR)
     is frozen for that many iterations and, with ``lr_flow``, trains at
     lr_flow (ref: video_recurrent_gan_model.py:57-77)."""
-    if mesh is not None:
-        raise NotImplementedError("training across devices (a mesh) is not "
-                                  "ported (ROADMAP.md queue 1, parallelism)")
     opt, train_opt = model.opt, model.opt["train"]
     model.ema_decay = train_opt.get("ema_decay", 0)
     fix_flow = train_opt.get("fix_flow") if video else None
@@ -522,8 +523,27 @@ def attach_gan_training(model, mesh=None, video: bool = False) -> None:
     model.optimizer_d = torch.optim.Adam(
         model.net_d.parameters(), lr=opt_d["lr"],
         betas=tuple(opt_d.get("betas", (0.9, 0.999))), eps=1e-8)
+    runner_data_parallel(model, mesh, [model.optimizer_d])
     model._eval_net = None
     model.log_dict = {}
+
+
+def runner_data_parallel(model, mesh, extra_optimizers=()) -> None:
+    """Data parallelism of a runner over the mesh's ``data`` axis
+    (``parallel.mesh.attach_data_parallel``): G, its EMA and D start equal
+    on every rank, and G's and D's gradients are averaged before each
+    update."""
+    from super_resolution_tpu_torch.parallel import mesh as pmesh
+
+    model.mesh = mesh
+    group = pmesh.data_group(mesh)
+    if group is None:
+        return
+    nets = [model.net_g, getattr(model, "net_d", None)]
+    if model.state is not None and model.state.ema is not None:
+        nets.append(model.state.ema)
+    pmesh.attach_data_parallel(mesh, nets, [model.state.optimizer,
+                                            *extra_optimizers])
 
 
 def gan_optimize_step(model, batch: dict, current_iter: int) -> None:

@@ -9,9 +9,14 @@ runner made for ``cuda`` fails where there is no card, it does not move to
 the CPU.
 
 Training (``setup_training``, ``optimize_parameters``, ``save``,
-``resume_training``) runs the step of ``runtime/train_loop.py`` on this
-one device; a device mesh raises. ``ESRModel`` (``runtime/esr_model.py``)
-runs the ESC strategy's step instead. The drop path draws from a CPU
+``resume_training``) runs the step of ``runtime/train_loop.py``.
+``ESRModel`` (``runtime/esr_model.py``) runs the ESC strategy's step
+instead. ``setup_training(mesh)`` takes a device mesh (``parallel/
+mesh.py``): its ``data`` axis averages the gradients over the ranks (data
+parallelism, every runner); in ``SRModel`` a ``model`` axis runs the
+attention and the MLP tails head- and hidden-parallel (``parallel/tp*.py``)
+and a ``pipe`` axis pipelines the residual groups (``parallel/
+pipeline.py``, GPipe), both also together. The drop path draws from a CPU
 ``torch.Generator`` seeded with ``manual_seed`` + 1, whose state the
 checkpoints keep, so a resumed run draws what the uninterrupted run would.
 
@@ -22,21 +27,30 @@ true}`` and ``tile:``, ``HATModel`` and the runners that inherit from it
 run the whole set's inference first, its tiles batched across images in a
 few input shapes (``runtime/batched_eval.py``), then the same per-image
 tail. ``SRModel.test_selfensemble`` averages the x8 flips and transposes.
-Validation across processes (``dist_validation``) is not ported, and
-asking for it raises.
+Across processes (``dist_validation``) rank r of the mesh's ``data``
+axis (of the world where the runner has no mesh) evaluates images r, r +
+world, ...; the metric sums are all-reduced and rank 0 logs. With ``tile:
+{multichip: true}`` every rank runs every image and each chunk of tiles is
+split over the ranks.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 from os import path as osp
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from super_resolution_tpu_torch.data import collate
 from super_resolution_tpu_torch.metrics import calculate_metric
 from super_resolution_tpu_torch.models import build_network
 from super_resolution_tpu_torch.models.arch_util import init_weights
 from super_resolution_tpu_torch.ops.windowing import pad_to_multiple
+from super_resolution_tpu_torch.parallel import mesh as pmesh
+from super_resolution_tpu_torch.parallel.tp import tp_attention
 from super_resolution_tpu_torch.runtime import checkpoint
 from super_resolution_tpu_torch.runtime.batched_eval import \
     bucketed_tile_eval
@@ -80,6 +94,15 @@ def load_state_dict(net: torch.nn.Module, state: dict, strict: bool = True):
     return net.load_state_dict(state, strict=False)
 
 
+def _to_cpu(tree):
+    """``tree`` (dicts, lists) with every tensor copied to the CPU."""
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+
 @MODEL_REGISTRY.register()
 class SRModel:
     """Single-network SR runner (inference and validation)."""
@@ -99,6 +122,9 @@ class SRModel:
         self._eval_net = None
         self.state = None
         self._drop_path_gen = None
+        self.mesh = None
+        self._tp_mesh = None
+        self._pp = None
         load_path = opt["path"].get("pretrain_network_g")
         if load_path:
             self.load_network(load_path,
@@ -131,16 +157,27 @@ class SRModel:
         to the inference dtype (cached until the next update; ref:
         hat_model.py:30-37)."""
         if self._eval_net is None:
-            net = self.net_g
-            if self.state is not None and self.state.ema is not None:
-                net = self.state.ema
+            net, ema = self._full_nets()
+            if ema is not None:
+                net = ema
             dt = self.inference_dtype()
             self._eval_net = (net if dt is None
                               else cast_floating(net, dt).eval())
         return self._eval_net
 
     def _apply_fn(self):
-        return wrap_apply(self.eval_net(), self.inference_dtype())
+        fwd = wrap_apply(self.eval_net(), self.inference_dtype())
+
+        def routed(x):
+            with self._tp_context():
+                return fwd(x)
+        return routed
+
+    def _tp_context(self):
+        """The tensor-parallel routing of a runner that trains with a
+        ``model`` axis, else nothing."""
+        return (tp_attention(self._tp_mesh) if self._tp_mesh is not None
+                else contextlib.nullcontext())
 
     def feed_data(self, data: dict) -> None:
         """data['lq']: (N, H, W, C) float image batch in [0, 1]."""
@@ -191,28 +228,81 @@ class SRModel:
     # -------------------------------------------------------------- training
     def setup_training(self, mesh=None) -> None:
         """The optimizer, EMA and train step of ``opt['train']``
-        (runtime/train_loop.py), on this runner's one device."""
-        if mesh is not None:
-            raise NotImplementedError("training across devices (a mesh) is "
-                                      "not ported (ROADMAP.md queue 1, "
-                                      "item 11)")
+        (runtime/train_loop.py). ``mesh`` (``parallel/mesh.py``): its
+        ``data`` axis averages the gradients over the ranks; a ``model``
+        axis routes the attention head-parallel where it divides the heads
+        and the MLP tails hidden-parallel where it divides the hidden dims
+        (their weights replicated, the rest of the Megatron layout held as
+        DTensor shards: ``parallel/tp.py``); a ``pipe`` axis trains the
+        residual groups as GPipe stages (``parallel/pipeline.py``; with a
+        ``model`` axis too, each stage tensor-parallel)."""
         train_opt = self.opt["train"]
-        self.state = init_train_state(self.net_g, train_opt)
-        self._train_step = make_sr_train_step(train_opt)
+        self.mesh = mesh
+        use_tp = pmesh.axis_size(mesh, "model") > 1
+        group = pmesh.data_group(mesh)
+        if group is not None:
+            pmesh.replicate_module(self.net_g, group)
+        if use_tp:
+            self._setup_tp(mesh)
+        if pmesh.axis_size(mesh, "pipe") > 1:
+            from super_resolution_tpu_torch.parallel.pipeline import (
+                init_pp_params, make_hat_pp_train_step)
+
+            self._pp = init_pp_params(self.net_g, mesh,
+                                      tp_axis="model" if use_tp else None)
+            self._tp_mesh = None          # the stages route it themselves
+            self.state = init_train_state(self._pp, train_opt)
+            self._train_step = make_hat_pp_train_step(train_opt)
+            self._pp_ema = (copy.deepcopy(self.net_g)
+                            if self.state.ema is not None else None)
+        else:
+            self.state = init_train_state(self.net_g, train_opt)
+            self._train_step = make_sr_train_step(train_opt)
+        pmesh.attach_data_parallel(mesh, [], [self.state.optimizer])
         self._drop_path_gen = torch.Generator().manual_seed(
             int(self.opt.get("manual_seed") or 0) + 1)
         self._eval_net = None
         self.log_dict = {}
+
+    def _setup_tp(self, mesh) -> None:
+        """The ``model`` axis: the head-parallel route where it divides
+        every group's heads, the hidden-parallel route where it divides
+        every MLP hidden dim (JAX ``sr_model.py:240-270``), the rest of the
+        Megatron layout as DTensor shards (``tp.shard_params_tp``)."""
+        from super_resolution_tpu_torch.parallel.tp import (
+            heads_divide, mlp_hidden_divisible, shard_params_tp)
+
+        ntp = pmesh.axis_size(mesh, "model")
+        self._tp_head_par = heads_divide(
+            self.opt["network_g"].get("num_heads"), ntp)
+        self._tp_hid_par = mlp_hidden_divisible(self.net_g.state_dict(), ntp)
+        shard_params_tp(self.net_g, mesh,
+                        head_parallel_attn=self._tp_head_par,
+                        hidden_parallel_mlp=self._tp_hid_par)
+        self._tp_mesh = mesh
 
     def optimize_parameters(self, batch: dict, current_iter: int) -> None:
         """One update on ``batch`` ({'lq', 'gt'}, numpy or tensors); the
         network is back in eval mode afterwards."""
         data = {"lq": self._to_device(batch["lq"]),
                 "gt": self._to_device(batch["gt"])}
-        self.log_dict = self._train_step(self.state, data,
-                                         self._drop_path_gen)
+        with self._tp_context():
+            self.log_dict = self._train_step(self.state, data,
+                                             self._drop_path_gen)
         self.net_g.eval()
         self._eval_net = None
+        if self._pp is not None:
+            self._merge_pp()
+
+    def _merge_pp(self) -> None:
+        """The whole network (and its EMA) from the pipe ranks' groups, on
+        every rank: checkpoints and inference read them."""
+        from super_resolution_tpu_torch.parallel.pipeline import \
+            merge_pp_params
+
+        merge_pp_params(self.state.net, self.net_g)
+        if self._pp_ema is not None:
+            merge_pp_params(self.state.ema, self._pp_ema)
 
     def current_lrs(self, current_iter: int) -> list:
         """The schedule at ``current_iter`` (the update count after
@@ -220,21 +310,55 @@ class SRModel:
         return [float(self.state.schedule(current_iter))]
 
     def get_current_log(self) -> dict:
-        return {k: float(v) for k, v in self.log_dict.items()}
+        """The step's logs; under data parallelism their mean over the
+        ``data`` axis (JAX's global-batch values)."""
+        logs = {k: float(v) for k, v in self.log_dict.items()}
+        group = pmesh.data_group(self.mesh)
+        if group is not None and logs:
+            n = dist.get_world_size(group)
+            logs = {k: v / n for k, v in
+                    pmesh.all_sum_across_processes(logs, group).items()}
+        return logs
+
+    def _full_nets(self):
+        """(network, EMA network or None) whole: under pipeline
+        parallelism the merged copies, else the training state's."""
+        if self._pp is not None:
+            return self.net_g, self._pp_ema
+        ema = self.state.ema if self.state is not None else None
+        return self.net_g, ema
 
     def checkpoint_tree(self, epoch: int, current_iter: int) -> dict:
         """What :meth:`save` writes: the weights, the EMA weights, the
-        optimizer, the drop-path generator where the runner keeps one,
-        epoch and iteration."""
-        tree = {"params": self.net_g.state_dict(), "epoch": epoch,
+        optimizer (under pipeline parallelism each pipe rank's, in rank
+        order: ``opt_state_pp``), the drop-path generator where the runner
+        keeps one, epoch and iteration. A collective under tensor or
+        pipeline parallelism: every rank calls it."""
+        from super_resolution_tpu_torch.parallel.tp import full_state_dict
+
+        net, ema = self._full_nets()
+        tree = {"params": full_state_dict(net), "epoch": epoch,
                 "iter": current_iter}
         if self.state is not None:
-            if self.state.ema is not None:
-                tree["params_ema"] = self.state.ema.state_dict()
-            tree["opt_state"] = self.state.optimizer.state_dict()
+            if ema is not None:
+                tree["params_ema"] = full_state_dict(ema)
+            if self._pp is None:
+                tree["opt_state"] = self.state.optimizer.state_dict()
+            else:
+                tree["opt_state_pp"] = self._pp_opt_states()
         if self._drop_path_gen is not None:
             tree["rng_state"] = self._drop_path_gen.get_state()
         return tree
+
+    def _pp_opt_states(self) -> list:
+        """Every pipe rank's optimizer state (its groups' moments and the
+        replicated rest's), on the CPU, in pipe-rank order: a collective
+        over the pipe axis."""
+        own = _to_cpu(self.state.optimizer.state_dict())
+        group = self.mesh.get_group("pipe")
+        states = [None] * dist.get_world_size(group)
+        dist.all_gather_object(states, own, group=group)
+        return states
 
     def save(self, epoch: int, current_iter: int) -> None:
         """Checkpoint :meth:`checkpoint_tree` to
@@ -252,9 +376,26 @@ class SRModel:
         """:meth:`resume_training` on a loaded checkpoint."""
         load_state_dict(self.net_g, tree["params"])
         if self.state.ema is not None:
-            load_state_dict(self.state.ema, tree.get("params_ema",
-                                                     tree["params"]))
-        if "opt_state" in tree:
+            load_state_dict(self.state.ema if self._pp is None
+                            else self._pp_ema,
+                            tree.get("params_ema", tree["params"]))
+        if self._pp is not None:
+            from super_resolution_tpu_torch.parallel.pipeline import \
+                load_pp_params
+
+            load_pp_params(self.state.net, self.net_g)
+            if self.state.ema is not None:
+                load_pp_params(self.state.ema, self._pp_ema)
+        if self._pp is not None and "opt_state_pp" in tree:
+            states = tree["opt_state_pp"]
+            npipe = pmesh.axis_size(self.mesh, "pipe")
+            if len(states) != npipe:
+                raise ValueError(f"the checkpoint holds the optimizer of "
+                                 f"{len(states)} pipe ranks, this run has "
+                                 f"{npipe}")
+            self.state.optimizer.load_state_dict(
+                states[pmesh.axis_rank(self.mesh, "pipe")])
+        elif "opt_state" in tree:
             self.state.optimizer.load_state_dict(tree["opt_state"])
         if "rng_state" in tree and self._drop_path_gen is not None:
             self._drop_path_gen.set_state(tree["rng_state"])
@@ -274,15 +415,66 @@ class SRModel:
 
     def validation(self, dataloader, current_iter, save_img: bool = False,
                    tb_logger=None):
-        import torch.distributed as dist
+        """:meth:`dist_validation` where several ranks share the images,
+        else :meth:`nondist_validation`."""
+        if self._val_shard()[1] > 1:
+            self.dist_validation(dataloader, current_iter, save_img,
+                                 tb_logger)
+        else:
+            self.nondist_validation(dataloader, current_iter, save_img,
+                                    tb_logger)
 
-        if (dist.is_available() and dist.is_initialized()
-                and dist.get_world_size() > 1):
-            raise NotImplementedError(
-                "validation across processes (dist_validation) is not "
-                "ported (ROADMAP.md queue 1, item 11)")
-        self.nondist_validation(dataloader, current_iter, save_img,
-                                tb_logger)
+    def _val_shard(self):
+        """(rank, world, group) over which validation splits the images:
+        the mesh's ``data`` axis, or the whole world without a mesh; (0, 1,
+        None) in one process, or where every rank runs every image
+        (``tile: {multichip: true}``, or a ``model`` / ``pipe`` axis
+        without ``data``)."""
+        if (self.opt.get("tile") or {}).get("multichip") or not (
+                dist.is_available() and dist.is_initialized()):
+            return 0, 1, None
+        if self.mesh is not None:
+            group = pmesh.data_group(self.mesh)
+            if group is None:
+                return 0, 1, None
+            return (dist.get_rank(group), dist.get_world_size(group),
+                    group)
+        return dist.get_rank(), dist.get_world_size(), None
+
+    def dist_validation(self, dataloader, current_iter, save_img,
+                        tb_logger=None):
+        """Process-sharded validation (JAX ``sr_model.py:453-492``): rank r
+        evaluates images r, r + world, ... through the per-image tail; the
+        metric sums and the image count are summed over the ranks (float64
+        all-reduce), every rank keeps the means and the best record, rank 0
+        logs. Without metrics, :meth:`nondist_validation`."""
+        metrics_opt = (self.opt.get("val") or {}).get("metrics")
+        if not metrics_opt:
+            return self.nondist_validation(dataloader, current_iter,
+                                           save_img, tb_logger)
+        rank, world, group = self._val_shard()
+        dataset = dataloader.dataset
+        dataset_name = dataset.opt["name"]
+        self._initialize_best_metric_results(dataset_name)
+        self.metric_results = {m: 0.0 for m in metrics_opt}
+        count = 0
+        for idx in range(rank, len(dataset), world):
+            val_data = collate([dataset[idx]])
+            self.feed_data(val_data)
+            self._run_inference()
+            self._validation_postprocess(val_data, dataset_name,
+                                         current_iter, save_img)
+            count += 1
+        sums = dict(self.metric_results, __count=float(count))
+        totals = pmesh.all_sum_across_processes(sums, group)
+        n = max(totals.pop("__count"), 1.0)
+        self.metric_results = {m: totals[m] / n for m in metrics_opt}
+        for metric, value in self.metric_results.items():
+            self._update_best_metric_result(dataset_name, metric, value,
+                                            current_iter)
+        if dist.get_rank() == 0:
+            self._log_validation_metric_values(current_iter, dataset_name,
+                                               tb_logger)
 
     def _initialize_best_metric_results(self, dataset_name: str):
         if dataset_name in self.best_metric_results:
@@ -384,14 +576,16 @@ class HATModel(SRModel):
     def window_size(self) -> int:
         return self.opt["network_g"].get("window_size", 16)
 
-    def _tile_options(self) -> dict:
-        """``tile:``; ``multichip: true`` (a device mesh) raises."""
-        tile_opt = self.opt["tile"]
-        if tile_opt.get("multichip"):
-            raise NotImplementedError(
-                "tile: {multichip: true} (a device mesh) is not ported "
-                "(ROADMAP.md queue 1, item 11)")
-        return tile_opt
+    def _tile_mesh(self):
+        """With ``tile: {multichip: true}``, a 1-D ``data`` mesh over every
+        rank (made once; joins the process group where it is not joined),
+        over which each chunk of tiles is split; else None."""
+        if not self.opt["tile"].get("multichip"):
+            return None
+        if getattr(self, "_tile_mesh_cache", None) is None:
+            self._tile_mesh_cache = pmesh.make_mesh(
+                device_type=self.device.type)
+        return self._tile_mesh_cache
 
     @torch.inference_mode()
     def _run_inference(self) -> None:
@@ -399,9 +593,10 @@ class HATModel(SRModel):
         img, _ = pad_to_multiple(self.lq, self.window_size())
         fwd = self._apply_fn()
         if "tile" in self.opt:
-            t = self._tile_options()
+            t = self.opt["tile"]
             out = tile_forward(fwd, img, self.scale, t["tile_size"],
-                               t["tile_pad"], chunk=t.get("chunk", 8))
+                               t["tile_pad"], chunk=t.get("chunk", 8),
+                               mesh=self._tile_mesh())
         else:
             out = fwd(img)
         self.output = out[:, :h * self.scale, :w * self.scale, :]
@@ -419,7 +614,7 @@ class HATModel(SRModel):
         if not (val_opt.get("bucketed_eval") and "tile" in self.opt):
             return super().nondist_validation(dataloader, current_iter,
                                               save_img, tb_logger)
-        tile_opt = self._tile_options()
+        tile_opt = self.opt["tile"]
         items = list(dataloader)
         outs = self._bucketed_inference(items, tile_opt, val_opt)
         dataset_name = dataloader.dataset.opt["name"]
@@ -448,7 +643,7 @@ class HATModel(SRModel):
         outs = bucketed_tile_eval(
             self._apply_fn(), lqs, self.scale, tile_opt["tile_size"],
             tile_opt["tile_pad"], chunk=tile_opt.get("chunk", 8),
-            quant=val_opt.get("bucket_quant", 32))
+            quant=val_opt.get("bucket_quant", 32), mesh=self._tile_mesh())
         return [out[:, :h * self.scale, :w * self.scale, :]
                 for out, (h, w) in zip(outs, dims)]
 

@@ -73,6 +73,7 @@ class StyleGAN2Model:
                               opt["path"].get("strict_load_g", True))
         self.net_d = None
         self.optimizer_g = None
+        self.mesh = self._dp_group = None
         self.log_dict = {}
         self.best_metric_results = {}
         if self.is_train:
@@ -91,13 +92,23 @@ class StyleGAN2Model:
     def setup_training(self, mesh=None) -> None:
         """The training state; ``__init__`` builds it where the options
         say ``is_train`` (JAX's runner has no ``setup_training``, so its
-        ``train_pipeline`` fails on a StyleGAN2 file: ROADMAP.md queue 3)."""
-        if mesh is not None:
-            raise NotImplementedError("training across devices (a mesh) is "
-                                      "not ported (ROADMAP.md queue 1, "
-                                      "parallelism)")
+        ``train_pipeline`` fails on a StyleGAN2 file: ROADMAP.md queue 3).
+        ``mesh``: data parallelism over its ``data`` axis: G, D and the
+        EMA start equal on every rank, the gradients are averaged, each
+        rank draws its own codes and noise (a global batch's share) and the
+        path length's running mean takes the whole batch's mean."""
+        from super_resolution_tpu_torch.parallel import mesh as pmesh
+
         if self.optimizer_g is None:
             self.init_training_settings()
+        self.mesh = mesh
+        self._dp_group = pmesh.data_group(mesh)
+        if self._dp_group is not None:
+            pmesh.attach_data_parallel(
+                mesh, [self.net_g, self.net_d, self.net_g_ema],
+                [self.optimizer_g, self.optimizer_d])
+            self.draw_gen.manual_seed(self.seed + 1 + 7919 * pmesh.axis_rank(
+                mesh, "data"))
 
     def init_training_settings(self) -> None:
         train_opt = self.opt["train"]
@@ -206,7 +217,7 @@ class StyleGAN2Model:
         fake, latents = self._generate(part, return_latents=True)
         penalty, path_len, self.mean_path_length = g_path_regularize(
             fake, latents, self.mean_path_length,
-            noise=part["path_noise"].to(self.device))
+            noise=part["path_noise"].to(self.device), group=self._dp_group)
         l_path = self.path_reg_weight * self.net_g_reg_every * penalty
         l_path.backward()
         fill_missing_grads(self.optimizer_g)

@@ -166,12 +166,31 @@ def filled_grads(state: TrainState) -> list:
 def fill_missing_grads(optimizer: torch.optim.Optimizer) -> list:
     """The gradient of every parameter ``optimizer`` updates, a zero one
     given to each that got none (so that every moment and step count moves
-    as optax's do)."""
+    as optax's do), averaged over the ranks of data parallelism
+    (:func:`average_grads`)."""
     params = [p for g in optimizer.param_groups for p in g["params"]]
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    return [p.grad for p in params]
+    grads = [p.grad for p in params]
+    average_grads(optimizer, grads)
+    return grads
+
+
+def average_grads(optimizer: torch.optim.Optimizer, grads=None) -> None:
+    """Average the gradients of ``optimizer`` (or ``grads``) over the
+    ``data`` axis where ``parallel.mesh.attach_data_parallel`` gave it
+    one: with equal local batches, the gradient of the global-batch
+    mean."""
+    group = getattr(optimizer, "data_parallel_group", None)
+    if group is None:
+        return
+    from super_resolution_tpu_torch.parallel.mesh import all_reduce_mean_
+
+    if grads is None:
+        grads = [p.grad for g in optimizer.param_groups
+                 for p in g["params"] if p.grad is not None]
+    all_reduce_mean_(grads, group)
 
 
 def global_norm(grads: list) -> torch.Tensor:

@@ -19,6 +19,8 @@ import math
 import os
 from os import path as osp
 
+import torch
+
 from super_resolution_tpu_torch.data import build_dataloader, build_dataset
 from super_resolution_tpu_torch.runtime import build_model
 from super_resolution_tpu_torch.utils.logger import (AvgTimer, MessageLogger,
@@ -79,14 +81,26 @@ def create_train_val_dataloaders(opt: dict, logger, mesh=None):
 def run_train(opt: dict, opt_path: str | None = None, mesh=None,
               device="cuda"):
     """Train a processed option dict on ``device``. Returns (runner, last
-    iteration)."""
-    if mesh is not None or opt.get("mesh"):
-        raise NotImplementedError("training across devices (a mesh) is not "
-                                  "ported (ROADMAP.md queue 1, parallelism)")
+    iteration). A ``mesh:`` block in the options ({axis: size}, one size
+    may be -1) builds the device mesh over the ranks of ``torchrun``
+    (``parallel.mesh.make_mesh_from_spec``; it joins the process group),
+    which the loader and the runner's ``setup_training`` split over."""
+    if mesh is None and opt.get("mesh"):
+        from super_resolution_tpu_torch.parallel.mesh import \
+            make_mesh_from_spec
+
+        mesh = make_mesh_from_spec(opt["mesh"],
+                                   device_type=torch.device(device).type)
+    if mesh is not None:
+        opt["dist"] = True
+        opt["rank"], opt["world_size"] = (torch.distributed.get_rank(),
+                                          torch.distributed.get_world_size())
     set_random_seed(opt["manual_seed"] + opt["rank"])
     resume_path = load_resume_state(opt)
     if resume_path is None:
         make_exp_dirs(opt)
+    if mesh is not None:
+        torch.distributed.barrier()       # the directories exist
     if opt_path and opt["rank"] == 0:
         copy_opt_file(opt_path, opt["path"]["experiments_root"])
 
@@ -99,10 +113,11 @@ def run_train(opt: dict, opt_path: str | None = None, mesh=None,
     tb_logger = (init_tb_logger(osp.join(opt["path"]["log"], "tb_logger"))
                  if opt.get("logger", {}).get("use_tb_logger") else None)
 
-    train_loader, val_loaders = create_train_val_dataloaders(opt, logger)
+    train_loader, val_loaders = create_train_val_dataloaders(opt, logger,
+                                                             mesh)
 
     model = build_model(opt, device)
-    model.setup_training()
+    model.setup_training(mesh)
 
     start_epoch, current_iter = 0, 0
     if resume_path:
@@ -153,7 +168,8 @@ def run_train(opt: dict, opt_path: str | None = None, mesh=None,
                     log_vars.update(model.get_current_log())
                     msg_logger(log_vars)
 
-                if current_iter % save_freq == 0 and opt["rank"] == 0:
+                if current_iter % save_freq == 0:
+                    # every rank: a sharded model gathers its checkpoint
                     logger.info("Saving models and training states.")
                     model.save(epoch, current_iter)
 
@@ -172,8 +188,7 @@ def run_train(opt: dict, opt_path: str | None = None, mesh=None,
 
     trace.close()
     logger.info("End of training.")
-    if opt["rank"] == 0:
-        model.save(epoch, current_iter)
+    model.save(epoch, current_iter)
     if tb_logger is not None:
         tb_logger.close()
     return model, current_iter

@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from super_resolution_tpu_torch.metrics import calculate_metric
-from super_resolution_tpu_torch.runtime.realgan import (attach_gan_training,
+from super_resolution_tpu_torch.runtime.realgan import (runner_data_parallel,
+                                                        attach_gan_training,
                                                         gan_optimize_step)
 from super_resolution_tpu_torch.runtime.sr_model import SRModel
 from super_resolution_tpu_torch.runtime.train_loop import (init_train_state,
@@ -39,13 +40,15 @@ class VideoBaseModel(SRModel):
     """The sliding-window runner (EDVR, TOFlow, DUF: a clip in, its centre
     frame out; ref: video_base_model.py:12-160)."""
 
-    def _setup_video_training(self, lr_rules, freeze_rules) -> None:
+    def _setup_video_training(self, lr_rules, freeze_rules,
+                              mesh=None) -> None:
         """:meth:`SRModel.setup_training` with parameter groups and a freeze
-        mask."""
+        mask; ``mesh``: data parallelism over its ``data`` axis."""
         train_opt = self.opt["train"]
         self.state = init_train_state(self.net_g, train_opt, lr_rules)
         self._train_step = make_sr_train_step(
             train_opt, grad_mask=make_freeze_mask(freeze_rules))
+        runner_data_parallel(self, mesh)
         self._drop_path_gen = torch.Generator().manual_seed(
             int(self.opt.get("manual_seed") or 0) + 1)
         self._eval_net = None
@@ -85,6 +88,11 @@ class VideoBaseModel(SRModel):
         if self.opt.get("is_train"):
             raise NotImplementedError("saving image is not supported during "
                                       "training.")
+
+    def _val_shard(self):
+        """Every rank validates every clip: the per-folder tables are not
+        split over ranks."""
+        return 0, 1, None
 
     def nondist_validation(self, dataloader, current_iter, save_img,
                            tb_logger=None):
@@ -147,16 +155,12 @@ class EDVRModel(VideoBaseModel):
     (ref: edvr_model.py:13-62)."""
 
     def setup_training(self, mesh=None) -> None:
-        if mesh is not None:
-            raise NotImplementedError("training across devices (a mesh) is "
-                                      "not ported (ROADMAP.md queue 1, "
-                                      "parallelism)")
         train_opt = self.opt["train"]
         dcn_lr_mul = train_opt.get("dcn_lr_mul", 1)
         tsa_iter = train_opt.get("tsa_iter")
         self._setup_video_training(
             {"dcn": dcn_lr_mul} if dcn_lr_mul != 1 else None,
-            [("only", ("fusion",), tsa_iter)] if tsa_iter else None)
+            [("only", ("fusion",), tsa_iter)] if tsa_iter else None, mesh)
 
 
 @MODEL_REGISTRY.register()
@@ -174,16 +178,12 @@ class VideoRecurrentModel(VideoBaseModel):
             "center_frame_only", False)
 
     def setup_training(self, mesh=None) -> None:
-        if mesh is not None:
-            raise NotImplementedError("training across devices (a mesh) is "
-                                      "not ported (ROADMAP.md queue 1, "
-                                      "parallelism)")
         train_opt = self.opt["train"]
         flow_lr_mul = train_opt.get("flow_lr_mul", 1)
         fix_flow = train_opt.get("fix_flow")
         self._setup_video_training(
             {"spynet": flow_lr_mul} if flow_lr_mul != 1 else None,
-            [(("spynet", "edvr"), fix_flow)] if fix_flow else None)
+            [(("spynet", "edvr"), fix_flow)] if fix_flow else None, mesh)
 
     def nondist_validation(self, dataloader, current_iter, save_img,
                            tb_logger=None):

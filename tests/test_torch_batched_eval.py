@@ -156,8 +156,13 @@ def test_varied_set_runs_one_shape_a_bucket(nets, monkeypatch):
 @pytest.mark.parametrize("case", ["mismatch", "mesh", "multichip"])
 def test_refusals(case, nets, sets, weights, tmp_path):
     """A group whose images differ in window or centre shape raises JAX's
-    ValueError; a mesh, and ``tile: {multichip: true}``, raise
-    NotImplementedError naming queue 1 item 11."""
+    ValueError. A mesh splits each chunk over its ranks: over a gloo world
+    of one the outputs equal those without a mesh. ``tile: {multichip:
+    true}`` where no process group can be joined (no ``torchrun``
+    environment) raises: there is no one-process fallback."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
     from super_resolution_tpu_torch.runtime import batched_eval
 
     tnet = nets[2]
@@ -166,9 +171,21 @@ def test_refusals(case, nets, sets, weights, tmp_path):
         with pytest.raises(ValueError, match="share window/center"):
             batched_eval.tile_forward_group(tnet, imgs, 2, TILE, PAD)
     elif case == "mesh":
-        with pytest.raises(NotImplementedError, match="item 11"):
-            batched_eval.bucketed_tile_eval(tnet, [torch.zeros(1, 8, 8, 3)],
-                                            2, TILE, PAD, mesh=object())
+        imgs = [torch.from_numpy(im) for im in _images([(40, 56), (24, 32)],
+                                                        4)]
+        dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                                rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+            with torch.inference_mode():
+                got = batched_eval.bucketed_tile_eval(tnet, imgs, 2, TILE,
+                                                      PAD, mesh=mesh)
+                want = batched_eval.bucketed_tile_eval(tnet, imgs, 2, TILE,
+                                                       PAD)
+        finally:
+            dist.destroy_process_group()
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
     else:
         from super_resolution_tpu_torch.runtime.test_pipeline import \
             run_test
@@ -179,7 +196,7 @@ def test_refusals(case, nets, sets, weights, tmp_path):
                        tmp_path)
         opt["val"]["bucketed_eval"] = True
         opt["tile"]["multichip"] = True
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(ValueError, match="env:// rendezvous"):
             run_test(process_options(opt, str(tmp_path)), device="cpu")
 
 

@@ -103,7 +103,9 @@ def test_unported_inputs_raise(folders, case, tmp_path):
     meta_info_file, ported since, is read as JAX reads it: the GT names it
     lists, in its order, each with the LQ ``filename_tmpl`` names. The
     paired LMDB backend is ported too: on roots that are no ``.lmdb``
-    folders it raises JAX's ValueError."""
+    folders it raises JAX's ValueError. The train loader over a device
+    mesh is ported: over a (data: 1) mesh of a gloo world of one it loads
+    what it loads without one, as many batches as JAX's loader."""
     opt = _paired(folders, "lq_x2")
     if case == "lmdb":
         opt["io_backend"] = {"type": "lmdb"}
@@ -124,10 +126,23 @@ def test_unported_inputs_raise(folders, case, tmp_path):
         _assert_same_items(got, ref)
         return
     else:
-        # the train phase is ported; training across devices is not
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import init_device_mesh
+
         opt.update(phase="train", gt_size=16, batch_size_per_gpu=2)
-        with pytest.raises(NotImplementedError, match="mesh"):
-            build_dataloader(build_dataset(opt), opt, mesh=object())
+        plain = build_dataloader(build_dataset(opt), opt, seed=1)
+        dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                                rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+            meshed = build_dataloader(build_dataset(opt), opt, seed=1,
+                                      mesh=mesh)
+        finally:
+            dist.destroy_process_group()
+        assert len(meshed) == len(plain) == len(
+            j_build_loader(j_build_dataset(opt), opt, seed=1))
+        for a, b in zip(meshed.epoch_iter(0), plain.epoch_iter(0)):
+            np.testing.assert_array_equal(a["gt"], b["gt"])
         return
     match = {"lmdb": "lmdb", "single_lmdb": "lmdb"}[case]
     with pytest.raises(NotImplementedError, match=match):

@@ -335,8 +335,9 @@ def test_unported_options_raise(what, sets, tmp_path, weights,
     """Of the options once refused, bucketed evaluation with ``tile:`` and
     the eval profiler are ported: each run's metrics equal the plain
     run's, and ``logger.profile`` writes one Chrome trace under
-    ``<results_root>/profile``. Validation across processes still raises
-    ``NotImplementedError`` (queue 1, item 11); none runs another way."""
+    ``<results_root>/profile``. Validation across processes is ported: in
+    a world of two the runner validates through ``dist_validation`` (the
+    two-rank run itself is ``test_torch_parallel_dp.py``'s)."""
     import torch.distributed as dist
 
     from super_resolution_tpu_torch.runtime.test_pipeline import run_test
@@ -350,9 +351,14 @@ def test_unported_options_raise(what, sets, tmp_path, weights,
         monkeypatch.setattr(dist, "is_initialized", lambda: True)
         monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
         monkeypatch.setattr(dist, "get_rank", lambda *a: 0)
-        with pytest.raises(NotImplementedError,
-                           match="dist_validation.*item 11"):
-            run_test(opt, device="cpu")
+        from super_resolution_tpu_torch.runtime.sr_model import SRModel
+
+        taken = []
+        monkeypatch.setattr(SRModel, "dist_validation",
+                            lambda self, loader, *a: taken.append(
+                                loader.dataset.opt["name"]))
+        run_test(opt, device="cpu")
+        assert taken == [d["name"] for d in opt["datasets"].values()]
         return
     plain = run_test(process_options(opt, str(tmp_path)), device="cpu")
     opt = _options(case, "paired", sets, weights(case), tmp_path / what)

@@ -196,3 +196,25 @@ def test_dfdnet_matches_jax(rng):
     np.testing.assert_allclose(got, want,
                                atol=TOL_DFDNET * max(1.0,
                                                      np.abs(want).max()))
+
+
+def test_use_vae_jax_ignores_port_refuses():
+    """``use_vae: true``: JAX's HiFaceGAN takes the field and builds the
+    plain generator (its parameters are those of use_vae false); the port
+    raises, saying so."""
+    from super_resolution_tpu.models.hifacegan_arch import \
+        HiFaceGAN as JHiFaceGAN
+    from super_resolution_tpu_torch.models.hifacegan_arch import \
+        HiFaceGAN as THiFaceGAN
+
+    kw = dict(num_feat=4, crop_size=32, init_train_phase=3)
+
+    def shapes(use_vae):
+        tree = jax.eval_shape(lambda: JHiFaceGAN(use_vae=use_vae, **kw).init(
+            jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3))))
+        return jax.tree_util.tree_map(lambda s: s.shape, tree)
+
+    assert shapes(True) == shapes(False)
+    with pytest.raises(NotImplementedError, match="JAX's generator takes "
+                                                  "the field and ignores it"):
+        THiFaceGAN(use_vae=True, **kw)

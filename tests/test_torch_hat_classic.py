@@ -278,6 +278,39 @@ def test_port_imports_no_jax(tmp_path):
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-3000:]
 
 
+def test_parallel_imports_no_jax(tmp_path):
+    """Every module of the port's ``parallel/`` imports in a fresh process
+    with neither JAX nor the JAX package loaded, and none of them reads
+    the environment itself (torch reads ``RANK`` and the rest under
+    ``init_method='env://'``)."""
+    import pathlib
+
+    names = sorted(p.stem for p in (pathlib.Path(_repo_root())
+                                    / "super_resolution_tpu_torch"
+                                    / "parallel").glob("*.py"))
+    assert {"mesh", "tp", "tp_attention", "tp_ffn", "pipeline",
+            "spatial"} <= set(names)
+    code = (
+        "import sys, importlib\n"
+        f"for n in {names!r}:\n"
+        "    importlib.import_module('super_resolution_tpu_torch.parallel.'"
+        " + n)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+        "                                    'super_resolution_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, cwd=str(tmp_path),
+                       env={"PYTHONPATH": str(_repo_root()), "PATH": "",
+                            "HOME": str(tmp_path)})
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-3000:]
+    for n in names:
+        src = (pathlib.Path(_repo_root()) / "super_resolution_tpu_torch"
+               / "parallel" / f"{n}.py").read_text()
+        assert "os.environ" not in src and "getenv" not in src, n
+
+
 def _repo_root():
     import pathlib
 
